@@ -1,0 +1,18 @@
+"""spark_bagging_tpu_torch: the PyTorch/CUDA port of spark_bagging_tpu.
+
+Bagging ensembles on an NVIDIA H100: Poisson-bootstrap replicas fitted
+together along a replica axis, soft-vote prediction, and hand-written
+Hopper kernels (``csrc/``) for the hot loops the JAX package wrote in
+Pallas. The JAX package stays the reference this port is held against;
+the port imports only torch and numpy.
+
+Entry points run on the card (``device="cuda"``, the default) and raise
+where CUDA is absent; ``device="cpu"`` must be asked for.
+"""
+
+from spark_bagging_tpu_torch.bagging import BaggingClassifier
+from spark_bagging_tpu_torch.models import BaseLearner, LogisticRegression
+
+__version__ = "0.1.0"
+
+__all__ = ["BaggingClassifier", "BaseLearner", "LogisticRegression"]

@@ -1,0 +1,32 @@
+"""Weights carried across from the JAX package.
+
+A fitted JAX ``BaggingClassifier`` holds ``ensemble_`` (a dict of
+stacked per-replica arrays, ``{"W": (R, d+1, C)}`` for logistic
+regression) and ``subspaces_`` ``(R, n_subspace)`` int32. The port keeps
+the same layout, so carrying a model across is a copy onto the device.
+The caller passes numpy arrays (``np.asarray`` of the JAX arrays): the
+port imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def params_from_jax(
+    ensemble: dict, subspaces, *, device: torch.device | str
+) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
+    """``(ensemble_, subspaces_)`` of the port from the JAX package's."""
+    params = {
+        name: torch.tensor(np.asarray(leaf, np.float32), device=device)
+        for name, leaf in ensemble.items()
+    }
+    subs = torch.tensor(np.asarray(subspaces, np.int32), device=device)
+    n_rep = {leaf.shape[0] for leaf in params.values()}
+    if n_rep != {subs.shape[0]}:
+        raise ValueError(
+            f"replica counts disagree: params {sorted(n_rep)}, "
+            f"subspaces {subs.shape[0]}"
+        )
+    return params, subs

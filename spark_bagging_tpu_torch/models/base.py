@@ -1,0 +1,179 @@
+"""The base-learner contract, batched over a leading replica axis.
+
+The JAX package's learners are pure functions of one replica that the
+ensemble engine ``vmap``s. Here the replica axis is written out: every
+method takes and returns tensors whose leading axis is the replica
+chunk being fitted.
+
+- ``init_params(keys, n_features, n_outputs) -> params`` with ``keys``
+  ``(R, 2)`` and every params leaf ``(R, ...)``;
+- ``fit(params, X, y, sample_weight, keys, prepared=None) -> (params,
+  aux)`` with ``X`` ``(n, d)`` shared by every replica or ``(R, n, d)``,
+  ``y`` ``(n,)`` and ``sample_weight`` ``(R, n)``;
+- ``predict_scores(params, X) -> scores`` ``(R, n, C)``.
+
+Params are dicts of tensors. ``sample_weight`` carries the Poisson
+bootstrap counts, which a learner treats as exact row multiplicities.
+"""
+
+from __future__ import annotations
+
+from typing import Any, ClassVar
+
+import torch
+
+from spark_bagging_tpu_torch.utils.params import ParamsMixin
+
+Params = dict[str, torch.Tensor]
+Aux = dict[str, torch.Tensor]
+
+
+def augment_bias(X: torch.Tensor) -> torch.Tensor:
+    """Append a bias column of ones: weights are ``(d+1, C)`` with the
+    bias in the LAST row, which ``W[..., :-1, :]`` penalties rely on."""
+    ones = torch.ones((*X.shape[:-1], 1), dtype=X.dtype, device=X.device)
+    return torch.cat([X, ones], dim=-1)
+
+
+class BaseLearner(ParamsMixin):
+    """Abstract base-learner contract (see module docstring)."""
+
+    task: ClassVar[str]  # "classification" | "regression"
+    uses_pooled_init: ClassVar[bool] = False
+
+    def pooled_amortizes(self, n_replicas: int) -> bool:
+        """Is the pooled pre-pass worth running for an ensemble of this
+        total size? Learners with a cost model override."""
+        del n_replicas
+        return True
+
+    def init_params(self, keys: torch.Tensor, n_features: int,
+                    n_outputs: int) -> Params:
+        raise NotImplementedError
+
+    def pooled_init(self, key: torch.Tensor, prepared: Any, X: torch.Tensor,
+                    y: torch.Tensor, n_outputs: int, *,
+                    row_mask: torch.Tensor | None = None) -> Any:
+        """Shared warm-start state, computed once per ensemble; the
+        returned value replaces ``prepared`` for this fit."""
+        raise NotImplementedError
+
+    def initial_params(self, keys: torch.Tensor, n_features: int,
+                       n_outputs: int, prepared: Any | None) -> Params:
+        """Per-replica initial params; sees the prepared state so a
+        pooled warm start can override the cold ``init_params``."""
+        del prepared
+        return self.init_params(keys, n_features, n_outputs)
+
+    def fit(self, params: Params, X: torch.Tensor, y: torch.Tensor,
+            sample_weight: torch.Tensor, keys: torch.Tensor, *,
+            prepared: Any | None = None) -> tuple[Params, Aux]:
+        raise NotImplementedError
+
+    def predict_scores(self, params: Params, X: torch.Tensor) -> torch.Tensor:
+        raise NotImplementedError
+
+    def prepare(self, X: torch.Tensor, *,
+                row_mask: torch.Tensor | None = None) -> Any | None:
+        """Replica-invariant precomputation; None means nothing."""
+        del X, row_mask
+        return None
+
+    def gather_subspace(self, prepared: Any, idx: torch.Tensor) -> Any:
+        """Restrict prepared state to each replica's columns ``idx``
+        ``(R, n_sub)``."""
+        return prepared
+
+    def flops_per_fit(self, n_rows: int, n_features: int,
+                      n_outputs: int) -> float | None:
+        """Analytic floating-point ops for ONE base-learner fit (a
+        multiply-add counts 2); None means no cost model."""
+        del n_rows, n_features, n_outputs
+        return None
+
+    def fit_workset_bytes(self, n_rows: int, n_features: int,
+                          n_outputs: int) -> float | None:
+        """Approximate peak per-replica device bytes of one fit (the
+        solver's temporaries, not the shared X); drives the automatic
+        ``chunk_size`` (utils/memory.py). None means unmodeled."""
+        del n_rows, n_features, n_outputs
+        return None
+
+    def subspace_gather_bytes(self, n_rows: int, n_subspace: int) -> float:
+        """Per-replica bytes of the ``X[:, idx]`` copy a feature
+        subspace makes."""
+        return 4.0 * n_rows * n_subspace
+
+    def fit_from_init(self, keys: torch.Tensor, X: torch.Tensor,
+                      y: torch.Tensor, sample_weight: torch.Tensor,
+                      n_outputs: int, *,
+                      prepared: Any | None = None) -> tuple[Params, Aux]:
+        """Init-then-fit with split keys; a replica chunk's whole training."""
+        from spark_bagging_tpu_torch.ops.bootstrap import split_init_fit
+
+        init_keys, fit_keys = split_init_fit(keys)
+        params = self.initial_params(
+            init_keys, X.shape[-1], n_outputs, prepared
+        )
+        kwargs = {} if prepared is None else {"prepared": prepared}
+        return self.fit(params, X, y, sample_weight, fit_keys, **kwargs)
+
+
+class PooledStartMixin:
+    """Pooled warm start for convex learners: ``init="pooled"`` solves
+    the unweighted pooled problem once per ensemble (``pooled_iter``
+    solver steps) and starts every replica's weighted fit from it. Each
+    replica's objective is convex, so the start changes the solver's
+    path, not its destination.
+
+    Subclasses list this mixin before ``BaseLearner``, declare
+    ``init``/``pooled_iter`` hyperparams, keep coefficients in the
+    params leaf ``_pooled_leaf`` with the bias row last, and accept a
+    ``prepared=`` keyword in ``fit``.
+    """
+
+    _pooled_leaf: ClassVar[str] = "W"
+
+    @property
+    def uses_pooled_init(self) -> bool:
+        return self.init == "pooled"
+
+    def pooled_amortizes(self, n_replicas: int) -> bool:
+        """The pre-pass costs ``pooled_iter`` full-data iterations and
+        saves about two per replica: it pays once ``2·R >= pooled_iter``."""
+        return 2 * n_replicas >= self.pooled_iter
+
+    def pooled_init(self, key, prepared, X, y, n_outputs, *, row_mask=None):
+        del prepared  # these learners have no other prepared state
+        n = X.shape[0]
+        w = (torch.ones((1, n), dtype=torch.float32, device=X.device)
+             if row_mask is None else row_mask.to(torch.float32)[None])
+        solver = type(self)(**{
+            **self.get_params(), "init": "zeros",
+            "max_iter": self.pooled_iter,
+        })
+        keys = key[None]
+        params0 = solver.init_params(keys, X.shape[1], n_outputs)
+        params, _ = solver.fit(params0, X, y, w, keys)
+        return params[self._pooled_leaf][0]
+
+    def gather_subspace(self, prepared, idx):
+        if prepared is None:
+            return None
+        # each replica's rows of the pooled solution; the bias row rides
+        # along: (R, n_sub + 1, C)
+        bias = prepared[-1:].expand(idx.shape[0], *prepared[-1:].shape)
+        return torch.cat([prepared[idx.long()], bias], dim=1)
+
+    def initial_params(self, keys, n_features, n_outputs, prepared):
+        if self.init == "pooled" and prepared is not None:
+            if prepared.dim() == 2:  # shared start, one copy per replica
+                prepared = prepared.expand(keys.shape[0], *prepared.shape)
+            return {self._pooled_leaf: prepared.contiguous()}
+        return self.init_params(keys, n_features, n_outputs)
+
+    @staticmethod
+    def validate_init(init: str) -> str:
+        if init not in ("zeros", "pooled"):
+            raise ValueError(f"init must be zeros|pooled, got {init!r}")
+        return init
