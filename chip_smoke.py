@@ -3,16 +3,28 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``spark_bagging_tpu_torch/csrc``,
-then drives the port's main path through the estimator a user calls: a
-bagged damped-Newton logistic fit (256 replicas, pooled warm start,
-scaled-Gram kernel) on the full 581,012 x 54 synthetic covtype and a
-warm soft-vote ``predict_proba``. It then holds the kernel against its
-plain torch version at every replica count the fit launched it with,
-on the fit's kind of data and on exact inputs, and cross-checks the
-kernel Hessian against the plain "blocked" one. Every phase prints JSON
-lines; a failed check exits non-zero. The last lines are the kernel
-table, the card's name and power limit as ``nvidia-smi`` reports them,
-and ``{"ok": true, "device": {...}}``.
+then drives the port's two paths through the estimator a user calls,
+on the full 581,012 x 54 synthetic covtype:
+
+- logistic regression: a bagged damped-Newton fit (256 replicas, pooled
+  warm start, scaled-Gram kernel) and a warm soft-vote
+  ``predict_proba``; the kernel held against its plain torch version at
+  every replica count the fit launched it with, on the fit's kind of
+  data and on exact inputs; the kernel Hessian cross-checked against
+  the plain "blocked" one;
+- bagged decision trees (BASELINE config 3: depth 5, 32 bins, 256
+  replicas, 43 of 54 features each, hard vote, histogram kernel): the
+  fit and a warm ``predict`` / ``predict_proba``; the kernel held bit
+  for bit against its plain version at every replica count and level
+  the fit launched it with, on the fit's own level inputs, in both
+  operand modes; kernel and dense split search cross-checked to give
+  identical trees.
+
+Each path runs with every kernel's launch count set to 0 just before it
+and read just after. Every phase prints JSON lines; a failed check
+exits non-zero. The last lines are the kernel table, the card's name
+and power limit as ``nvidia-smi`` reports them, and
+``{"ok": true, "device": {...}}``.
 
 Imports torch, numpy and the port only (never JAX or the JAX package).
 Exits non-zero without a result where CUDA is unavailable.
@@ -56,6 +68,19 @@ W_REL_TOL = 1e-3
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
+# the tree path: BASELINE config 3 (benchmarks/run_configs.py)
+TREE = dict(max_depth=5, n_bins=32)
+TREE_MAX_FEATURES = 0.8
+N_TREE_CROSS_REPLICAS = 8
+# replicas whose float-statistics histograms are held to the tolerance
+N_FLOAT_CHECK_REPLICAS = 8
+# histogram kernel vs plain on float statistics (regression moments),
+# per entry: |kernel - plain| over the entry's absolute-sum scale (the
+# plain version on |S|). Both sum the same float32 terms, the kernel in
+# a run-dependent order (shared-memory atomics, then row splits): a sum
+# of m terms is off by at most ~m * 2**-24 of its scale, ~1e-6 at the
+# rows one block adds into one bin. Integer statistics are held bitwise.
+HIST_FLOAT_TOL = 1e-5
 
 
 def emit(phase: str, **fields) -> None:
@@ -65,6 +90,23 @@ def emit(phase: str, **fields) -> None:
 def fail(phase: str, msg: str) -> None:
     emit(phase, ok=False, error=msg)
     sys.exit(1)
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0."""
+    from spark_bagging_tpu_torch.ops.gram import scaled_grams
+    from spark_bagging_tpu_torch.ops.hist import binned_left_stats
+
+    scaled_grams.launches = 0
+    binned_left_stats.launches = 0
+
+
+def read_launches() -> dict:
+    from spark_bagging_tpu_torch.ops.gram import scaled_grams
+    from spark_bagging_tpu_torch.ops.hist import binned_left_stats
+
+    return {"scaled_gram": scaled_grams.launches,
+            "binned_left_stats": binned_left_stats.launches}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -314,7 +356,6 @@ def phase_probe(Rs: list[int]) -> None:
 
 def phase_fit(X: np.ndarray, y: np.ndarray):
     from spark_bagging_tpu_torch import BaggingClassifier, LogisticRegression
-    from spark_bagging_tpu_torch.ops.gram import scaled_grams
 
     learner = LogisticRegression(max_iter=1, init="pooled",
                                  hessian_impl="pallas", precision="highest")
@@ -328,9 +369,10 @@ def phase_fit(X: np.ndarray, y: np.ndarray):
     torch.cuda.empty_cache()
     clf = BaggingClassifier(learner, n_estimators=N_REPLICAS, seed=0)
     torch.cuda.reset_peak_memory_stats()
-    scaled_grams.launches = 0
+    reset_launches()
     clf.fit(X, y)
-    launches = scaled_grams.launches
+    counts = read_launches()
+    launches = counts["scaled_gram"]
     acc = clf.score(X[:N_SERVE_ROWS], y[:N_SERVE_ROWS])
     rep = clf.fit_report_
     # the replica counts the fit gave the kernel: one pooled pre-pass
@@ -343,10 +385,12 @@ def phase_fit(X: np.ndarray, y: np.ndarray):
          h2d_seconds=rep["h2d_seconds"], chunk_size=rep["chunk_size_resolved"],
          achieved_tflops=rep["achieved_tflops"],
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
-         scaled_gram_launches=launches, expected_launches=expected,
+         launches=counts, expected_scaled_gram_launches=expected,
          accuracy_100k=acc, acc_bar=ACC_BAR)
     if launches <= 0 or launches != expected:
         fail("fit", f"{launches} scaled-Gram launches, expected {expected}")
+    if counts["binned_left_stats"]:
+        fail("fit", "the logistic fit launched the histogram kernel")
     if not acc >= ACC_BAR:
         fail("fit", f"accuracy {acc:.4f} below the bar {ACC_BAR}")
     if not np.isfinite(clf.ensemble_["W"].cpu().numpy()).all():
@@ -391,6 +435,268 @@ def phase_cross_check(X: np.ndarray, y: np.ndarray) -> None:
         fail("cross_check", f"kernel and blocked W differ by {rel:.3g}")
 
 
+def tree_bagger(n_estimators: int, seed: int = 0, split_impl: str = "auto",
+                chunk_size: int | None = None):
+    """BASELINE config 3's estimator: bagged depth-5, 32-bin Gini trees
+    on 80% feature subspaces, hard vote (histogram in bf16 operands)."""
+    from spark_bagging_tpu_torch import BaggingClassifier, DecisionTreeClassifier
+
+    return BaggingClassifier(
+        DecisionTreeClassifier(split_impl=split_impl, **TREE),
+        n_estimators=n_estimators, max_features=TREE_MAX_FEATURES,
+        voting="hard", seed=seed, chunk_size=chunk_size,
+    )
+
+
+def phase_tree_fit(X: np.ndarray, y: np.ndarray):
+    # a small first fit loads the kernel path and the allocator, so the
+    # fit below is timed as a user's later fits run
+    t0 = time.perf_counter()
+    tree_bagger(8, seed=1).fit(X[:N_SERVE_ROWS], y[:N_SERVE_ROWS])
+    warmup_seconds = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    clf = tree_bagger(N_REPLICAS)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    clf.fit(X, y)
+    counts = read_launches()
+    launches = counts["binned_left_stats"]
+    rep = clf.fit_report_
+    # one launch per level per replica chunk
+    chunk = rep["chunk_size_resolved"] or N_REPLICAS
+    chunks = [min(chunk, N_REPLICAS - s) for s in range(0, N_REPLICAS, chunk)]
+    expected = TREE["max_depth"] * len(chunks)
+    acc = clf.score(X[:N_SERVE_ROWS], y[:N_SERVE_ROWS])
+    majority = float(np.unique(y[:N_SERVE_ROWS], return_counts=True)[1].max()
+                     / N_SERVE_ROWS)
+    impl = clf._fitted_learner._resolved_impl(torch.device("cuda"))
+    emit("tree_fit", ok=True, n_rows=N_ROWS, n_replicas=N_REPLICAS,
+         n_subspace=rep["n_subspace"], split_impl=impl,
+         warmup_fit_seconds=warmup_seconds, fit_seconds=rep["fit_seconds"],
+         fits_per_sec=rep["fits_per_sec"], h2d_seconds=rep["h2d_seconds"],
+         chunk_size=rep["chunk_size_resolved"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+         launches=counts, expected_binned_left_stats_launches=expected,
+         accuracy_100k=acc, majority_share_100k=majority)
+    if impl != "fused":
+        fail("tree_fit", f"split_impl resolved to {impl!r}, not the kernel")
+    if launches <= 0 or launches != expected:
+        fail("tree_fit", f"{launches} histogram launches, expected {expected}")
+    if counts["scaled_gram"]:
+        fail("tree_fit", "the tree fit launched the scaled-Gram kernel")
+    if not acc > majority:
+        fail("tree_fit", f"accuracy {acc:.4f} not above the majority "
+             f"share {majority:.4f}")
+    if not torch.isfinite(clf.ensemble_["leaf_logp"]).all():
+        fail("tree_fit", "non-finite leaf log-probabilities")
+    return clf, launches, sorted(set(chunks))
+
+
+def phase_tree_serve(clf, X: np.ndarray) -> None:
+    Xs = X[:N_SERVE_ROWS]
+    clf.predict_proba(Xs)  # warm-up
+    clf.predict(Xs)
+    t0 = time.perf_counter()
+    proba = clf.predict_proba(Xs)
+    proba_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    labels = clf.predict(Xs)
+    predict_seconds = time.perf_counter() - t0
+    sums_err = float(np.abs(proba.sum(axis=1) - 1.0).max())
+    emit("tree_serve", ok=True, rows=N_SERVE_ROWS,
+         predict_proba_seconds=proba_seconds,
+         predict_proba_rows_per_sec=N_SERVE_ROWS / proba_seconds,
+         predict_seconds=predict_seconds,
+         predict_rows_per_sec=N_SERVE_ROWS / predict_seconds,
+         shape=list(proba.shape), max_row_sum_err=sums_err)
+    if (proba.shape != (N_SERVE_ROWS, N_CLASSES) or not sums_err <= 1e-5
+            or not np.isin(labels, clf.classes_).all()):
+        fail("tree_serve", f"bad output: shape {proba.shape}, row-sum "
+             f"error {sums_err}")
+
+
+def record_levels(X: np.ndarray, y: np.ndarray, R: int) -> list[dict]:
+    """The histogram kernel's inputs at each level of a fit of R
+    replicas (replicas 0..R-1 of the config, one chunk): each replica's
+    gathered X and quantile edges, the level's nodes, the Poisson x
+    one-hot statistics. The fit runs through a recording wrapper, put in
+    the tree module's place only (the kernel wrapper itself is left
+    alone, launch count and all)."""
+    import types
+
+    from spark_bagging_tpu_torch.models import tree as tree_mod
+    from spark_bagging_tpu_torch.ops import hist as hist_ops
+
+    calls = []
+
+    def recording(X, edges, node, S, *, n_nodes, hist_dtype):
+        calls.append(dict(X=X, edges=edges, node=node.clone(), S=S,
+                          N=n_nodes, hist_dtype=hist_dtype))
+        return hist_ops.binned_left_stats(X, edges, node, S, n_nodes=n_nodes,
+                                          hist_dtype=hist_dtype)
+
+    tree_mod.hist_ops = types.SimpleNamespace(
+        binned_left_stats=recording, launch_bytes=hist_ops.launch_bytes)
+    try:
+        # "fused" is what "auto" resolves to on the card
+        tree_bagger(R, split_impl="fused", chunk_size=R).fit(X, y)
+    finally:
+        tree_mod.hist_ops = hist_ops
+    return calls
+
+
+def hist_library_ms(Xc, E, node, S, N: int, mode: str) -> float:
+    """Device ms of the library yardstick: per replica, one
+    ``torch.mm`` of the (F·B, n) threshold indicator with the (n, N·K)
+    node-scattered statistics, in the mode's operand type with float32
+    results (TF32 and reduced-precision reduction off), each call timed
+    alone between CUDA events and the times summed over replicas.
+    Forming the operands is not timed."""
+    from spark_bagging_tpu_torch.ops.precision import fp32_matmul
+
+    dt = torch.bfloat16 if mode == "bfloat16" else torch.float32
+    R, n, K = S.shape
+    F, B = E.shape[-2:]
+    ids = torch.arange(N, device=S.device)
+    spans = []
+    with fp32_matmul():
+        for r in range(-1, R):  # r = -1: an untimed warm-up
+            rr = max(r, 0)
+            ind = (Xc[rr].t()[:, None, :] <= E[rr][:, :, None]).reshape(
+                F * B, n).to(dt)
+            st = ((node[rr][:, None] == ids).to(dt)[:, :, None]
+                  * S[rr].to(dt)[:, None, :]).reshape(n, N * K)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            if dt == torch.float32:
+                torch.mm(ind, st)
+            else:
+                torch.mm(ind, st, out_dtype=torch.float32)
+            stop.record()
+            if r >= 0:
+                spans.append((start, stop))
+            del ind, st
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in spans)
+
+
+def phase_hist_kernels(X: np.ndarray, y: np.ndarray, Rs: list[int]) -> dict:
+    """The histogram kernel at every replica count and level the tree
+    fit launched it with, on that fit's own level inputs: bit for bit
+    equal to its plain version for every replica in both operand modes,
+    repeating bitwise; on float statistics within HIST_FLOAT_TOL; with
+    times, bound and library yardstick at each shape."""
+    from spark_bagging_tpu_torch.ops.hist import (
+        binned_left_stats,
+        binned_left_stats_plain,
+        hist_geometry,
+    )
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+    for R in Rs:
+        calls = record_levels(X, y, R)
+        if [c["N"] for c in calls] != [2**lv for lv in range(TREE["max_depth"])]:
+            fail("hist_kernels", f"R={R}: recorded levels "
+                 f"{[c['N'] for c in calls]}")
+        g = torch.Generator(device="cuda").manual_seed(R)
+        for c in calls:
+            Xc, E, node, S, N = c["X"], c["edges"], c["node"], c["S"], c["N"]
+            n, F = Xc.shape[-2:]
+            B, K = E.shape[-1], S.shape[-1]
+            geo = hist_geometry(n, F, B, N, K, R, n_sm)
+            nbytes = 4.0 * (Xc.numel() + E.numel() + node.numel() + S.numel()
+                            + R * F * B * N * K)
+            # the same tables read from one shared (n, 54) X and its
+            # edges through each replica's column index: what the
+            # function needs once the per-replica X copies go
+            shared_bytes = nbytes - 4.0 * (Xc.numel() + E.numel()) + 4.0 * (
+                n * N_FEATURES + N_FEATURES * B + R * F)
+            adds = float(R) * n * F * K
+            t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * adds / PEAK_FP32
+            t_shared = max(1e3 * shared_bytes / PEAK_BYTES, t_ops)
+            # float statistics with the same zero pattern (regression-like
+            # moments), on the first replicas
+            Rf = min(R, N_FLOAT_CHECK_REPLICAS)
+            Sf = S[:Rf] * (1.0 + 0.5 * torch.randn(
+                (Rf, n, 1), generator=g, device=S.device))
+            for mode in ("bfloat16", "float32"):
+                run = (lambda: binned_left_stats(Xc, E, node, S, n_nodes=N,
+                                                 hist_dtype=mode))
+                out, again = run(), run()
+                torch.cuda.synchronize()
+                repeat = bool(torch.equal(out, again))
+                del again
+                unequal, max_abs, spans = 0, 0.0, []
+                for r in range(R):
+                    start = torch.cuda.Event(enable_timing=True)
+                    stop = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    plain = binned_left_stats_plain(
+                        Xc[r], E[r], node[r], S[r], n_nodes=N, hist_dtype=mode)
+                    stop.record()
+                    spans.append((start, stop))
+                    unequal += not torch.equal(out[r], plain)
+                    max_abs = max(max_abs, float((out[r] - plain).abs().max()))
+                    del plain
+                torch.cuda.synchronize()
+                plain_ms = sum(a.elapsed_time(b) for a, b in spans)
+                del out
+                fout = binned_left_stats(Xc[:Rf], E[:Rf], node[:Rf], Sf,
+                                         n_nodes=N, hist_dtype=mode)
+                fwant = binned_left_stats_plain(Xc[:Rf], E[:Rf], node[:Rf], Sf,
+                                                n_nodes=N, hist_dtype=mode)
+                scale = binned_left_stats_plain(
+                    Xc[:Rf], E[:Rf], node[:Rf], Sf.abs(), n_nodes=N,
+                    hist_dtype=mode).clamp_min(1e-30)
+                float_err = float(((fout - fwant).abs() / scale).max())
+                del fout, fwant, scale
+                kernel_ms = cuda_ms(run, 3)
+                lib_ms = hist_library_ms(Xc, E, node, S, N, mode)
+                torch.cuda.empty_cache()
+                rows[R, N, mode] = row = dict(
+                    replicas_unequal=unequal, max_abs_err=max_abs,
+                    bitwise_repeat=repeat, float_max_entry_err=float_err,
+                    float_tol=HIST_FLOAT_TOL, kernel_ms=kernel_ms,
+                    plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=max(t_bytes, t_ops),
+                    bound_by="bytes" if t_bytes >= t_ops else "operations",
+                    bound_shared_x_ms=t_shared,
+                )
+                emit("hist_kernels", kernel="binned_left_stats",
+                     hist_dtype=mode, shape=dict(R=R, n=n, F=F, B=B, N=N, K=K),
+                     geometry={k: geo[k] for k in (
+                         "f_tile", "n_tile", "splits", "row_tile", "smem")},
+                     input_output_mb=nbytes / 1e6,
+                     shared_x_input_output_mb=shared_bytes / 1e6,
+                     matmul_form_gflop=2e-9 * R * n * F * B * N * K, **row)
+                if unequal or not repeat or not float_err <= HIST_FLOAT_TOL:
+                    fail("hist_kernels", f"R={R} N={N} {mode}: {unequal} "
+                         f"replicas unequal to plain, bitwise repeat {repeat}, "
+                         f"float error {float_err:.3g} (tol {HIST_FLOAT_TOL})")
+            del Sf
+        del calls
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_tree_cross_check(X: np.ndarray, y: np.ndarray) -> None:
+    """The kernel and the dense bf16 product on the card grow the same
+    trees, bit for bit."""
+    ens = {}
+    for impl in ("fused", "dense"):
+        ens[impl] = tree_bagger(N_TREE_CROSS_REPLICAS,
+                                split_impl=impl).fit(X, y).ensemble_
+        torch.cuda.empty_cache()
+    same = {k: bool(torch.equal(ens["fused"][k], ens["dense"][k]))
+            for k in ("feature", "threshold", "gain", "leaf_logp")}
+    emit("tree_cross_check", ok=all(same.values()), rows=N_ROWS,
+         replicas=N_TREE_CROSS_REPLICAS, equal=same)
+    if not all(same.values()):
+        fail("tree_cross_check", f"fused and dense trees differ: {same}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -412,9 +718,18 @@ def main() -> int:
     rows = phase_kernels(X, Rs)
     phase_probe(Rs)
     phase_cross_check(X, y)
-    # the line reports the largest replica chunk, where the fit spends
-    # its kernel time; the kernels phase lines hold every shape
+    torch.cuda.empty_cache()
+    tree, tree_launches, tree_Rs = phase_tree_fit(X, y)
+    phase_tree_serve(tree, X)
+    del tree
+    torch.cuda.empty_cache()
+    hist_rows = phase_hist_kernels(X, y, tree_Rs)
+    phase_tree_cross_check(X, y)
+    # each kernel's line reports the largest replica chunk (and, for the
+    # histogram, the deepest level in the fit's bf16 mode), where its fit
+    # spends its kernel time; the phase lines hold every shape
     f32 = rows[max(Rs)]["float32"]
+    deepest = hist_rows[max(tree_Rs), 2 ** (TREE["max_depth"] - 1), "bfloat16"]
     print(json.dumps({"kernels": [{
         "name": "scaled_gram",
         "route": "cuda",
@@ -427,6 +742,18 @@ def main() -> int:
         "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"],
         "library_ms": f32["library_ms"],
+    }, {
+        "name": "binned_left_stats",
+        "route": "cuda",
+        "source": "spark_bagging_tpu_torch/csrc/binned_left_stats.cu",
+        "replaces": "spark_bagging_tpu/ops/hist.py:66",
+        "launches": tree_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in hist_rows.values()),
+        "ms": deepest["kernel_ms"],
+        "plain_ms": deepest["plain_ms"],
+        "bound_ms": deepest["bound_ms"],
+        "bound_by": deepest["bound_by"],
+        "library_ms": deepest["library_ms"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

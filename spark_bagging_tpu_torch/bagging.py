@@ -3,8 +3,10 @@
 The same parameters, fitted state and sklearn protocol (``fit`` /
 ``predict_proba`` / ``predict`` / ``score`` / ``get_params``) as the JAX
 package's ``BaggingClassifier``, on one device. The fitted state keeps
-the JAX layout: ``ensemble_ = {"W": (R, d+1, C)}`` and ``subspaces_``
-``(R, n_subspace)`` int32, as tensors on the estimator's device.
+the JAX layout: ``ensemble_`` (``{"W": (R, d+1, C)}`` for logistic
+regression; ``feature``, ``threshold``, ``gain`` and ``leaf_logp`` for
+trees) and ``subspaces_`` ``(R, n_subspace)`` int32, as tensors on the
+estimator's device.
 
 ``device`` defaults to ``"cuda"`` and raises where CUDA is absent;
 ``device="cpu"`` must be asked for. The mesh, streaming and warm-start
@@ -87,6 +89,8 @@ class BaggingClassifier(ParamsMixin):
     # -- helpers -------------------------------------------------------
 
     def _learner(self) -> BaseLearner:
+        """The base learner to fit; a subclass may build it from its own
+        parameters (``RandomForestClassifier`` builds its tree)."""
         learner = self.base_learner or LogisticRegression()
         if learner.task != self.task:
             raise ValueError(
@@ -306,6 +310,32 @@ class BaggingClassifier(ParamsMixin):
 
     def predict(self, X) -> np.ndarray:
         return self.classes_[self.predict_proba(X).argmax(axis=1)]
+
+    @property
+    def feature_importances_(self) -> np.ndarray:
+        """Mean decrease in impurity per (global) feature, normalized to
+        sum 1 (Spark ML's ``featureImportances``), for a tree base
+        learner: each replica's split gains, its subspace-relative split
+        features mapped back through its subspace draw."""
+        if not hasattr(self, "ensemble_"):
+            # AttributeError, so hasattr() on an unfitted estimator is False
+            raise AttributeError(
+                "feature_importances_ is only available after fit"
+            )
+        if "gain" not in self.ensemble_:
+            raise AttributeError(
+                "feature_importances_ requires a tree base learner "
+                "(fitted params carry no split gains)"
+            )
+        gains = self.ensemble_["gain"].cpu().numpy()             # (R, M)
+        feats = self.ensemble_["feature"].long().cpu().numpy()   # (R, M)
+        if not self._identity_subspace:
+            subs = self.subspaces_.long().cpu().numpy()          # (R, k)
+            feats = np.take_along_axis(subs, feats, axis=1)
+        imp = np.zeros((self.n_features_in_,), np.float64)
+        np.add.at(imp, feats.ravel(), gains.astype(np.float64).ravel())
+        total = imp.sum()
+        return imp / total if total > 0 else imp
 
     def score(self, X, y, sample_weight=None) -> float:
         return accuracy(y, self.predict(X), sample_weight=sample_weight)

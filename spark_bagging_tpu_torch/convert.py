@@ -2,7 +2,8 @@
 
 A fitted JAX ``BaggingClassifier`` holds ``ensemble_`` (a dict of
 stacked per-replica arrays, ``{"W": (R, d+1, C)}`` for logistic
-regression) and ``subspaces_`` ``(R, n_subspace)`` int32. The port keeps
+regression, ``feature``/``threshold``/``gain``/``leaf_logp`` for trees)
+and ``subspaces_`` ``(R, n_subspace)`` int32. The port keeps
 the same layout, so carrying a model across is a copy onto the device.
 The caller passes numpy arrays (``np.asarray`` of the JAX arrays): the
 port imports nothing of JAX.
@@ -17,11 +18,14 @@ import torch
 def params_from_jax(
     ensemble: dict, subspaces, *, device: torch.device | str
 ) -> tuple[dict[str, torch.Tensor], torch.Tensor]:
-    """``(ensemble_, subspaces_)`` of the port from the JAX package's."""
-    params = {
-        name: torch.tensor(np.asarray(leaf, np.float32), device=device)
-        for name, leaf in ensemble.items()
-    }
+    """``(ensemble_, subspaces_)`` of the port from the JAX package's.
+    Integer leaves (a tree's split ``feature``) stay int32, which the
+    routing indexes with; every other leaf becomes float32."""
+    params = {}
+    for name, leaf in ensemble.items():
+        leaf = np.asarray(leaf)
+        dtype = np.int32 if np.issubdtype(leaf.dtype, np.integer) else np.float32
+        params[name] = torch.tensor(leaf.astype(dtype), device=device)
     subs = torch.tensor(np.asarray(subspaces, np.int32), device=device)
     n_rep = {leaf.shape[0] for leaf in params.values()}
     if n_rep != {subs.shape[0]}:

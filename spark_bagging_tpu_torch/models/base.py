@@ -92,16 +92,20 @@ class BaseLearner(ParamsMixin):
         return None
 
     def fit_workset_bytes(self, n_rows: int, n_features: int,
-                          n_outputs: int) -> float | None:
+                          n_outputs: int,
+                          device: torch.device | None = None) -> float | None:
         """Approximate peak per-replica device bytes of one fit (the
-        solver's temporaries, not the shared X); drives the automatic
-        ``chunk_size`` (utils/memory.py). None means unmodeled."""
-        del n_rows, n_features, n_outputs
+        solver's temporaries, not the shared X) on ``device``; drives
+        the automatic ``chunk_size`` (utils/memory.py). None means
+        unmodeled."""
+        del n_rows, n_features, n_outputs, device
         return None
 
-    def subspace_gather_bytes(self, n_rows: int, n_subspace: int) -> float:
+    def subspace_gather_bytes(self, n_rows: int, n_subspace: int,
+                              device: torch.device | None = None) -> float:
         """Per-replica bytes of the ``X[:, idx]`` copy a feature
-        subspace makes."""
+        subspace makes (on ``device``)."""
+        del device
         return 4.0 * n_rows * n_subspace
 
     def fit_from_init(self, keys: torch.Tensor, X: torch.Tensor,

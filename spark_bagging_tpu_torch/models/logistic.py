@@ -99,7 +99,7 @@ class LogisticRegression(PooledStartMixin, BaseLearner):
         per_iter = 4 * n * d * C + hessian + (C * d) ** 3 / 3
         return float(self.max_iter * per_iter)
 
-    def fit_workset_bytes(self, n_rows, n_features, n_outputs):
+    def fit_workset_bytes(self, n_rows, n_features, n_outputs, device=None):
         # The port's eager temporaries per replica: logits, log-probs,
         # probs and the weighted residual at (rows, C), the weights, the
         # (rows, P) scale matrix S and its factor, the blocked path's

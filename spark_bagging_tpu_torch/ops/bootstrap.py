@@ -132,21 +132,20 @@ def feature_subspaces(
     """Feature-subspace indices of each replica, ``(R, n_subspace)`` int32.
 
     The full feature set without replacement is the identity (so the
-    degenerate ensemble is exactly the base learner); with replacement
-    each replica draws ``randint`` indices from its own feature stream.
+    degenerate ensemble is exactly the base learner); otherwise each
+    replica draws from its own feature stream: ``randint`` indices with
+    replacement, the first ``n_subspace`` of a permutation without.
     """
     n_rep = replica_ids.shape[0]
     if not replacement and n_subspace == n_features:
         return torch.arange(
             n_features, dtype=torch.int32, device=k.device
         ).expand(n_rep, n_features).contiguous()
-    if not replacement:
-        raise NotImplementedError(
-            "feature subspaces without replacement need the threefry "
-            f"permutation ({_ROADMAP_BOOTSTRAP})"
-        )
     fk = prng.fold_in(prng.fold_in(k, _FEATURE_STREAM), replica_ids)
-    return prng.randint(fk, n_subspace, 0, n_features)
+    if replacement:
+        return prng.randint(fk, n_subspace, 0, n_features)
+    perm = prng.permutation(fk, n_features)[:, :n_subspace]
+    return perm.to(torch.int32).contiguous()
 
 
 def oob_mask(weights: torch.Tensor) -> torch.Tensor:

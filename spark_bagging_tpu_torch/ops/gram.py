@@ -24,7 +24,7 @@ import math
 
 import torch
 
-from spark_bagging_tpu_torch.ops.precision import fp32_matmul
+from spark_bagging_tpu_torch.ops.precision import bf16_round, fp32_matmul
 
 _OP_DTYPES = ("float32", "bfloat16")
 # The kernel's compile-time tiling, decided here only: utils/native.py
@@ -49,10 +49,6 @@ _BLOCKS_PER_SM = 4
 MAX_SPLIT_ROWS = 16384
 
 
-def _bf16_round(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.bfloat16).to(torch.float32)
-
-
 def scaled_grams_plain(
     X: torch.Tensor, S: torch.Tensor, *, op_dtype: str = "float32"
 ) -> torch.Tensor:
@@ -71,7 +67,7 @@ def scaled_grams_plain(
         Xf = X3[r if X3.shape[0] > 1 else 0].to(torch.float32)
         xs = Xf[:, None, :] * S3[r].to(torch.float32)[:, :, None]  # (n, P, d)
         if op_dtype == "bfloat16":
-            Xf, xs = _bf16_round(Xf), _bf16_round(xs)
+            Xf, xs = bf16_round(Xf), bf16_round(xs)
         with fp32_matmul():
             full = torch.einsum("ni,npj->pij", Xf, xs)
         out[r] = full.triu() + full.triu(1).transpose(-1, -2)

@@ -10,6 +10,10 @@ turns TF32 off for cuBLAS and cuDNN explicitly: a float32 result must
 not depend on a process-wide default that another library may flip.
 A switch of Hessian implementation (blocked, kernel) must not change
 numerics beyond summation order at the same precision.
+
+Trees ignore these names: their split search takes its operand type
+from ``hist_dtype`` and sums in full float32 (models/tree.py), so the
+dense product and the histogram kernel give the same trees.
 """
 
 from __future__ import annotations
@@ -37,16 +41,28 @@ def gram_op_dtype(precision: str) -> str:
         ) from None
 
 
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16 (to nearest even) and back to float32:
+    the operand rounding of the kernels' bf16 modes."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
 @contextlib.contextmanager
 def fp32_matmul():
-    """Full-float32 matmuls and convolutions (TF32 off) for the block,
-    restoring the previous settings on exit."""
-    prev = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """Full-float32 accumulation for the block's matmuls and
+    convolutions, restoring the previous settings on exit: TF32 off,
+    and no reduced-precision reduction inside a bfloat16 product (which
+    PyTorch allows by default), so a bf16 x bf16 -> fp32 product of
+    integers sums them exactly. The JAX package pins the same with
+    ``mosaic_dot_precision`` around its tree split search."""
+    cuda_mm = torch.backends.cuda.matmul
+    prev = (cuda_mm.allow_tf32, torch.backends.cudnn.allow_tf32,
+            cuda_mm.allow_bf16_reduced_precision_reduction)
+    cuda_mm.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    cuda_mm.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = prev
+        (cuda_mm.allow_tf32, torch.backends.cudnn.allow_tf32,
+         cuda_mm.allow_bf16_reduced_precision_reduction) = prev

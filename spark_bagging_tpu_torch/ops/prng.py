@@ -5,7 +5,8 @@ The bootstrap of the JAX package draws every replica's row weights from
 carries its own threefry-2x32 hash and the parts of ``jax.random`` the
 bootstrap uses: ``key``, ``fold_in``, ``split``, the *partitionable*
 random-bits layout (``jax_threefry_partitionable``, the default from
-jax 0.5 on), ``uniform`` for float32 and ``randint`` for int32.
+jax 0.5 on), ``uniform`` for float32, ``randint`` for int32 and
+``permutation`` of a range.
 
 A key is an int64 tensor of shape ``(..., 2)`` holding the two uint32
 words of a JAX key (``jax.random.key_data``). uint32 arithmetic is done
@@ -16,6 +17,9 @@ and runs on whichever device the key lies on.
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -75,7 +79,8 @@ def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
 def random_bits(k: torch.Tensor, n: int) -> torch.Tensor:
     """32 random bits per element, shape ``(..., n)``: the partitionable
     layout hashes the 64-bit element index split into (hi, lo) words and
-    xors the two output words."""
+    xors the two output words. A draw of shape ``(a, b)`` hashes the
+    row-major flat index, so it is this draw of ``a * b`` reshaped."""
     if n >= 2 ** 32:
         raise ValueError("at most 2**32 - 1 draws per key")
     lo = torch.arange(n, dtype=torch.int64, device=k.device)
@@ -85,12 +90,31 @@ def random_bits(k: torch.Tensor, n: int) -> torch.Tensor:
     return b1 ^ b2
 
 
-def uniform(k: torch.Tensor, n: int) -> torch.Tensor:
-    """``jax.random.uniform(k, (n,), float32)`` in [0, 1): the top 23 bits
-    become the mantissa of a float in [1, 2), minus 1."""
-    bits = (random_bits(k, n) >> 9) | 0x3F800000
+def uniform(k: torch.Tensor, shape: int | tuple[int, ...]) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, float32)`` in [0, 1), shape
+    ``(..., *shape)``: the top 23 bits become the mantissa of a float in
+    [1, 2), minus 1."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    bits = (random_bits(k, math.prod(shape)) >> 9) | 0x3F800000
     u = bits.to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp_min(u, 0.0)
+    return torch.clamp_min(u, 0.0).reshape(*k.shape[:-1], *shape)
+
+
+def permutation(k: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.permutation(k, n)``, shape ``(..., n)`` int64: JAX's
+    ``_shuffle``, which per round splits the key, draws 32 random bits
+    per element from the second half and stably sorts by them. The
+    round count is JAX's, ``ceil(3 ln n / ln(2**32 - 1))``: one round
+    up to ~1.6M elements."""
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(_M32)))
+    perm = torch.arange(n, dtype=torch.int64, device=k.device)
+    perm = perm.expand(*k.shape[:-1], n)
+    for _ in range(rounds):
+        keys = split(k, 2)
+        k, sub = keys[..., 0, :], keys[..., 1, :]
+        order = torch.sort(random_bits(sub, n), dim=-1, stable=True).indices
+        perm = torch.gather(perm, -1, order)
+    return perm
 
 
 def randint(k: torch.Tensor, n: int, minval: int, maxval: int) -> torch.Tensor:

@@ -1,14 +1,20 @@
-"""Where the device time of the headline fit goes, on one NVIDIA GPU.
+"""Where the device time of a 256-replica fit goes, on one NVIDIA GPU.
 
-    python -m spark_bagging_tpu_torch.profile_fit [--out DIR]   (default: .)
+    python -m spark_bagging_tpu_torch.profile_fit [--learner logistic|tree]
+                                                  [--out DIR]   (default: .)
 
-Fits the headline ensemble (chip_smoke.py's fit phase: 256 replicas of
-Newton logistic regression, pooled start, one step, scaled-Gram kernel,
-on the 581,012 x 54 synthetic covtype) once to warm up, then once under
-``torch.profiler``. Prints one JSON line: the fit's wall seconds, the
-device-busy seconds, the idle share, and device time by kernel (the top
-entries, with their share of busy time). The full ``key_averages``
-table is written to ``DIR/profile_fit.txt``.
+Fits one of chip_smoke.py's ensembles on the 581,012 x 54 synthetic
+covtype once to warm up, then once under ``torch.profiler``:
+
+- ``logistic`` (default): Newton logistic regression, pooled start, one
+  step, scaled-Gram kernel;
+- ``tree``: BASELINE config 3, depth-5 32-bin Gini trees on 80% feature
+  subspaces, hard vote, histogram kernel.
+
+Prints one JSON line: the fit's wall seconds, the device-busy seconds,
+the idle share, and device time by kernel (the top entries, with their
+share of busy time). The full ``key_averages`` table is written to
+``DIR/profile_fit_<learner>.txt``.
 """
 
 from __future__ import annotations
@@ -46,6 +52,8 @@ def _busy_seconds(events) -> float:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--learner", choices=("logistic", "tree"),
+                   default="logistic")
     p.add_argument("--out", default=".")
     p.add_argument("--n-replicas", type=int, default=256)
     args = p.parse_args(argv)
@@ -54,16 +62,27 @@ def main(argv=None) -> int:
         return 2
     from torch.profiler import ProfilerActivity, profile
 
-    from spark_bagging_tpu_torch import BaggingClassifier, LogisticRegression
+    from spark_bagging_tpu_torch import (
+        BaggingClassifier,
+        DecisionTreeClassifier,
+        LogisticRegression,
+    )
     from spark_bagging_tpu_torch.utils.datasets import synthetic_covtype
 
     X, y = synthetic_covtype(581_012)
     X = ((X - X.mean(0)) / (X.std(0) + 1e-8)).astype(np.float32)
-    clf = BaggingClassifier(
-        LogisticRegression(max_iter=1, init="pooled", hessian_impl="pallas",
-                           precision="highest"),
-        n_estimators=args.n_replicas, seed=0,
-    )
+    if args.learner == "tree":
+        clf = BaggingClassifier(
+            DecisionTreeClassifier(max_depth=5, n_bins=32),
+            n_estimators=args.n_replicas, max_features=0.8, voting="hard",
+            seed=0,
+        )
+    else:
+        clf = BaggingClassifier(
+            LogisticRegression(max_iter=1, init="pooled",
+                               hessian_impl="pallas", precision="highest"),
+            n_estimators=args.n_replicas, seed=0,
+        )
     clf.fit(X, y)  # warm-up: kernel build, allocator, cuBLAS handles
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -80,11 +99,14 @@ def main(argv=None) -> int:
     rows.sort(reverse=True)
     total_dev = sum(r[0] for r in rows)
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "profile_fit.txt"), "w") as f:
+    with open(os.path.join(args.out, f"profile_fit_{args.learner}.txt"),
+              "w") as f:
         f.write(prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=60))
     print(json.dumps({
+        "learner": args.learner,
         "device": torch.cuda.get_device_name(0),
+        "chunk_size": clf.fit_report_["chunk_size_resolved"],
         "fit_wall_seconds": wall,
         "fit_report_seconds": clf.fit_report_["fit_seconds"],
         "device_busy_seconds": busy,

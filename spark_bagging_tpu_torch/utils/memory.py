@@ -46,14 +46,17 @@ def auto_chunk_size(
 ) -> int | None:
     """Resolve ``chunk_size=None`` to a concrete chunk, or None (all
     replicas in one chunk). A gathered feature subspace adds its
-    per-replica copy of X."""
-    per = learner.fit_workset_bytes(n_rows, n_subspace, n_outputs)
+    per-replica copy of X (and whatever the learner gathers with it:
+    a dense tree's indicator slices)."""
+    per = learner.fit_workset_bytes(n_rows, n_subspace, n_outputs,
+                                    device=device)
     if per is None:
         return None  # unmodeled learner: one chunk
     per += BOOTSTRAP_BYTES_PER_ROW * n_rows
     if n_features is not None and (n_subspace < n_features
                                    or bootstrap_features):
-        per += learner.subspace_gather_bytes(n_rows, n_subspace)
+        per += learner.subspace_gather_bytes(n_rows, n_subspace,
+                                             device=device)
     if budget_bytes is None:
         budget_bytes = device_memory_budget(device)
     if per * n_replicas <= budget_bytes:

@@ -38,9 +38,10 @@ def _defines() -> list[str]:
     """Compile-time constants that the Python wrappers own (each
     kernel's tiling), as nvcc ``-D`` flags: stated once, in the wrapper
     that also computes the launch geometry from them."""
-    from spark_bagging_tpu_torch.ops import gram
+    from spark_bagging_tpu_torch.ops import gram, hist
 
-    return [f"-D{k}={v}" for k, v in sorted(gram.CUDA_DEFINES.items())]
+    defines = {**gram.CUDA_DEFINES, **hist.CUDA_DEFINES}
+    return [f"-D{k}={v}" for k, v in sorted(defines.items())]
 
 
 def _flags() -> list[str]:
@@ -138,6 +139,15 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, vp,                           # bf16, stream
     ]
     lib.sbt_scaled_gram.restype = i32
+    lib.sbt_binned_left_stats.argtypes = [
+        vp, i64, vp, i64,                  # X, x_rstride, edges, e_rstride
+        vp, vp, vp, vp,                    # node, S, out, partials
+        i32, i32, i32, i32, i32, i32,      # n, F, B, N, K, R
+        i32, i32, i32, i32,                # f_tile n_tile f_tiles n_tiles
+        i32, i32, i32, i32,                # row_tile splits rows smem
+        i32, vp,                           # bf16, stream
+    ]
+    lib.sbt_binned_left_stats.restype = i32
     lib.sbt_cuda_error_string.argtypes = [i32]
     lib.sbt_cuda_error_string.restype = ctypes.c_char_p
 

@@ -91,6 +91,103 @@ def test_estimator_on_card_matches_cpu(cuda):
     assert fits["cuda"].fit_report_["backend"] == "cuda"
 
 
+def _hist_inputs(rng, n, F, B, N, K, R, *, shared, stats="onehot"):
+    """Histogram operands with NaN rows, x equal to edges, rows outside
+    the level and integer (or float) statistics."""
+    X = rng.standard_normal((n, F) if shared else (R, n, F)).astype(np.float32)
+    e = np.sort(rng.standard_normal((F, B - 1) if shared else (R, F, B - 1)),
+                axis=-1)
+    edges = np.concatenate([e, np.full(e.shape[:-1] + (1,), np.inf)],
+                           axis=-1).astype(np.float32)
+    Xv, Ev = X.reshape(-1, n, F), edges.reshape(-1, F, B)
+    Xv[:, ::97] = np.nan
+    Xv[:, ::31, 0] = Ev[:, 0, B // 2][:, None]
+    node = rng.integers(0, N, (R, n)).astype(np.int32)
+    node[:, ::53] = N + 3
+    w = rng.poisson(1.0, (R, n)).astype(np.float32)
+    if stats == "onehot":
+        S = w[..., None] * np.eye(K, dtype=np.float32)[rng.integers(0, K, n)]
+    else:
+        S = rng.standard_normal((R, n, K)).astype(np.float32) * w[..., None]
+    return [torch.from_numpy(a) for a in (X, edges, node, S.astype(np.float32))]
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("hist_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [
+    (5000, 13, 16, 8, 5, 3),     # one tile, split rows
+    (20000, 43, 32, 16, 7, 4),   # the headline level shape, feature tiles
+    (3000, 5, 32, 300, 3, 2),    # node tiles
+    (2000, 3, 256, 2, 100, 2),   # one (feature, node) slice a block
+])
+def test_hist_kernel_bitwise_equal_to_plain(cuda, shape, hist_dtype, shared):
+    from spark_bagging_tpu_torch.ops.hist import (
+        binned_left_stats,
+        binned_left_stats_plain,
+    )
+
+    n, F, B, N, K, R = shape
+    args = [t.to(cuda) for t in _hist_inputs(
+        np.random.default_rng(n), n, F, B, N, K, R, shared=shared)]
+    before = binned_left_stats.launches
+    out = binned_left_stats(*args, n_nodes=N, hist_dtype=hist_dtype)
+    again = binned_left_stats(*args, n_nodes=N, hist_dtype=hist_dtype)
+    torch.cuda.synchronize()
+    assert binned_left_stats.launches == before + 2
+    assert out.shape == (R, F, B, N, K)
+    # integer statistics: exact in any order, so equal bit for bit and
+    # repeatable despite the shared-memory atomics
+    assert torch.equal(out, again)
+    assert torch.equal(out, binned_left_stats_plain(
+        *args, n_nodes=N, hist_dtype=hist_dtype))
+
+
+def test_hist_kernel_float_stats_within_tolerance(cuda):
+    from spark_bagging_tpu_torch.ops.hist import (
+        binned_left_stats,
+        binned_left_stats_plain,
+    )
+
+    args = [t.to(cuda) for t in _hist_inputs(
+        np.random.default_rng(9), 30000, 11, 32, 8, 3, 3, shared=True,
+        stats="float")]
+    for mode in ("float32", "bfloat16"):
+        out = binned_left_stats(*args, n_nodes=8, hist_dtype=mode)
+        want = binned_left_stats_plain(*args, n_nodes=8, hist_dtype=mode)
+        scale = binned_left_stats_plain(*args[:3], args[3].abs(), n_nodes=8,
+                                        hist_dtype=mode).clamp_min(1e-30)
+        # the same float32 terms summed in another order
+        assert float(((out - want).abs() / scale).max()) <= 1e-5
+
+
+def test_tree_fit_on_card_matches_cpu(cuda):
+    from spark_bagging_tpu_torch import BaggingClassifier, DecisionTreeClassifier
+    from spark_bagging_tpu_torch.ops.hist import binned_left_stats
+    from spark_bagging_tpu_torch.utils.datasets import make_classification
+
+    X, y = make_classification(3000, 12, 4, seed=1)
+    fits = {}
+    for dev, impl in (("cpu", "fused"), ("cuda", "fused"), ("cuda", "dense")):
+        before = binned_left_stats.launches
+        fits[dev, impl] = BaggingClassifier(
+            DecisionTreeClassifier(max_depth=4, n_bins=16, split_impl=impl),
+            n_estimators=6, max_features=0.75, seed=0, device=dev,
+        ).fit(X, y)
+        launched = binned_left_stats.launches - before
+        assert launched == (4 if (dev, impl) == ("cuda", "fused") else 0)
+    # the kernel and the bf16 dense product give the same trees bit for
+    # bit; against the CPU, leaf log-probabilities may differ by the
+    # float32 log's last bit (CUDA's and the CPU's log differ)
+    fused, dense = fits["cuda", "fused"].ensemble_, fits["cuda", "dense"].ensemble_
+    ref = fits["cpu", "fused"].ensemble_
+    for k in ("feature", "threshold", "gain", "leaf_logp"):
+        assert torch.equal(fused[k], dense[k]), k
+        if k != "leaf_logp":
+            assert torch.equal(fused[k].cpu(), ref[k]), k
+    np.testing.assert_array_max_ulp(fused["leaf_logp"].cpu().numpy(),
+                                    ref["leaf_logp"].numpy(), maxulp=2)
+
+
 def test_scaled_gram_kernel_depth_capped_row_splits(cuda):
     # enough replicas that occupancy alone would give each block more
     # rows than MAX_SPLIT_ROWS: the cap sets the row split

@@ -98,10 +98,72 @@ def test_bootstrap_rejects_what_is_not_ported():
     ids = torch.tensor([0])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tboot.bootstrap_weights(prng.key(0), ids, 10, ratio=40.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tboot.feature_subspaces(prng.key(0), ids, 10, 5, replacement=False)
     with pytest.raises(ValueError):
         tboot.bootstrap_weights(prng.key(0), ids, 10, ratio=0.0)
+
+
+@pytest.mark.parametrize("n", [1, 2, 7, 43, 54, 1000])
+def test_permutation_bitwise(n):
+    for seed in SEEDS:
+        jk, tk = jax.random.key(seed), prng.key(seed)
+        np.testing.assert_array_equal(
+            np.asarray(jax.random.permutation(jk, n)),
+            prng.permutation(tk, n).numpy(),
+        )
+        # batched keys: one permutation per key
+        keys = prng.fold_in(tk, torch.tensor(REPLICA_IDS))
+        batched = prng.permutation(keys, n)
+        for i, rid in enumerate(REPLICA_IDS):
+            np.testing.assert_array_equal(
+                np.asarray(jax.random.permutation(
+                    jax.random.fold_in(jk, rid), n)),
+                batched[i].numpy(),
+            )
+
+
+def test_permutation_two_rounds_bitwise():
+    # JAX's round count ceil(3 ln n / ln(2**32 - 1)) is 2 from ~1.6M
+    n = 1_700_000
+    np.testing.assert_array_equal(
+        np.asarray(jax.random.permutation(jax.random.key(5), n)),
+        prng.permutation(prng.key(5), n).numpy(),
+    )
+
+
+@pytest.mark.parametrize("shape", [(1, 54), (4, 43), (16, 13), (3, 5, 7)])
+def test_uniform_of_a_shape_bitwise(shape):
+    # _level_feat_mask draws an (N, F) uniform per replica key
+    for seed in SEEDS:
+        jk = jax.random.fold_in(jax.random.key(seed), 3)
+        tk = prng.fold_in(prng.key(seed), 3)
+        got = prng.uniform(tk, shape)
+        assert tuple(got.shape) == shape
+        np.testing.assert_array_equal(
+            np.asarray(jax.random.uniform(jk, shape, jnp.float32)),
+            got.numpy(),
+        )
+    keys = prng.fold_in(prng.key(1), torch.tensor(REPLICA_IDS))
+    assert tuple(prng.uniform(keys, shape).shape) == (len(REPLICA_IDS), *shape)
+
+
+@pytest.mark.parametrize("n_features,n_sub", [(8, 3), (8, 7), (54, 43),
+                                              (13, 1), (100, 37)])
+def test_feature_subspaces_without_replacement_bitwise(n_features, n_sub):
+    ids = torch.tensor(REPLICA_IDS)
+    for seed in SEEDS:
+        jk = jax.random.key(seed)
+        got = tboot.feature_subspaces(prng.key(seed), ids, n_features, n_sub)
+        assert got.dtype == torch.int32
+        assert tuple(got.shape) == (len(REPLICA_IDS), n_sub)
+        want = np.asarray(jboot.feature_subspaces(
+            jk, jnp.asarray(REPLICA_IDS, jnp.int32), n_features, n_sub))
+        np.testing.assert_array_equal(want, got.numpy())
+        for i, rid in enumerate(REPLICA_IDS[:2]):
+            np.testing.assert_array_equal(
+                np.asarray(jboot.feature_subspace_one(
+                    jk, jnp.int32(rid), n_features, n_sub)),
+                got[i].numpy(),
+            )
 
 
 @pytest.mark.parametrize("n_sub", [3, 8])
