@@ -20,6 +20,10 @@ on the full 581,012 x 54 synthetic covtype:
   operand modes; kernel and dense split search cross-checked to give
   identical trees.
 
+The scaled-Gram kernel is also held against its plain version at
+d = 250 (``wide_gram``), and its fp32 mode against a float64 reference
+at a shallow and at the capped accumulation depth (``depth``).
+
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. Every phase prints JSON lines; a failed check
 exits non-zero. The last lines are the kernel table, the card's name
@@ -65,9 +69,16 @@ GRAM_TOL = 1.5e-5
 # amplified by the damped Hessians' conditioning.
 W_REL_TOL = 1e-3
 # H100 SXM data-sheet peaks (NVIDIA; dense, no sparsity)
-PEAK_FP32 = 67e12
+PEAK_FP32 = 67e12     # fp32 on the CUDA cores
+PEAK_TF32 = 495e12    # TF32 on the tensor cores
 PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
+# the scaled-Gram kernel at the JAX kernel's widest d for C = 7 classes
+WIDE_GRAM = dict(n=20_000, d=250, P=28, R=2)
+# the Gram error against the rows a block sums: float64 references of
+# 4 replicas on the first 2**14 rows (896-row splits) and on all rows
+# (splits at the MAX_SPLIT_ROWS cap)
+DEPTH_GRAM = dict(R=4, rows=(2**14, N_ROWS))
 # the tree path: BASELINE config 3 (benchmarks/run_configs.py)
 TREE = dict(max_depth=5, n_bins=32)
 TREE_MAX_FEATURES = 0.8
@@ -280,7 +291,12 @@ def phase_kernels(X: np.ndarray, Rs: list[int]) -> dict:
         del Xa
         reps = 2 if R > 8 else 5
         rows[R] = {}
-        for mode, peak in (("float32", PEAK_FP32), ("bfloat16", PEAK_BF16)):
+        # fp32-accurate work: the fp32 CUDA cores, or 3xTF32 on the
+        # tensor cores (three TF32 products each); bf16 on the tensor cores
+        t_simt, t_3xtf32 = 1e3 * flops / PEAK_FP32, 3e3 * flops / PEAK_TF32
+        t_ops_mode = {"float32": min(t_simt, t_3xtf32),
+                      "bfloat16": 1e3 * flops / PEAK_BF16}
+        for mode in ("float32", "bfloat16"):
             out = scaled_grams(Xb, S, op_dtype=mode)
             again = scaled_grams(Xb, S, op_dtype=mode)
             torch.cuda.synchronize()
@@ -292,6 +308,9 @@ def phase_kernels(X: np.ndarray, Rs: list[int]) -> dict:
                 # control: the bf16 kernel held to the fp32 plain version
                 extra["control_err_vs_float32_plain"] = entry_errors(
                     out, Xb, S, "float32", scale)[0]
+            else:
+                extra.update(bound_fp32_simt_ms=t_simt,
+                             bound_3xtf32_ms=t_3xtf32)
             del out
             kernel_ms = cuda_ms(
                 lambda: scaled_grams(Xb, S, op_dtype=mode), reps)
@@ -300,7 +319,7 @@ def phase_kernels(X: np.ndarray, Rs: list[int]) -> dict:
             lib_ms = library_ms(
                 Xb, S, torch.float32 if mode == "float32" else torch.bfloat16)
             torch.cuda.empty_cache()
-            t_ops, t_bytes = 1e3 * flops / peak, 1e3 * nbytes / PEAK_BYTES
+            t_ops, t_bytes = t_ops_mode[mode], 1e3 * nbytes / PEAK_BYTES
             rows[R][mode] = row = dict(
                 max_entry_err=err, tol=GRAM_TOL, max_abs_err=abs_err,
                 bitwise_repeat=bitwise, kernel_ms=kernel_ms,
@@ -318,6 +337,66 @@ def phase_kernels(X: np.ndarray, Rs: list[int]) -> dict:
         del Xb, S, scale
         torch.cuda.empty_cache()
     return rows
+
+
+def phase_wide_gram() -> None:
+    """The kernel at d = 250, P = 28 (beyond the earlier kernel's d <= 176,
+    within the JAX kernel's envelope) against its plain version, in both
+    operand modes."""
+    from spark_bagging_tpu_torch.ops.gram import scaled_grams, scaled_grams_plain
+
+    n, d, P, R = (WIDE_GRAM[k] for k in ("n", "d", "P", "R"))
+    g = torch.Generator(device="cuda").manual_seed(7)
+    X = torch.randn((n, d), generator=g, device="cuda")
+    S = torch.rand((R, n, P), generator=g, device="cuda") * 1.3 - 0.3
+    scale = scaled_grams_plain(X.abs(), S.abs()).clamp_min(1e-30)
+    errs = {}
+    for mode in ("float32", "bfloat16"):
+        out = scaled_grams(X, S, op_dtype=mode)
+        want = scaled_grams_plain(X, S, op_dtype=mode)
+        errs[mode] = float(((out - want).abs() / scale).max())
+    ok = all(e <= GRAM_TOL for e in errs.values())
+    emit("wide_gram", ok=ok, shape=WIDE_GRAM, max_entry_err=errs, tol=GRAM_TOL)
+    if not ok:
+        fail("wide_gram", f"entry errors {errs} (tol {GRAM_TOL})")
+
+
+def phase_depth(X: np.ndarray) -> None:
+    """The fp32 kernel's entry error against a float64 reference (the
+    same fp32 products x_i * fp32(x_j s) summed in float64) on the first
+    rows of the fit's kind of data, at a shallow depth and at the row
+    split's depth cap: an accumulation that rounded with a bias would
+    grow with the rows a block sums."""
+    from spark_bagging_tpu_torch.ops.gram import kernel_geometry, scaled_grams
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    Xb, S = kernel_inputs(X[:max(DEPTH_GRAM["rows"])], DEPTH_GRAM["R"])
+    X64 = Xb.double()
+    for rows in DEPTH_GRAM["rows"]:
+        geo = kernel_geometry(rows, Xb.shape[1], S.shape[2], S.shape[0], n_sm)
+        Xr, Sr = Xb[:rows], S[:, :rows].contiguous()
+        out = scaled_grams(Xr, Sr)
+        worst = 0.0
+        for r in range(S.shape[0]):
+            want = scale = 0.0
+            for t0 in range(0, rows, 2**17):  # bounded float64 scratch
+                sl = slice(t0, min(rows, t0 + 2**17))
+                xs = (Xr[sl, None, :] * Sr[r, sl, :, None]).double()
+                want = want + torch.einsum("ni,npj->pij", X64[sl], xs)
+                scale = scale + torch.einsum("ni,npj->pij", X64[sl].abs(),
+                                             xs.abs())
+                del xs
+            want = want.triu() + want.triu(1).transpose(-1, -2)
+            scale = scale.triu() + scale.triu(1).transpose(-1, -2)
+            worst = max(worst, float(((out[r].double() - want).abs()
+                                      / scale.clamp_min(1e-30)).max()))
+        emit("depth", ok=worst <= GRAM_TOL, rows=rows,
+             rows_per_split=geo["rows_per_split"], splits=geo["splits"],
+             max_entry_err_vs_float64=worst, tol=GRAM_TOL)
+        if not worst <= GRAM_TOL:
+            fail("depth", f"{rows} rows: entry error {worst:.3g}")
+    del Xb, S, X64
+    torch.cuda.empty_cache()
 
 
 def phase_probe(Rs: list[int]) -> None:
@@ -716,6 +795,8 @@ def main() -> int:
     del clf
     torch.cuda.empty_cache()
     rows = phase_kernels(X, Rs)
+    phase_wide_gram()
+    phase_depth(X)
     phase_probe(Rs)
     phase_cross_check(X, y)
     torch.cuda.empty_cache()

@@ -13,9 +13,26 @@ The signature is replica-batched: ``X (n, d)`` shared by every replica
 ``(R, P, d, d)``; a 2-D ``S`` gives ``(P, d, d)``, the JAX package's
 single-replica signature.
 
-``op_dtype`` is the operand mode: ``"float32"`` multiplies exact fp32
-operands; ``"bfloat16"`` rounds X and the scaled operand ``x * s`` to
-bfloat16 and multiplies and sums them in fp32.
+``op_dtype`` is the operand mode: ``"float32"`` multiplies fp32
+operands to fp32 accuracy; ``"bfloat16"`` rounds X and the scaled
+operand ``x * s`` (the fp32 product, rounded once) to bfloat16 and
+multiplies and sums them in fp32.
+
+The kernel runs on the tensor cores (``mma.sync``). In ``"float32"``
+mode it uses 3xTF32: each fp32 operand ``a`` (x, and the fp32 product
+``x * s``) is split into ``a_big``, ``a`` cut to TF32's 11 significant
+bits, and ``a_small = a - a_big`` (exact in fp32, read by the tensor core
+cut to TF32 in turn), and a product is taken as ``a_small*b_big +
+a_big*b_small + a_big*b_big``. The cuts and the dropped
+``a_small*b_small`` leave a product off by less than ``3 * 2**-20`` of
+its size, against fp32's ``2**-24`` rounding: the sums stay well inside
+the error scale the tests hold them to (per entry, 1.5e-5 of its
+absolute sum). Operands with at most 11 significant bits have
+``a_small = 0`` and give exact products. Each 64-row tile is summed in
+MMA accumulators from zero and then added into fp32 registers rounding
+to nearest: the tensor cores' own accumulation does not round to
+nearest, and over a block's 16,384 rows its error grew past that scale
+on an H100.
 """
 
 from __future__ import annotations
@@ -29,24 +46,28 @@ from spark_bagging_tpu_torch.ops.precision import bf16_round, fp32_matmul
 _OP_DTYPES = ("float32", "bfloat16")
 # The kernel's compile-time tiling, decided here only: utils/native.py
 # passes these to nvcc as -D defines, and csrc/scaled_gram.cu refuses to
-# build without them. Each thread accumulates TILES_PER_THREAD 4x4
-# output tiles; a block has at most MAX_THREADS threads.
+# build without them. A block has WARPS warps, each keeping one
+# (replica, pair)'s output tile; output tiles are TILE x TILE; a pipeline
+# stage holds ROW_TILE rows of X, and each row tile's MMA sum is promoted
+# into round-to-nearest fp32 registers.
 CUDA_DEFINES = {
-    "SBT_GRAM_TILES_PER_THREAD": 4,
-    "SBT_GRAM_MAX_THREADS": 256,
+    "SBT_GRAM_WARPS": 8,
+    "SBT_GRAM_TILE": 64,
+    "SBT_GRAM_ROW_TILE": 64,
 }
-_TILES_PER_THREAD = CUDA_DEFINES["SBT_GRAM_TILES_PER_THREAD"]
-_MAX_THREADS = CUDA_DEFINES["SBT_GRAM_MAX_THREADS"]
-# dynamic shared memory a block may take without an opt-in attribute
-_SMEM_BYTES = 48 * 1024
-_MAX_ROW_TILE = 32
-# blocks in flight the row split aims for, per streaming multiprocessor
-_BLOCKS_PER_SM = 4
+_WARPS = CUDA_DEFINES["SBT_GRAM_WARPS"]
+_TILE = CUDA_DEFINES["SBT_GRAM_TILE"]
+_ROW_TILE = CUDA_DEFINES["SBT_GRAM_ROW_TILE"]
+# blocks the row split aims for, per streaming multiprocessor (one block
+# is resident on an SM: its accumulators take most of the registers)
+_BLOCKS_PER_SM = 2
 # rows one block sums into its fp32 registers: bounds the accumulation
 # depth, whose rounding error grows as its square root, whatever the
 # replica count (at 128 replicas the split for occupancy alone would be
 # 290k rows deep)
 MAX_SPLIT_ROWS = 16384
+# the grid's y (output tiles) and z (row splits) extents
+_MAX_GRID_YZ = 65535
 
 
 def scaled_grams_plain(
@@ -102,34 +123,40 @@ def _check(X: torch.Tensor, S: torch.Tensor, op_dtype: str) -> None:
         raise ValueError("X and S must be contiguous")
 
 
-def kernel_geometry(n: int, d: int, P: int, R: int, n_sm: int) -> dict:
+def kernel_geometry(n: int, d: int, P: int, R: int, n_sm: int,
+                    shared_x: bool = True) -> dict:
     """Launch geometry of the CUDA kernel (pure arithmetic, so the CPU
-    tests can check it): pairs per block, row split, row tile, threads."""
-    d_pad = 4 * math.ceil(d / 4)
-    nb = d_pad // 4
-    tiles_per_pair = nb * (nb + 1) // 2
-    pg_max = (_TILES_PER_THREAD * _MAX_THREADS) // tiles_per_pair
-    if pg_max < 1:
-        raise ValueError(
-            f"d={d} is beyond the kernel's register tiling "
-            f"(at most {_TILES_PER_THREAD * _MAX_THREADS} 4x4 tiles a block)"
-        )
-    groups = math.ceil(P / pg_max)
-    pg = math.ceil(P / groups)
-    threads = 32 * math.ceil(pg * tiles_per_pair / _TILES_PER_THREAD / 32)
-    row_tile = max(1, min(_MAX_ROW_TILE,
-                          _SMEM_BYTES // (4 * (pg + 1) * d_pad)))
-    want_splits = max(1, math.ceil(_BLOCKS_PER_SM * n_sm / (groups * R)))
-    rows_per_split = min(
-        row_tile * math.ceil(math.ceil(n / want_splits) / row_tile),
-        row_tile * max(1, MAX_SPLIT_ROWS // row_tile),
+    tests can check it).
+
+    The grid is (pair groups, output tiles, row splits). A block takes
+    ``pg`` consecutive flattened (replica, pair) indices of one X:
+    all ``R * P`` share one X (``n_x = 1``), or each replica's ``P`` has
+    its own (``n_x = R``); ``groups`` blocks cover one X's pairs. Along
+    d there are ``nt`` tiles of 64: ``nt`` diagonal tiles and two
+    32-row halves of each of the ``nt (nt - 1) / 2`` tiles above them,
+    ``nt**2`` items in all. Rows split so that at least
+    ``_BLOCKS_PER_SM`` blocks an SM are launched, at most
+    ``MAX_SPLIT_ROWS`` rows a block."""
+    n_x = 1 if shared_x else R
+    Q = R * P if shared_x else P
+    groups = math.ceil(Q / _WARPS)
+    pg = math.ceil(Q / groups)
+    nt = math.ceil(d / _TILE)
+    if nt * nt > _MAX_GRID_YZ:
+        raise ValueError(f"d={d} needs {nt * nt} output tiles, beyond the "
+                         f"grid's y extent {_MAX_GRID_YZ}")
+    want_splits = max(1, math.ceil(_BLOCKS_PER_SM * n_sm
+                                   / (n_x * groups * nt * nt)))
+    rows_per_split = _ROW_TILE * min(
+        math.ceil(math.ceil(n / want_splits) / _ROW_TILE),
+        max(1, MAX_SPLIT_ROWS // _ROW_TILE),
     )
     splits = max(1, math.ceil(n / rows_per_split))
-    if splits > 65535:  # the grid's z extent
-        raise ValueError(f"n={n} rows need {splits} row splits (at most 65535)")
-    return dict(d_pad=d_pad, pg=pg, groups=groups, splits=splits,
-                rows_per_split=rows_per_split, row_tile=row_tile,
-                threads=threads)
+    if splits > _MAX_GRID_YZ:
+        raise ValueError(f"n={n} rows need {splits} row splits "
+                         f"(at most {_MAX_GRID_YZ})")
+    return dict(n_x=n_x, pg=pg, groups=groups, nt=nt, splits=splits,
+                rows_per_split=rows_per_split)
 
 
 def launch_bytes(n: int, d: int, P: int) -> float:
@@ -138,6 +165,10 @@ def launch_bytes(n: int, d: int, P: int) -> float:
     partials, with one to spare for rounding to row tiles. (A launch of
     few replicas splits rows finer, for occupancy, but is small.)"""
     return 4.0 * (math.ceil(n / MAX_SPLIT_ROWS) + 2) * P * d * d
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _launch(X, S, op_dtype):
@@ -151,8 +182,10 @@ def _launch(X, S, op_dtype):
     if n == 0 or R == 0:
         out.zero_()
         return out[0] if squeeze else out
+    shared_x = X3.shape[0] == 1
     g = kernel_geometry(
-        n, d, P, R, torch.cuda.get_device_properties(dev).multi_processor_count
+        n, d, P, R, torch.cuda.get_device_properties(dev).multi_processor_count,
+        shared_x=shared_x,
     )
     partials = (
         torch.empty((g["splits"], R, P, d, d), dtype=torch.float32, device=dev)
@@ -160,17 +193,45 @@ def _launch(X, S, op_dtype):
     )
     lib = native.library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sbt_scaled_gram(
-            X3.data_ptr(), 0 if X.dim() == 2 else n * d, S3.data_ptr(),
+            X3.data_ptr(), 0 if shared_x else n * d, S3.data_ptr(),
             out.data_ptr(), partials.data_ptr(), n, d, P, R,
-            g["d_pad"], g["pg"], g["groups"], g["splits"],
-            g["rows_per_split"], g["row_tile"], g["threads"],
-            int(op_dtype == "bfloat16"), stream,
+            g["n_x"], g["pg"], g["groups"], g["nt"], g["splits"],
+            g["rows_per_split"], int(op_dtype == "bfloat16"), _stream(dev),
         )
     native.check(lib, err, "scaled_gram")
     scaled_grams.launches += 1
     return out[0] if squeeze else out
+
+
+def mma_tile_probe(xa: torch.Tensor, xb: torch.Tensor, s: torch.Tensor, *,
+                   op_dtype: str) -> torch.Tensor:
+    """One warp's ``(16, 8)`` accumulator tile over one k step, computed
+    on the card by the kernel's own staging layout, fragment loads and
+    ``mma.sync``: ``out[m, n] = sum_k xa[k, m] * (xb[k, n] * s[k])`` with
+    the kernel's operand rounding. ``xa (K, 16)``, ``xb (K, 8)``,
+    ``s (K,)``, K = 8 in "float32" (m16n8k8 TF32, as 3xTF32) and 16 in
+    "bfloat16" (m16n8k16). For the card tests of the fragment layouts;
+    CUDA tensors only, and not counted as a launch."""
+    from spark_bagging_tpu_torch.utils import native
+
+    if op_dtype not in _OP_DTYPES:
+        raise ValueError(f"op_dtype must be one of {_OP_DTYPES}, got {op_dtype!r}")
+    K = 16 if op_dtype == "bfloat16" else 8
+    for name, t, shape in (("xa", xa, (K, 16)), ("xb", xb, (K, 8)),
+                           ("s", s, (K,))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or t.device.type != "cuda" or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 CUDA "
+                             f"tensor of shape {shape}")
+    out = torch.empty((16, 8), dtype=torch.float32, device=xa.device)
+    lib = native.library()
+    with torch.cuda.device(xa.device):
+        err = lib.sbt_gram_mma_probe(
+            xa.data_ptr(), xb.data_ptr(), s.data_ptr(), out.data_ptr(),
+            int(op_dtype == "bfloat16"), _stream(xa.device))
+    native.check(lib, err, "gram_mma_probe")
+    return out
 
 
 def scaled_grams(

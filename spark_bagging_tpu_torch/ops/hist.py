@@ -139,18 +139,29 @@ def _check(X, edges, node, S, n_nodes, hist_dtype) -> None:
         raise ValueError("X, edges, node and S must be contiguous")
 
 
+def _row_tile(K: int) -> int:
+    return min(_MAX_ROW_TILE, max(32, _STAGE_BYTES // (4 * (K + 2)) // 32 * 32))
+
+
+def _slice_smem(B: int, K: int) -> int:
+    """Shared bytes of the smallest block: one feature's ``(B, K)``
+    histogram of one node, its edges, a staged row tile and the row
+    counter."""
+    return 4 * _row_tile(K) * (K + 2) + 4 * B * K + 4 * B + 16
+
+
 def hist_geometry(n: int, F: int, B: int, n_nodes: int, K: int, R: int,
                   n_sm: int) -> dict:
-    """Launch geometry of the CUDA kernel (pure arithmetic, so the CPU
-    tests can check it). A block keeps a ``(f_tile, B, n_tile, K)``
-    float32 histogram in shared memory beside ``f_tile`` rows of edges
-    and one staged row tile; the grid is (replica, feature tile x node
-    tile, row split). Full node width first, then as many features as
-    fit 112 KB, with the tiles evened out; a single (feature, node)
-    slice wider than that takes up to 227 KB, and beyond that the shape
-    is refused."""
-    row_tile = min(_MAX_ROW_TILE,
-                   max(32, _STAGE_BYTES // (4 * (K + 2)) // 32 * 32))
+    """Launch geometry of the CUDA kernel for one launch (pure
+    arithmetic, so the CPU tests can check it). A block keeps a
+    ``(f_tile, B, n_tile, K)`` float32 histogram in shared memory beside
+    ``f_tile`` rows of edges and one staged row tile; the grid is
+    (replica, feature tile x node tile, row split). Full node width
+    first, then as many features as fit 112 KB, with the tiles evened
+    out; a single (feature, node) slice wider than that takes up to
+    227 KB, and beyond that one launch refuses the shape
+    (:func:`stat_tiles` splits such a table over launches)."""
+    row_tile = _row_tile(K)
     stage = 4 * row_tile * (K + 2)
     unit = 4 * B * K              # one feature's histogram of one node
     room = _SMEM_BYTES - stage
@@ -182,6 +193,29 @@ def hist_geometry(n: int, F: int, B: int, n_nodes: int, K: int, R: int,
                 rows_per_split=rows_per_split, smem=smem, threads=_THREADS)
 
 
+def stat_tiles(B: int, K: int) -> list[tuple[int, int, int, int]]:
+    """Contiguous ``(b0, b1, k0, k1)`` tiles that cover ``[0, B) x
+    [0, K)`` exactly once, each small enough for one launch (pure
+    arithmetic). The table is separable along both axes: entry
+    ``[f, b, n, k]`` is the sum of ``[x <= edges[f, b]] [node = n]
+    S[k]``, and over a contiguous range of ascending edges the first
+    edge at or above x gives the same indicator, so a launch on
+    ``edges[..., b0:b1]`` and ``S[..., k0:k1]`` computes
+    ``out[..., b0:b1, :, k0:k1]``. Classes are split only where one bin
+    of all classes does not fit; then bins are split as evenly as fits.
+    One tile where the whole ``(B, K)`` slice fits."""
+    n_k = 1
+    while _slice_smem(1, math.ceil(K / n_k)) > _MAX_SMEM_BYTES:
+        n_k += 1
+    kt = math.ceil(K / n_k)
+    stage = _slice_smem(0, kt)
+    bt = min(B, (_MAX_SMEM_BYTES - stage) // (4 * kt + 4))
+    n_b = math.ceil(B / bt)
+    bt = math.ceil(B / n_b)
+    return [(b0, min(B, b0 + bt), k0, min(K, k0 + kt))
+            for k0 in range(0, K, kt) for b0 in range(0, B, bt)]
+
+
 def launch_bytes(F: int, B: int, n_nodes: int, K: int) -> float:
     """Device bytes one replica adds to a launch of many replicas: its
     ``(F, B, n_nodes, K)`` output and as much again for the row-split
@@ -190,17 +224,14 @@ def launch_bytes(F: int, B: int, n_nodes: int, K: int) -> float:
     return 2 * 4.0 * F * B * n_nodes * K
 
 
-def _launch(X, edges, node, S, n_nodes, hist_dtype):
+def _launch_one(X3, E3, node2, S3, out, n_nodes, hist_dtype):
+    """One kernel launch: ``out`` (R, F, B, n_nodes, K) from batched
+    operands whose ``(B, K)`` slice fits one block."""
     from spark_bagging_tpu_torch.utils import native
 
-    X3, E3, node2, S3, squeeze = _as_batched(X, edges, node, S)
     R, n, K = S3.shape
     F, B = E3.shape[-2:]
-    dev = S.device
-    out = torch.empty((R, F, B, n_nodes, K), dtype=torch.float32, device=dev)
-    if n == 0 or R == 0 or F == 0 or K == 0:
-        out.zero_()
-        return out[0] if squeeze else out
+    dev = S3.device
     g = hist_geometry(
         n, F, B, n_nodes, K, R,
         torch.cuda.get_device_properties(dev).multi_processor_count,
@@ -223,6 +254,28 @@ def _launch(X, edges, node, S, n_nodes, hist_dtype):
         )
     native.check(lib, err, "binned_left_stats")
     binned_left_stats.launches += 1
+
+
+def _launch(X, edges, node, S, n_nodes, hist_dtype):
+    X3, E3, node2, S3, squeeze = _as_batched(X, edges, node, S)
+    R, n, K = S3.shape
+    F, B = E3.shape[-2:]
+    out = torch.empty((R, F, B, n_nodes, K), dtype=torch.float32,
+                      device=S.device)
+    if n == 0 or R == 0 or F == 0 or K == 0:
+        out.zero_()
+        return out[0] if squeeze else out
+    tiles = stat_tiles(B, K)
+    if len(tiles) == 1:
+        _launch_one(X3, E3, node2, S3, out, n_nodes, hist_dtype)
+    else:
+        for b0, b1, k0, k1 in tiles:
+            part = torch.empty((R, F, b1 - b0, n_nodes, k1 - k0),
+                               dtype=torch.float32, device=S.device)
+            _launch_one(X3, E3[..., b0:b1].contiguous(), node2,
+                        S3[..., k0:k1].contiguous(), part, n_nodes,
+                        hist_dtype)
+            out[:, :, b0:b1, :, k0:k1] = part
     return out[0] if squeeze else out
 
 

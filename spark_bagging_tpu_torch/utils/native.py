@@ -135,10 +135,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sbt_scaled_gram.argtypes = [
         vp, i64, vp, vp, vp,               # X, x_rstride, S, out, partials
         i32, i32, i32, i32,                # n, d, P, R
-        i32, i32, i32, i32, i32, i32, i32,  # d_pad pg groups splits rows tile threads
+        i32, i32, i32, i32, i32, i32,      # n_x pg groups nt splits rows
         i32, vp,                           # bf16, stream
     ]
     lib.sbt_scaled_gram.restype = i32
+    lib.sbt_gram_mma_probe.argtypes = [vp, vp, vp, vp, i32, vp]
+    lib.sbt_gram_mma_probe.restype = i32
     lib.sbt_binned_left_stats.argtypes = [
         vp, i64, vp, i64,                  # X, x_rstride, edges, e_rstride
         vp, vp, vp, vp,                    # node, S, out, partials

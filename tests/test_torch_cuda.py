@@ -29,6 +29,16 @@ def _rel_err(got, want) -> float:
     return float((got - want).abs().max() / want.abs().max())
 
 
+# chip_smoke.GRAM_TOL: |kernel - reference| per entry over the entry's
+# absolute-sum scale (the sound fp32 readings lie below 5.7e-6, a kernel
+# that rounds to bf16 above 2.9e-5)
+GRAM_TOL = 1.5e-5
+
+
+def _entry_err(got, want, scale) -> float:
+    return float(((got - want).abs() / scale.clamp_min(1e-30)).max())
+
+
 @pytest.mark.parametrize("shared_x", [True, False])
 @pytest.mark.parametrize("op_dtype", ["float32", "bfloat16"])
 def test_scaled_gram_kernel_matches_plain(cuda, op_dtype, shared_x):
@@ -142,6 +152,27 @@ def test_hist_kernel_bitwise_equal_to_plain(cuda, shape, hist_dtype, shared):
         *args, n_nodes=N, hist_dtype=hist_dtype))
 
 
+@pytest.mark.parametrize("B,K", [(8000, 7), (32, 1000)])
+def test_hist_kernel_tiles_tables_beyond_one_block(cuda, B, K):
+    # (B, K) slices beyond one block's shared memory: the wrapper splits
+    # bins (and, where needed, classes) over launches of the same kernel
+    from spark_bagging_tpu_torch.ops.hist import (
+        binned_left_stats,
+        binned_left_stats_plain,
+        stat_tiles,
+    )
+
+    n, F, N, R = 4000, 3, 2, 2
+    args = [t.to(cuda) for t in _hist_inputs(
+        np.random.default_rng(B + K), n, F, B, N, K, R, shared=True)]
+    before = binned_left_stats.launches
+    out = binned_left_stats(*args, n_nodes=N, hist_dtype="bfloat16")
+    torch.cuda.synchronize()
+    assert binned_left_stats.launches - before == len(stat_tiles(B, K)) > 1
+    assert torch.equal(out, binned_left_stats_plain(
+        *args, n_nodes=N, hist_dtype="bfloat16"))
+
+
 def test_hist_kernel_float_stats_within_tolerance(cuda):
     from spark_bagging_tpu_torch.ops.hist import (
         binned_left_stats,
@@ -209,3 +240,95 @@ def test_scaled_gram_kernel_depth_capped_row_splits(cuda):
     out = scaled_grams(X, S)
     assert torch.equal(out, scaled_grams(X, S))
     assert _rel_err(out, scaled_grams_plain(X, S)) <= 1e-5
+
+
+@pytest.mark.parametrize("op_dtype", ["float32", "bfloat16"])
+def test_gram_mma_fragment_layout_matches_matmul(cuda, op_dtype):
+    # one warp, one 16x8 tile, one k step through the kernel's fragment
+    # loads and mma.sync (m16n8k8 TF32 as 3xTF32, or m16n8k16 bf16).
+    # Small integers are exact in TF32 and bf16 and every sum of their
+    # products is exact in fp32, so a misplaced fragment element shows
+    from spark_bagging_tpu_torch.ops.gram import mma_tile_probe
+
+    K = 16 if op_dtype == "bfloat16" else 8
+    rng = np.random.default_rng(4)
+    xa = torch.from_numpy(rng.integers(-8, 9, (K, 16)).astype(np.float32))
+    xb = torch.from_numpy(rng.integers(-8, 9, (K, 8)).astype(np.float32))
+    s = torch.from_numpy(rng.integers(1, 5, K).astype(np.float32))
+    got = mma_tile_probe(xa.to(cuda), xb.to(cuda), s.to(cuda),
+                         op_dtype=op_dtype)
+    want = torch.matmul(xa.t().double(), (xb * s[:, None]).double())
+    assert torch.equal(got.cpu().double(), want)
+
+
+def test_gram_mma_3xtf32_tile_is_fp32_accurate(cuda):
+    # on inexact operands one 3xTF32 tile stays within a few fp32 ulps
+    # of the float64 sum of the fp32 products x * fp32(x' * s)
+    from spark_bagging_tpu_torch.ops.gram import mma_tile_probe
+
+    rng = np.random.default_rng(5)
+    xa = torch.from_numpy(rng.standard_normal((8, 16)).astype(np.float32))
+    xb = torch.from_numpy(rng.standard_normal((8, 8)).astype(np.float32))
+    s = torch.from_numpy(rng.uniform(-1, 1, 8).astype(np.float32))
+    got = mma_tile_probe(xa.to(cuda), xb.to(cuda), s.to(cuda),
+                         op_dtype="float32").cpu().double()
+    xs = (xb * s[:, None]).double()  # the fp32 product, rounded once
+    want = xa.t().double() @ xs
+    scale = xa.t().double().abs() @ xs.abs()
+    assert _entry_err(got, want, scale) <= 2.0 ** -20
+
+
+@pytest.mark.parametrize("shared_x", [True, False])
+@pytest.mark.parametrize("op_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,P", [(250, 28), (913, 3)])
+def test_scaled_gram_kernel_wide_d(cuda, d, P, op_dtype, shared_x):
+    # the JAX kernel's widest d at these pair counts: output tiles above
+    # the diagonal, ragged last tiles
+    from spark_bagging_tpu_torch.ops.gram import (
+        scaled_grams,
+        scaled_grams_plain,
+    )
+
+    rng = np.random.default_rng(d)
+    R, n = 2, 3000
+    X = torch.from_numpy(rng.standard_normal(
+        (n, d) if shared_x else (R, n, d)).astype(np.float32)).to(cuda)
+    S = torch.from_numpy(
+        rng.uniform(-0.3, 1.0, (R, n, P)).astype(np.float32)).to(cuda)
+    out = scaled_grams(X, S, op_dtype=op_dtype)
+    assert out.shape == (R, P, d, d)
+    assert torch.equal(out, out.transpose(-1, -2))
+    want = scaled_grams_plain(X, S, op_dtype=op_dtype)
+    scale = scaled_grams_plain(X.abs(), S.abs())
+    assert _entry_err(out, want, scale) <= GRAM_TOL
+
+
+def test_scaled_gram_kernel_fp32_error_does_not_grow_with_depth(cuda):
+    # 2**20 rows of mixed-sign S with the row split at its depth cap:
+    # each block sums MAX_SPLIT_ROWS rows, so a biased accumulation
+    # (truncating adds) would show as an error growing with the rows a
+    # block sums; the reference is the float64 sum of the same fp32
+    # products x_i * fp32(x_j * s)
+    from spark_bagging_tpu_torch.ops.gram import (
+        MAX_SPLIT_ROWS,
+        kernel_geometry,
+        scaled_grams,
+    )
+
+    rng = np.random.default_rng(6)
+    R, n, d, P = 4, 2**20, 23, 10
+    n_sm = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert kernel_geometry(n, d, P, R, n_sm)["rows_per_split"] == MAX_SPLIT_ROWS
+    X = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda)
+    S = torch.from_numpy(
+        rng.uniform(-1.0, 1.0, (R, n, P)).astype(np.float32)).to(cuda)
+    out = scaled_grams(X, S)
+    X64 = X.double()
+    for r in range(R):
+        xs = (X[:, None, :] * S[r][:, :, None]).double()  # (n, P, d)
+        want = torch.einsum("ni,npj->pij", X64, xs)
+        scale = torch.einsum("ni,npj->pij", X64.abs(), xs.abs())
+        want = want.triu() + want.triu(1).transpose(-1, -2)
+        scale = scale.triu() + scale.triu(1).transpose(-1, -2)
+        assert _entry_err(out[r].double(), want, scale) <= GRAM_TOL
+        del xs

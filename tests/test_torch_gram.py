@@ -143,51 +143,89 @@ def test_cpu_tensors_do_not_count_launches():
     assert scaled_grams.launches == before
 
 
-def _replay_kernel_writes(d: int, P: int, g: dict) -> np.ndarray:
-    """How many (thread, tile) writers each output entry gets, replaying
-    the tile decode and mirrored writes of csrc/scaled_gram.cu."""
-    nb = g["d_pad"] // 4
-    tpp = nb * (nb + 1) // 2
-    writes = np.zeros((P, d, d), np.int64)
-    for group in range(g["groups"]):
-        p0 = group * g["pg"]
-        n_tiles = min(g["pg"], P - p0) * tpp
-        for tile in range(n_tiles):  # thread t holds tiles t + k*threads
-            tp, rem = divmod(tile, tpp)
-            bi = 0
-            while rem >= nb - bi:
-                rem -= nb - bi
-                bi += 1
-            bj = bi + rem
-            for ii in range(4):
-                for jj in range(4):
-                    i, j = 4 * bi + ii, 4 * bj + jj
-                    if i >= d or j >= d or (bi == bj and ii > jj):
+def _replay_kernel_writes(d: int, P: int, R: int, g: dict,
+                          shared_x: bool) -> np.ndarray:
+    """How many (block, warp, accumulator) writers each output entry of
+    one row split gets, replaying csrc/scaled_gram.cu: the block's
+    (replica, pair) decode, the output-tile items (diagonal tiles, then
+    two 32-row halves of each tile above them), the kept 16x8
+    accumulator tiles, and the mirrored writes. Only tiles the kernel
+    computes (inside d) may write."""
+    writes = np.zeros((R, P, d, d), np.int64)
+    Q = R * P if shared_x else P
+    nt = g["nt"]
+    for gx in range(g["n_x"] * g["groups"]):
+        xi, grp = divmod(gx, g["groups"])
+        qb = grp * g["pg"]
+        nq = min(g["pg"], Q - qb)
+        assert nq >= 1
+        for item in range(nt * nt):
+            if item < nt:
+                diag, MI, row0 = True, 4, 64 * item
+                col0 = row0
+            else:
+                diag, MI = False, 2
+                u, h = divmod(item - nt, 2)
+                I = 0
+                while u >= nt - 1 - I:
+                    u -= nt - 1 - I
+                    I += 1
+                row0, col0 = 64 * I + 32 * h, 64 * (I + 1 + u)
+            mi_n = min(MI, -(-(d - row0) // 16))
+            nj_n = min(8, -(-(d - col0) // 8))
+            for mi in range(MI):
+                for nj in range(8):
+                    if diag and nj < 2 * mi:
                         continue
-                    for (a, b) in {(i, j), (j, i)}:
-                        writes[p0 + tp, a, b] += 1
+                    il = 16 * mi + np.arange(16)[:, None]
+                    jl = 8 * nj + np.arange(8)[None, :]
+                    keep = (row0 + il < d) & (col0 + jl < d)
+                    if diag:
+                        keep &= il <= jl
+                    if not keep.any():
+                        continue
+                    assert mi < mi_n and nj < nj_n  # written means computed
+                    i = (row0 + il + 0 * jl)[keep]
+                    j = (col0 + jl + 0 * il)[keep]
+                    for w in range(nq):
+                        r, p = divmod(xi * Q + qb + w, P)
+                        np.add.at(writes[r, p], (i, j), 1)
+                        off = i != j
+                        np.add.at(writes[r, p], (j[off], i[off]), 1)
     return writes
 
 
+@pytest.mark.parametrize("shared_x", [True, False])
 @pytest.mark.parametrize("d,P", [(55, 28), (9, 6), (1, 1), (13, 3), (100, 10),
-                                 (176, 2)])
-def test_kernel_geometry_writes_every_entry_once(d, P):
-    n, R = 581_012, 4
-    g = kernel_geometry(n, d, P, R, n_sm=132)
-    nb = g["d_pad"] // 4
-    assert g["pg"] * nb * (nb + 1) // 2 <= gram._TILES_PER_THREAD * g["threads"]
-    assert g["threads"] <= gram._MAX_THREADS and g["threads"] % 32 == 0
-    assert 4 * g["row_tile"] * (g["pg"] + 1) * g["d_pad"] <= gram._SMEM_BYTES
-    assert g["groups"] * g["pg"] >= P > (g["groups"] - 1) * g["pg"]
-    assert g["rows_per_split"] % g["row_tile"] == 0
+                                 (176, 2), (250, 28), (913, 3)])
+def test_kernel_geometry_writes_every_entry_once(d, P, shared_x):
+    n, R = 581_012, 3
+    g = kernel_geometry(n, d, P, R, n_sm=132, shared_x=shared_x)
+    assert g["pg"] <= gram._WARPS
+    Q = R * P if shared_x else P
+    assert g["groups"] * g["pg"] >= Q > (g["groups"] - 1) * g["pg"]
+    assert g["n_x"] == (1 if shared_x else R)
+    assert g["nt"] * gram._TILE >= d > (g["nt"] - 1) * gram._TILE
+    assert g["rows_per_split"] % gram._ROW_TILE == 0
+    assert g["rows_per_split"] <= gram.MAX_SPLIT_ROWS
     assert g["splits"] * g["rows_per_split"] >= n
     assert (g["splits"] - 1) * g["rows_per_split"] < n
-    assert (_replay_kernel_writes(d, P, g) == 1).all()
+    assert (_replay_kernel_writes(d, P, R, g, shared_x) == 1).all()
 
 
-def test_kernel_geometry_rejects_too_wide_d():
-    with pytest.raises(ValueError, match="register tiling"):
-        kernel_geometry(100, 200, 1, 1, n_sm=132)
+@pytest.mark.parametrize("d,P", [(250, 28), (913, 3), (4096, 1)])
+def test_kernel_geometry_takes_the_reference_widths(d, P):
+    # the JAX kernel's VMEM envelope reaches d = 250 at P = 28 and
+    # d = 913 at P = 3; the output-tile grid takes any d within CUDA's
+    # grid extents
+    g = kernel_geometry(581_012, d, P, 121, n_sm=132)
+    assert g["nt"] == -(-d // gram._TILE)
+    assert g["nt"] ** 2 <= 65535
+
+
+def test_kernel_geometry_refuses_beyond_the_grid():
+    with pytest.raises(ValueError, match="grid"):
+        kernel_geometry(100, 64 * 256, 1, 1, n_sm=132)
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):

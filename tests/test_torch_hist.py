@@ -198,6 +198,74 @@ def test_geometry_refuses_shapes_beyond_the_kernel():
         hist.hist_geometry(2**31 - 1, 4, 4, 1, 1, 1, n_sm=10**7)
 
 
+@pytest.mark.parametrize("B,K", [
+    (32, 7), (6759, 7), (6760, 7), (8000, 7), (22942, 7), (32, 906),
+    (32, 907), (32, 1000), (32, 8924), (256, 5403), (5, 50_000), (1, 1),
+])
+def test_stat_tiles_cover_the_table_once_and_each_fits_a_launch(B, K):
+    tiles = hist.stat_tiles(B, K)
+    seen = np.zeros((B, K), np.int64)
+    for b0, b1, k0, k1 in tiles:
+        assert 0 <= b0 < b1 <= B and 0 <= k0 < k1 <= K
+        seen[b0:b1, k0:k1] += 1
+        hist.hist_geometry(581_012, 43, b1 - b0, 16, k1 - k0, 114, n_sm=132)
+    assert (seen == 1).all()
+    # one launch exactly where the single-launch geometry takes the shape
+    try:
+        hist.hist_geometry(1000, 4, B, 1, K, 1, n_sm=132)
+        assert len(tiles) == 1
+    except ValueError:
+        assert len(tiles) > 1
+
+
+def _tiled_plain(X, edges, node, S, N, tiles):
+    """The plain version assembled from (bin, class) slices."""
+    R, n, K = S.shape
+    F, B = edges.shape[-2:]
+    out = np.full((R, F, B, N, K), np.nan, np.float32)
+    for b0, b1, k0, k1 in tiles:
+        out[:, :, b0:b1, :, k0:k1] = _port(
+            X, np.ascontiguousarray(edges[..., b0:b1]), node,
+            np.ascontiguousarray(S[..., k0:k1]), N, "float32")
+    return out
+
+
+@pytest.mark.parametrize("tiles", [
+    [(0, 3, 0, 5), (3, 8, 0, 5)],
+    [(0, 8, 0, 2), (0, 8, 2, 5)],
+    [(0, 1, 0, 1), (1, 6, 0, 1), (6, 8, 0, 1), (0, 5, 1, 5), (5, 8, 1, 5)],
+])
+def test_plain_assembled_from_slices_equals_the_whole(tiles):
+    # the separability the tiled launch relies on, bitwise on integer
+    # statistics, with NaN rows, x on an edge and a NaN edge suffix
+    X, edges, node, S = _inputs(11, 300, 3, 8, 2, 5, 2, shared_x=True,
+                                shared_edges=False, stats="poisson")
+    edges[0, 1, 5:] = np.nan
+    whole = _port(X, edges, node, S, 2, "float32")
+    np.testing.assert_array_equal(
+        _tiled_plain(X, edges, node, S, 2, tiles), whole)
+
+
+def test_tiled_launch_assembles_each_slice(monkeypatch):
+    # the wrapper's tiling path, with each launch played by the plain
+    # version on its slice: B = 8000 bins need two launches
+    X, edges, node, S = _inputs(12, 64, 2, 8000, 2, 7, 2, shared_x=True,
+                                shared_edges=True, stats="onehot")
+    launched = []
+
+    def launch_one(X3, E3, node2, S3, out, n_nodes, hist_dtype):
+        launched.append((E3.shape[-1], S3.shape[-1]))
+        out.copy_(hist.binned_left_stats_plain(
+            X3[0], E3[0], node2, S3, n_nodes=n_nodes, hist_dtype=hist_dtype))
+
+    monkeypatch.setattr(hist, "_launch_one", launch_one)
+    args = [torch.from_numpy(a) for a in (X, edges, node, S)]
+    got = hist._launch(*args, 2, "float32")
+    assert launched == [(4000, 7), (4000, 7)]
+    assert torch.equal(got, hist.binned_left_stats_plain(
+        *args, n_nodes=2, hist_dtype="float32"))
+
+
 def test_launch_bytes():
     assert hist.launch_bytes(43, 32, 16, 7) == 2 * 4.0 * 43 * 32 * 16 * 7
 
