@@ -13,12 +13,14 @@ on the full 581,012 x 54 synthetic covtype:
   data and on exact inputs; the kernel Hessian cross-checked against
   the plain "blocked" one;
 - bagged decision trees (BASELINE config 3: depth 5, 32 bins, 256
-  replicas, 43 of 54 features each, hard vote, histogram kernel): the
-  fit and a warm ``predict`` / ``predict_proba``; the kernel held bit
-  for bit against its plain version at every replica count and level
-  the fit launched it with, on the fit's own level inputs, in both
-  operand modes; kernel and dense split search cross-checked to give
-  identical trees.
+  replicas, 43 of 54 features each, hard vote): the fit, which bins the
+  shared X once (bin-codes kernel) and reads the codes through each
+  replica's column index at every level (histogram kernel), with no
+  per-replica copy of X; a warm ``predict`` / ``predict_proba``; both
+  kernels held bit for bit against their plain versions on the fit's
+  own inputs, the histogram kernel at every replica count and level the
+  fit launched it with, in both operand modes and both accumulators;
+  kernel and dense split search cross-checked to give identical trees.
 
 The scaled-Gram kernel is also held against its plain version at
 d = 250 (``wide_gram``), and its fp32 mode against a float64 reference
@@ -106,18 +108,20 @@ def fail(phase: str, msg: str) -> None:
 def reset_launches() -> None:
     """Every kernel's launch count to 0."""
     from spark_bagging_tpu_torch.ops.gram import scaled_grams
-    from spark_bagging_tpu_torch.ops.hist import binned_left_stats
+    from spark_bagging_tpu_torch.ops.hist import bin_codes, binned_left_stats
 
     scaled_grams.launches = 0
     binned_left_stats.launches = 0
+    bin_codes.launches = 0
 
 
 def read_launches() -> dict:
     from spark_bagging_tpu_torch.ops.gram import scaled_grams
-    from spark_bagging_tpu_torch.ops.hist import binned_left_stats
+    from spark_bagging_tpu_torch.ops.hist import bin_codes, binned_left_stats
 
     return {"scaled_gram": scaled_grams.launches,
-            "binned_left_stats": binned_left_stats.launches}
+            "binned_left_stats": binned_left_stats.launches,
+            "bin_codes": bin_codes.launches}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -158,6 +162,37 @@ def phase_env() -> tuple[str, str]:
     return name, smi
 
 
+def sass_atomics(path: str) -> dict | None:
+    """Shared-memory atomic instructions of each histogram kernel in the
+    built library, by opcode (``cuobjdump -sass``): ``ATOMS.ADD`` is the
+    native add, ``ATOMS.CAST.SPIN`` the compare-and-swap loop a float
+    add compiles to. None where the toolkit has no cuobjdump."""
+    import os
+    import re
+
+    tool = "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1) if "hist_partial" in m.group(1) else None
+            continue
+        m = re.search(r"\b(ATOMS[.\w]*)", ln)
+        if fn and m:
+            # the instantiation: <code type, accumulator type>
+            key = re.search(r"hist_partialI(\w)(\w)E", fn)
+            name = "hist_partial<{},{}>".format(
+                *(dict(h="uint8", s="int16", f="float", i="int")[c]
+                  for c in key.groups()))
+            per = counts.setdefault(name, {})
+            per[m.group(1)] = per.get(m.group(1), 0) + 1
+    return counts
+
+
 def phase_build() -> None:
     from spark_bagging_tpu_torch.utils import native
 
@@ -167,7 +202,8 @@ def phase_build() -> None:
     emit("build", ok=True, seconds=time.perf_counter() - t0,
          library=native.build_info.get("path"),
          ptxas=[ln.strip() for ln in log.splitlines()
-                if "registers" in ln or "spill" in ln])
+                if "registers" in ln or "spill" in ln],
+         sass_shared_atomics=sass_atomics(native.build_info["path"]))
 
 
 def kernel_inputs(X: np.ndarray, R: int):
@@ -468,8 +504,8 @@ def phase_fit(X: np.ndarray, y: np.ndarray):
          accuracy_100k=acc, acc_bar=ACC_BAR)
     if launches <= 0 or launches != expected:
         fail("fit", f"{launches} scaled-Gram launches, expected {expected}")
-    if counts["binned_left_stats"]:
-        fail("fit", "the logistic fit launched the histogram kernel")
+    if counts["binned_left_stats"] or counts["bin_codes"]:
+        fail("fit", "the logistic fit launched a histogram kernel")
     if not acc >= ACC_BAR:
         fail("fit", f"accuracy {acc:.4f} below the bar {ACC_BAR}")
     if not np.isfinite(clf.ensemble_["W"].cpu().numpy()).all():
@@ -528,6 +564,8 @@ def tree_bagger(n_estimators: int, seed: int = 0, split_impl: str = "auto",
 
 
 def phase_tree_fit(X: np.ndarray, y: np.ndarray):
+    from spark_bagging_tpu_torch import ensemble
+
     # a small first fit loads the kernel path and the allocator, so the
     # fit below is timed as a user's later fits run
     t0 = time.perf_counter()
@@ -535,12 +573,22 @@ def phase_tree_fit(X: np.ndarray, y: np.ndarray):
     warmup_seconds = time.perf_counter() - t0
     torch.cuda.empty_cache()
     clf = tree_bagger(N_REPLICAS)
+    # count the engine's per-replica copies of X during the fit: the
+    # trees read the shared X through their column index instead
+    gather, copies = ensemble._gather_columns, []
+    ensemble._gather_columns = lambda *a: copies.append(1) or gather(*a)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    clf.fit(X, y)
+    try:
+        clf.fit(X, y)
+    finally:
+        ensemble._gather_columns = gather
     counts = read_launches()
     launches = counts["binned_left_stats"]
     rep = clf.fit_report_
+    learner = clf._fitted_learner
+    gather_bytes = learner.subspace_gather_bytes(
+        N_ROWS, rep["n_subspace"], device=torch.device("cuda"))
     # one launch per level per replica chunk
     chunk = rep["chunk_size_resolved"] or N_REPLICAS
     chunks = [min(chunk, N_REPLICAS - s) for s in range(0, N_REPLICAS, chunk)]
@@ -556,11 +604,18 @@ def phase_tree_fit(X: np.ndarray, y: np.ndarray):
          chunk_size=rep["chunk_size_resolved"],
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
          launches=counts, expected_binned_left_stats_launches=expected,
+         x_copies=len(copies), subspace_gather_bytes=gather_bytes,
          accuracy_100k=acc, majority_share_100k=majority)
     if impl != "fused":
         fail("tree_fit", f"split_impl resolved to {impl!r}, not the kernel")
     if launches <= 0 or launches != expected:
         fail("tree_fit", f"{launches} histogram launches, expected {expected}")
+    if counts["bin_codes"] != 1:
+        fail("tree_fit", f"{counts['bin_codes']} bin-codes launches, "
+             "expected one a fit")
+    if copies or gather_bytes:
+        fail("tree_fit", f"{len(copies)} per-replica copies of X "
+             f"({gather_bytes} bytes priced a replica), expected none")
     if counts["scaled_gram"]:
         fail("tree_fit", "the tree fit launched the scaled-Gram kernel")
     if not acc > majority:
@@ -568,7 +623,7 @@ def phase_tree_fit(X: np.ndarray, y: np.ndarray):
              f"share {majority:.4f}")
     if not torch.isfinite(clf.ensemble_["leaf_logp"]).all():
         fail("tree_fit", "non-finite leaf log-probabilities")
-    return clf, launches, sorted(set(chunks))
+    return clf, launches, counts["bin_codes"], sorted(set(chunks))
 
 
 def phase_tree_serve(clf, X: np.ndarray) -> None:
@@ -594,170 +649,285 @@ def phase_tree_serve(clf, X: np.ndarray) -> None:
              f"error {sums_err}")
 
 
-def record_levels(X: np.ndarray, y: np.ndarray, R: int) -> list[dict]:
-    """The histogram kernel's inputs at each level of a fit of R
-    replicas (replicas 0..R-1 of the config, one chunk): each replica's
-    gathered X and quantile edges, the level's nodes, the Poisson x
-    one-hot statistics. The fit runs through a recording wrapper, put in
-    the tree module's place only (the kernel wrapper itself is left
-    alone, launch count and all)."""
+def record_levels(X: np.ndarray, y: np.ndarray, R: int) -> dict:
+    """The histogram kernels' inputs in a fit of R replicas (replicas
+    0..R-1 of the config, one chunk): the shared X and quantile edges
+    the fit bins once, and at each level the shared codes, each
+    replica's columns and gathered edges, the level's nodes and the
+    Poisson x one-hot statistics. The fit runs through recording
+    wrappers, put in the tree module's place only (the kernel wrappers
+    themselves are left alone, launch counts and all)."""
     import types
 
     from spark_bagging_tpu_torch.models import tree as tree_mod
     from spark_bagging_tpu_torch.ops import hist as hist_ops
 
-    calls = []
+    rec = {"codes": [], "levels": []}
 
-    def recording(X, edges, node, S, *, n_nodes, hist_dtype):
-        calls.append(dict(X=X, edges=edges, node=node.clone(), S=S,
-                          N=n_nodes, hist_dtype=hist_dtype))
-        return hist_ops.binned_left_stats(X, edges, node, S, n_nodes=n_nodes,
-                                          hist_dtype=hist_dtype)
+    def codes(X, edges):
+        rec["codes"].append(dict(X=X, edges=edges))
+        return hist_ops.bin_codes(X, edges)
 
-    tree_mod.hist_ops = types.SimpleNamespace(
-        binned_left_stats=recording, launch_bytes=hist_ops.launch_bytes)
+    def level(codes, edges, node, S, *, n_nodes, hist_dtype, cols, integral):
+        rec["levels"].append(dict(codes=codes, edges=edges, node=node.clone(),
+                                  S=S, N=n_nodes, hist_dtype=hist_dtype,
+                                  cols=cols, integral=integral))
+        return hist_ops.coded_left_stats(codes, edges, node, S,
+                                         n_nodes=n_nodes, hist_dtype=hist_dtype,
+                                         cols=cols, integral=integral)
+
+    tree_mod.hist_ops = types.SimpleNamespace(**{
+        **vars(hist_ops), "bin_codes": codes, "coded_left_stats": level})
     try:
         # "fused" is what "auto" resolves to on the card
         tree_bagger(R, split_impl="fused", chunk_size=R).fit(X, y)
     finally:
         tree_mod.hist_ops = hist_ops
-    return calls
+    return rec
 
 
-def hist_library_ms(Xc, E, node, S, N: int, mode: str) -> float:
-    """Device ms of the library yardstick: per replica, one
-    ``torch.mm`` of the (F·B, n) threshold indicator with the (n, N·K)
-    node-scattered statistics, in the mode's operand type with float32
-    results (TF32 and reduced-precision reduction off), each call timed
-    alone between CUDA events and the times summed over replicas.
-    Forming the operands is not timed."""
-    from spark_bagging_tpu_torch.ops.precision import fp32_matmul
-
-    dt = torch.bfloat16 if mode == "bfloat16" else torch.float32
-    R, n, K = S.shape
-    F, B = E.shape[-2:]
-    ids = torch.arange(N, device=S.device)
-    spans = []
-    with fp32_matmul():
-        for r in range(-1, R):  # r = -1: an untimed warm-up
-            rr = max(r, 0)
-            ind = (Xc[rr].t()[:, None, :] <= E[rr][:, :, None]).reshape(
-                F * B, n).to(dt)
-            st = ((node[rr][:, None] == ids).to(dt)[:, :, None]
-                  * S[rr].to(dt)[:, None, :]).reshape(n, N * K)
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            if dt == torch.float32:
-                torch.mm(ind, st)
-            else:
-                torch.mm(ind, st, out_dtype=torch.float32)
-            stop.record()
-            if r >= 0:
-                spans.append((start, stop))
-            del ind, st
+def timed_spans(spans) -> float:
     torch.cuda.synchronize()
     return sum(a.elapsed_time(b) for a, b in spans)
 
 
+def span(fn):
+    """(start, stop) CUDA events around ``fn()``."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    return start, stop
+
+
+def hist_library_ms(codes, cols, E, node, S, N: int, mode: str) -> dict:
+    """Device ms of two library yardsticks of one level, per replica,
+    each call timed alone between CUDA events and the times summed over
+    replicas; forming the operands is not timed:
+
+    - ``index_add``, the histogram form of the function: one
+      ``index_add_`` of the replica's nonzero statistics (bf16-rounded in
+      that mode) at the flattened (feature, code, node, class) index into
+      a zeroed float32 buffer, then ``cumsum`` over the bins;
+    - ``matmul``, the indicator form: one ``torch.mm`` of the (F·B, n)
+      threshold indicator with the (n, N·K) node-scattered statistics in
+      the mode's operand type with float32 results (TF32 and
+      reduced-precision reduction off)."""
+    from spark_bagging_tpu_torch.ops.precision import bf16_round, fp32_matmul
+
+    dt = torch.bfloat16 if mode == "bfloat16" else torch.float32
+    R, n, K = S.shape
+    F, B = E.shape[-2:]
+    dev = S.device
+    ids, bins = torch.arange(N, device=dev), torch.arange(B, device=dev)
+    f_ids = torch.arange(F, device=dev)
+    buf = torch.zeros(F * (B + 1) * N * K, device=dev)
+    spans = {"index_add": [], "matmul": []}
+    with fp32_matmul():
+        for r in range(-1, R):  # r = -1: an untimed warm-up
+            rr = max(r, 0)
+            c = codes[:, cols[rr].long()]
+            rows, ks = (S[rr] != 0).nonzero(as_tuple=True)
+            vals = S[rr][rows, ks]
+            if mode == "bfloat16":
+                vals = bf16_round(vals)
+            idx = (((f_ids * (B + 1) + c[rows].long()) * N
+                    + node[rr][rows].long()[:, None]) * K
+                   + ks[:, None]).reshape(-1)
+            vals = vals[:, None].expand(-1, F).reshape(-1)
+
+            def index_add():
+                buf.zero_()
+                buf.index_add_(0, idx, vals)
+                buf.view(F, B + 1, N, K)[:, :B].cumsum(1)
+
+            ind = (c.t()[:, None, :] <= bins[None, :, None]).reshape(
+                F * B, n).to(dt)
+            st = ((node[rr][:, None] == ids).to(dt)[:, :, None]
+                  * S[rr].to(dt)[:, None, :]).reshape(n, N * K)
+            mm = ((lambda: torch.mm(ind, st)) if dt == torch.float32 else
+                  (lambda: torch.mm(ind, st, out_dtype=torch.float32)))
+            for name, fn in (("index_add", index_add), ("matmul", mm)):
+                ev = span(fn)
+                if r >= 0:
+                    spans[name].append(ev)
+            del c, idx, vals, ind, st
+    return {k: timed_spans(v) for k, v in spans.items()}
+
+
+def phase_bin_codes(rec: dict) -> dict:
+    """The bin-codes kernel on the fit's own shared X and edges, bit for
+    bit against its plain version, and at 300 bins (int16 codes) with a
+    NaN-edge suffix; times, bound and library yardstick
+    (``torch.searchsorted``, the edges' transpose not timed)."""
+    from spark_bagging_tpu_torch.ops.hist import bin_codes, bin_codes_plain
+
+    if len(rec["codes"]) != 1:
+        fail("bin_codes", f"{len(rec['codes'])} bin-codes calls in a fit")
+    Xd, E = rec["codes"][0]["X"], rec["codes"][0]["edges"]
+    n, F = Xd.shape
+    B = E.shape[1]
+    codes = bin_codes(Xd, E)
+    unequal = int((codes != bin_codes_plain(Xd, E)).sum())
+    # int16 codes: 300 sorted edges from a row sample, the last 40 of
+    # feature 0 NaN before the +inf edge
+    g = torch.Generator(device=Xd.device).manual_seed(3)
+    sample = Xd[torch.randint(0, n, (299,), generator=g, device=Xd.device)]
+    E16 = torch.cat([torch.sort(sample.t(), dim=1).values,
+                     torch.full((F, 1), float("inf"), device=Xd.device)], 1)
+    E16[0, 259:299] = float("nan")
+    E16 = E16.contiguous()
+    c16 = bin_codes(Xd, E16)
+    unequal16 = int((c16 != bin_codes_plain(Xd, E16)).sum())
+    ms = cuda_ms(lambda: bin_codes(Xd, E), 5)
+    plain_ms = cuda_ms(lambda: bin_codes_plain(Xd, E), 1)
+    Et = E.contiguous()
+    Xt = Xd.t().contiguous()
+    lib_ms = cuda_ms(lambda: torch.searchsorted(Et, Xt), 5)
+    nbytes = 4.0 * (n * F + F * B) + codes.element_size() * n * F
+    row = dict(unequal=unequal, unequal_int16=unequal16, kernel_ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes")
+    emit("bin_codes", ok=not (unequal or unequal16),
+         shape=dict(n=n, F=F, B=B), dtype=str(codes.dtype),
+         dtype_300_bins=str(c16.dtype), input_output_mb=nbytes / 1e6, **row)
+    if unequal or unequal16 or c16.dtype != torch.int16:
+        fail("bin_codes", f"{unequal} codes (and {unequal16} at 300 bins) "
+             "differ from the plain version")
+    return row
+
+
 def phase_hist_kernels(X: np.ndarray, y: np.ndarray, Rs: list[int]) -> dict:
     """The histogram kernel at every replica count and level the tree
-    fit launched it with, on that fit's own level inputs: bit for bit
-    equal to its plain version for every replica in both operand modes,
-    repeating bitwise; on float statistics within HIST_FLOAT_TOL; with
-    times, bound and library yardstick at each shape."""
+    fit launched it with, on that fit's own level inputs (shared codes
+    read through each replica's columns): bit for bit equal to its plain
+    version for every replica in both operand modes and both
+    accumulators, repeating bitwise; the plain version equal to the
+    gathered-X form on replica 0; on float statistics within
+    HIST_FLOAT_TOL; with times per replica, bounds and library
+    yardsticks at each shape. Also runs ``phase_bin_codes``."""
     from spark_bagging_tpu_torch.ops.hist import (
-        binned_left_stats,
         binned_left_stats_plain,
+        coded_left_stats,
+        coded_left_stats_plain,
         hist_geometry,
     )
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    rows = {}
+    rows, codes_row = {}, None
     for R in Rs:
-        calls = record_levels(X, y, R)
+        rec = record_levels(X, y, R)
+        calls = rec["levels"]
         if [c["N"] for c in calls] != [2**lv for lv in range(TREE["max_depth"])]:
             fail("hist_kernels", f"R={R}: recorded levels "
                  f"{[c['N'] for c in calls]}")
+        if codes_row is None:
+            codes_row = phase_bin_codes(rec)
+        Xd = rec["codes"][0]["X"]
         g = torch.Generator(device="cuda").manual_seed(R)
         for c in calls:
-            Xc, E, node, S, N = c["X"], c["edges"], c["node"], c["S"], c["N"]
-            n, F = Xc.shape[-2:]
-            B, K = E.shape[-1], S.shape[-1]
+            codes, cols, E, node, S, N = (c[k] for k in (
+                "codes", "cols", "edges", "node", "S", "N"))
+            n, F_all = codes.shape
+            F, B, K = E.shape[1], E.shape[2], S.shape[-1]
+            if not c["integral"]:
+                fail("hist_kernels", "the classifier fit did not pass "
+                     "integral statistics")
             geo = hist_geometry(n, F, B, N, K, R, n_sm)
-            nbytes = 4.0 * (Xc.numel() + E.numel() + node.numel() + S.numel()
-                            + R * F * B * N * K)
-            # the same tables read from one shared (n, 54) X and its
-            # edges through each replica's column index: what the
-            # function needs once the per-replica X copies go
-            shared_bytes = nbytes - 4.0 * (Xc.numel() + E.numel()) + 4.0 * (
-                n * N_FEATURES + N_FEATURES * B + R * F)
+            out_bytes = 4.0 * R * F * B * N * K
+            base_bytes = 4.0 * (node.numel() + S.numel() + R * F * B) + out_bytes
+            # the function over one shared (n, 54) X read through each
+            # replica's column index: X, the edges and columns read once
+            shared_bytes = base_bytes + 4.0 * (n * F_all + R * F)
+            # what the kernel reads instead of X: the shared codes
+            codes_bytes = base_bytes + codes.element_size() * n * F_all
             adds = float(R) * n * F * K
-            t_bytes, t_ops = 1e3 * nbytes / PEAK_BYTES, 1e3 * adds / PEAK_FP32
+            t_ops = 1e3 * adds / PEAK_FP32
             t_shared = max(1e3 * shared_bytes / PEAK_BYTES, t_ops)
+            t_codes = max(1e3 * codes_bytes / PEAK_BYTES, t_ops)
             # float statistics with the same zero pattern (regression-like
             # moments), on the first replicas
             Rf = min(R, N_FLOAT_CHECK_REPLICAS)
             Sf = S[:Rf] * (1.0 + 0.5 * torch.randn(
                 (Rf, n, 1), generator=g, device=S.device))
             for mode in ("bfloat16", "float32"):
-                run = (lambda: binned_left_stats(Xc, E, node, S, n_nodes=N,
-                                                 hist_dtype=mode))
-                out, again = run(), run()
+                kw = dict(n_nodes=N, hist_dtype=mode, cols=cols)
+
+                def run(integral=True):
+                    return coded_left_stats(codes, E, node, S,
+                                            integral=integral, **kw)
+
+                out, again, fout = run(), run(), run(False)
                 torch.cuda.synchronize()
                 repeat = bool(torch.equal(out, again))
-                del again
+                float_acc_equal = bool(torch.equal(out, fout))
+                del again, fout
                 unequal, max_abs, spans = 0, 0.0, []
                 for r in range(R):
-                    start = torch.cuda.Event(enable_timing=True)
-                    stop = torch.cuda.Event(enable_timing=True)
-                    start.record()
-                    plain = binned_left_stats_plain(
-                        Xc[r], E[r], node[r], S[r], n_nodes=N, hist_dtype=mode)
-                    stop.record()
-                    spans.append((start, stop))
+                    one = dict(n_nodes=N, hist_dtype=mode, cols=cols[r:r + 1])
+                    box = []
+                    spans.append(span(lambda: box.append(coded_left_stats_plain(
+                        codes, E[r:r + 1], node[r:r + 1], S[r:r + 1], **one))))
+                    plain = box[0][0]
                     unequal += not torch.equal(out[r], plain)
                     max_abs = max(max_abs, float((out[r] - plain).abs().max()))
-                    del plain
-                torch.cuda.synchronize()
-                plain_ms = sum(a.elapsed_time(b) for a, b in spans)
+                    if r == 0:  # the codes form equals the gathered-X form
+                        gathered = binned_left_stats_plain(
+                            Xd[:, cols[0].long()].contiguous(), E[0], node[0],
+                            S[0], n_nodes=N, hist_dtype=mode)
+                        unequal += not torch.equal(gathered, plain)
+                        del gathered
+                    del plain, box
+                plain_ms = timed_spans(spans)
                 del out
-                fout = binned_left_stats(Xc[:Rf], E[:Rf], node[:Rf], Sf,
-                                         n_nodes=N, hist_dtype=mode)
-                fwant = binned_left_stats_plain(Xc[:Rf], E[:Rf], node[:Rf], Sf,
-                                                n_nodes=N, hist_dtype=mode)
-                scale = binned_left_stats_plain(
-                    Xc[:Rf], E[:Rf], node[:Rf], Sf.abs(), n_nodes=N,
-                    hist_dtype=mode).clamp_min(1e-30)
+                fout = coded_left_stats(codes, E[:Rf], node[:Rf], Sf,
+                                        n_nodes=N, hist_dtype=mode,
+                                        cols=cols[:Rf])
+                fwant = coded_left_stats_plain(codes, E[:Rf], node[:Rf], Sf,
+                                               n_nodes=N, hist_dtype=mode,
+                                               cols=cols[:Rf])
+                scale = coded_left_stats_plain(
+                    codes, E[:Rf], node[:Rf], Sf.abs(), n_nodes=N,
+                    hist_dtype=mode, cols=cols[:Rf]).clamp_min(1e-30)
                 float_err = float(((fout - fwant).abs() / scale).max())
                 del fout, fwant, scale
                 kernel_ms = cuda_ms(run, 3)
-                lib_ms = hist_library_ms(Xc, E, node, S, N, mode)
+                float_acc_ms = cuda_ms(lambda: run(False), 3)
+                lib = hist_library_ms(codes, cols, E, node, S, N, mode)
                 torch.cuda.empty_cache()
                 rows[R, N, mode] = row = dict(
                     replicas_unequal=unequal, max_abs_err=max_abs,
-                    bitwise_repeat=repeat, float_max_entry_err=float_err,
-                    float_tol=HIST_FLOAT_TOL, kernel_ms=kernel_ms,
-                    plain_ms=plain_ms, library_ms=lib_ms,
-                    bound_ms=max(t_bytes, t_ops),
-                    bound_by="bytes" if t_bytes >= t_ops else "operations",
-                    bound_shared_x_ms=t_shared,
+                    bitwise_repeat=repeat, float_acc_equal=float_acc_equal,
+                    float_max_entry_err=float_err, float_tol=HIST_FLOAT_TOL,
+                    kernel_ms=kernel_ms, kernel_float_acc_ms=float_acc_ms,
+                    plain_ms=plain_ms, library_ms=lib["index_add"],
+                    library_matmul_ms=lib["matmul"], bound_ms=t_shared,
+                    bound_by="bytes" if t_shared > t_ops else "operations",
+                    bound_codes_ms=t_codes,
                 )
+                per_replica = {f"{k}_per_replica": v / R for k, v in row.items()
+                               if k.endswith("_ms")}
                 emit("hist_kernels", kernel="binned_left_stats",
-                     hist_dtype=mode, shape=dict(R=R, n=n, F=F, B=B, N=N, K=K),
+                     hist_dtype=mode, shape=dict(R=R, n=n, F=F, F_all=F_all,
+                                                 B=B, N=N, K=K),
                      geometry={k: geo[k] for k in (
-                         "f_tile", "n_tile", "splits", "row_tile", "smem")},
-                     input_output_mb=nbytes / 1e6,
+                         "n_tile", "n_tiles", "f_tile", "b_stride", "cap",
+                         "splits", "smem")},
                      shared_x_input_output_mb=shared_bytes / 1e6,
-                     matmul_form_gflop=2e-9 * R * n * F * B * N * K, **row)
-                if unequal or not repeat or not float_err <= HIST_FLOAT_TOL:
+                     codes_input_output_mb=codes_bytes / 1e6,
+                     matmul_form_gflop=2e-9 * R * n * F * B * N * K,
+                     **row, **per_replica)
+                if (unequal or not repeat or not float_acc_equal
+                        or not float_err <= HIST_FLOAT_TOL):
                     fail("hist_kernels", f"R={R} N={N} {mode}: {unequal} "
                          f"replicas unequal to plain, bitwise repeat {repeat}, "
-                         f"float error {float_err:.3g} (tol {HIST_FLOAT_TOL})")
+                         f"float accumulator equal {float_acc_equal}, float "
+                         f"error {float_err:.3g} (tol {HIST_FLOAT_TOL})")
             del Sf
-        del calls
+        del calls, rec
         torch.cuda.empty_cache()
-    return rows
+    return rows, codes_row
 
 
 def phase_tree_cross_check(X: np.ndarray, y: np.ndarray) -> None:
@@ -800,15 +970,17 @@ def main() -> int:
     phase_probe(Rs)
     phase_cross_check(X, y)
     torch.cuda.empty_cache()
-    tree, tree_launches, tree_Rs = phase_tree_fit(X, y)
+    tree, tree_launches, codes_launches, tree_Rs = phase_tree_fit(X, y)
     phase_tree_serve(tree, X)
     del tree
     torch.cuda.empty_cache()
-    hist_rows = phase_hist_kernels(X, y, tree_Rs)
+    hist_rows, codes_row = phase_hist_kernels(X, y, tree_Rs)
     phase_tree_cross_check(X, y)
     # each kernel's line reports the largest replica chunk (and, for the
     # histogram, the deepest level in the fit's bf16 mode), where its fit
-    # spends its kernel time; the phase lines hold every shape
+    # spends its kernel time; the phase lines hold every shape. The
+    # histogram's bound is the function over one shared X read through
+    # the replicas' column indices, what the fit asks of it
     f32 = rows[max(Rs)]["float32"]
     deepest = hist_rows[max(tree_Rs), 2 ** (TREE["max_depth"] - 1), "bfloat16"]
     print(json.dumps({"kernels": [{
@@ -835,6 +1007,18 @@ def main() -> int:
         "bound_ms": deepest["bound_ms"],
         "bound_by": deepest["bound_by"],
         "library_ms": deepest["library_ms"],
+    }, {
+        "name": "bin_codes",
+        "route": "cuda",
+        "source": "spark_bagging_tpu_torch/csrc/binned_left_stats.cu",
+        "replaces": "spark_bagging_tpu/ops/hist.py:66",
+        "launches": codes_launches,
+        "max_abs_err": 0.0 if not codes_row["unequal"] else None,
+        "ms": codes_row["kernel_ms"],
+        "plain_ms": codes_row["plain_ms"],
+        "bound_ms": codes_row["bound_ms"],
+        "bound_by": codes_row["bound_by"],
+        "library_ms": codes_row["library_ms"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

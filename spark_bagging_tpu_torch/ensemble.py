@@ -9,7 +9,9 @@ set. Prediction is one batched forward per chunk plus a mean or vote
 over replicas.
 
 With the identity feature subspace, X stays one shared tensor that no
-replica copies.
+replica copies; so it does for a learner that reads its subspace
+through the column index (``reads_subspace_index``, the trees).
+Prediction gathers each chunk's columns.
 """
 
 from __future__ import annotations
@@ -89,8 +91,9 @@ def fit_ensemble(
         if identity_subspace:
             Xs, prep = X, prepared
         else:
-            Xs = _gather_columns(X, idx)
             prep = learner.gather_subspace(prepared, idx)
+            Xs = (X if learner.reads_subspace_index
+                  else _gather_columns(X, idx))
         params, aux = learner.fit_from_init(
             fit_key(key, rids), Xs, y, w, n_outputs, prepared=prep
         )

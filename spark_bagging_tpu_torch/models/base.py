@@ -40,6 +40,10 @@ class BaseLearner(ParamsMixin):
 
     task: ClassVar[str]  # "classification" | "regression"
     uses_pooled_init: ClassVar[bool] = False
+    # True: ``fit`` takes the shared ``(n, d)`` X with the column index
+    # that ``gather_subspace`` puts in the prepared state, so a feature
+    # subspace makes no ``X[:, idx]`` copy
+    reads_subspace_index: ClassVar[bool] = False
 
     def pooled_amortizes(self, n_replicas: int) -> bool:
         """Is the pooled pre-pass worth running for an ensemble of this
@@ -107,6 +111,13 @@ class BaseLearner(ParamsMixin):
         subspace makes (on ``device``)."""
         del device
         return 4.0 * n_rows * n_subspace
+
+    def prepared_bytes(self, n_rows: int, n_features: int,
+                       device: torch.device | None = None) -> float:
+        """Device bytes of the replica-invariant state ``prepare``
+        keeps for the whole fit (one copy, whatever the chunk)."""
+        del n_rows, n_features, device
+        return 0.0
 
     def fit_from_init(self, keys: torch.Tensor, X: torch.Tensor,
                       y: torch.Tensor, sample_weight: torch.Tensor,

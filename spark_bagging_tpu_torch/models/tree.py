@@ -9,14 +9,19 @@ static, so a whole chunk of replicas grows together.
 - **Quantile binning, shared across replicas.** ``prepare()`` computes
   per-feature quantile bin edges once per ensemble (the engine hoists it
   out of the replica chunks); a feature subspace gathers its rows.
+- **One shared X.** A feature subspace is read through the replica's
+  column index ``cols`` (``gather_subspace``), so the engine never
+  copies X per replica (``reads_subspace_index``): routing reads
+  ``X[i, cols[r, f]]``, the same floats a gathered copy holds.
 - **Split search = one left-statistics table per level**:
   ``(R, F, B, N, K)`` weighted class counts (or regression moments) left
   of every candidate threshold. ``split_impl="fused"`` computes it with
-  the histogram kernel (ops/hist.py: CUDA on the card); ``"dense"``
-  precomputes the 0/1 threshold indicator ``T`` at prepare time and
-  multiplies it with the node-scattered statistics. ``"auto"`` takes the
-  kernel on a CUDA device, as the JAX package takes its Pallas kernel
-  on a TPU, and the dense product on the CPU.
+  the histogram kernel (ops/hist.py: CUDA on the card) from bin codes
+  of the shared X made once at prepare time; ``"dense"`` precomputes
+  the 0/1 threshold indicator ``T`` at prepare time and multiplies it
+  with the node-scattered statistics. ``"auto"`` takes the kernel on a
+  CUDA device, as the JAX package takes its Pallas kernel on a TPU, and
+  the dense product on the CPU.
 - **Weighted everything**: the Poisson bootstrap counts enter as exact
   per-row weights in the split statistics and the leaf values.
 
@@ -89,10 +94,14 @@ def _quantile_edges(X: torch.Tensor, row_mask, n_bins: int):
     return Xs[:, pos.long()], n_valid
 
 
-def _take_feature(X: torch.Tensor, f_row: torch.Tensor) -> torch.Tensor:
+def _take_feature(X: torch.Tensor, f_row: torch.Tensor,
+                  cols: torch.Tensor | None = None) -> torch.Tensor:
     """``X[i, f_row[r, i]]`` per replica: ``(R, n)`` from a shared
-    ``(n, F)`` or a per-replica ``(R, n, F)`` X."""
+    ``(n, F)`` or a per-replica ``(R, n, F)`` X; with ``cols`` ``(R,
+    k)``, ``X[i, cols[r, f_row[r, i]]]`` from the shared X."""
     idx = f_row.long()
+    if cols is not None:
+        idx = cols.long().gather(1, idx)
     if X.dim() == 2:
         return X[torch.arange(X.shape[0], device=X.device), idx]
     return X.gather(2, idx[..., None])[..., 0]
@@ -100,6 +109,8 @@ def _take_feature(X: torch.Tensor, f_row: torch.Tensor) -> torch.Tensor:
 
 class _TreeBase(BaseLearner):
     """Shared growth engine of the classifier and regressor trees."""
+
+    reads_subspace_index = True
 
     def __init__(
         self,
@@ -189,23 +200,31 @@ class _TreeBase(BaseLearner):
     # -- prepare hook ---------------------------------------------------
 
     def prepare(self, X, *, row_mask=None):
-        """Bin edges ``(F, B)`` (last edge +inf) and, for the dense path,
-        the threshold indicator, kept transposed as ``(F, B, n)`` int8
-        so a subspace gathers whole ``(B, n)`` slices."""
+        """Bin edges ``(F, B)`` (last edge +inf) and, for the kernel
+        path, the bin codes of X ``(n, F)`` (ops/hist.bin_codes: one
+        kernel launch a fit on the card); for the dense path the
+        threshold indicator, kept transposed as ``(F, B, n)`` int8 so a
+        subspace gathers whole ``(B, n)`` slices."""
         interior, _ = _quantile_edges(X, row_mask, self.n_bins)
         F = X.shape[1]
         edges = torch.cat([interior, torch.full(
             (F, 1), math.inf, dtype=X.dtype, device=X.device)], dim=1)
+        edges = edges.contiguous()
         if self._resolved_impl(X.device) == "fused":
-            return {"edges": edges.contiguous()}
+            return {"edges": edges, "codes": hist_ops.bin_codes(X, edges)}
         T = (X.t()[:, None, :] <= edges[:, :, None]).to(torch.int8)
-        return {"edges": edges.contiguous(), "T": T}
+        return {"edges": edges, "T": T}
 
     def gather_subspace(self, prepared, idx):
-        idx = idx.long()
-        out = {"edges": prepared["edges"][idx]}      # (R, k, B)
-        if "T" in prepared:
-            out["T"] = prepared["T"][idx]            # (R, k, B, n)
+        """Each replica's edges and its column index ``cols`` ``(R,
+        k)`` into the shared X and codes; the dense path gathers its
+        indicator slices."""
+        out = {"edges": prepared["edges"][idx.long()],   # (R, k, B)
+               "cols": idx.to(torch.int32).contiguous()}
+        if "codes" in prepared:
+            out["codes"] = prepared["codes"]             # shared (n, F)
+        else:
+            out["T"] = prepared["T"][idx.long()]         # (R, k, B, n)
         return out
 
     def flops_per_fit(self, n_rows, n_features, n_outputs):
@@ -242,13 +261,21 @@ class _TreeBase(BaseLearner):
         return float(per)
 
     def subspace_gather_bytes(self, n_rows, n_subspace, device=None):
-        # the gathered (n, k) f32 X; on the dense path also the gathered
-        # int8 indicator slices and their operand-type copy in _grow.
-        base = 4.0 * n_rows * n_subspace
+        # no copy of X (reads_subspace_index): the kernel path gathers
+        # nothing per replica; the dense path gathers its int8
+        # indicator slices and their operand-type copy in _grow.
         if self._resolved_impl(device) == "dense":
             item = _HIST_DTYPES[self._hdt(device)].itemsize
-            base += (1 + item) * n_rows * n_subspace * self.n_bins
-        return base
+            return (1.0 + item) * n_rows * n_subspace * self.n_bins
+        return 0.0
+
+    def prepared_bytes(self, n_rows, n_features, device=None):
+        # one copy for the whole fit: the bin codes on the kernel path,
+        # the int8 indicator on the dense path
+        if self._resolved_impl(device) == "dense":
+            return float(n_rows * n_features * self.n_bins)
+        item = hist_ops.code_dtype(self.n_bins).itemsize
+        return float(item * n_rows * n_features)
 
     # -- growth ---------------------------------------------------------
 
@@ -316,18 +343,22 @@ class _TreeBase(BaseLearner):
                     out[r] = torch.mm(a, stats[r], out_dtype=torch.float32)
         return out
 
-    def _grow(self, X, S, prepared, keys=None):
+    def _grow(self, X, S, prepared, keys=None, integral=False):
         """Level-synchronous growth of R trees; returns (feature,
         threshold, per-node gain, leaf index per row, per-level impurity
         curve), each with a leading replica axis.
 
-        ``X`` ``(n, F)`` shared or ``(R, n, F)``; ``S`` ``(R, n, K)``,
-        the per-row statistics whose left/right sums drive the impurity;
-        ``keys`` ``(R, 2)``, the replicas' fit keys, seed the per-split
-        feature masks when ``feature_subset`` is set.
+        ``X`` ``(n, F)`` shared or ``(R, n, F)``, read through
+        ``prepared["cols"]`` where the subspace gave one; ``S`` ``(R, n,
+        K)``, the per-row statistics whose left/right sums drive the
+        impurity (``integral``: they are integers, which the kernel then
+        sums exactly in int32); ``keys`` ``(R, 2)``, the replicas' fit
+        keys, seed the per-split feature masks when ``feature_subset``
+        is set.
         """
         R, n, K = S.shape
-        F = X.shape[-1]
+        cols = prepared.get("cols")
+        F = X.shape[-1] if cols is None else cols.shape[-1]
         B, d = self.n_bins, self.max_depth
         k_split = self._n_split_features(F)
         if k_split is not None and keys is None:
@@ -338,7 +369,7 @@ class _TreeBase(BaseLearner):
         X = X.contiguous()
         S = S.contiguous()
         edges = prepared["edges"]
-        fused = "T" not in prepared
+        fused = "codes" in prepared
         hdt = self._hdt(S.device)
         if not fused:
             T = prepared["T"]
@@ -349,8 +380,9 @@ class _TreeBase(BaseLearner):
         for level in range(d):
             N = 2**level
             if fused:
-                hist = hist_ops.binned_left_stats(
-                    X, edges, node, S, n_nodes=N, hist_dtype=hdt)
+                hist = hist_ops.coded_left_stats(
+                    prepared["codes"], edges, node, S, n_nodes=N,
+                    hist_dtype=hdt, cols=cols, integral=integral)
             else:
                 hist = self._dense_left_stats(Tf, Sh, node, N)
             hist = hist.reshape(R, F, B, N, K)
@@ -363,7 +395,7 @@ class _TreeBase(BaseLearner):
             gains.append(gain)
             f_row = bf.gather(1, node.long())
             t_row = thr.gather(1, node.long())
-            x_sel = _take_feature(X, f_row)
+            x_sel = _take_feature(X, f_row, cols)
             node = node * 2 + (x_sel > t_row).to(torch.int32)
         return (torch.cat(feats, dim=1), torch.cat(thrs, dim=1),
                 torch.cat(gains, dim=1), node, torch.stack(curve, dim=1))
@@ -489,9 +521,16 @@ class DecisionTreeClassifier(_TreeBase):
         if prepared is None:
             prepared = self.prepare(X)
         C = params["leaf_logp"].shape[-1]
-        S = self._row_stats(y, sample_weight.to(torch.float32), C)
+        w = sample_weight.to(torch.float32)
+        S = self._row_stats(y, w, C)
+        # bootstrap counts (or 0/1, or unit weights) times one-hot
+        # classes are integers, which the kernel sums exactly in int32
+        # while a replica's total weight, the bound of every sum, stays
+        # well inside it; a fractional sample_weight makes them floats
+        integral = bool(torch.equal(w, torch.floor(w))
+                        and w.sum(-1).max() < 2.0**30)
         feature, threshold, gain, node, curve = self._grow(
-            X, S, prepared, keys
+            X, S, prepared, keys, integral=integral
         )
         counts = self._leaf_stats(node, S)  # (R, L, C)
         return self._finalize_leaves(feature, threshold, gain, counts, curve)

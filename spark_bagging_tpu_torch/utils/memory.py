@@ -47,7 +47,8 @@ def auto_chunk_size(
     """Resolve ``chunk_size=None`` to a concrete chunk, or None (all
     replicas in one chunk). A gathered feature subspace adds its
     per-replica copy of X (and whatever the learner gathers with it:
-    a dense tree's indicator slices)."""
+    a dense tree's indicator slices). The learner's replica-invariant
+    prepared state (a tree's bin codes) comes off the budget once."""
     per = learner.fit_workset_bytes(n_rows, n_subspace, n_outputs,
                                     device=device)
     if per is None:
@@ -59,6 +60,9 @@ def auto_chunk_size(
                                              device=device)
     if budget_bytes is None:
         budget_bytes = device_memory_budget(device)
+    budget_bytes -= learner.prepared_bytes(
+        n_rows, n_subspace if n_features is None else n_features,
+        device=device)
     if per * n_replicas <= budget_bytes:
         return None
     return max(1, min(n_replicas, int(budget_bytes // per)))

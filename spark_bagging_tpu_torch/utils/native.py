@@ -141,13 +141,21 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sbt_scaled_gram.restype = i32
     lib.sbt_gram_mma_probe.argtypes = [vp, vp, vp, vp, i32, vp]
     lib.sbt_gram_mma_probe.restype = i32
+    lib.sbt_bin_codes.argtypes = [
+        vp, i64, vp, i64, vp,              # X, x_rstride, E, e_rstride, codes
+        i64, i32, i32, i32,                # n, F, B, R
+        i32, i32, vp,                      # code_bytes, blocks, stream
+    ]
+    lib.sbt_bin_codes.restype = i32
     lib.sbt_binned_left_stats.argtypes = [
-        vp, i64, vp, i64,                  # X, x_rstride, edges, e_rstride
+        vp, i64, i32, i32, vp,             # codes, c_rstride, c_row, bytes, cols
+        vp, i64,                           # edges, e_rstride
         vp, vp, vp, vp,                    # node, S, out, partials
-        i32, i32, i32, i32, i32, i32,      # n, F, B, N, K, R
+        i32, i32, i32, i32, i32, i32, i32,  # n, F, B, b0, N, K, R
         i32, i32, i32, i32,                # f_tile n_tile f_tiles n_tiles
-        i32, i32, i32, i32,                # row_tile splits rows smem
-        i32, vp,                           # bf16, stream
+        i32, i32,                          # b_stride cap
+        i32, i32, i32,                     # splits rows_per_split smem
+        i32, i32, vp,                      # bf16, integral, stream
     ]
     lib.sbt_binned_left_stats.restype = i32
     lib.sbt_cuda_error_string.argtypes = [i32]

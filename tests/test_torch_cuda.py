@@ -152,7 +152,7 @@ def test_hist_kernel_bitwise_equal_to_plain(cuda, shape, hist_dtype, shared):
         *args, n_nodes=N, hist_dtype=hist_dtype))
 
 
-@pytest.mark.parametrize("B,K", [(8000, 7), (32, 1000)])
+@pytest.mark.parametrize("B,K", [(9000, 7), (32, 2000)])
 def test_hist_kernel_tiles_tables_beyond_one_block(cuda, B, K):
     # (B, K) slices beyond one block's shared memory: the wrapper splits
     # bins (and, where needed, classes) over launches of the same kernel
@@ -189,6 +189,131 @@ def test_hist_kernel_float_stats_within_tolerance(cuda):
                                         hist_dtype=mode).clamp_min(1e-30)
         # the same float32 terms summed in another order
         assert float(((out - want).abs() / scale).max()) <= 1e-5
+
+
+def _coded_inputs(rng, n, F_all, F, B, N, K, R, *, shared, stats="onehot"):
+    """Bin codes of X with NaN rows, x on edges, a NaN edge suffix and
+    duplicate edges; each replica's columns (a permutation's first F);
+    nodes with rows outside the level; integer or float statistics."""
+    from spark_bagging_tpu_torch.ops.hist import bin_codes_plain
+
+    X, edges, node, S = _hist_inputs(rng, n, F_all, B, N, K, R, shared=True,
+                                     stats=stats)
+    edges[1, B // 2:B - 1] = np.nan       # a NaN edge suffix before +inf
+    edges[2, 1:3] = edges[2, 1]           # duplicate edges
+    codes = bin_codes_plain(X, edges)
+    cols = torch.from_numpy(np.stack([
+        rng.permutation(F_all)[:F] for _ in range(R)]).astype(np.int32))
+    gathered = edges[cols.long()].contiguous()          # (R, F, B)
+    if not shared:
+        codes = torch.stack([codes] * R).contiguous()
+    return codes, cols, gathered, node, S, X
+
+
+@pytest.mark.parametrize("B", [32, 255, 300])
+@pytest.mark.parametrize("shared", [True, False])
+def test_bin_codes_kernel_bitwise_equal_to_plain(cuda, B, shared):
+    from spark_bagging_tpu_torch.ops.hist import bin_codes, bin_codes_plain
+
+    rng = np.random.default_rng(B)
+    n, F, R = 7000, 9, 3
+    X = rng.standard_normal((n, F) if shared else (R, n, F)).astype(np.float32)
+    e = np.sort(rng.standard_normal((F, B - 1)), axis=-1).astype(np.float32)
+    edges = np.concatenate([e, np.full((F, 1), np.inf, np.float32)], axis=1)
+    edges[0, B // 3:B - 1] = np.nan        # NaN edge suffix
+    edges[1, 2:6] = edges[1, 2]            # duplicate edges
+    Xv = X.reshape(-1, n, F)
+    Xv[:, ::13, 3] = np.nan
+    Xv[:, ::7, 1] = edges[1, 2]            # x on a duplicated edge
+    Xv[:, ::11, 2] = np.inf
+    Xv[:, ::17, 4] = -np.inf
+    edges_t = torch.from_numpy(edges)
+    if not shared:  # per-replica edges too
+        edges_t = torch.stack([edges_t] * R).contiguous()
+    X_t = torch.from_numpy(X)
+    before = bin_codes.launches
+    got = bin_codes(X_t.to(cuda), edges_t.to(cuda))
+    torch.cuda.synchronize()
+    assert bin_codes.launches == before + 1
+    want = bin_codes_plain(X_t, edges_t)
+    assert got.dtype == (torch.uint8 if B <= 255 else torch.int16)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("integral", [False, True])
+@pytest.mark.parametrize("hist_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("shape", [
+    (20000, 54, 43, 32, 16, 7, 4),  # the headline level shape
+    (5000, 13, 9, 16, 1, 5, 3),     # one node, split rows
+    (3000, 7, 5, 32, 300, 3, 2),    # node tiles
+    (2000, 4, 3, 300, 2, 2, 2),     # int16 codes
+])
+def test_coded_hist_kernel_bitwise_equal_to_plain(cuda, shape, shared,
+                                                  hist_dtype, integral):
+    from spark_bagging_tpu_torch.ops.hist import (
+        binned_left_stats,
+        coded_left_stats,
+        coded_left_stats_plain,
+    )
+
+    n, F_all, F, B, N, K, R = shape
+    codes, cols, edges, node, S, _ = _coded_inputs(
+        np.random.default_rng(n + F), n, F_all, F, B, N, K, R, shared=shared)
+    args = [t.to(cuda) for t in (codes, edges, node, S)]
+    kw = dict(n_nodes=N, hist_dtype=hist_dtype, cols=cols.to(cuda))
+    before = binned_left_stats.launches
+    out = coded_left_stats(*args, integral=integral, **kw)
+    again = coded_left_stats(*args, integral=integral, **kw)
+    torch.cuda.synchronize()
+    assert binned_left_stats.launches == before + 2
+    assert out.shape == (R, F, B, N, K)
+    # integer statistics: exact in any order, so equal bit for bit and
+    # repeatable despite the shared-memory atomics
+    assert torch.equal(out, again)
+    assert torch.equal(out, coded_left_stats_plain(*args, **kw))
+
+
+def test_coded_hist_kernel_float_stats_within_tolerance(cuda):
+    from spark_bagging_tpu_torch.ops.hist import (
+        coded_left_stats,
+        coded_left_stats_plain,
+    )
+
+    codes, cols, edges, node, S, _ = _coded_inputs(
+        np.random.default_rng(10), 30000, 20, 11, 32, 8, 3, 3, shared=True,
+        stats="float")
+    args = [t.to(cuda) for t in (codes, edges, node, S)]
+    for mode in ("float32", "bfloat16"):
+        kw = dict(n_nodes=8, hist_dtype=mode, cols=cols.to(cuda))
+        out = coded_left_stats(*args, **kw)
+        want = coded_left_stats_plain(*args, **kw)
+        scale = coded_left_stats_plain(*args[:3], args[3].abs(),
+                                       **kw).clamp_min(1e-30)
+        # the same float32 terms summed in another order
+        assert float(((out - want).abs() / scale).max()) <= 1e-5
+
+
+def test_coded_hist_kernel_tiles_bins_beyond_one_block(cuda):
+    # 9,000 bins (int16 codes) through columns: bin slices of the codes
+    # numbering, each its own launch, assemble the whole table
+    from spark_bagging_tpu_torch.ops.hist import (
+        binned_left_stats,
+        coded_left_stats,
+        coded_left_stats_plain,
+        stat_tiles,
+    )
+
+    B, K, N = 9000, 7, 2
+    codes, cols, edges, node, S, _ = _coded_inputs(
+        np.random.default_rng(11), 4000, 6, 3, B, N, K, 2, shared=True)
+    args = [t.to(cuda) for t in (codes, edges, node, S)]
+    kw = dict(n_nodes=N, hist_dtype="bfloat16", cols=cols.to(cuda))
+    before = binned_left_stats.launches
+    out = coded_left_stats(*args, integral=True, **kw)
+    torch.cuda.synchronize()
+    assert binned_left_stats.launches - before == len(stat_tiles(B, K)) > 1
+    assert torch.equal(out, coded_left_stats_plain(*args, **kw))
 
 
 def test_tree_fit_on_card_matches_cpu(cuda):

@@ -288,15 +288,96 @@ def test_memory_model_prices_the_tree_fit():
     table = 4.0 * k * 32 * 16 * C
     leaf_onehot = 4.0 * n * 32
     assert per >= leaf_onehot + 4 * table + 2 * 4.0 * n * C
+    # the kernel path reads the shared X through each replica's columns:
+    # no per-replica copy; its uint8 bin codes are priced once (31 MB)
     gather = t.subspace_gather_bytes(n, k, device=cuda)
-    assert gather == 4.0 * n * k  # the gathered X (99.9 MB); no T on the kernel path
+    assert gather == 0.0
+    assert t.prepared_bytes(n, F, device=cuda) == 1.0 * n * F
+    assert T.DecisionTreeClassifier(n_bins=300).prepared_bytes(
+        n, F, device=cuda) == 2.0 * n * F  # int16 codes
+    # the dense path gathers its int8 indicator slices and their bf16
+    # copy, and keeps the shared indicator once
     dense = T.DecisionTreeClassifier(split_impl="dense")
-    assert dense.subspace_gather_bytes(n, k, device=cuda) == \
-        4.0 * n * k + 3.0 * n * k * 32
+    assert dense.subspace_gather_bytes(n, k, device=cuda) == 3.0 * n * k * 32
+    assert dense.prepared_bytes(n, F, device=cuda) == 1.0 * n * F * 32
     budget = 10 * 2**30
     chunk = auto_chunk_size(t, n, k, C, 256, cuda, budget_bytes=budget,
                             n_features=F)
-    assert chunk == int(budget // (per + gather + 48.0 * n))
+    assert chunk == int((budget - n * F) // (per + 48.0 * n))
+
+
+@pytest.mark.parametrize("split_impl", ["fused", "dense"])
+def test_shared_x_fit_equals_the_gathered_fit(data, split_impl, monkeypatch):
+    # reads_subspace_index: the engine hands the shared X and the trees
+    # read it (and the shared codes) through each replica's columns; a
+    # learner that takes gathered copies instead (X[:, idx] and, on the
+    # kernel path, per-replica codes) grows identical trees
+    from spark_bagging_tpu_torch import ensemble
+
+    class Gathered(T.DecisionTreeClassifier):
+        reads_subspace_index = False
+
+        def gather_subspace(self, prepared, idx):
+            out = super().gather_subspace(prepared, idx)
+            cols = out.pop("cols").long()
+            if "codes" in out:
+                out["codes"] = out["codes"][:, cols].permute(1, 0, 2).contiguous()
+            return out
+
+    X, y = data
+    copies = []
+    gather = ensemble._gather_columns
+    monkeypatch.setattr(ensemble, "_gather_columns",
+                        lambda *a: copies.append(1) or gather(*a))
+    fits = {}
+    for cls in (T.DecisionTreeClassifier, Gathered):
+        del copies[:]
+        fits[cls] = T.BaggingClassifier(
+            cls(split_impl=split_impl, **TREE), n_estimators=5,
+            max_features=0.7, bootstrap_features=True, seed=3, chunk_size=2,
+            device="cpu").fit(X, y)
+        # one X copy a chunk for the gathered learner, none for the tree
+        assert len(copies) == (0 if cls is T.DecisionTreeClassifier else 3)
+    a, b = fits[T.DecisionTreeClassifier], fits[Gathered]
+    for key in ("feature", "threshold", "gain", "leaf_logp"):
+        assert torch.equal(a.ensemble_[key], b.ensemble_[key]), key
+    np.testing.assert_array_equal(a.predict_proba(X), b.predict_proba(X))
+
+
+@pytest.mark.parametrize("scale,integral", [
+    (1.0, True), (0.5, False), (2.0**23, False)])
+def test_classifier_passes_integral_statistics(data, monkeypatch, scale,
+                                               integral):
+    # Poisson counts times one-hot classes are integers, summed in int32
+    # on the card; fractional weights, or totals near int32's range, are
+    # not
+    from spark_bagging_tpu_torch.ops import hist
+
+    X, y = data
+    seen = []
+    coded = hist.coded_left_stats
+    monkeypatch.setattr(hist, "coded_left_stats", lambda *a, **kw: (
+        seen.append(kw["integral"]) or coded(*a, **kw)))
+    t = T.DecisionTreeClassifier(split_impl="fused", max_depth=2, n_bins=8)
+    Xt = torch.from_numpy(X)
+    w = torch.from_numpy(np.random.default_rng(0).poisson(
+        1.0, (2, X.shape[0])).astype(np.float32)) * scale
+    t.fit(t.init_params(tboot.fit_key(prng.key(0), torch.arange(2)), 10, 3),
+          Xt, torch.from_numpy(y), w,
+          tboot.fit_key(prng.key(0), torch.arange(2)))
+    assert seen == [integral] * 2
+
+
+def test_take_feature_through_columns_reads_the_gathered_values():
+    rng = np.random.default_rng(5)
+    X = torch.from_numpy(rng.standard_normal((30, 6)).astype(np.float32))
+    X[3, 2] = float("nan")
+    cols = torch.tensor([[2, 0, 5], [1, 2, 3]], dtype=torch.int32)
+    f_row = torch.from_numpy(rng.integers(0, 3, (2, 30)).astype(np.int32))
+    Xg = X[:, cols.long()].permute(1, 0, 2).contiguous()
+    got = ttree._take_feature(X, f_row, cols)
+    want = ttree._take_feature(Xg, f_row)
+    assert torch.equal(torch.nan_to_num(got, 9.0), torch.nan_to_num(want, 9.0))
 
 
 def test_tree_hyperparams_validated():
