@@ -26,6 +26,22 @@ The scaled-Gram kernel is also held against its plain version at
 d = 250 (``wide_gram``), and its fp32 mode against a float64 reference
 at a shallow and at the capped accumulation depth (``depth``).
 
+Then the regressors, on the 80% training split of the 20,640 x 8
+standardized synthetic California housing:
+
+- ``reg_fit``: BASELINE config 2, ``BaggingRegressor(LinearRegression(
+  l2=1e-4), n_estimators=100)``: its test RMSE within 2% of a float64
+  numpy ridge fit on the same rows, and ``predict`` (the host-side mean
+  coefficients) against the device forward of ``aggregated_forward()``.
+  This path runs no kernel: the ridge Gram is a plain batched product;
+- ``rf_reg_fit``: ``RandomForestRegressor(n_estimators=128,
+  max_depth=5)`` (config 6's shape): the histogram kernel's float
+  accumulator on the moments (w, w y, w y^2), bin codes once a fit;
+  ``reg_hist_kernels`` holds that accumulator against its plain version
+  at every level the fit launched, on the fit's own inputs;
+- ``reg_tree_cross_check``: the same forest with the kernel and with the
+  dense product on the card, whose R^2 may differ by at most 0.01.
+
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. Every phase prints JSON lines; a failed check
 exits non-zero. The last lines are the kernel table, the card's name
@@ -94,6 +110,28 @@ N_FLOAT_CHECK_REPLICAS = 8
 # of m terms is off by at most ~m * 2**-24 of its scale, ~1e-6 at the
 # rows one block adds into one bin. Integer statistics are held bitwise.
 HIST_FLOAT_TOL = 1e-5
+# the regressors: BASELINE config 2 (benchmarks/run_configs.py:184-228)
+# on the full 20,640-row synthetic California housing, split 80/20
+N_CAL_ROWS = 20_640
+REG = dict(n_estimators=100, l2=1e-4)
+# config 2's quality check: the bagged ridge's test RMSE within 2% of a
+# float64 ridge fit of the same objective on the same training rows
+REG_RMSE_REL = 0.02
+# predict (host matvec of the mean coefficients) vs the device forward,
+# max abs over the test rows: float32 sums of the same terms
+COLLAPSE_TOL = 1e-4
+# a forest regressor of config 6's shape (run_configs.py:419-464)
+RF_REG = dict(n_estimators=128, max_depth=5)
+# test R^2 bar of the forest: a constant prediction scores 0 and the
+# ridge (the best model of this linear data) ~0.91; a depth-5 forest of
+# axis-aligned splits approximates the 8-feature linear trend in 32
+# steps a tree and scored 0.668 with 16 trees on the CPU, so 0.5 is a
+# clear margin above 0 with room for the bf16 moments on the card
+RF_R2_BAR = 0.5
+# kernel vs dense forests on the card: near-tied splits may flip under
+# float sums in another order, so the trees need not be equal; their
+# test R^2 must agree within this
+RF_CROSS_R2_TOL = 0.01
 
 
 def emit(phase: str, **fields) -> None:
@@ -112,6 +150,7 @@ def reset_launches() -> None:
 
     scaled_grams.launches = 0
     binned_left_stats.launches = 0
+    binned_left_stats.float_launches = 0
     bin_codes.launches = 0
 
 
@@ -121,6 +160,7 @@ def read_launches() -> dict:
 
     return {"scaled_gram": scaled_grams.launches,
             "binned_left_stats": binned_left_stats.launches,
+            "binned_left_stats_float": binned_left_stats.float_launches,
             "bin_codes": bin_codes.launches}
 
 
@@ -142,11 +182,20 @@ def cuda_ms(fn, reps: int) -> float:
 def headline_data():
     """Standardized synthetic covtype, as benchmarks/headline_data.py
     builds it for bench.py."""
-    from spark_bagging_tpu_torch.utils.datasets import synthetic_covtype
+    from spark_bagging_tpu_torch.utils.datasets import standardize, synthetic_covtype
 
     X, y = synthetic_covtype(N_ROWS)
-    mu, sigma = X.mean(0), X.std(0) + 1e-8
-    return ((X - mu) / sigma).astype(np.float32), y
+    return standardize(X), y
+
+
+def regression_data():
+    """BASELINE config 2's data: the standardized synthetic California
+    housing, split 80/20 as benchmarks/run_configs.py splits it:
+    ``(X_train, y_train, X_test, y_test)``."""
+    from spark_bagging_tpu_torch.utils import datasets
+
+    X, y = datasets.synthetic_california(N_CAL_ROWS)
+    return datasets.train_test_split(datasets.standardize(X), y)
 
 
 def phase_env() -> tuple[str, str]:
@@ -649,14 +698,15 @@ def phase_tree_serve(clf, X: np.ndarray) -> None:
              f"error {sums_err}")
 
 
-def record_levels(X: np.ndarray, y: np.ndarray, R: int) -> dict:
+def record_levels(X: np.ndarray, y: np.ndarray, R: int, est=None) -> dict:
     """The histogram kernels' inputs in a fit of R replicas (replicas
     0..R-1 of the config, one chunk): the shared X and quantile edges
     the fit bins once, and at each level the shared codes, each
     replica's columns and gathered edges, the level's nodes and the
-    Poisson x one-hot statistics. The fit runs through recording
-    wrappers, put in the tree module's place only (the kernel wrappers
-    themselves are left alone, launch counts and all)."""
+    statistics (Poisson x one-hot for the classifier trees, the moments
+    of a regressor ``est``; default the config-3 bagger). The fit runs
+    through recording wrappers, put in the tree module's place only (the
+    kernel wrappers themselves are left alone, launch counts and all)."""
     import types
 
     from spark_bagging_tpu_torch.models import tree as tree_mod
@@ -680,7 +730,7 @@ def record_levels(X: np.ndarray, y: np.ndarray, R: int) -> dict:
         **vars(hist_ops), "bin_codes": codes, "coded_left_stats": level})
     try:
         # "fused" is what "auto" resolves to on the card
-        tree_bagger(R, split_impl="fused", chunk_size=R).fit(X, y)
+        (est or tree_bagger(R, split_impl="fused", chunk_size=R)).fit(X, y)
     finally:
         tree_mod.hist_ops = hist_ops
     return rec
@@ -756,7 +806,7 @@ def hist_library_ms(codes, cols, E, node, S, N: int, mode: str) -> dict:
     return {k: timed_spans(v) for k, v in spans.items()}
 
 
-def phase_bin_codes(rec: dict) -> dict:
+def phase_bin_codes(rec: dict, path: str = "tree") -> dict:
     """The bin-codes kernel on the fit's own shared X and edges, bit for
     bit against its plain version, and at 300 bins (int16 codes) with a
     NaN-edge suffix; times, bound and library yardstick
@@ -789,7 +839,7 @@ def phase_bin_codes(rec: dict) -> dict:
     row = dict(unequal=unequal, unequal_int16=unequal16, kernel_ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms,
                bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes")
-    emit("bin_codes", ok=not (unequal or unequal16),
+    emit("bin_codes", ok=not (unequal or unequal16), path=path,
          shape=dict(n=n, F=F, B=B), dtype=str(codes.dtype),
          dtype_300_bins=str(c16.dtype), input_output_mb=nbytes / 1e6, **row)
     if unequal or unequal16 or c16.dtype != torch.int16:
@@ -946,6 +996,261 @@ def phase_tree_cross_check(X: np.ndarray, y: np.ndarray) -> None:
         fail("tree_cross_check", f"fused and dense trees differ: {same}")
 
 
+def ridge_rmse(Xtr, ytr, Xte, yte, l2: float) -> float:
+    """Test RMSE of config 2's objective solved once in float64 on the
+    host: (Xb^T Xb + l2 n diag(1, ..., 1, 1e-8)) beta = Xb^T y, the
+    unweighted fit every bootstrap replica approximates."""
+    from spark_bagging_tpu_torch.utils.metrics import rmse
+
+    Xb = np.c_[Xtr.astype(np.float64), np.ones(len(ytr))]
+    pen = np.r_[np.full(Xtr.shape[1], l2), 1e-8] * len(ytr)
+    beta = np.linalg.solve(Xb.T @ Xb + np.diag(pen),
+                           Xb.T @ ytr.astype(np.float64))
+    return rmse(yte, np.c_[Xte, np.ones(len(yte))] @ beta)
+
+
+def phase_reg_fit(split) -> None:
+    """BASELINE config 2 on the card: the fit, its test RMSE against a
+    float64 ridge, and ``predict`` (the collapse to mean coefficients)
+    against the device forward. The linear path runs no kernel."""
+    from spark_bagging_tpu_torch import BaggingRegressor, LinearRegression
+    from spark_bagging_tpu_torch.utils.metrics import r2_score, rmse
+
+    Xtr, ytr, Xte, yte = split
+    learner = LinearRegression(l2=REG["l2"])
+    # a small first fit loads cuBLAS and cuSOLVER, so the fit below is
+    # timed as a user's later fits run
+    t0 = time.perf_counter()
+    BaggingRegressor(LinearRegression(l2=REG["l2"]), n_estimators=8,
+                     seed=1).fit(Xtr[:2000], ytr[:2000])
+    warmup_seconds = time.perf_counter() - t0
+    reg = BaggingRegressor(learner, n_estimators=REG["n_estimators"], seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    reg.fit(Xtr, ytr)
+    counts = read_launches()
+    rep = reg.fit_report_
+    reg.predict(Xte)  # warm-up
+    t0 = time.perf_counter()
+    pred = reg.predict(Xte)
+    predict_seconds = time.perf_counter() - t0
+    fn, params, subs = reg.aggregated_forward()
+    Xd = torch.as_tensor(Xte, device="cuda")
+    device_pred = fn(params, subs, Xd).cpu().numpy()
+    forward_ms = cuda_ms(lambda: fn(params, subs, Xd), 5)
+    collapse_err = float(np.abs(pred - device_pred).max())
+    err, r2 = rmse(yte, pred), r2_score(yte, pred)
+    ref = ridge_rmse(Xtr, ytr, Xte, yte, REG["l2"])
+    rel = abs(err - ref) / ref
+    emit("reg_fit", ok=True, n_train=len(ytr), n_test=len(yte),
+         n_features=Xtr.shape[1], n_replicas=REG["n_estimators"],
+         warmup_fit_seconds=warmup_seconds, fit_seconds=rep["fit_seconds"],
+         fits_per_sec=rep["fits_per_sec"], h2d_seconds=rep["h2d_seconds"],
+         chunk_size=rep["chunk_size_resolved"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+         launches=counts, test_rmse=err, test_r2=r2,
+         ridge_float64_rmse=ref, rmse_rel_diff=rel, rmse_rel_tol=REG_RMSE_REL,
+         collapse_vs_device_max_abs=collapse_err, collapse_tol=COLLAPSE_TOL,
+         predict_seconds=predict_seconds,
+         device_forward_ms=forward_ms)
+    if any(counts.values()):
+        fail("reg_fit", f"the linear fit launched a kernel: {counts}")
+    if not torch.isfinite(reg.ensemble_["beta"]).all():
+        fail("reg_fit", "non-finite coefficients")
+    if not rel <= REG_RMSE_REL:
+        fail("reg_fit", f"test RMSE {err:.5f} is {rel:.3%} from the float64 "
+             f"ridge's {ref:.5f} (limit {REG_RMSE_REL:.0%})")
+    if not collapse_err <= COLLAPSE_TOL:
+        fail("reg_fit", f"predict and the device forward differ by "
+             f"{collapse_err:.3g} (limit {COLLAPSE_TOL})")
+
+
+def rf_regressor(n_estimators: int = RF_REG["n_estimators"], seed: int = 0,
+                 split_impl: str = "auto", chunk_size: int | None = None):
+    """The forest regressor of config 6's shape: depth 5, 32 bins, a
+    third of the features a split (bf16 moments, float accumulator)."""
+    from spark_bagging_tpu_torch import RandomForestRegressor
+
+    return RandomForestRegressor(
+        n_estimators=n_estimators, max_depth=RF_REG["max_depth"], seed=seed,
+        split_impl=split_impl, chunk_size=chunk_size)
+
+
+def phase_rf_reg_fit(split):
+    from spark_bagging_tpu_torch.utils.metrics import r2_score, rmse
+
+    Xtr, ytr, Xte, yte = split
+    R = RF_REG["n_estimators"]
+    t0 = time.perf_counter()
+    rf_regressor(8, seed=1).fit(Xtr[:2000], ytr[:2000])
+    warmup_seconds = time.perf_counter() - t0
+    est = rf_regressor()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    est.fit(Xtr, ytr)
+    counts = read_launches()
+    rep = est.fit_report_
+    chunk = rep["chunk_size_resolved"] or R
+    chunks = [min(chunk, R - s) for s in range(0, R, chunk)]
+    expected = RF_REG["max_depth"] * len(chunks)
+    est.predict(Xte)  # warm-up
+    t0 = time.perf_counter()
+    pred = est.predict(Xte)
+    predict_seconds = time.perf_counter() - t0
+    err, r2 = rmse(yte, pred), r2_score(yte, pred)
+    impl = est._fitted_learner._resolved_impl(torch.device("cuda"))
+    emit("rf_reg_fit", ok=True, n_train=len(ytr), n_test=len(yte),
+         n_replicas=R, split_impl=impl,
+         warmup_fit_seconds=warmup_seconds, fit_seconds=rep["fit_seconds"],
+         fits_per_sec=rep["fits_per_sec"], h2d_seconds=rep["h2d_seconds"],
+         chunk_size=rep["chunk_size_resolved"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+         launches=counts, expected_binned_left_stats_launches=expected,
+         float_accumulator_launches=counts["binned_left_stats_float"],
+         test_rmse=err, test_r2=r2, r2_bar=RF_R2_BAR,
+         predict_seconds=predict_seconds)
+    if impl != "fused":
+        fail("rf_reg_fit", f"split_impl resolved to {impl!r}, not the kernel")
+    launches = counts["binned_left_stats"]
+    if launches <= 0 or launches != expected \
+            or counts["binned_left_stats_float"] != launches:
+        fail("rf_reg_fit", f"{launches} histogram launches "
+             f"({counts['binned_left_stats_float']} float), expected "
+             f"{expected}, all float")
+    if counts["bin_codes"] != 1 or counts["scaled_gram"]:
+        fail("rf_reg_fit", f"launches {counts}: expected one bin-codes "
+             "launch and no scaled-Gram launch")
+    if not torch.isfinite(est.ensemble_["leaf_value"]).all():
+        fail("rf_reg_fit", "non-finite leaf values")
+    if not r2 > RF_R2_BAR:
+        fail("rf_reg_fit", f"test R^2 {r2:.4f} not above {RF_R2_BAR}")
+    return launches, counts["bin_codes"], sorted(set(chunks))
+
+
+def phase_reg_hist_kernels(split, Rs: list[int]) -> dict:
+    """The histogram kernel's float accumulator at every replica count
+    and level the forest regressor's fit launched, on that fit's own
+    level inputs: every replica within HIST_FLOAT_TOL of its plain
+    version (per entry over the abs-sum scale), a repeat within it too,
+    with times per replica, bound and library yardstick at each shape.
+    Also holds ``bin_codes`` on the fit's X and edges."""
+    from spark_bagging_tpu_torch.ops.hist import (
+        coded_left_stats,
+        coded_left_stats_plain,
+    )
+
+    Xtr, ytr = split[:2]
+    rows = {}
+    for R in Rs:
+        rec = record_levels(Xtr, ytr, R,
+                            est=rf_regressor(R, split_impl="fused",
+                                             chunk_size=R))
+        calls = rec["levels"]
+        if [c["N"] for c in calls] != [2**lv for lv in range(RF_REG["max_depth"])]:
+            fail("reg_hist_kernels", f"R={R}: recorded levels "
+                 f"{[c['N'] for c in calls]}")
+        phase_bin_codes(rec, path="rf_reg")
+        for c in calls:
+            # the identity subspace (every feature) passes no columns and
+            # the shared (F, B) edges: the kernel runs on exactly these
+            codes, cols, E, node, S, N, mode = (c[k] for k in (
+                "codes", "cols", "edges", "node", "S", "N", "hist_dtype"))
+            if c["integral"]:
+                fail("reg_hist_kernels", "the regressor passed integral "
+                     "statistics")
+            n, F_all = codes.shape
+            F, B, K = E.shape[-2], E.shape[-1], S.shape[-1]
+            kw = dict(n_nodes=N, hist_dtype=mode, cols=cols)
+
+            def run():
+                return coded_left_stats(codes, E, node, S, integral=False,
+                                        **kw)
+
+            out, again = run(), run()
+            want = coded_left_stats_plain(codes, E, node, S, **kw)
+            scale = coded_left_stats_plain(codes, E, node, S.abs(),
+                                           **kw).clamp_min(1e-30)
+            err = float(((out - want).abs() / scale).max())
+            repeat_err = float(((out - again).abs() / scale).max())
+            max_abs = float((out - want).abs().max())
+            del out, again, want, scale
+            spans = []
+            for r in range(R):
+                one = dict(n_nodes=N, hist_dtype=mode,
+                           cols=None if cols is None else cols[r:r + 1])
+                Er = E if E.dim() == 2 else E[r:r + 1]
+                spans.append(span(lambda: coded_left_stats_plain(
+                    codes, Er, node[r:r + 1], S[r:r + 1], **one)))
+            plain_ms = timed_spans(spans)
+            kernel_ms = cuda_ms(run, 3)
+            lib = hist_library_ms(
+                codes,
+                cols if cols is not None else torch.arange(
+                    F_all, dtype=torch.int32, device=S.device).expand(R, F),
+                E if E.dim() == 3 else E.expand(R, F, B), node, S, N, mode)
+            torch.cuda.empty_cache()
+            # the function over the shared X (and columns, if any), the
+            # edges, nodes and moments read once, the table written once
+            shared_bytes = 4.0 * (n * F_all + E.numel() + node.numel()
+                                  + S.numel() + R * F * B * N * K
+                                  + (0 if cols is None else cols.numel()))
+            t_ops = 1e3 * float(R) * n * F * K / PEAK_FP32
+            t_bytes = 1e3 * shared_bytes / PEAK_BYTES
+            rows[R, N] = row = dict(
+                max_entry_err=err, repeat_entry_err=repeat_err,
+                tol=HIST_FLOAT_TOL, max_abs_err=max_abs, kernel_ms=kernel_ms,
+                plain_ms=plain_ms, library_ms=lib["index_add"],
+                library_matmul_ms=lib["matmul"],
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+            )
+            emit("reg_hist_kernels", kernel="binned_left_stats",
+                 accumulator="float", hist_dtype=mode,
+                 shape=dict(R=R, n=n, F=F, F_all=F_all, B=B, N=N, K=K),
+                 **row, **{f"{k}_per_replica": v / R for k, v in row.items()
+                           if k.endswith("_ms")})
+            if not (err <= HIST_FLOAT_TOL and repeat_err <= HIST_FLOAT_TOL):
+                fail("reg_hist_kernels", f"R={R} N={N}: entry error "
+                     f"{err:.3g}, repeat {repeat_err:.3g} "
+                     f"(tol {HIST_FLOAT_TOL})")
+        del calls, rec
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_reg_tree_cross_check(split) -> None:
+    """The forest regressor grown with the kernel and with the dense
+    product on the card: the share of equal split features, the
+    predictions' max abs difference, and test R^2 within
+    RF_CROSS_R2_TOL (float sums in another order may flip near-tied
+    splits, so the trees need not be equal)."""
+    from spark_bagging_tpu_torch.utils.metrics import r2_score
+
+    Xtr, ytr, Xte, yte = split
+    fits, preds, r2 = {}, {}, {}
+    for impl in ("fused", "dense"):
+        fits[impl] = rf_regressor(split_impl=impl).fit(Xtr, ytr)
+        preds[impl] = fits[impl].predict(Xte)
+        r2[impl] = r2_score(yte, preds[impl])
+        torch.cuda.empty_cache()
+    feats = [fits[k].ensemble_["feature"] for k in ("fused", "dense")]
+    same_features = float((feats[0] == feats[1]).float().mean())
+    same_trees = float(all(
+        torch.equal(fits["fused"].ensemble_[k], fits["dense"].ensemble_[k])
+        for k in ("feature", "threshold")))
+    diff = float(np.abs(preds["fused"] - preds["dense"]).max())
+    d_r2 = abs(r2["fused"] - r2["dense"])
+    emit("reg_tree_cross_check", ok=d_r2 <= RF_CROSS_R2_TOL,
+         rows=len(ytr), replicas=RF_REG["n_estimators"],
+         equal_split_feature_share=same_features,
+         all_splits_equal=bool(same_trees), prediction_max_abs_diff=diff,
+         test_r2_fused=r2["fused"], test_r2_dense=r2["dense"],
+         r2_diff=d_r2, r2_tol=RF_CROSS_R2_TOL)
+    if not d_r2 <= RF_CROSS_R2_TOL:
+        fail("reg_tree_cross_check", f"test R^2 differs by {d_r2:.4f} "
+             f"(limit {RF_CROSS_R2_TOL})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -976,11 +1281,23 @@ def main() -> int:
     torch.cuda.empty_cache()
     hist_rows, codes_row = phase_hist_kernels(X, y, tree_Rs)
     phase_tree_cross_check(X, y)
+    del X, y
+    torch.cuda.empty_cache()
+    split = regression_data()
+    phase_reg_fit(split)
+    torch.cuda.empty_cache()
+    rf_launches, rf_codes_launches, rf_Rs = phase_rf_reg_fit(split)
+    torch.cuda.empty_cache()
+    reg_rows = phase_reg_hist_kernels(split, rf_Rs)
+    phase_reg_tree_cross_check(split)
     # each kernel's line reports the largest replica chunk (and, for the
     # histogram, the deepest level in the fit's bf16 mode), where its fit
     # spends its kernel time; the phase lines hold every shape. The
     # histogram's bound is the function over one shared X read through
-    # the replicas' column indices, what the fit asks of it
+    # the replicas' column indices, what the fit asks of it. Its and the
+    # bin codes' launches are the tree path's and the forest regressor's
+    # together, and its max_abs_err is the largest of both paths (the
+    # float accumulator's: the integral one is exact)
     f32 = rows[max(Rs)]["float32"]
     deepest = hist_rows[max(tree_Rs), 2 ** (TREE["max_depth"] - 1), "bfloat16"]
     print(json.dumps({"kernels": [{
@@ -1000,8 +1317,9 @@ def main() -> int:
         "route": "cuda",
         "source": "spark_bagging_tpu_torch/csrc/binned_left_stats.cu",
         "replaces": "spark_bagging_tpu/ops/hist.py:66",
-        "launches": tree_launches,
-        "max_abs_err": max(r["max_abs_err"] for r in hist_rows.values()),
+        "launches": tree_launches + rf_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in (
+            *hist_rows.values(), *reg_rows.values())),
         "ms": deepest["kernel_ms"],
         "plain_ms": deepest["plain_ms"],
         "bound_ms": deepest["bound_ms"],
@@ -1012,7 +1330,7 @@ def main() -> int:
         "route": "cuda",
         "source": "spark_bagging_tpu_torch/csrc/binned_left_stats.cu",
         "replaces": "spark_bagging_tpu/ops/hist.py:66",
-        "launches": codes_launches,
+        "launches": codes_launches + rf_codes_launches,
         "max_abs_err": 0.0 if not codes_row["unequal"] else None,
         "ms": codes_row["kernel_ms"],
         "plain_ms": codes_row["plain_ms"],

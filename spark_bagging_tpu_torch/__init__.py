@@ -4,7 +4,9 @@ Bagging ensembles on an NVIDIA H100: Poisson-bootstrap replicas fitted
 together along a replica axis, soft or hard votes, and hand-written
 Hopper kernels (``csrc/``) for the hot loops the JAX package wrote in
 Pallas: the scaled-Gram Hessian of logistic regression and the
-split-search histogram of decision trees and random forests. The JAX
+split-search histogram of decision trees and random forests. The
+classifiers vote; the regressors (bagged ridge regression, bagged
+regression trees, random forests) average. The JAX
 package stays the reference this port is held against; the port
 imports only torch and numpy.
 
@@ -12,12 +14,16 @@ Entry points run on the card (``device="cuda"``, the default) and raise
 where CUDA is absent; ``device="cpu"`` must be asked for.
 """
 
-from spark_bagging_tpu_torch.bagging import BaggingClassifier
-from spark_bagging_tpu_torch.forest import RandomForestClassifier
+from spark_bagging_tpu_torch.bagging import BaggingClassifier, BaggingRegressor
+from spark_bagging_tpu_torch.forest import (
+    RandomForestClassifier,
+    RandomForestRegressor,
+)
 from spark_bagging_tpu_torch.models import (
     BaseLearner,
     DecisionTreeClassifier,
     DecisionTreeRegressor,
+    LinearRegression,
     LogisticRegression,
 )
 
@@ -25,9 +31,12 @@ __version__ = "0.2.0"
 
 __all__ = [
     "BaggingClassifier",
+    "BaggingRegressor",
     "BaseLearner",
     "DecisionTreeClassifier",
     "DecisionTreeRegressor",
+    "LinearRegression",
     "LogisticRegression",
     "RandomForestClassifier",
+    "RandomForestRegressor",
 ]

@@ -9,9 +9,10 @@ set. Prediction is one batched forward per chunk plus a mean or vote
 over replicas.
 
 With the identity feature subspace, X stays one shared tensor that no
-replica copies; so it does for a learner that reads its subspace
-through the column index (``reads_subspace_index``, the trees).
-Prediction gathers each chunk's columns.
+replica copies; so it does, in the fit and in prediction, for a learner
+that reads its subspace through the column index
+(``reads_subspace_index``, the trees). Any other learner takes each
+chunk's gathered columns.
 """
 
 from __future__ import annotations
@@ -104,9 +105,14 @@ def fit_ensemble(
 
 
 def _score_chunk(learner, params, idx, X, identity_subspace):
-    return learner.predict_scores(
-        params, X if identity_subspace else _gather_columns(X, idx)
-    )
+    """One chunk's per-replica scores. A learner that reads its subspace
+    through the column index (the trees) scores the shared X with
+    ``cols=idx``; any other takes each replica's gathered columns."""
+    if identity_subspace:
+        return learner.predict_scores(params, X)
+    if learner.reads_subspace_index:
+        return learner.predict_scores(params, X, cols=idx)
+    return learner.predict_scores(params, _gather_columns(X, idx))
 
 
 def predict_scores_ensemble(
@@ -161,6 +167,30 @@ def predict_ensemble_classifier(
     return mean_aggregate(chunk_sums, n_total=n_total)
 
 
+def predict_ensemble_regressor(
+    learner: BaseLearner,
+    stacked_params: dict[str, torch.Tensor],
+    subspaces: torch.Tensor,
+    X: torch.Tensor,
+    n_total: int,
+    *,
+    chunk_size: int | None = None,
+    identity_subspace: bool = False,
+) -> torch.Tensor:
+    """Mean prediction over replicas ``(n,)``: each chunk summed over its
+    replicas as it is scored, the chunk sums then divided by the replica
+    count."""
+
+    def one(chunk):
+        params, idx = chunk
+        return _score_chunk(learner, params, idx, X, identity_subspace).sum(0)
+
+    chunk_sums = torch.stack(
+        _chunks_apply(one, (stacked_params, subspaces), chunk_size)
+    )
+    return mean_aggregate(chunk_sums, n_total=n_total)
+
+
 def classifier_forward(
     learner: BaseLearner,
     n_classes: int,
@@ -178,6 +208,74 @@ def classifier_forward(
             learner, stacked_params, subspaces, X, n_classes, n_total,
             voting=voting, chunk_size=chunk_size,
             identity_subspace=identity_subspace,
+        )
+
+    return forward
+
+
+def regressor_forward(
+    learner: BaseLearner,
+    n_total: int,
+    *,
+    chunk_size: int | None = None,
+    identity_subspace: bool = False,
+) -> Callable:
+    """The aggregated regressor forward as one closure
+    ``forward(stacked_params, subspaces, X) -> (n,) predictions``."""
+
+    def forward(stacked_params, subspaces, X):
+        return predict_ensemble_regressor(
+            learner, stacked_params, subspaces, X, n_total,
+            chunk_size=chunk_size, identity_subspace=identity_subspace,
+        )
+
+    return forward
+
+
+def classifier_replica_forward(
+    learner: BaseLearner,
+    n_classes: int,
+    *,
+    voting: str = "soft",
+    chunk_size: int | None = None,
+    identity_subspace: bool = False,
+) -> Callable:
+    """The per-replica classifier forward ``forward(stacked_params,
+    subspaces, X) -> (R, n, C)``: :func:`classifier_forward` without the
+    aggregation. Each replica gives what the aggregate averages (softmax
+    probabilities for soft voting, the one-hot of its argmax for hard
+    voting), so the mean over replicas is the served probability."""
+    if voting not in ("soft", "hard"):
+        raise ValueError(f"unknown voting {voting!r}")
+
+    def forward(stacked_params, subspaces, X):
+        scores = predict_scores_ensemble(
+            learner, stacked_params, subspaces, X,
+            chunk_size=chunk_size, identity_subspace=identity_subspace,
+        )
+        if voting == "hard":
+            return torch.nn.functional.one_hot(
+                scores.argmax(dim=-1), n_classes
+            ).to(torch.float32)
+        return torch.softmax(scores, dim=-1)
+
+    return forward
+
+
+def regressor_replica_forward(
+    learner: BaseLearner,
+    *,
+    chunk_size: int | None = None,
+    identity_subspace: bool = False,
+) -> Callable:
+    """The per-replica regressor forward ``forward(stacked_params,
+    subspaces, X) -> (R, n)``: :func:`regressor_forward` without the
+    mean."""
+
+    def forward(stacked_params, subspaces, X):
+        return predict_scores_ensemble(
+            learner, stacked_params, subspaces, X,
+            chunk_size=chunk_size, identity_subspace=identity_subspace,
         )
 
     return forward

@@ -1,12 +1,14 @@
 """Base learners, batched over a leading replica axis (models/base.py).
 
-Ported so far: :class:`LogisticRegression` (Newton solver) and the
+Ported so far: :class:`LogisticRegression` (Newton solver),
+:class:`LinearRegression` (weighted ridge normal equations) and the
 depth-bounded trees :class:`DecisionTreeClassifier` and
 :class:`DecisionTreeRegressor`. The other learner families of the JAX
 package are queued in ROADMAP.md.
 """
 
 from spark_bagging_tpu_torch.models.base import BaseLearner
+from spark_bagging_tpu_torch.models.linear import LinearRegression
 from spark_bagging_tpu_torch.models.logistic import LogisticRegression
 from spark_bagging_tpu_torch.models.tree import (
     DecisionTreeClassifier,
@@ -17,5 +19,6 @@ __all__ = [
     "BaseLearner",
     "DecisionTreeClassifier",
     "DecisionTreeRegressor",
+    "LinearRegression",
     "LogisticRegression",
 ]

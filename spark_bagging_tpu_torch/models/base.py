@@ -10,7 +10,8 @@ chunk being fitted.
 - ``fit(params, X, y, sample_weight, keys, prepared=None) -> (params,
   aux)`` with ``X`` ``(n, d)`` shared by every replica or ``(R, n, d)``,
   ``y`` ``(n,)`` and ``sample_weight`` ``(R, n)``;
-- ``predict_scores(params, X) -> scores`` ``(R, n, C)``.
+- ``predict_scores(params, X) -> scores`` ``(R, n, C)`` (``(R, n)`` for
+  a regressor).
 
 Params are dicts of tensors. ``sample_weight`` carries the Poisson
 bootstrap counts, which a learner treats as exact row multiplicities.
@@ -41,9 +42,13 @@ class BaseLearner(ParamsMixin):
     task: ClassVar[str]  # "classification" | "regression"
     uses_pooled_init: ClassVar[bool] = False
     # True: ``fit`` takes the shared ``(n, d)`` X with the column index
-    # that ``gather_subspace`` puts in the prepared state, so a feature
-    # subspace makes no ``X[:, idx]`` copy
+    # that ``gather_subspace`` puts in the prepared state, and
+    # ``predict_scores(params, X, cols=idx)`` reads it the same way, so a
+    # feature subspace makes no ``X[:, idx]`` copy
     reads_subspace_index: ClassVar[bool] = False
+    # True: ``fit`` consumes a per-row auxiliary column (the JAX
+    # package's survival learner); no learner of the port declares it yet
+    uses_aux: ClassVar[bool] = False
 
     def pooled_amortizes(self, n_replicas: int) -> bool:
         """Is the pooled pre-pass worth running for an ensemble of this

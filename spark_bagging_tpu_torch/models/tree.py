@@ -11,7 +11,8 @@ static, so a whole chunk of replicas grows together.
   out of the replica chunks); a feature subspace gathers its rows.
 - **One shared X.** A feature subspace is read through the replica's
   column index ``cols`` (``gather_subspace``), so the engine never
-  copies X per replica (``reads_subspace_index``): routing reads
+  copies X per replica (``reads_subspace_index``), in the fit or in
+  prediction (``predict_scores(..., cols=)``): routing reads
   ``X[i, cols[r, f]]``, the same floats a gathered copy holds.
 - **Split search = one left-statistics table per level**:
   ``(R, F, B, N, K)`` weighted class counts (or regression moments) left
@@ -293,7 +294,13 @@ class _TreeBase(BaseLearner):
         """
         R, F, B, N, _ = hist.shape
         total = hist[:, 0, -1]  # edge B-1 is +inf: the full node's sums
-        right = total[:, None, None] - hist
+        # each candidate's right side from its own feature's node sums
+        # (the JAX package takes feature 0's for every feature: the same
+        # for NaN-free X up to summation order). The kernel's float sums
+        # run in another order per feature, and a right side empty up to
+        # that rounding (s0 = 0, s1 ~ 1e-3) would score s1^2 / 1e-12, far
+        # below any real split; a feature's own sums leave it exactly 0
+        right = hist[:, :, -1:] - hist
         score = self._impurity(hist) + self._impurity(right)  # (R,F,B,N)
         if feat_mask is not None:
             score = torch.where(feat_mask.transpose(1, 2)[:, :, None, :],
@@ -409,9 +416,10 @@ class _TreeBase(BaseLearner):
 
     # -- routing (shared by fit-time and predict-time) ------------------
 
-    def _route(self, params, X):
+    def _route(self, params, X, cols=None):
         """Leaf index per row ``(R, n)`` via ``max_depth`` gather-compare
-        steps."""
+        steps; with ``cols`` ``(R, k)`` the split features are read from
+        the shared X through each replica's column index."""
         feature, threshold = params["feature"], params["threshold"]
         R = feature.shape[0]
         rel = torch.zeros((R, X.shape[-2]), dtype=torch.int64,
@@ -421,7 +429,7 @@ class _TreeBase(BaseLearner):
             N = 2**level
             f_row = feature[:, off:off + N].gather(1, rel)
             t_row = threshold[:, off:off + N].gather(1, rel)
-            x_sel = _take_feature(X, f_row)
+            x_sel = _take_feature(X, f_row, cols)
             rel = rel * 2 + (x_sel > t_row).to(torch.int64)
             off += N
         return rel
@@ -535,9 +543,9 @@ class DecisionTreeClassifier(_TreeBase):
         counts = self._leaf_stats(node, S)  # (R, L, C)
         return self._finalize_leaves(feature, threshold, gain, counts, curve)
 
-    def predict_scores(self, params, X):
+    def predict_scores(self, params, X, cols=None):
         logp = params["leaf_logp"]
-        leaf = self._route(params, X)
+        leaf = self._route(params, X, cols)
         return logp.gather(1, leaf[..., None].expand(-1, -1, logp.shape[-1]))
 
 
@@ -598,5 +606,5 @@ class DecisionTreeRegressor(_TreeBase):
         m = self._leaf_stats(node, S)  # (R, L, 3)
         return self._finalize_leaves(feature, threshold, gain, m, curve)
 
-    def predict_scores(self, params, X):
-        return params["leaf_value"].gather(1, self._route(params, X))
+    def predict_scores(self, params, X, cols=None):
+        return params["leaf_value"].gather(1, self._route(params, X, cols))

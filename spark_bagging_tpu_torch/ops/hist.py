@@ -27,7 +27,8 @@ Two entry points compute it for a chunk of replicas:
 A CUDA tensor never takes a plain version: the kernel launches or the
 call raises. ``bin_codes.launches`` counts the codes kernel's launches,
 ``binned_left_stats.launches`` the histogram kernel's (through either
-entry point).
+entry point), and ``binned_left_stats.float_launches`` those of them
+that sum in the float accumulator (``integral=False``).
 
 Layouts: ``X (n, F)`` shared by every replica or ``(R, n, F)``;
 ``edges (F, B)`` or ``(R, F, B)``; ``node (R, n)`` int32; ``S (R, n,
@@ -498,6 +499,7 @@ def _launch_one(C3, cols, E3, node, S3, out, b0, n_nodes, hist_dtype,
         )
     native.check(lib, err, "binned_left_stats")
     binned_left_stats.launches += 1
+    binned_left_stats.float_launches += not integral
 
 
 def _launch(codes, edges, node, S, cols, n_nodes, hist_dtype, integral):
@@ -572,3 +574,4 @@ def binned_left_stats(
 
 
 binned_left_stats.launches = 0
+binned_left_stats.float_launches = 0

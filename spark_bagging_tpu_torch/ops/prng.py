@@ -48,12 +48,11 @@ def threefry2x32(k1, k2, x1, x2) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def key(seed: int, device: torch.device | str = "cpu") -> torch.Tensor:
-    """``jax.random.key_data(jax.random.key(seed))`` for a seed in the
-    int32 range (JAX's default 32-bit mode): ``(0, seed mod 2**32)``."""
-    seed = int(seed)
-    if not -(2 ** 31) <= seed < 2 ** 31:
-        raise ValueError(f"seed {seed} is outside the int32 range")
-    return torch.tensor([0, seed & _M32], dtype=torch.int64, device=device)
+    """``jax.random.key_data(jax.random.key(seed))`` in JAX's default
+    32-bit mode: ``(0, seed mod 2**32)``, the seed's low 32 bits, for
+    any Python int."""
+    return torch.tensor([0, int(seed) & _M32], dtype=torch.int64,
+                        device=device)
 
 
 def fold_in(k: torch.Tensor, data) -> torch.Tensor:
@@ -118,18 +117,22 @@ def permutation(k: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def randint(k: torch.Tensor, n: int, minval: int, maxval: int) -> torch.Tensor:
-    """``jax.random.randint(k, (n,), minval, maxval, int32)``: two 32-bit
-    draws per element folded into the span by modular arithmetic."""
+    """``jax.random.randint(k, (n,), minval, maxval, int32)`` for int32
+    bounds: two 32-bit draws per element folded into the span by JAX's
+    uint32 modular arithmetic, whose products and sums wrap mod 2**32
+    (masked here after each step)."""
     span = maxval - minval
     if span <= 0:
         return torch.full(
             (*k.shape[:-1], n), minval, dtype=torch.int32, device=k.device
         )
-    if span >= 2 ** 16:
-        raise NotImplementedError("randint spans of 2**16 or more")
+    if not -(2 ** 31) <= minval < maxval < 2 ** 31:
+        raise ValueError(f"randint bounds [{minval}, {maxval}) exceed int32")
     keys = split(k, 2)
     higher = random_bits(keys[..., 0, :], n)
     lower = random_bits(keys[..., 1, :], n)
-    multiplier = (2 ** 16 % span) ** 2 % span
-    offset = ((higher % span) * multiplier + lower % span) % span
+    half = 2 ** 16 % span
+    multiplier = ((half * half) & _M32) % span  # 0 once span > 2**16
+    offset = (((higher % span) * multiplier) & _M32) + lower % span
+    offset = (offset & _M32) % span
     return (offset + minval).to(torch.int32)

@@ -1,15 +1,23 @@
-"""Where the device time of a 256-replica fit goes, on one NVIDIA GPU.
+"""Where the device time of an ensemble's fit goes, on one NVIDIA GPU.
 
-    python -m spark_bagging_tpu_torch.profile_fit [--learner logistic|tree]
-                                                  [--out DIR]   (default: .)
+    python -m spark_bagging_tpu_torch.profile_fit
+        [--learner logistic|tree|linear|rf-reg] [--n-replicas R]
+        [--out DIR]   (default: .)
 
-Fits one of chip_smoke.py's ensembles on the 581,012 x 54 synthetic
-covtype once to warm up, then once under ``torch.profiler``:
+Fits one of chip_smoke.py's ensembles once to warm up, then once under
+``torch.profiler``:
 
 - ``logistic`` (default): Newton logistic regression, pooled start, one
-  step, scaled-Gram kernel;
+  step, scaled-Gram kernel; 256 replicas on the 581,012 x 54 synthetic
+  covtype;
 - ``tree``: BASELINE config 3, depth-5 32-bin Gini trees on 80% feature
-  subspaces, hard vote, histogram kernel.
+  subspaces, hard vote, histogram kernel; 256 replicas, same data;
+- ``linear``: BASELINE config 2, ``BaggingRegressor(LinearRegression(
+  l2=1e-4))``, 100 replicas on the training 80% of the 20,640 x 8
+  synthetic California housing;
+- ``rf-reg``: ``RandomForestRegressor(max_depth=5)``, 128 replicas
+  (config 6's shape), same data; the histogram kernel's float
+  accumulator.
 
 Prints one JSON line: the fit's wall seconds, the device-busy seconds,
 the idle share, and device time by kernel (the top entries, with their
@@ -52,10 +60,11 @@ def _busy_seconds(events) -> float:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--learner", choices=("logistic", "tree"),
-                   default="logistic")
+    p.add_argument("--learner", default="logistic",
+                   choices=("logistic", "tree", "linear", "rf-reg"))
     p.add_argument("--out", default=".")
-    p.add_argument("--n-replicas", type=int, default=256)
+    p.add_argument("--n-replicas", type=int, default=None,
+                   help="default: 256, 256, 100, 128 by learner")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_fit: no CUDA device", file=sys.stderr)
@@ -64,24 +73,36 @@ def main(argv=None) -> int:
 
     from spark_bagging_tpu_torch import (
         BaggingClassifier,
+        BaggingRegressor,
         DecisionTreeClassifier,
+        LinearRegression,
         LogisticRegression,
+        RandomForestRegressor,
     )
-    from spark_bagging_tpu_torch.utils.datasets import synthetic_covtype
+    from spark_bagging_tpu_torch.utils import datasets
 
-    X, y = synthetic_covtype(581_012)
-    X = ((X - X.mean(0)) / (X.std(0) + 1e-8)).astype(np.float32)
+    R = args.n_replicas or {"linear": 100, "rf-reg": 128}.get(args.learner, 256)
+    if args.learner in ("linear", "rf-reg"):
+        X, y = datasets.synthetic_california(20_640)
+        X, y, _, _ = datasets.train_test_split(datasets.standardize(X), y)
+    else:
+        X, y = datasets.synthetic_covtype(581_012)
+        X = datasets.standardize(X)
     if args.learner == "tree":
         clf = BaggingClassifier(
             DecisionTreeClassifier(max_depth=5, n_bins=32),
-            n_estimators=args.n_replicas, max_features=0.8, voting="hard",
-            seed=0,
+            n_estimators=R, max_features=0.8, voting="hard", seed=0,
         )
+    elif args.learner == "linear":
+        clf = BaggingRegressor(LinearRegression(l2=1e-4), n_estimators=R,
+                               seed=0)
+    elif args.learner == "rf-reg":
+        clf = RandomForestRegressor(n_estimators=R, max_depth=5, seed=0)
     else:
         clf = BaggingClassifier(
             LogisticRegression(max_iter=1, init="pooled",
                                hessian_impl="pallas", precision="highest"),
-            n_estimators=args.n_replicas, seed=0,
+            n_estimators=R, seed=0,
         )
     clf.fit(X, y)  # warm-up: kernel build, allocator, cuBLAS handles
     with profile(activities=[ProfilerActivity.CPU,
@@ -105,6 +126,7 @@ def main(argv=None) -> int:
             sort_by="self_device_time_total", row_limit=60))
     print(json.dumps({
         "learner": args.learner,
+        "n_replicas": R,
         "device": torch.cuda.get_device_name(0),
         "chunk_size": clf.fit_report_["chunk_size_resolved"],
         "fit_wall_seconds": wall,

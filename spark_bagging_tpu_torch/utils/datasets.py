@@ -1,7 +1,9 @@
 """Deterministic synthetic datasets (numpy only).
 
-A copy of ``make_classification`` and ``synthetic_covtype`` from the JAX
-package's ``utils/datasets.py``. Both packages must produce bitwise the
+A copy of ``make_classification``, ``make_regression``,
+``synthetic_covtype`` and ``synthetic_california`` from the JAX
+package's ``utils/datasets.py``, and of the benchmark configurations'
+``standardize`` and ``train_test_split`` (``benchmarks/run_configs.py``). Both packages must produce bitwise the
 same arrays from the same seed: the parity tests and the headline
 workload feed identical data to each. ``SYNTHETICS_VERSION`` is bumped
 together with the JAX package's.
@@ -54,6 +56,54 @@ def make_classification(
     X = rng.standard_normal((n_rows, n_features), np.float32)
     X += centers[y]
     return X, y
+
+
+def standardize(X: np.ndarray) -> np.ndarray:
+    """Zero mean, unit variance per column (float32), as the benchmark
+    configurations of the JAX package prepare their data."""
+    mu, sigma = X.mean(0), X.std(0) + 1e-8
+    return ((X - mu) / sigma).astype(np.float32)
+
+
+def train_test_split(X: np.ndarray, y: np.ndarray, test_frac: float = 0.2,
+                     seed: int = 0):
+    """``(X_train, y_train, X_test, y_test)``: the first ``test_frac`` of
+    a seeded permutation is the test set, as the JAX package's benchmark
+    configurations split (``benchmarks/run_configs._split``)."""
+    idx = np.random.default_rng(seed).permutation(len(y))
+    n_test = int(len(y) * test_frac)
+    te, tr = idx[:n_test], idx[n_test:]
+    return X[tr], y[tr], X[te], y[te]
+
+
+def make_regression(
+    n_rows: int,
+    n_features: int,
+    *,
+    seed: int = 0,
+    noise: float = 0.5,
+    structure_seed: int | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Linear data with Gaussian noise: ``y = X beta + noise * e``, X and
+    e standard normal, beta ~ N(0, 1). ``structure_seed`` fixes beta
+    independently of ``seed``, as in :func:`make_classification`."""
+    rng = np.random.default_rng(seed)
+    srng = rng if structure_seed is None else np.random.default_rng(
+        structure_seed
+    )
+    beta = srng.normal(0.0, 1.0, n_features).astype(np.float32)
+    X = rng.standard_normal((n_rows, n_features), np.float32)
+    y = X @ beta + noise * rng.standard_normal(n_rows).astype(np.float32)
+    return X, y.astype(np.float32)
+
+
+def synthetic_california(
+    n_rows: int = 20_640, seed: int = 5, structure_seed: int | None = None
+) -> tuple[np.ndarray, np.ndarray]:
+    """California-housing signature: 8 features, regression."""
+    return make_regression(
+        n_rows, 8, seed=seed, noise=0.7, structure_seed=structure_seed
+    )
 
 
 def synthetic_covtype(

@@ -148,6 +148,95 @@ def test_params_from_jax_predicts_like_jax(both_fits):
                                atol=1e-6, rtol=0)
 
 
+def test_log_proba_and_decision_function_match_jax(both_fits):
+    X, y, jc, tc = both_fits
+    np.testing.assert_allclose(tc.predict_log_proba(X),
+                               jc.predict_log_proba(X), atol=1e-4, rtol=1e-4)
+    # three classes: the probabilities themselves
+    np.testing.assert_allclose(tc.decision_function(X),
+                               jc.decision_function(X), atol=PROBA_ATOL,
+                               rtol=0)
+    assert tc.decision_function(X).shape == (400, 3)
+
+
+def test_binary_decision_function_matches_jax():
+    X, y = make_classification(200, 5, 2, seed=6)
+    est = dict(n_estimators=4, seed=1)
+    lr = dict(max_iter=2, hessian_impl="pallas")
+    jc = J.BaggingClassifier(J.LogisticRegression(**lr), **est).fit(X, y)
+    tc = T.BaggingClassifier(T.LogisticRegression(**lr), device="cpu",
+                             **est).fit(X, y)
+    margin = tc.decision_function(X)
+    assert margin.shape == (200,)
+    np.testing.assert_allclose(margin, jc.decision_function(X),
+                               atol=2 * PROBA_ATOL, rtol=0)
+    proba = tc.predict_proba(X)
+    np.testing.assert_allclose(margin, proba[:, 1] - proba[:, 0], rtol=0,
+                               atol=0)
+
+
+def test_replica_accessors_match_jax(both_fits):
+    _, _, jc, tc = both_fits
+    assert isinstance(tc.base_learner_, T.LogisticRegression)
+    np.testing.assert_array_equal(tc.estimators_features_,
+                                  np.asarray(jc.estimators_features_))
+    for i in (0, 7):
+        tp, tidx = tc.replica_params(i)
+        jp, jidx = jc.replica_params(i)
+        np.testing.assert_array_equal(tidx, np.asarray(jidx))
+        assert_w_close(tp["W"], np.asarray(jp["W"]))
+        np.testing.assert_array_equal(tc.replica_weights(i),
+                                      jc.replica_weights(i))
+    with pytest.raises(IndexError):
+        tc.replica_params(8)
+    assert not hasattr(T.BaggingClassifier(device="cpu"), "base_learner_")
+
+
+@pytest.mark.parametrize("voting", ["soft", "hard"])
+def test_forward_handles_match_jax(both_fits, voting):
+    X, _, jc, tc = both_fits
+    jc.set_params(voting=voting)
+    tc.set_params(voting=voting)
+    try:
+        jfn, jparams, jsubs = jc.aggregated_forward()
+        tfn, tparams, tsubs = tc.aggregated_forward()
+        agg = tfn(tparams, tsubs, torch.from_numpy(X)).numpy()
+        np.testing.assert_allclose(agg, np.asarray(jfn(jparams, jsubs, X)),
+                                   atol=PROBA_ATOL, rtol=0)
+        np.testing.assert_array_equal(agg, tc.predict_proba(X))
+        jrf, _, _ = jc.replica_forward()
+        trf, _, _ = tc.replica_forward()
+        per = trf(tparams, tsubs, torch.from_numpy(X))
+        assert tuple(per.shape) == (8, 400, 3)
+        np.testing.assert_allclose(per.numpy(),
+                                   np.asarray(jrf(jparams, jsubs, X)),
+                                   atol=PROBA_ATOL, rtol=0)
+        # the mean over replicas is the served probability
+        np.testing.assert_allclose(per.mean(0).numpy(), tc.predict_proba(X),
+                                   atol=1e-6, rtol=0)
+        if voting == "hard":
+            assert set(np.unique(per.numpy())) <= {0.0, 1.0}
+    finally:
+        jc.set_params(voting="soft")
+        tc.set_params(voting="soft")
+
+
+@pytest.mark.parametrize("voting", ["soft", "hard"])
+def test_replica_forward_mean_is_predict_proba_for_trees(voting):
+    # trees on subspaces, chunked: the per-replica forward reads the
+    # shared X through the column index as predict_proba does
+    X, y = make_classification(300, 8, 3, seed=2)
+    tc = T.BaggingClassifier(
+        T.DecisionTreeClassifier(max_depth=3, n_bins=16), n_estimators=6,
+        max_features=0.6, voting=voting, chunk_size=4, seed=0,
+        device="cpu").fit(X, y)
+    fn, params, subs = tc.replica_forward()
+    per = fn(params, subs, torch.from_numpy(X))
+    assert tuple(per.shape) == (6, 300, 3)
+    np.testing.assert_allclose(per.mean(0).numpy(), tc.predict_proba(X),
+                               atol=1e-6, rtol=0)
+
+
 @pytest.mark.parametrize("variant", ["chunked", "subspace", "sample_weight"])
 def test_variants_match_jax(variant):
     X, y = make_classification(300, 6, 3, seed=4)
@@ -191,6 +280,11 @@ def test_unported_surfaces_raise():
     for kw in ({"mesh": object()}, {"warm_start": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.BaggingClassifier(device="cpu", **kw).fit(X, y)
+    clf = T.BaggingClassifier(device="cpu")
+    for name in ("fit_stream", "predict_stream", "predict_proba_stream",
+                 "score_stream"):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue A 11"):
+            getattr(clf, name)((X, y))
 
 
 def test_import_leaves_jax_out():
@@ -200,6 +294,8 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "before = set(sys.modules)\n"
         "import spark_bagging_tpu_torch, spark_bagging_tpu_torch.convert\n"
+        "import spark_bagging_tpu_torch.profile_fit\n"
+        "import spark_bagging_tpu_torch.utils.metrics\n"
         "import spark_bagging_tpu_torch.utils.native\n"
         "import spark_bagging_tpu_torch.utils.memory\n"
         "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in "

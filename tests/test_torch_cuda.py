@@ -344,6 +344,100 @@ def test_tree_fit_on_card_matches_cpu(cuda):
                                     ref["leaf_logp"].numpy(), maxulp=2)
 
 
+# tests/test_torch_hist.py FLOAT_TOL and chip_smoke.HIST_FLOAT_TOL: the
+# kernel against its plain version on float statistics, per entry over
+# the entry's absolute-sum scale (the same float32 terms in another order)
+HIST_FLOAT_TOL = 1e-5
+
+
+@pytest.mark.parametrize("hist_dtype", ["bfloat16", "float32"])
+def test_regressor_fit_on_card_float_histogram_within_tolerance(
+        cuda, hist_dtype, monkeypatch):
+    # a forest regressor fitted on the card: every level runs the
+    # histogram kernel's float accumulator (integral=False) on the
+    # moments (w, w y, w y^2), each within the float tolerance of the
+    # plain version on the level's own inputs
+    from spark_bagging_tpu_torch import BaggingRegressor, DecisionTreeRegressor
+    from spark_bagging_tpu_torch.models import tree as tree_mod
+    from spark_bagging_tpu_torch.ops import hist as hist_ops
+    from spark_bagging_tpu_torch.utils.datasets import make_regression
+
+    X, y = make_regression(5000, 9, seed=2)
+    levels = []
+    coded = hist_ops.coded_left_stats
+
+    def record(codes, edges, node, S, **kw):
+        out = coded(codes, edges, node, S, **kw)
+        levels.append((codes, edges, node.clone(), S, kw, out))
+        return out
+
+    monkeypatch.setattr(tree_mod.hist_ops, "coded_left_stats", record)
+    before = hist_ops.binned_left_stats.launches
+    before_float = hist_ops.binned_left_stats.float_launches
+    reg = BaggingRegressor(
+        DecisionTreeRegressor(max_depth=4, n_bins=16, split_impl="fused",
+                              feature_subset="onethird",
+                              hist_dtype=hist_dtype),
+        n_estimators=6, max_features=0.8, seed=0, device=cuda,
+    ).fit(X, y)
+    torch.cuda.synchronize()
+    assert hist_ops.binned_left_stats.launches - before == 4
+    assert hist_ops.binned_left_stats.float_launches - before_float == 4
+    assert [lv[4]["n_nodes"] for lv in levels] == [1, 2, 4, 8]
+    for codes, edges, node, S, kw, out in levels:
+        assert kw["integral"] is False and kw["hist_dtype"] == hist_dtype
+        plain_kw = {k: v for k, v in kw.items() if k != "integral"}
+        want = hist_ops.coded_left_stats_plain(codes, edges, node, S,
+                                               **plain_kw)
+        scale = hist_ops.coded_left_stats_plain(
+            codes, edges, node, S.abs(), **plain_kw).clamp_min(1e-30)
+        err = float(((out - want).abs() / scale).max())
+        assert err <= HIST_FLOAT_TOL, err
+    pred = reg.predict(X)
+    assert pred.shape == (5000,) and np.isfinite(pred).all()
+    assert reg.score(X, y) > 0.5
+
+
+def test_regressors_on_card_match_cpu(cuda):
+    # config 2's learner and a forest regressor: the same fits on the
+    # card and on the CPU, within float32 tolerances
+    from spark_bagging_tpu_torch import (
+        BaggingRegressor,
+        LinearRegression,
+        RandomForestRegressor,
+    )
+    from spark_bagging_tpu_torch.utils.datasets import synthetic_california
+
+    X, y = synthetic_california(4000)
+    fits = {dev: BaggingRegressor(LinearRegression(l2=1e-4), n_estimators=10,
+                                  oob_score=True, seed=0, device=dev).fit(X, y)
+            for dev in ("cpu", "cuda")}
+    np.testing.assert_array_equal(fits["cpu"].replica_weights(3),
+                                  fits["cuda"].replica_weights(3))
+    b_cpu = fits["cpu"].ensemble_["beta"]
+    assert _rel_err(fits["cuda"].ensemble_["beta"].cpu(), b_cpu) <= 1e-5
+    np.testing.assert_allclose(fits["cuda"].predict(X), fits["cpu"].predict(X),
+                               atol=1e-4, rtol=0)
+    fn, params, subs = fits["cuda"].aggregated_forward()
+    np.testing.assert_allclose(
+        fn(params, subs, torch.from_numpy(X).to(cuda)).cpu().numpy(),
+        fits["cuda"].predict(X), atol=1e-4, rtol=0)
+    assert abs(fits["cuda"].oob_score_ - fits["cpu"].oob_score_) <= 1e-5
+    # integer-valued y in [-3, 3]: every moment is an integer below 256
+    # (Poisson counts stay below 28), exact in bf16 operands, and every
+    # sum exact in float32, so the kernel grows the CPU's trees
+    yi = np.clip(np.round(y), -3, 3).astype(np.float32)
+    forests = {dev: RandomForestRegressor(n_estimators=6, max_depth=4,
+                                          n_bins=16, seed=0, device=dev
+                                          ).fit(X, yi)
+               for dev in ("cpu", "cuda")}
+    for k in ("feature", "threshold", "gain"):
+        assert torch.equal(forests["cuda"].ensemble_[k].cpu(),
+                           forests["cpu"].ensemble_[k]), k
+    np.testing.assert_allclose(forests["cuda"].predict(X),
+                               forests["cpu"].predict(X), rtol=1e-6, atol=1e-6)
+
+
 def test_scaled_gram_kernel_depth_capped_row_splits(cuda):
     # enough replicas that occupancy alone would give each block more
     # rows than MAX_SPLIT_ROWS: the cap sets the row split

@@ -46,6 +46,13 @@ def test_key_fold_in_split_uniform_bitwise(seed):
     )
 
 
+@pytest.mark.parametrize("seed", [2**31, 2**32 + 5, 2**40, -1])
+def test_key_keeps_the_low_32_bits_as_jax_does(seed):
+    # jax.random.key in its default 32-bit mode keeps seed mod 2**32
+    np.testing.assert_array_equal(_jkey_data(jax.random.key(seed)),
+                                  prng.key(seed).numpy())
+
+
 def test_fold_in_batches_over_replica_ids():
     tk = prng.key(7)
     batched = prng.fold_in(tk, torch.tensor(REPLICA_IDS))
@@ -62,6 +69,33 @@ def test_randint_bitwise(span):
             )),
             prng.randint(prng.key(seed), 37, 0, span).numpy(),
         )
+
+
+@pytest.mark.parametrize("span", [2**16, 70_000, 2**20, 2**31 - 1])
+def test_randint_wide_spans_bitwise(span):
+    # spans past 2**16 wrap JAX's uint32 offset arithmetic
+    for seed in SEEDS:
+        np.testing.assert_array_equal(
+            np.asarray(jax.random.randint(
+                jax.random.key(seed), (257,), 0, span, jnp.int32
+            )),
+            prng.randint(prng.key(seed), 257, 0, span).numpy(),
+        )
+
+
+def test_subspace_draw_over_70000_features_bitwise():
+    # bootstrap_features=True over more than 2**16 features
+    ids = torch.tensor(REPLICA_IDS[:3])
+    got = tboot.feature_subspaces(prng.key(0), ids, 70_000, 50,
+                                  replacement=True).numpy()
+    for i, rid in enumerate(REPLICA_IDS[:3]):
+        np.testing.assert_array_equal(
+            np.asarray(jboot.feature_subspace_one(
+                jax.random.key(0), jnp.int32(rid), 70_000, 50,
+                replacement=True)),
+            got[i],
+        )
+    assert got.max() >= 2**16  # the draw reaches past the old limit
 
 
 def test_poisson_cdf_table_equal():
@@ -212,6 +246,30 @@ def test_synthetic_covtype_bitwise():
     np.testing.assert_array_equal(Xj, Xt)
     np.testing.assert_array_equal(yj, yt)
     assert Xt.shape == (1000, 54) and Xt.dtype == np.float32
+
+
+def test_regression_synthetics_bitwise():
+    assert tdata.SYNTHETICS_VERSION == jdata.SYNTHETICS_VERSION
+    for kw in ({}, {"noise": 0.1, "structure_seed": 9}):
+        Xj, yj = jdata.make_regression(300, 5, seed=2, **kw)
+        Xt, yt = tdata.make_regression(300, 5, seed=2, **kw)
+        np.testing.assert_array_equal(Xj, Xt)
+        np.testing.assert_array_equal(yj, yt)
+    Xj, yj = jdata.synthetic_california(1000)
+    Xt, yt = tdata.synthetic_california(1000)
+    np.testing.assert_array_equal(Xj, Xt)
+    np.testing.assert_array_equal(yj, yt)
+    assert Xt.shape == (1000, 8) and yt.dtype == np.float32
+
+
+def test_split_and_standardize_match_the_benchmark_configs():
+    from benchmarks import run_configs
+
+    X, y = tdata.synthetic_california(500)
+    np.testing.assert_array_equal(run_configs._standardize(X),
+                                  tdata.standardize(X))
+    for a, b in zip(run_configs._split(X, y), tdata.train_test_split(X, y)):
+        np.testing.assert_array_equal(a, b)
 
 
 def test_make_classification_bitwise():
