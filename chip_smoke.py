@@ -42,6 +42,29 @@ standardized synthetic California housing:
 - ``reg_tree_cross_check``: the same forest with the kernel and with the
   dense product on the card, whose R^2 may differ by at most 0.01.
 
+Then the gradient-boosted trees, whose moments (h, h z, h z^2) run the
+histogram kernel's float accumulator at every level of every round:
+
+- ``gbt_fit``: BASELINE config 7 at full width, ``BaggingClassifier(
+  GBTClassifier(n_rounds=30, max_depth=4), n_estimators=32)`` on the
+  800,000 x 28 training split of the standardized 1M-row synthetic
+  HIGGS (4 x 30 launches a replica chunk, one bin-codes launch); its
+  test AUC at or above sklearn's proxy minus 0.02 (the config's parity
+  rule), and a warm ``predict_proba`` of the 200,000 test rows;
+- ``gbt_hist_kernels``: the float accumulator at each level of round 0
+  and of the last round of one chunk, in bf16 and fp32 operand modes,
+  against the plain version summed in float64;
+- ``gbt_cross_check``: 4 replicas x 10 rounds with the kernel and with
+  the dense product on the card (round 0's split features, test AUC);
+- ``gbt_multiclass_fit``: 16 replicas x 10 rounds on the covtype data,
+  the 16 x 7 class trees of a round in one launch a level; accuracy on
+  the first 100k rows against sklearn's proxy minus 0.02;
+- ``gbt_reg_fit``: 32 GBT regressors x 20 rounds on the California
+  split; test R^2 against sklearn's proxy minus 0.02.
+
+The sklearn proxies are constants, made on a CPU host that has sklearn
+by ``python3 chip_smoke.py --sklearn-proxies``.
+
 Each path runs with every kernel's launch count set to 0 just before it
 and read just after. Every phase prints JSON lines; a failed check
 exits non-zero. The last lines are the kernel table, the card's name
@@ -109,6 +132,11 @@ N_FLOAT_CHECK_REPLICAS = 8
 # a run-dependent order (shared-memory atomics, then row splits): a sum
 # of m terms is off by at most ~m * 2**-24 of its scale, ~1e-6 at the
 # rows one block adds into one bin. Integer statistics are held bitwise.
+# The float paths (forest regressor, GBTs) hold the kernel against the
+# plain version summed in float64 (coded_left_stats_f64): the float32
+# plain product adds all n rows of an entry in one register, and at a
+# GBT's 800,000 rows it strays by ~1e-4 of the scale itself (its error
+# is reported beside the kernel's)
 HIST_FLOAT_TOL = 1e-5
 # the regressors: BASELINE config 2 (benchmarks/run_configs.py:184-228)
 # on the full 20,640-row synthetic California housing, split 80/20
@@ -132,6 +160,36 @@ RF_R2_BAR = 0.5
 # float sums in another order, so the trees need not be equal; their
 # test R^2 must agree within this
 RF_CROSS_R2_TOL = 0.01
+# BASELINE config 7 (benchmarks/run_configs.py:467-514): bagged GBTs on
+# the standardized 1M-row synthetic HIGGS, split 80/20 (800,000 x 28
+# training rows), automatic chunk
+N_HIGGS_ROWS = 1_000_000
+GBT = dict(n_rounds=30, max_depth=4)
+GBT_REPLICAS = 32
+# the config's parity rule (run_configs.py:69): ours >= proxy - 0.02
+PARITY_TOL = 0.02
+# sklearn's proxies, computed on a CPU host with sklearn 1.9.0 (the
+# card's machine has none) by ``python3 chip_smoke.py --sklearn-proxies``
+# (sklearn_proxies below): HistGradientBoosting(max_depth=4,
+# learning_rate=0.1, random_state=0) fitted on run_configs'
+# _proxy_train_set (50,000 rows at most, seed 0) of each phase's
+# training rows. Config 7: max_iter=30, test AUC (utils.metrics.roc_auc)
+GBT_PROXY_AUC = 0.9892248916999542
+# covtype (trained on all 581,012 rows): max_iter=10, accuracy on the
+# first 100k rows
+GBT_MC = dict(n_rounds=10, max_depth=4, n_estimators=16)
+GBT_MC_PROXY_ACC = 0.63804
+# California housing (the 16,512-row training split): the regressor,
+# max_iter=20, test R^2
+GBT_REG = dict(n_rounds=20, max_depth=4, n_estimators=32)
+GBT_REG_PROXY_R2 = 0.7133246391671708
+# kernel vs dense GBTs on the card (gbt_cross_check): 4 replicas, 10
+# rounds; the share of round 0's split features that must be equal
+# (float sums in another order may flip a near tie) and the test AUC
+# difference allowed
+GBT_CROSS = dict(n_estimators=4, n_rounds=10)
+GBT_CROSS_FEATURE_SHARE = 0.95
+GBT_CROSS_AUC_TOL = 0.002
 
 
 def emit(phase: str, **fields) -> None:
@@ -599,6 +657,29 @@ def phase_cross_check(X: np.ndarray, y: np.ndarray) -> None:
         fail("cross_check", f"kernel and blocked W differ by {rel:.3g}")
 
 
+def expected_launches(rep: dict, R: int, levels: int) -> tuple[int, list]:
+    """(histogram launches, chunk sizes) of a fit of R replicas that
+    launches ``levels`` times a chunk."""
+    chunk = rep["chunk_size_resolved"] or R
+    chunks = [min(chunk, R - s) for s in range(0, R, chunk)]
+    return levels * len(chunks), chunks
+
+
+def check_float_path(phase: str, counts: dict, expected: int) -> None:
+    """A float-statistics tree path's launches: ``expected`` histogram
+    launches, all in the float accumulator, one bin-codes launch, no
+    scaled-Gram launch."""
+    launches = counts["binned_left_stats"]
+    if launches <= 0 or launches != expected \
+            or counts["binned_left_stats_float"] != launches:
+        fail(phase, f"{launches} histogram launches "
+             f"({counts['binned_left_stats_float']} float), expected "
+             f"{expected}, all float")
+    if counts["bin_codes"] != 1 or counts["scaled_gram"]:
+        fail(phase, f"launches {counts}: expected one bin-codes launch and "
+             "no scaled-Gram launch")
+
+
 def tree_bagger(n_estimators: int, seed: int = 0, split_impl: str = "auto",
                 chunk_size: int | None = None):
     """BASELINE config 3's estimator: bagged depth-5, 32-bin Gini trees
@@ -639,9 +720,7 @@ def phase_tree_fit(X: np.ndarray, y: np.ndarray):
     gather_bytes = learner.subspace_gather_bytes(
         N_ROWS, rep["n_subspace"], device=torch.device("cuda"))
     # one launch per level per replica chunk
-    chunk = rep["chunk_size_resolved"] or N_REPLICAS
-    chunks = [min(chunk, N_REPLICAS - s) for s in range(0, N_REPLICAS, chunk)]
-    expected = TREE["max_depth"] * len(chunks)
+    expected, chunks = expected_launches(rep, N_REPLICAS, TREE["max_depth"])
     acc = clf.score(X[:N_SERVE_ROWS], y[:N_SERVE_ROWS])
     majority = float(np.unique(y[:N_SERVE_ROWS], return_counts=True)[1].max()
                      / N_SERVE_ROWS)
@@ -698,30 +777,39 @@ def phase_tree_serve(clf, X: np.ndarray) -> None:
              f"error {sums_err}")
 
 
-def record_levels(X: np.ndarray, y: np.ndarray, R: int, est=None) -> dict:
+def record_levels(X: np.ndarray, y: np.ndarray, R: int, est=None,
+                  keep=None) -> dict:
     """The histogram kernels' inputs in a fit of R replicas (replicas
     0..R-1 of the config, one chunk): the shared X and quantile edges
     the fit bins once, and at each level the shared codes, each
     replica's columns and gathered edges, the level's nodes and the
     statistics (Poisson x one-hot for the classifier trees, the moments
-    of a regressor ``est``; default the config-3 bagger). The fit runs
-    through recording wrappers, put in the tree module's place only (the
-    kernel wrappers themselves are left alone, launch counts and all)."""
+    of a regressor or a GBT ``est``; default the config-3 bagger). The
+    fit runs through recording wrappers, put in the tree module's place
+    only (the kernel wrappers themselves are left alone, launch counts
+    and all). ``keep(i)`` picks the level calls to record (default all;
+    a GBT's rounds call the kernel 4 x 30 times a chunk); each record
+    has its call index ``i``."""
     import types
 
     from spark_bagging_tpu_torch.models import tree as tree_mod
     from spark_bagging_tpu_torch.ops import hist as hist_ops
 
     rec = {"codes": [], "levels": []}
+    calls = [0]
 
     def codes(X, edges):
         rec["codes"].append(dict(X=X, edges=edges))
         return hist_ops.bin_codes(X, edges)
 
     def level(codes, edges, node, S, *, n_nodes, hist_dtype, cols, integral):
-        rec["levels"].append(dict(codes=codes, edges=edges, node=node.clone(),
-                                  S=S, N=n_nodes, hist_dtype=hist_dtype,
-                                  cols=cols, integral=integral))
+        i = calls[0]
+        calls[0] += 1
+        if keep is None or keep(i):
+            rec["levels"].append(dict(
+                i=i, codes=codes, edges=edges, node=node.clone(), S=S,
+                N=n_nodes, hist_dtype=hist_dtype, cols=cols,
+                integral=integral))
         return hist_ops.coded_left_stats(codes, edges, node, S,
                                          n_nodes=n_nodes, hist_dtype=hist_dtype,
                                          cols=cols, integral=integral)
@@ -1090,9 +1178,7 @@ def phase_rf_reg_fit(split):
     est.fit(Xtr, ytr)
     counts = read_launches()
     rep = est.fit_report_
-    chunk = rep["chunk_size_resolved"] or R
-    chunks = [min(chunk, R - s) for s in range(0, R, chunk)]
-    expected = RF_REG["max_depth"] * len(chunks)
+    expected, chunks = expected_launches(rep, R, RF_REG["max_depth"])
     est.predict(Xte)  # warm-up
     t0 = time.perf_counter()
     pred = est.predict(Xte)
@@ -1111,34 +1197,125 @@ def phase_rf_reg_fit(split):
          predict_seconds=predict_seconds)
     if impl != "fused":
         fail("rf_reg_fit", f"split_impl resolved to {impl!r}, not the kernel")
-    launches = counts["binned_left_stats"]
-    if launches <= 0 or launches != expected \
-            or counts["binned_left_stats_float"] != launches:
-        fail("rf_reg_fit", f"{launches} histogram launches "
-             f"({counts['binned_left_stats_float']} float), expected "
-             f"{expected}, all float")
-    if counts["bin_codes"] != 1 or counts["scaled_gram"]:
-        fail("rf_reg_fit", f"launches {counts}: expected one bin-codes "
-             "launch and no scaled-Gram launch")
+    check_float_path("rf_reg_fit", counts, expected)
     if not torch.isfinite(est.ensemble_["leaf_value"]).all():
         fail("rf_reg_fit", "non-finite leaf values")
     if not r2 > RF_R2_BAR:
         fail("rf_reg_fit", f"test R^2 {r2:.4f} not above {RF_R2_BAR}")
-    return launches, counts["bin_codes"], sorted(set(chunks))
+    return counts["binned_left_stats"], counts["bin_codes"], sorted(set(chunks))
 
 
-def phase_reg_hist_kernels(split, Rs: list[int]) -> dict:
-    """The histogram kernel's float accumulator at every replica count
-    and level the forest regressor's fit launched, on that fit's own
-    level inputs: every replica within HIST_FLOAT_TOL of its plain
-    version (per entry over the abs-sum scale), a repeat within it too,
-    with times per replica, bound and library yardstick at each shape.
-    Also holds ``bin_codes`` on the fit's X and edges."""
+def coded_left_stats_f64(codes, E, node, S, N: int, mode: str,
+                         cols) -> torch.Tensor:
+    """``coded_left_stats_plain``'s function summed in float64: the same
+    indicator ``[code <= b]`` (0 at NaN edges) read through each
+    replica's columns and the same node-scattered statistics
+    (bf16-rounded in that mode, which float64 holds exactly), one
+    replica at a time."""
+    from spark_bagging_tpu_torch.ops.precision import bf16_round
+
+    R, n, K = S.shape
+    F, B = E.shape[-2:]
+    bins = torch.arange(B, device=S.device)
+    ids = torch.arange(N, device=S.device)
+    out = torch.empty((R, F, B, N, K), dtype=torch.float64, device=S.device)
+    for r in range(R):
+        c = codes if cols is None else codes[:, cols[r].long()]
+        e = E if E.dim() == 2 else E[r]
+        T = ((c[:, :, None] <= bins) & ~torch.isnan(e)[None]).reshape(
+            n, F * B).double()
+        s = bf16_round(S[r]) if mode == "bfloat16" else S[r]
+        st = ((node[r][:, None] == ids).double()[:, :, None]
+              * s.double()[:, None, :]).reshape(n, N * K)
+        out[r] = (T.t() @ st).reshape(F, B, N, K)
+        del T, st
+    return out
+
+
+def float_hist_row(phase: str, c: dict, R: int, mode: str, **tags) -> dict:
+    """The histogram kernel's float accumulator on one recorded level's
+    inputs ``c`` in operand mode ``mode``: every replica within
+    HIST_FLOAT_TOL of the plain version summed in float64 (per entry over
+    the abs-sum scale; the float32 plain version's own error beside it),
+    a repeat within it too, with the call's ms, the plain version's (each
+    replica's call timed alone, summed), the library forms' and the
+    shared-X bound. Emits one ``phase`` line (``tags`` added) and fails
+    the phase past the tolerance."""
     from spark_bagging_tpu_torch.ops.hist import (
         coded_left_stats,
         coded_left_stats_plain,
     )
 
+    # the identity subspace (every feature) passes no columns and the
+    # shared (F, B) edges: the kernel runs on exactly these
+    codes, cols, E, node, S, N = (c[k] for k in (
+        "codes", "cols", "edges", "node", "S", "N"))
+    if c["integral"]:
+        fail(phase, "the fit passed integral statistics")
+    n, F_all = codes.shape
+    F, B, K = E.shape[-2], E.shape[-1], S.shape[-1]
+    kw = dict(n_nodes=N, hist_dtype=mode, cols=cols)
+
+    def run():
+        return coded_left_stats(codes, E, node, S, integral=False, **kw)
+
+    out, again = run(), run()
+    want = coded_left_stats_f64(codes, E, node, S, N, mode, cols)
+    plain = coded_left_stats_plain(codes, E, node, S, **kw)
+    scale = coded_left_stats_plain(codes, E, node, S.abs(),
+                                   **kw).clamp_min(1e-30)
+    err = float(((out - want).abs() / scale).max())
+    plain_err = float(((plain - want).abs() / scale).max())
+    repeat_err = float(((out - again).abs() / scale).max())
+    max_abs = float((out - want).abs().max())
+    del out, again, want, plain, scale
+    spans = []
+    for r in range(R):
+        one = dict(n_nodes=N, hist_dtype=mode,
+                   cols=None if cols is None else cols[r:r + 1])
+        Er = E if E.dim() == 2 else E[r:r + 1]
+        spans.append(span(lambda: coded_left_stats_plain(
+            codes, Er, node[r:r + 1], S[r:r + 1], **one)))
+    plain_ms = timed_spans(spans)
+    kernel_ms = cuda_ms(run, 3)
+    lib = hist_library_ms(
+        codes,
+        cols if cols is not None else torch.arange(
+            F_all, dtype=torch.int32, device=S.device).expand(R, F),
+        E if E.dim() == 3 else E.expand(R, F, B), node, S, N, mode)
+    torch.cuda.empty_cache()
+    # the function over the shared X (and columns, if any), the edges,
+    # nodes and statistics read once, the table written once
+    shared_bytes = 4.0 * (n * F_all + E.numel() + node.numel()
+                          + S.numel() + R * F * B * N * K
+                          + (0 if cols is None else cols.numel()))
+    t_ops = 1e3 * float(R) * n * F * K / PEAK_FP32
+    t_bytes = 1e3 * shared_bytes / PEAK_BYTES
+    row = dict(
+        max_entry_err=err, plain_float32_entry_err=plain_err,
+        repeat_entry_err=repeat_err,
+        tol=HIST_FLOAT_TOL, max_abs_err=max_abs, kernel_ms=kernel_ms,
+        plain_ms=plain_ms, library_ms=lib["index_add"],
+        library_matmul_ms=lib["matmul"],
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+    )
+    emit(phase, kernel="binned_left_stats", accumulator="float",
+         hist_dtype=mode, **tags,
+         shape=dict(R=R, n=n, F=F, F_all=F_all, B=B, N=N, K=K),
+         **row, **{f"{k}_per_replica": v / R for k, v in row.items()
+                   if k.endswith("_ms")})
+    if not (err <= HIST_FLOAT_TOL and repeat_err <= HIST_FLOAT_TOL):
+        fail(phase, f"R={R} N={N} {mode}: entry error {err:.3g}, repeat "
+             f"{repeat_err:.3g} (tol {HIST_FLOAT_TOL})")
+    return row
+
+
+def phase_reg_hist_kernels(split, Rs: list[int]) -> dict:
+    """The histogram kernel's float accumulator at every replica count
+    and level the forest regressor's fit launched, on that fit's own
+    level inputs, in the fit's operand mode (``float_hist_row``). Also
+    holds ``bin_codes`` on the fit's X and edges."""
     Xtr, ytr = split[:2]
     rows = {}
     for R in Rs:
@@ -1151,68 +1328,8 @@ def phase_reg_hist_kernels(split, Rs: list[int]) -> dict:
                  f"{[c['N'] for c in calls]}")
         phase_bin_codes(rec, path="rf_reg")
         for c in calls:
-            # the identity subspace (every feature) passes no columns and
-            # the shared (F, B) edges: the kernel runs on exactly these
-            codes, cols, E, node, S, N, mode = (c[k] for k in (
-                "codes", "cols", "edges", "node", "S", "N", "hist_dtype"))
-            if c["integral"]:
-                fail("reg_hist_kernels", "the regressor passed integral "
-                     "statistics")
-            n, F_all = codes.shape
-            F, B, K = E.shape[-2], E.shape[-1], S.shape[-1]
-            kw = dict(n_nodes=N, hist_dtype=mode, cols=cols)
-
-            def run():
-                return coded_left_stats(codes, E, node, S, integral=False,
-                                        **kw)
-
-            out, again = run(), run()
-            want = coded_left_stats_plain(codes, E, node, S, **kw)
-            scale = coded_left_stats_plain(codes, E, node, S.abs(),
-                                           **kw).clamp_min(1e-30)
-            err = float(((out - want).abs() / scale).max())
-            repeat_err = float(((out - again).abs() / scale).max())
-            max_abs = float((out - want).abs().max())
-            del out, again, want, scale
-            spans = []
-            for r in range(R):
-                one = dict(n_nodes=N, hist_dtype=mode,
-                           cols=None if cols is None else cols[r:r + 1])
-                Er = E if E.dim() == 2 else E[r:r + 1]
-                spans.append(span(lambda: coded_left_stats_plain(
-                    codes, Er, node[r:r + 1], S[r:r + 1], **one)))
-            plain_ms = timed_spans(spans)
-            kernel_ms = cuda_ms(run, 3)
-            lib = hist_library_ms(
-                codes,
-                cols if cols is not None else torch.arange(
-                    F_all, dtype=torch.int32, device=S.device).expand(R, F),
-                E if E.dim() == 3 else E.expand(R, F, B), node, S, N, mode)
-            torch.cuda.empty_cache()
-            # the function over the shared X (and columns, if any), the
-            # edges, nodes and moments read once, the table written once
-            shared_bytes = 4.0 * (n * F_all + E.numel() + node.numel()
-                                  + S.numel() + R * F * B * N * K
-                                  + (0 if cols is None else cols.numel()))
-            t_ops = 1e3 * float(R) * n * F * K / PEAK_FP32
-            t_bytes = 1e3 * shared_bytes / PEAK_BYTES
-            rows[R, N] = row = dict(
-                max_entry_err=err, repeat_entry_err=repeat_err,
-                tol=HIST_FLOAT_TOL, max_abs_err=max_abs, kernel_ms=kernel_ms,
-                plain_ms=plain_ms, library_ms=lib["index_add"],
-                library_matmul_ms=lib["matmul"],
-                bound_ms=max(t_ops, t_bytes),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-            )
-            emit("reg_hist_kernels", kernel="binned_left_stats",
-                 accumulator="float", hist_dtype=mode,
-                 shape=dict(R=R, n=n, F=F, F_all=F_all, B=B, N=N, K=K),
-                 **row, **{f"{k}_per_replica": v / R for k, v in row.items()
-                           if k.endswith("_ms")})
-            if not (err <= HIST_FLOAT_TOL and repeat_err <= HIST_FLOAT_TOL):
-                fail("reg_hist_kernels", f"R={R} N={N}: entry error "
-                     f"{err:.3g}, repeat {repeat_err:.3g} "
-                     f"(tol {HIST_FLOAT_TOL})")
+            rows[R, c["N"]] = float_hist_row("reg_hist_kernels", c, R,
+                                             c["hist_dtype"])
         del calls, rec
         torch.cuda.empty_cache()
     return rows
@@ -1251,7 +1368,272 @@ def phase_reg_tree_cross_check(split) -> None:
              f"(limit {RF_CROSS_R2_TOL})")
 
 
+def higgs_data():
+    """BASELINE config 7's data: the standardized 1M-row synthetic
+    HIGGS, split 80/20 as benchmarks/run_configs.py splits it:
+    ``(X_train, y_train, X_test, y_test)``."""
+    from spark_bagging_tpu_torch.utils import datasets
+
+    X, y = datasets.synthetic_higgs(N_HIGGS_ROWS)
+    return datasets.train_test_split(datasets.standardize(X), y)
+
+
+def gbt_bagger(n_estimators: int = GBT_REPLICAS, seed: int = 0,
+               split_impl: str = "auto", chunk_size: int | None = None,
+               n_rounds: int = GBT["n_rounds"]):
+    """Config 7's estimator: bagged binary GBTs of depth 4, 32 bins, bf16
+    moments (h, h z, h z^2) in the histogram's float accumulator."""
+    from spark_bagging_tpu_torch import BaggingClassifier, GBTClassifier
+
+    return BaggingClassifier(
+        GBTClassifier(n_rounds=n_rounds, max_depth=GBT["max_depth"],
+                      split_impl=split_impl),
+        n_estimators=n_estimators, seed=seed, chunk_size=chunk_size)
+
+
+def phase_gbt_fit(split):
+    """BASELINE config 7 at full width: 32 bagged GBTs of 30 rounds on
+    800,000 x 28, its test AUC against the sklearn proxy, and a warm
+    ``predict_proba`` of the 200,000 test rows."""
+    from spark_bagging_tpu_torch.utils.metrics import roc_auc
+
+    Xtr, ytr, Xte, yte = split
+    levels = GBT["max_depth"] * GBT["n_rounds"]
+    t0 = time.perf_counter()
+    gbt_bagger(4, seed=1, n_rounds=2).fit(Xtr[:50_000], ytr[:50_000])
+    warmup_seconds = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    est = gbt_bagger()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    est.fit(Xtr, ytr)
+    counts = read_launches()
+    rep = est.fit_report_
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    expected, chunks = expected_launches(rep, GBT_REPLICAS, levels)
+    est.predict_proba(Xte)  # warm-up
+    t0 = time.perf_counter()
+    proba = est.predict_proba(Xte)
+    predict_seconds = time.perf_counter() - t0
+    auc = roc_auc(yte, proba[:, 1])
+    bar = GBT_PROXY_AUC - PARITY_TOL
+    impl = est._fitted_learner._resolved_impl(torch.device("cuda"))
+    emit("gbt_fit", ok=True, n_train=len(ytr), n_test=len(yte),
+         n_features=Xtr.shape[1], n_replicas=GBT_REPLICAS, **GBT,
+         split_impl=impl, warmup_fit_seconds=warmup_seconds,
+         fit_seconds=rep["fit_seconds"], fits_per_sec=rep["fits_per_sec"],
+         h2d_seconds=rep["h2d_seconds"], chunk_size=rep["chunk_size_resolved"],
+         peak_mem_gb=peak, launches=counts,
+         expected_binned_left_stats_launches=expected,
+         float_accumulator_launches=counts["binned_left_stats_float"],
+         test_auc=auc, proxy_auc=GBT_PROXY_AUC, auc_bar=bar,
+         predict_proba_seconds=predict_seconds,
+         predict_proba_rows_per_sec=len(yte) / predict_seconds)
+    if impl != "fused":
+        fail("gbt_fit", f"split_impl resolved to {impl!r}, not the kernel")
+    check_float_path("gbt_fit", counts, expected)
+    if not torch.isfinite(est.ensemble_["leaf"]).all():
+        fail("gbt_fit", "non-finite leaf values")
+    if not (np.isfinite(proba).all() and proba.shape == (len(yte), 2)):
+        fail("gbt_fit", f"bad probabilities, shape {proba.shape}")
+    if not auc >= bar:
+        fail("gbt_fit", f"test AUC {auc:.5f} below the bar {bar:.5f}")
+    return counts["binned_left_stats"], counts["bin_codes"], chunks
+
+
+def phase_gbt_hist_kernels(split, R: int) -> dict:
+    """The float accumulator on one chunk of config 7's fit (replicas
+    0..R-1), at each level of round 0 and of the last round, in bf16 and
+    fp32 operand modes (``float_hist_row``)."""
+    Xtr, ytr = split[:2]
+    depth, rounds = GBT["max_depth"], GBT["n_rounds"]
+    last = depth * (rounds - 1)
+    rec = record_levels(Xtr, ytr, R,
+                        est=gbt_bagger(R, split_impl="fused", chunk_size=R),
+                        keep=lambda i: i < depth or i >= last)
+    calls = rec["levels"]
+    want = [*range(depth), *range(last, last + depth)]
+    if [c["i"] for c in calls] != want or \
+            [c["N"] for c in calls] != [2**lv for lv in range(depth)] * 2:
+        fail("gbt_hist_kernels", f"recorded calls {[c['i'] for c in calls]}"
+             f" of {[c['N'] for c in calls]} nodes")
+    rows = {}
+    for c in calls:
+        rnd = 0 if c["i"] < depth else rounds - 1
+        for mode in ("bfloat16", "float32"):
+            rows[rnd, c["N"], mode] = float_hist_row(
+                "gbt_hist_kernels", c, R, mode, round=rnd)
+    del calls, rec
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_gbt_cross_check(split) -> None:
+    """Config 7's GBTs (4 replicas, 10 rounds) grown with the kernel and
+    with the dense product on the card: round 0's split features equal
+    in at least GBT_CROSS_FEATURE_SHARE, test AUC within
+    GBT_CROSS_AUC_TOL."""
+    from spark_bagging_tpu_torch.utils.metrics import roc_auc
+
+    Xtr, ytr, Xte, yte = split
+    M = 2**GBT["max_depth"] - 1
+    fits, auc = {}, {}
+    for impl in ("fused", "dense"):
+        fits[impl] = gbt_bagger(split_impl=impl, **GBT_CROSS).fit(Xtr, ytr)
+        auc[impl] = roc_auc(yte, fits[impl].predict_proba(Xte)[:, 1])
+        torch.cuda.empty_cache()
+    feats = [fits[k].ensemble_["feature"] for k in ("fused", "dense")]
+    round0 = float((feats[0][:, :M] == feats[1][:, :M]).float().mean())
+    every = float((feats[0] == feats[1]).float().mean())
+    d_auc = abs(auc["fused"] - auc["dense"])
+    ok = round0 >= GBT_CROSS_FEATURE_SHARE and d_auc <= GBT_CROSS_AUC_TOL
+    emit("gbt_cross_check", ok=ok, rows=len(ytr), **GBT_CROSS,
+         round0_equal_split_feature_share=round0,
+         equal_split_feature_share=every,
+         all_splits_equal=all(torch.equal(fits["fused"].ensemble_[k],
+                                          fits["dense"].ensemble_[k])
+                              for k in ("feature", "threshold")),
+         test_auc_fused=auc["fused"], test_auc_dense=auc["dense"],
+         auc_diff=d_auc, auc_tol=GBT_CROSS_AUC_TOL,
+         feature_share_bar=GBT_CROSS_FEATURE_SHARE)
+    if not ok:
+        fail("gbt_cross_check", f"round-0 features equal {round0:.3f} (bar "
+             f"{GBT_CROSS_FEATURE_SHARE}), AUC differs by {d_auc:.5f}")
+
+
+def phase_gbt_multiclass_fit(X: np.ndarray, y: np.ndarray):
+    """Multiclass GBTs on the covtype data (7 classes): the R x 7 class
+    trees of a round grow together, one histogram launch a level."""
+    import types
+
+    from spark_bagging_tpu_torch import BaggingClassifier, GBTClassifier
+    from spark_bagging_tpu_torch.models import tree as tree_mod
+    from spark_bagging_tpu_torch.ops import hist as hist_ops
+
+    R = GBT_MC["n_estimators"]
+    est = BaggingClassifier(
+        GBTClassifier(n_rounds=GBT_MC["n_rounds"],
+                      max_depth=GBT_MC["max_depth"]),
+        n_estimators=R, seed=0)
+    trees = []
+
+    def level(codes, edges, node, S, **kw):
+        trees.append(S.shape[0])
+        return hist_ops.coded_left_stats(codes, edges, node, S, **kw)
+
+    tree_mod.hist_ops = types.SimpleNamespace(
+        **{**vars(hist_ops), "coded_left_stats": level})
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    try:
+        est.fit(X, y)
+    finally:
+        tree_mod.hist_ops = hist_ops
+    counts = read_launches()
+    rep = est.fit_report_
+    expected, chunks = expected_launches(
+        rep, R, GBT_MC["max_depth"] * GBT_MC["n_rounds"])
+    acc = est.score(X[:N_SERVE_ROWS], y[:N_SERVE_ROWS])
+    bar = GBT_MC_PROXY_ACC - PARITY_TOL
+    emit("gbt_multiclass_fit", ok=True, n_rows=len(y), n_classes=N_CLASSES,
+         **GBT_MC, fit_seconds=rep["fit_seconds"],
+         fits_per_sec=rep["fits_per_sec"],
+         chunk_size=rep["chunk_size_resolved"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+         trees_per_launch=sorted(set(trees)), launches=counts,
+         expected_binned_left_stats_launches=expected,
+         accuracy_100k=acc, proxy_accuracy_100k=GBT_MC_PROXY_ACC,
+         acc_bar=bar)
+    check_float_path("gbt_multiclass_fit", counts, expected)
+    if sorted(set(trees)) != sorted({c * N_CLASSES for c in chunks}):
+        fail("gbt_multiclass_fit", f"trees a launch {sorted(set(trees))}, "
+             f"expected the chunks {chunks} x {N_CLASSES} classes")
+    if not torch.isfinite(est.ensemble_["leaf"]).all():
+        fail("gbt_multiclass_fit", "non-finite leaf values")
+    if not acc >= bar:
+        fail("gbt_multiclass_fit", f"accuracy {acc:.5f} below the bar "
+             f"{bar:.5f}")
+    return counts["binned_left_stats"], counts["bin_codes"]
+
+
+def phase_gbt_reg_fit(split):
+    """Bagged GBT regressors on the California split: test R^2 against
+    the sklearn proxy."""
+    from spark_bagging_tpu_torch import BaggingRegressor, GBTRegressor
+    from spark_bagging_tpu_torch.utils.metrics import r2_score
+
+    Xtr, ytr, Xte, yte = split
+    R = GBT_REG["n_estimators"]
+    est = BaggingRegressor(
+        GBTRegressor(n_rounds=GBT_REG["n_rounds"],
+                     max_depth=GBT_REG["max_depth"]),
+        n_estimators=R, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    est.fit(Xtr, ytr)
+    counts = read_launches()
+    rep = est.fit_report_
+    expected, _ = expected_launches(
+        rep, R, GBT_REG["max_depth"] * GBT_REG["n_rounds"])
+    r2 = r2_score(yte, est.predict(Xte))
+    bar = GBT_REG_PROXY_R2 - PARITY_TOL
+    emit("gbt_reg_fit", ok=True, n_train=len(ytr), n_test=len(yte),
+         **GBT_REG, fit_seconds=rep["fit_seconds"],
+         fits_per_sec=rep["fits_per_sec"],
+         chunk_size=rep["chunk_size_resolved"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+         launches=counts, expected_binned_left_stats_launches=expected,
+         test_r2=r2, proxy_r2=GBT_REG_PROXY_R2, r2_bar=bar)
+    check_float_path("gbt_reg_fit", counts, expected)
+    if not torch.isfinite(est.ensemble_["leaf"]).all():
+        fail("gbt_reg_fit", "non-finite leaf values")
+    if not r2 >= bar:
+        fail("gbt_reg_fit", f"test R^2 {r2:.5f} below the bar {bar:.5f}")
+    return counts["binned_left_stats"], counts["bin_codes"]
+
+
+def sklearn_proxies() -> dict:
+    """The sklearn proxies the GBT phases hold the port to (GBT_PROXY_AUC,
+    GBT_MC_PROXY_ACC, GBT_REG_PROXY_R2), as benchmarks/run_configs.py
+    computes config 7's. Needs sklearn (not on the card's machine) and
+    no GPU."""
+    from sklearn.ensemble import (
+        HistGradientBoostingClassifier,
+        HistGradientBoostingRegressor,
+    )
+
+    from spark_bagging_tpu_torch.utils.metrics import accuracy, r2_score, roc_auc
+
+    def proxy_rows(X, y, cap=50_000, seed=0):  # run_configs._proxy_train_set
+        if len(y) <= cap:
+            return X, y
+        idx = np.random.default_rng(seed).choice(len(y), cap, replace=False)
+        return X[idx], y[idx]
+
+    sk = dict(max_depth=4, learning_rate=0.1, random_state=0)
+    Xtr, ytr, Xte, yte = higgs_data()
+    m = HistGradientBoostingClassifier(max_iter=GBT["n_rounds"], **sk).fit(
+        *proxy_rows(Xtr, ytr))
+    out = {"GBT_PROXY_AUC": roc_auc(yte, m.predict_proba(Xte)[:, 1])}
+    X, y = headline_data()
+    m = HistGradientBoostingClassifier(max_iter=GBT_MC["n_rounds"], **sk).fit(
+        *proxy_rows(X, y))
+    out["GBT_MC_PROXY_ACC"] = accuracy(y[:N_SERVE_ROWS],
+                                       m.predict(X[:N_SERVE_ROWS]))
+    Xtr, ytr, Xte, yte = regression_data()
+    m = HistGradientBoostingRegressor(max_iter=GBT_REG["n_rounds"], **sk).fit(
+        *proxy_rows(Xtr, ytr))
+    out["GBT_REG_PROXY_R2"] = r2_score(yte, m.predict(Xte))
+    return out
+
+
 def main() -> int:
+    if sys.argv[1:] == ["--sklearn-proxies"]:
+        import sklearn
+
+        print(json.dumps({"sklearn": sklearn.__version__,
+                          **sklearn_proxies()}))
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs an NVIDIA GPU", file=sys.stderr)
@@ -1281,7 +1663,6 @@ def main() -> int:
     torch.cuda.empty_cache()
     hist_rows, codes_row = phase_hist_kernels(X, y, tree_Rs)
     phase_tree_cross_check(X, y)
-    del X, y
     torch.cuda.empty_cache()
     split = regression_data()
     phase_reg_fit(split)
@@ -1290,14 +1671,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     reg_rows = phase_reg_hist_kernels(split, rf_Rs)
     phase_reg_tree_cross_check(split)
+    torch.cuda.empty_cache()
+    higgs = higgs_data()
+    gbt_launches, gbt_codes_launches, gbt_chunks = phase_gbt_fit(higgs)
+    torch.cuda.empty_cache()
+    gbt_rows = phase_gbt_hist_kernels(higgs, max(gbt_chunks))
+    phase_gbt_cross_check(higgs)
+    del higgs
+    torch.cuda.empty_cache()
+    mc_launches, mc_codes_launches = phase_gbt_multiclass_fit(X, y)
+    del X, y
+    torch.cuda.empty_cache()
+    gr_launches, gr_codes_launches = phase_gbt_reg_fit(split)
     # each kernel's line reports the largest replica chunk (and, for the
-    # histogram, the deepest level in the fit's bf16 mode), where its fit
-    # spends its kernel time; the phase lines hold every shape. The
-    # histogram's bound is the function over one shared X read through
-    # the replicas' column indices, what the fit asks of it. Its and the
-    # bin codes' launches are the tree path's and the forest regressor's
-    # together, and its max_abs_err is the largest of both paths (the
-    # float accumulator's: the integral one is exact)
+    # histogram, config 3's deepest level in the fit's bf16 mode), where
+    # its fit spends its kernel time; the phase lines hold every shape.
+    # The histogram's bound is the function over one shared X read
+    # through the replicas' column indices, what the fit asks of it. Its
+    # and the bin codes' launches are every tree path's together (config
+    # 3, the forest regressor, config 7's GBTs, the multiclass and
+    # regressor GBTs), and its max_abs_err is the largest of every path
+    # (the float accumulator's: the integral one is exact)
     f32 = rows[max(Rs)]["float32"]
     deepest = hist_rows[max(tree_Rs), 2 ** (TREE["max_depth"] - 1), "bfloat16"]
     print(json.dumps({"kernels": [{
@@ -1317,9 +1711,10 @@ def main() -> int:
         "route": "cuda",
         "source": "spark_bagging_tpu_torch/csrc/binned_left_stats.cu",
         "replaces": "spark_bagging_tpu/ops/hist.py:66",
-        "launches": tree_launches + rf_launches,
+        "launches": (tree_launches + rf_launches + gbt_launches
+                     + mc_launches + gr_launches),
         "max_abs_err": max(r["max_abs_err"] for r in (
-            *hist_rows.values(), *reg_rows.values())),
+            *hist_rows.values(), *reg_rows.values(), *gbt_rows.values())),
         "ms": deepest["kernel_ms"],
         "plain_ms": deepest["plain_ms"],
         "bound_ms": deepest["bound_ms"],
@@ -1330,7 +1725,8 @@ def main() -> int:
         "route": "cuda",
         "source": "spark_bagging_tpu_torch/csrc/binned_left_stats.cu",
         "replaces": "spark_bagging_tpu/ops/hist.py:66",
-        "launches": codes_launches + rf_codes_launches,
+        "launches": (codes_launches + rf_codes_launches + gbt_codes_launches
+                     + mc_codes_launches + gr_codes_launches),
         "max_abs_err": 0.0 if not codes_row["unequal"] else None,
         "ms": codes_row["kernel_ms"],
         "plain_ms": codes_row["plain_ms"],

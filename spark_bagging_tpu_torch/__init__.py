@@ -4,9 +4,10 @@ Bagging ensembles on an NVIDIA H100: Poisson-bootstrap replicas fitted
 together along a replica axis, soft or hard votes, and hand-written
 Hopper kernels (``csrc/``) for the hot loops the JAX package wrote in
 Pallas: the scaled-Gram Hessian of logistic regression and the
-split-search histogram of decision trees and random forests. The
-classifiers vote; the regressors (bagged ridge regression, bagged
-regression trees, random forests) average. The JAX
+split-search histogram of decision trees, random forests and
+gradient-boosted trees. The classifiers vote; the regressors (bagged
+ridge regression, bagged regression trees and boosted trees, random
+forests) average. The JAX
 package stays the reference this port is held against; the port
 imports only torch and numpy.
 
@@ -23,6 +24,8 @@ from spark_bagging_tpu_torch.models import (
     BaseLearner,
     DecisionTreeClassifier,
     DecisionTreeRegressor,
+    GBTClassifier,
+    GBTRegressor,
     LinearRegression,
     LogisticRegression,
 )
@@ -35,6 +38,8 @@ __all__ = [
     "BaseLearner",
     "DecisionTreeClassifier",
     "DecisionTreeRegressor",
+    "GBTClassifier",
+    "GBTRegressor",
     "LinearRegression",
     "LogisticRegression",
     "RandomForestClassifier",

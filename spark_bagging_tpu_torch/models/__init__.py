@@ -1,13 +1,15 @@
 """Base learners, batched over a leading replica axis (models/base.py).
 
 Ported so far: :class:`LogisticRegression` (Newton solver),
-:class:`LinearRegression` (weighted ridge normal equations) and the
+:class:`LinearRegression` (weighted ridge normal equations), the
 depth-bounded trees :class:`DecisionTreeClassifier` and
-:class:`DecisionTreeRegressor`. The other learner families of the JAX
+:class:`DecisionTreeRegressor`, and the gradient-boosted trees
+:class:`GBTClassifier` and :class:`GBTRegressor`. The other learner families of the JAX
 package are queued in ROADMAP.md.
 """
 
 from spark_bagging_tpu_torch.models.base import BaseLearner
+from spark_bagging_tpu_torch.models.gbt import GBTClassifier, GBTRegressor
 from spark_bagging_tpu_torch.models.linear import LinearRegression
 from spark_bagging_tpu_torch.models.logistic import LogisticRegression
 from spark_bagging_tpu_torch.models.tree import (
@@ -19,6 +21,8 @@ __all__ = [
     "BaseLearner",
     "DecisionTreeClassifier",
     "DecisionTreeRegressor",
+    "GBTClassifier",
+    "GBTRegressor",
     "LinearRegression",
     "LogisticRegression",
 ]

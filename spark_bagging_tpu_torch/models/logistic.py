@@ -4,17 +4,23 @@ The port of the JAX package's headline learner, Newton solver only,
 batched over a leading replica axis: every replica of a chunk takes its
 Newton steps together, with one Cholesky factorization per replica.
 
-Hessian assemblies (``hessian_impl``), both exact multinomial Newton:
+Hessian assemblies (``hessian_impl``), all exact multinomial Newton:
 
 - ``"blocked"``: the C(C+1)/2 upper-triangle blocks ``X^T diag(s) X``
   as one batched matmul each, in plain torch;
-- ``"pallas"``: the same blocks from the scaled-Gram kernel
-  (ops/gram.py: CUDA on the card, its plain version on the CPU). The
-  name is the JAX package's, so a JAX configuration carries across.
+- ``"packed"``: the same blocks from one ``(d, n) @ (n, P·d)`` product
+  of X with its C(C+1)/2 scaled copies side by side;
+- ``"fused"``: the cross term ``-V^T V`` of ``V[n, (c, i)] = sqrt(w_n)
+  p_nc x_ni`` as one ``(C·d, n) @ (n, C·d)`` product, plus the block
+  diagonal of the per-class weighted Grams;
+- ``"pallas"``: the blocks from the scaled-Gram kernel (ops/gram.py:
+  CUDA on the card, its plain version on the CPU). The name is the JAX
+  package's, so a JAX configuration carries across.
 
 "auto" resolves as in the JAX package: "blocked" up to C = 8 classes,
-"fused" beyond. "fused", "packed" and ``solver="adam"`` are not ported
-yet and raise ``NotImplementedError``.
+"fused" beyond. Every product but the kernel's runs in float32 with
+TF32 off, whatever ``precision`` says. ``solver="adam"`` is not ported
+yet and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -108,11 +114,19 @@ class LogisticRegression(PooledStartMixin, BaseLearner):
         C, d = n_outputs, n_features + 1
         rows = min(self.row_tile or n_rows, n_rows)
         P = C * (C + 1) // 2
+        # The wide operands of "fused" (V, and the per-class scaled X of
+        # its block diagonal, each (rows, C·d)) and "packed" (the (rows,
+        # P·d) scaled copies) are per-replica temporaries too.
         base = 4.0 * (4 * rows * C + 2 * n_rows + 2 * rows * P)
-        if self._resolved_hessian(C) != "pallas":
-            base += 4.0 * rows * d
-        else:
+        impl = self._resolved_hessian(C)
+        if impl == "pallas":
             base += launch_bytes(rows, d, P)
+        elif impl == "fused":
+            base += 2 * 4.0 * rows * C * d
+        elif impl == "packed":
+            base += 4.0 * rows * P * d
+        else:
+            base += 4.0 * rows * d
         base += 3 * 4.0 * (C * d) ** 2
         return float(base)
 
@@ -181,6 +195,8 @@ class LogisticRegression(PooledStartMixin, BaseLearner):
         Y = torch.nn.functional.one_hot(yt, C).to(torch.float32)
         G = Xt.transpose(-1, -2) @ ((P - Y) * wt[..., None])
         # H_cc' = X^T diag(w·p_c·(δ_cc' − p_c')) X, for c <= c'
+        if impl == "fused":
+            return loss_sum, G, _fused_hessian(Xt, P, wt)
         ci, cpi = _pairs(C, W.device)
         delta = (ci == cpi).to(torch.float32)
         S = wt[..., None] * P[..., ci] * (delta - P[..., cpi])  # (R, t, P)
@@ -189,6 +205,14 @@ class LogisticRegression(PooledStartMixin, BaseLearner):
                 Xt.contiguous(), S.contiguous(),
                 op_dtype=gram_op_dtype(self.precision),
             )
+        elif impl == "packed":
+            # the P scaled copies of X side by side: one (d, t) @ (t, P·d)
+            # product a replica computes every block
+            R, t, n_pairs = S.shape
+            d = Xt.shape[-1]
+            rhs = (Xt[..., :, None, :] * S[..., None]).reshape(R, t, -1)
+            grams = (Xt.transpose(-1, -2) @ rhs).reshape(
+                R, d, n_pairs, d).transpose(1, 2)
         else:
             grams = torch.stack([
                 (Xt * S[..., k, None]).transpose(-1, -2) @ Xt
@@ -207,11 +231,6 @@ class LogisticRegression(PooledStartMixin, BaseLearner):
         W = params["W"]
         R, d, C = W.shape
         impl = self._resolved_hessian(C)
-        if impl in ("fused", "packed"):
-            raise NotImplementedError(
-                f"hessian_impl={impl!r} (resolved from "
-                f"{self.hessian_impl!r} at C={C}; {_ROADMAP_SOLVERS})"
-            )
         gram_op_dtype(self.precision)  # reject an unknown name up front
         tiles = self._row_tiles(Xb.shape[-2])
         # damping diagonal in (c, i) layout: l2 on coefficients, jitter
@@ -256,6 +275,28 @@ def _pairs(C: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     blocks are stacked: (0,0), (0,1), ..., (0,C-1), (1,1), ..."""
     ci, cpi = zip(*[(c, cp) for c in range(C) for cp in range(c, C)])
     return (torch.tensor(ci, device=device), torch.tensor(cpi, device=device))
+
+
+def _fused_hessian(Xt: torch.Tensor, P: torch.Tensor,
+                   wt: torch.Tensor) -> torch.Tensor:
+    """The ``(R, C·d, C·d)`` data Hessian in the ``(c·d + i)`` layout:
+    ``w p_c p_c' = (sqrt(w) p_c)(sqrt(w) p_c')``, so the cross term is
+    ``-V^T V`` with ``V[n, (c, i)] = sqrt(w_n) p_nc x_ni``, one product a
+    replica; the delta term is the block diagonal of the per-class
+    weighted Grams ``sum_n x x^T w p_c``."""
+    R, t, C = P.shape
+    d = Xt.shape[-1]
+    xs = Xt * wt.sqrt()[..., None]                         # (R, t, d)
+    V = (P[..., :, None] * xs[..., None, :]).reshape(R, t, C * d)
+    H = -(V.transpose(-1, -2) @ V)
+    del V
+    a = (wt[..., None] * P).transpose(-1, -2)              # (R, C, t)
+    Xc = Xt[..., None, :, :] if Xt.dim() == 3 else Xt
+    D = (Xc * a[..., None]).transpose(-1, -2) @ Xc         # (R, C, d, d)
+    Hv = H.view(R, C, d, C, d)
+    for c in range(C):
+        Hv[:, c, :, c, :] += D[:, c]
+    return H
 
 
 def _assemble_hessian(grams: torch.Tensor, C: int) -> torch.Tensor:

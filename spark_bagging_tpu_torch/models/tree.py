@@ -33,13 +33,15 @@ in float32 whatever ``hist_dtype`` says, as the JAX package does on its
 CPU backend. ``precision`` is kept for parity with the JAX signature;
 every product here pins its own precision (ops/precision.py).
 
-The streamed fit (``_chunk_level_hist``, ``tree_stream.py``) and
-``to_debug_string`` are not ported yet (ROADMAP Queue A 9 and 11).
+``to_debug_string`` renders one replica's tree (Spark's
+``toDebugString``). The streamed fit (``_chunk_level_hist``,
+``tree_stream.py``) is not ported yet (ROADMAP Queue A 11).
 """
 
 from __future__ import annotations
 
 import math
+from typing import ClassVar
 
 import numpy as np
 import torch
@@ -112,6 +114,9 @@ class _TreeBase(BaseLearner):
     """Shared growth engine of the classifier and regressor trees."""
 
     reads_subspace_index = True
+    # the split statistics are integers (counts) for integer weights,
+    # summed exactly in int32 by the kernel; else floats
+    integral_stats: ClassVar[bool] = False
 
     def __init__(
         self,
@@ -228,12 +233,16 @@ class _TreeBase(BaseLearner):
             out["T"] = prepared["T"][idx.long()]         # (R, k, B, n)
         return out
 
+    def _stats_per_row(self, n_outputs: int) -> int:
+        """K, the statistics a row carries: its classes for a
+        classification tree, the 3 moments for a regression tree."""
+        return n_outputs if self.task == "classification" else 3
+
     def flops_per_fit(self, n_rows, n_features, n_outputs):
         # per level the split search is one (F·B, n) @ (n, N·K)
         # contraction in the dense form; summed over levels N totals
-        # 2^d - 1. K: classes for classification, 3 moments for
-        # regression.
-        K = n_outputs if self.task == "classification" else 3
+        # 2^d - 1
+        K = self._stats_per_row(n_outputs)
         nodes_total = 2**self.max_depth - 1
         return float(
             2 * n_rows * n_features * self.n_bins * K * nodes_total
@@ -242,16 +251,18 @@ class _TreeBase(BaseLearner):
     def fit_workset_bytes(self, n_rows, n_features, n_outputs, device=None):
         # per-replica temporaries at the deepest level (N = 2^(d-1)
         # nodes): the (F, B, N, K) f32 table with the kernel's row-split
-        # partials (ops/hist.launch_bytes), its `right = total - hist`
+        # partials (ops/hist.launch_bytes; float statistics split rows
+        # at least every FLOAT_SPLIT_ROWS), its `right = total - hist`
         # copy and the impurity and score temporaries of _select_splits;
         # the (n, 2^d) f32 leaf one-hot of _leaf_stats; S and the one-hot
         # labels it is made from; the node, routing and gather vectors;
         # and on the dense path the node-scattered statistics and their
         # one-hot in the operand type.
-        K = n_outputs if self.task == "classification" else 3
+        K = self._stats_per_row(n_outputs)
         N = 2 ** (self.max_depth - 1)
         table = 4.0 * n_features * self.n_bins * N * K
-        per = (hist_ops.launch_bytes(n_features, self.n_bins, N, K)
+        splits = 1 if self.integral_stats else hist_ops.float_splits(n_rows)
+        per = (hist_ops.launch_bytes(n_features, self.n_bins, N, K, splits)
                + 3 * table
                + 4.0 * n_rows * 2**self.max_depth
                + 2 * 4.0 * n_rows * K
@@ -414,6 +425,61 @@ class _TreeBase(BaseLearner):
         with fp32_matmul():
             return onehot.to(torch.float32).transpose(1, 2) @ S
 
+    # -- the debug dump -------------------------------------------------
+
+    def _leaf_str(self, params, leaf_idx: int) -> str:
+        raise NotImplementedError
+
+    def to_debug_string(self, params, feature_names=None) -> str:
+        """Human-readable dump of ONE replica's tree (Spark's
+        ``DecisionTree*Model.toDebugString``), from its level-ordered
+        node arrays as numpy (``replica_params(i)[0]``). A non-finite
+        threshold marks an unsplit node (every row routes left) and is
+        rendered as the leaf it effectively is::
+
+            clf.base_learner_.to_debug_string(clf.replica_params(i)[0])
+        """
+        feat = np.asarray(params["feature"])
+        thr = np.asarray(params["threshold"])
+
+        def name(f):
+            return (
+                feature_names[f] if feature_names is not None
+                else f"feature {f}"
+            )
+
+        lines: list[str] = []
+        # reachable splits only: the empty nodes under an unsplit
+        # ancestor keep finite thresholds
+        n_splits = 0
+
+        def walk(level: int, rel: int, indent: int) -> None:
+            nonlocal n_splits
+            pad = " " * indent
+            if level == self.max_depth:
+                lines.append(pad + self._leaf_str(params, rel))
+                return
+            node = (2**level - 1) + rel
+            if not np.isfinite(thr[node]):
+                walk(level + 1, 2 * rel, indent)
+                return
+            n_splits += 1
+            lines.append(
+                pad + f"If ({name(int(feat[node]))} <= {thr[node]:.6g})"
+            )
+            walk(level + 1, 2 * rel, indent + 1)
+            lines.append(
+                pad + f"Else ({name(int(feat[node]))} > {thr[node]:.6g})"
+            )
+            walk(level + 1, 2 * rel + 1, indent + 1)
+
+        walk(0, 0, 1)
+        header = (
+            f"{type(self).__name__} (depth={self.max_depth}, "
+            f"splits={n_splits})"
+        )
+        return "\n".join([header] + lines)
+
     # -- routing (shared by fit-time and predict-time) ------------------
 
     def _route(self, params, X, cols=None):
@@ -447,6 +513,7 @@ class DecisionTreeClassifier(_TreeBase):
     """
 
     task = "classification"
+    integral_stats = True
 
     def __init__(
         self,
@@ -548,6 +615,11 @@ class DecisionTreeClassifier(_TreeBase):
         leaf = self._route(params, X, cols)
         return logp.gather(1, leaf[..., None].expand(-1, -1, logp.shape[-1]))
 
+    def _leaf_str(self, params, leaf_idx):
+        logp = np.asarray(params["leaf_logp"][leaf_idx])
+        c = int(logp.argmax())
+        return f"Predict: {c} (p={float(np.exp(logp[c])):.3f})"
+
 
 class DecisionTreeRegressor(_TreeBase):
     """Weighted-variance (SSE) regression tree.
@@ -608,3 +680,6 @@ class DecisionTreeRegressor(_TreeBase):
 
     def predict_scores(self, params, X, cols=None):
         return params["leaf_value"].gather(1, self._route(params, X, cols))
+
+    def _leaf_str(self, params, leaf_idx):
+        return f"Predict: {float(params['leaf_value'][leaf_idx]):.6g}"

@@ -87,6 +87,14 @@ _BLOCKS_PER_SM = 2
 # rows below which a launch is not split further for occupancy: bounds
 # the partials' memory at few replicas
 MIN_SPLIT_ROWS = 4096
+# the most rows one block sums on float statistics. A float32 running
+# sum of m like terms strays by up to ~m 2**-25 of its scale, and a
+# block adds ~its rows / B of them into one bin: at a GBT's 800,000
+# rows, 32 replicas split 9 ways (88,889 rows a block) strayed by
+# 1.9e-5 of the abs-sum scale from a float64 sum (round 0, where the
+# Newton weights repeat; H100). Integral statistics sum exactly in any
+# split.
+FLOAT_SPLIT_ROWS = 16_384
 # the most bins bin codes hold: codes run to B, in int16
 MAX_BINS = 32_766
 
@@ -326,7 +334,7 @@ def _block_smem(B: int, n_tile: int, f_tile: int, K: int) -> int:
 
 
 def hist_geometry(n: int, F: int, B: int, n_nodes: int, K: int, R: int,
-                  n_sm: int) -> dict:
+                  n_sm: int, max_split_rows: int | None = None) -> dict:
     """Launch geometry of the histogram kernel for one launch (pure
     arithmetic, so the CPU tests can check it). A block keeps a float32
     (int32) histogram ``[b][node][k][f]`` of ``n_tile`` nodes and
@@ -344,7 +352,10 @@ def hist_geometry(n: int, F: int, B: int, n_nodes: int, K: int, R: int,
     histogram beyond that takes up to 227 KB; beyond that features are
     tiled, one node a block, and a block of a single feature's ``(B,
     K)`` histogram beyond 227 KB refuses the shape (:func:`stat_tiles`
-    splits such a table over launches)."""
+    splits such a table over launches). Rows are split over blocks for
+    occupancy, at least ``MIN_SPLIT_ROWS`` a block and at most
+    ``max_split_rows`` (the wrapper's ``FLOAT_SPLIT_ROWS`` for float
+    statistics)."""
 
     def smem(n_tile, f_tile):
         return _block_smem(B, n_tile, f_tile, K)
@@ -374,6 +385,8 @@ def hist_geometry(n: int, F: int, B: int, n_nodes: int, K: int, R: int,
                          "(at most 65535)")
     want = max(1, math.ceil(_BLOCKS_PER_SM * n_sm / (R * f_tiles * n_tiles)))
     rows_per_split = max(MIN_SPLIT_ROWS, math.ceil(n / want))
+    if max_split_rows is not None:  # float statistics: bound the error
+        rows_per_split = min(rows_per_split, max_split_rows)
     splits = max(1, math.ceil(n / rows_per_split))
     if splits > 65535:  # the grid's z extent
         raise ValueError(f"n={n} rows need {splits} row splits (at most 65535)")
@@ -405,12 +418,20 @@ def stat_tiles(B: int, K: int) -> list[tuple[int, int, int, int]]:
             for k0 in range(0, K, kt) for b0 in range(0, B, bt)]
 
 
-def launch_bytes(F: int, B: int, n_nodes: int, K: int) -> float:
+def launch_bytes(F: int, B: int, n_nodes: int, K: int,
+                 splits: int = 1) -> float:
     """Device bytes one replica adds to a launch of many replicas: its
-    ``(F, B, n_nodes, K)`` output and as much again for the row-split
-    partials (a launch of few replicas splits rows finer, but is
-    small)."""
-    return 2 * 4.0 * F * B * n_nodes * K
+    ``(F, B, n_nodes, K)`` output and ``splits`` copies of it for the
+    row-split partials: one where the replicas fill the card (a launch
+    of few replicas splits rows finer, but is small), and
+    :func:`float_splits` on float statistics."""
+    return (1 + splits) * 4.0 * F * B * n_nodes * K
+
+
+def float_splits(n: int) -> int:
+    """Row splits of a launch on ``n`` rows of float statistics at
+    least (``FLOAT_SPLIT_ROWS`` a block at most)."""
+    return max(1, math.ceil(n / FLOAT_SPLIT_ROWS))
 
 
 def _stream(dev):
@@ -479,6 +500,7 @@ def _launch_one(C3, cols, E3, node, S3, out, b0, n_nodes, hist_dtype,
     g = hist_geometry(
         n, F, B, n_nodes, K, R,
         torch.cuda.get_device_properties(dev).multi_processor_count,
+        max_split_rows=None if integral else FLOAT_SPLIT_ROWS,
     )
     partials = (
         torch.empty((g["splits"], *out.shape), dtype=torch.float32, device=dev)

@@ -1,7 +1,7 @@
 """Where the device time of an ensemble's fit goes, on one NVIDIA GPU.
 
     python -m spark_bagging_tpu_torch.profile_fit
-        [--learner logistic|tree|linear|rf-reg] [--n-replicas R]
+        [--learner logistic|tree|linear|rf-reg|gbt] [--n-replicas R]
         [--out DIR]   (default: .)
 
 Fits one of chip_smoke.py's ensembles once to warm up, then once under
@@ -17,7 +17,11 @@ Fits one of chip_smoke.py's ensembles once to warm up, then once under
   synthetic California housing;
 - ``rf-reg``: ``RandomForestRegressor(max_depth=5)``, 128 replicas
   (config 6's shape), same data; the histogram kernel's float
-  accumulator.
+  accumulator;
+- ``gbt``: BASELINE config 7, ``BaggingClassifier(GBTClassifier(
+  n_rounds=30, max_depth=4))``, 32 replicas on the 800,000 x 28
+  training split of the standardized 1M-row synthetic HIGGS; the float
+  accumulator at every level of every round.
 
 Prints one JSON line: the fit's wall seconds, the device-busy seconds,
 the idle share, and device time by kernel (the top entries, with their
@@ -61,10 +65,10 @@ def _busy_seconds(events) -> float:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--learner", default="logistic",
-                   choices=("logistic", "tree", "linear", "rf-reg"))
+                   choices=("logistic", "tree", "linear", "rf-reg", "gbt"))
     p.add_argument("--out", default=".")
     p.add_argument("--n-replicas", type=int, default=None,
-                   help="default: 256, 256, 100, 128 by learner")
+                   help="default: 256, 256, 100, 128, 32 by learner")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_fit: no CUDA device", file=sys.stderr)
@@ -75,15 +79,20 @@ def main(argv=None) -> int:
         BaggingClassifier,
         BaggingRegressor,
         DecisionTreeClassifier,
+        GBTClassifier,
         LinearRegression,
         LogisticRegression,
         RandomForestRegressor,
     )
     from spark_bagging_tpu_torch.utils import datasets
 
-    R = args.n_replicas or {"linear": 100, "rf-reg": 128}.get(args.learner, 256)
+    R = args.n_replicas or {"linear": 100, "rf-reg": 128,
+                            "gbt": 32}.get(args.learner, 256)
     if args.learner in ("linear", "rf-reg"):
         X, y = datasets.synthetic_california(20_640)
+        X, y, _, _ = datasets.train_test_split(datasets.standardize(X), y)
+    elif args.learner == "gbt":
+        X, y = datasets.synthetic_higgs(1_000_000)
         X, y, _, _ = datasets.train_test_split(datasets.standardize(X), y)
     else:
         X, y = datasets.synthetic_covtype(581_012)
@@ -98,6 +107,9 @@ def main(argv=None) -> int:
                                seed=0)
     elif args.learner == "rf-reg":
         clf = RandomForestRegressor(n_estimators=R, max_depth=5, seed=0)
+    elif args.learner == "gbt":
+        clf = BaggingClassifier(GBTClassifier(n_rounds=30, max_depth=4),
+                                n_estimators=R, seed=0)
     else:
         clf = BaggingClassifier(
             LogisticRegression(max_iter=1, init="pooled",

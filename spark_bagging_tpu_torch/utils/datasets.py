@@ -1,7 +1,8 @@
 """Deterministic synthetic datasets (numpy only).
 
 A copy of ``make_classification``, ``make_regression``,
-``synthetic_covtype`` and ``synthetic_california`` from the JAX
+``synthetic_covtype``, ``synthetic_higgs`` and ``synthetic_california``
+from the JAX
 package's ``utils/datasets.py``, and of the benchmark configurations'
 ``standardize`` and ``train_test_split`` (``benchmarks/run_configs.py``). Both packages must produce bitwise the
 same arrays from the same seed: the parity tests and the headline
@@ -113,4 +114,14 @@ def synthetic_covtype(
     return make_classification(
         n_rows, 54, 7, seed=seed, class_sep=0.2, class_imbalance=True,
         axis_features=4, axis_gap=0.35, structure_seed=structure_seed,
+    )
+
+
+def synthetic_higgs(
+    n_rows: int = 11_000_000, seed: int = 11, structure_seed: int | None = None
+) -> tuple[np.ndarray, np.ndarray]:
+    """HIGGS-11M signature: 28 features, binary."""
+    return make_classification(
+        n_rows, 28, 2, seed=seed, class_sep=0.6,
+        structure_seed=structure_seed,
     )

@@ -438,6 +438,138 @@ def test_regressors_on_card_match_cpu(cuda):
                                forests["cpu"].predict(X), rtol=1e-6, atol=1e-6)
 
 
+def _gbt_task(task):
+    from spark_bagging_tpu_torch import (
+        BaggingClassifier,
+        BaggingRegressor,
+        GBTClassifier,
+        GBTRegressor,
+    )
+    from spark_bagging_tpu_torch.utils.datasets import (
+        make_classification,
+        make_regression,
+    )
+
+    if task == "regression":
+        return (*make_regression(2000, 8, seed=3), BaggingRegressor,
+                GBTRegressor)
+    X, y = make_classification(2000, 8, 2 if task == "binary" else 4,
+                               seed=3, class_sep=0.8)
+    return X, y, BaggingClassifier, GBTClassifier
+
+
+@pytest.mark.parametrize("task", ["binary", "multiclass", "regression"])
+def test_gbt_fit_on_card_matches_cpu(cuda, task):
+    # the same bagged GBTs on the card (float32 operands, so the kernel
+    # sums the CPU's terms) and on the CPU. Float sums in another order
+    # may flip a tie between splits that part the weighted rows alike
+    # (tests/test_torch_gbt.py), so: most split features equal, and each
+    # replica's scores on the rows it trained on within 1e-5
+    from spark_bagging_tpu_torch.ops.hist import binned_left_stats
+
+    X, y, Est, Learner = _gbt_task(task)
+    fits = {}
+    for dev in ("cpu", "cuda"):
+        before = binned_left_stats.float_launches
+        fits[dev] = Est(Learner(n_rounds=4, max_depth=3, n_bins=16,
+                                hist_dtype="float32", split_impl="fused"),
+                        n_estimators=4, max_features=0.75, seed=0,
+                        device=dev).fit(X, y)
+        assert binned_left_stats.float_launches - before == \
+            (12 if dev == "cuda" else 0)
+    cpu, card = fits["cpu"], fits["cuda"]
+    same = (card.ensemble_["feature"].cpu() == cpu.ensemble_["feature"])
+    assert float(same.float().mean()) >= 0.9
+    torch.testing.assert_close(card.ensemble_["f0"].cpu(), cpu.ensemble_["f0"],
+                               rtol=1e-5, atol=1e-5)
+    Xt = torch.from_numpy(X)
+    fn, params, subs = card.replica_forward()
+    got = fn(params, subs, Xt.to(cuda)).cpu().numpy()
+    fn, params, subs = cpu.replica_forward()
+    want = fn(params, subs, Xt).numpy()
+    scale = max(1.0, float(np.abs(want).max()))
+    for r in range(4):
+        inbag = cpu.replica_weights(r) > 0
+        assert np.abs(got[r][inbag] - want[r][inbag]).max() <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("task", ["binary", "multiclass"])
+@pytest.mark.parametrize("hist_dtype", ["bfloat16", "float32"])
+def test_gbt_levels_float_histogram_within_tolerance(cuda, task, hist_dtype,
+                                                     monkeypatch):
+    # every level of every round runs the float accumulator; each launch
+    # within the float tolerance of the plain version on its own inputs.
+    # Multiclass: one launch a level covers the replicas x classes trees
+    from spark_bagging_tpu_torch.models import tree as tree_mod
+    from spark_bagging_tpu_torch.ops import hist as hist_ops
+
+    X, y, Est, Learner = _gbt_task(task)
+    levels = []
+    coded = hist_ops.coded_left_stats
+
+    def record(codes, edges, node, S, **kw):
+        out = coded(codes, edges, node, S, **kw)
+        levels.append((codes, edges, node.clone(), S, kw, out))
+        return out
+
+    monkeypatch.setattr(tree_mod.hist_ops, "coded_left_stats", record)
+    est = Est(Learner(n_rounds=3, max_depth=3, n_bins=16,
+                      hist_dtype=hist_dtype, split_impl="fused"),
+              n_estimators=5, max_features=0.75, seed=0, device=cuda
+              ).fit(X, y)
+    torch.cuda.synchronize()
+    trees = 5 * (4 if task == "multiclass" else 1)
+    assert [lv[4]["n_nodes"] for lv in levels] == [1, 2, 4] * 3
+    for codes, edges, node, S, kw, out in levels:
+        assert kw["integral"] is False and S.shape[0] == trees
+        plain_kw = {k: v for k, v in kw.items() if k != "integral"}
+        want = hist_ops.coded_left_stats_plain(codes, edges, node, S,
+                                               **plain_kw)
+        scale = hist_ops.coded_left_stats_plain(
+            codes, edges, node, S.abs(), **plain_kw).clamp_min(1e-30)
+        err = float(((out - want).abs() / scale).max())
+        assert err <= HIST_FLOAT_TOL, err
+    proba = est.predict_proba(X)
+    assert np.isfinite(proba).all() and est.score(X, y) > 0.6
+
+
+def test_float_accumulator_stays_accurate_over_many_rows(cuda):
+    # round 0 of BASELINE config 7's GBTs (32 replicas, 800,000 x 28): the
+    # Newton weights repeat (Poisson counts x one value a replica), and a
+    # float32 running sum of like terms strays with the rows a block
+    # adds into one bin. Rows split at most every FLOAT_SPLIT_ROWS keep
+    # every entry within the float tolerance of a float64 sum of the
+    # same terms (88,889 rows a block strayed by 1.9e-5)
+    from spark_bagging_tpu_torch import GBTClassifier
+    from spark_bagging_tpu_torch.ops import hist as hist_ops
+    from spark_bagging_tpu_torch.ops import prng
+    from spark_bagging_tpu_torch.ops.bootstrap import bootstrap_weights
+    from spark_bagging_tpu_torch.utils import datasets
+
+    X, y = datasets.synthetic_higgs(1_000_000)
+    X, y, _, _ = datasets.train_test_split(datasets.standardize(X), y)
+    Xd = torch.from_numpy(X).to(cuda)
+    yd = torch.from_numpy(y).to(cuda).float()
+    R, (n, F), B = 32, X.shape, 32
+    gbt = GBTClassifier(n_rounds=1, max_depth=4, n_bins=B)
+    prep = gbt.prepare(Xd)
+    w = bootstrap_weights(prng.key(0, cuda), torch.arange(R, device=cuda), n)
+    f0 = gbt._init_margin(yd, w, w.sum(-1))
+    h, z = gbt._pseudo(yd, f0[:, None].expand(R, n), w)
+    S = torch.stack([h, h * z, h * z * z], -1).contiguous()
+    node = torch.zeros((R, n), dtype=torch.int32, device=cuda)
+    out = hist_ops.coded_left_stats(prep["codes"], prep["edges"], node, S,
+                                    n_nodes=1, hist_dtype="float32")
+    bins = torch.arange(B, device=cuda)
+    T = (prep["codes"][:, :, None] <= bins).reshape(n, F * B).double()
+    St = S.double().permute(1, 0, 2).reshape(n, R * 3)
+    want = (T.t() @ St).reshape(F, B, R, 3).permute(2, 0, 1, 3)
+    scale = (T.t() @ St.abs()).reshape(F, B, R, 3).permute(2, 0, 1, 3)
+    err = ((out[:, :, :, 0].double() - want).abs()
+           / scale.clamp_min(1e-30)).max()
+    assert float(err) <= HIST_FLOAT_TOL, float(err)
+
+
 def test_scaled_gram_kernel_depth_capped_row_splits(cuda):
     # enough replicas that occupancy alone would give each block more
     # rows than MAX_SPLIT_ROWS: the cap sets the row split

@@ -357,6 +357,31 @@ def test_coded_slices_assemble_the_whole(tiles):
 
 def test_launch_bytes():
     assert hist.launch_bytes(43, 32, 16, 7) == 2 * 4.0 * 43 * 32 * 16 * 7
+    # float statistics: the partials of every row split
+    assert hist.float_splits(800_000) == 49 and hist.float_splits(10) == 1
+    assert hist.launch_bytes(28, 32, 8, 3, 49) == 50 * 4.0 * 28 * 32 * 8 * 3
+
+
+@pytest.mark.parametrize("R", [1, 32, 128])
+def test_float_statistics_cap_the_rows_a_block_sums(R):
+    # config 7's shape: a float32 running sum strays with the rows a
+    # block adds into one bin, so float statistics split rows at least
+    # every FLOAT_SPLIT_ROWS; integral ones split for occupancy only
+    n, F, B, K = 800_000, 28, 32, 3
+    for N in (1, 8):
+        free = hist.hist_geometry(n, F, B, N, K, R, n_sm=132)
+        capped = hist.hist_geometry(n, F, B, N, K, R, n_sm=132,
+                                    max_split_rows=hist.FLOAT_SPLIT_ROWS)
+        assert capped["rows_per_split"] <= hist.FLOAT_SPLIT_ROWS
+        assert capped["rows_per_split"] == min(free["rows_per_split"],
+                                               hist.FLOAT_SPLIT_ROWS)
+        assert capped["splits"] * capped["rows_per_split"] >= n
+        assert capped["splits"] >= hist.float_splits(n)
+        assert free["rows_per_split"] >= hist.MIN_SPLIT_ROWS
+        assert {k: v for k, v in capped.items()
+                if k not in ("splits", "rows_per_split")} == \
+            {k: v for k, v in free.items()
+             if k not in ("splits", "rows_per_split")}
 
 
 def _valid():

@@ -121,11 +121,15 @@ def test_auto_resolves_as_jax_and_unported_impls_raise():
     X, y, w = _data()
     Xt, yt, wt = torch.from_numpy(X), torch.from_numpy(y).long(), torch.from_numpy(w)
     keys = prng.split(prng.key(0), N_REPLICAS)
-    for kw in ({"hessian_impl": "fused"}, {"hessian_impl": "packed"},
-               {"solver": "adam"}):
-        lr = LogisticRegression(**kw)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lr.fit(lr.init_params(keys, 6, 4), Xt, yt, wt, keys)
+    # the wide Hessians fit (their parity with JAX: the tests below)
+    for impl in ("fused", "packed"):
+        lr = LogisticRegression(hessian_impl=impl, max_iter=2)
+        params, aux = lr.fit(lr.init_params(keys, 6, 4), Xt, yt, wt, keys)
+        assert torch.isfinite(params["W"]).all()
+        assert aux["loss_curve"].shape == (N_REPLICAS, 2)
+    lr = LogisticRegression(solver="adam")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lr.fit(lr.init_params(keys, 6, 4), Xt, yt, wt, keys)
     with pytest.raises(ValueError):
         LogisticRegression(hessian_impl="dense")
     with pytest.raises(ValueError):
@@ -134,9 +138,79 @@ def test_auto_resolves_as_jax_and_unported_impls_raise():
 
 
 def test_cost_models_match_jax():
-    for impl in ("blocked", "pallas"):
-        for shape in ((581_012, 54, 7), (400, 8, 3)):
+    for impl in ("blocked", "pallas", "fused", "packed", "auto"):
+        for shape in ((581_012, 54, 7), (400, 8, 3), (50_000, 20, 10)):
             assert (LogisticRegression(hessian_impl=impl).flops_per_fit(*shape)
                     == JaxLR(hessian_impl=impl).flops_per_fit(*shape))
             assert LogisticRegression(hessian_impl=impl).fit_workset_bytes(
                 *shape) > 0
+    # the wide operands are priced: (rows, C·d) twice for fused, (rows,
+    # P·d) for packed, beyond the blocked path's (rows, d) scaled copy
+    n, d, C = 50_000, 20, 10
+    P = C * (C + 1) // 2
+    ws = {impl: LogisticRegression(hessian_impl=impl).fit_workset_bytes(
+        n, d, C) for impl in ("blocked", "fused", "packed")}
+    assert ws["fused"] - ws["blocked"] == 4.0 * n * (2 * C - 1) * (d + 1)
+    assert ws["packed"] - ws["blocked"] == 4.0 * n * (P - 1) * (d + 1)
+    assert LogisticRegression().fit_workset_bytes(n, d, C) == ws["fused"]
+
+
+def _ten_class_data(n=400, d=6):
+    X, y = make_classification(n, d, 10, seed=4)
+    w = np.random.default_rng(5).poisson(1.0, (N_REPLICAS, n)).astype(
+        np.float32)
+    return X, y, w
+
+
+@pytest.mark.parametrize("impl", ["fused", "packed", "auto"])
+@pytest.mark.parametrize("row_tile", [None, 128])
+def test_wide_hessians_match_jax_at_ten_classes(impl, row_tile):
+    X, y, w = _ten_class_data()
+    C = 10
+    kw = dict(max_iter=3, hessian_impl=impl, init="zeros")
+    jl, tl = JaxLR(**kw), LogisticRegression(**kw, row_tile=row_tile)
+    assert tl._resolved_hessian(C) == jl._resolved_hessian(C)
+    W0j = jnp.zeros((X.shape[1] + 1, C), jnp.float32)
+    want = jax.vmap(
+        lambda wr: jl.fit({"W": W0j}, jnp.asarray(X), jnp.asarray(y), wr,
+                          jax.random.key(0))[0]["W"]
+    )(jnp.asarray(w))
+    keys = prng.split(prng.key(0), N_REPLICAS)
+    got, aux = tl.fit(tl.init_params(keys, X.shape[1], C),
+                      torch.from_numpy(X), torch.from_numpy(y).long(),
+                      torch.from_numpy(w), keys)
+    assert_w_close(got["W"].numpy(), np.asarray(want))
+    assert aux["loss_curve"].shape == (N_REPLICAS, 3)
+
+
+def test_wide_hessians_equal_the_blocked_one():
+    X, y, w = _ten_class_data()
+    tl = LogisticRegression()
+    Xb = torch.cat([torch.from_numpy(X), torch.ones(X.shape[0], 1)], 1)
+    W = 0.1 * torch.randn((N_REPLICAS, Xb.shape[1], 10),
+                          generator=torch.Generator().manual_seed(0))
+    yt, wt = torch.from_numpy(y).long(), torch.from_numpy(w)
+    ref = tl._newton_stats(W, Xb, yt, wt, 10, "blocked")
+    for impl in ("fused", "packed"):
+        out = tl._newton_stats(W, Xb, yt, wt, 10, impl)
+        for a, b in zip(ref, out):
+            assert_w_close(b, a, tol=1e-6)
+    # a per-replica X (a gathered subspace) takes the same path
+    Xr = Xb.expand(N_REPLICAS, *Xb.shape)
+    out = tl._newton_stats(W, Xr, yt, wt, 10, "fused")
+    assert_w_close(out[2], ref[2], tol=1e-6)
+
+
+def test_default_bagging_classifier_fits_ten_classes_like_jax():
+    # LogisticRegression() resolves "auto" to "fused" above 8 classes
+    import spark_bagging_tpu as J
+    import spark_bagging_tpu_torch as T
+
+    X, y, _ = _ten_class_data(600)
+    jc = J.BaggingClassifier(n_estimators=6, seed=0).fit(X, y)
+    tc = T.BaggingClassifier(n_estimators=6, seed=0, device="cpu").fit(X, y)
+    assert tc.base_learner_._resolved_hessian(10) == "fused"
+    assert_w_close(tc.ensemble_["W"].numpy(), np.asarray(jc.ensemble_["W"]))
+    np.testing.assert_allclose(tc.predict_proba(X), np.asarray(
+        jc.predict_proba(X)), atol=1e-5, rtol=0)
+    assert abs(tc.score(X, y) - jc.score(X, y)) <= 1e-5

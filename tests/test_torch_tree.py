@@ -304,6 +304,17 @@ def test_memory_model_prices_the_tree_fit():
     chunk = auto_chunk_size(t, n, k, C, 256, cuda, budget_bytes=budget,
                             n_features=F)
     assert chunk == int((budget - n * F) // (per + 48.0 * n))
+    # integer counts split rows for occupancy only; a regression tree's
+    # float moments at least every FLOAT_SPLIT_ROWS, each split a
+    # partial table a replica
+    from spark_bagging_tpu_torch.ops import hist
+
+    reg = T.DecisionTreeRegressor(max_depth=5, n_bins=32)
+    moments = 4.0 * k * 32 * 16 * 3
+    assert reg.fit_workset_bytes(n, k, 1) - reg.fit_workset_bytes(
+        hist.FLOAT_SPLIT_ROWS, k, 1) >= (hist.float_splits(n) - 1) * moments
+    assert t.integral_stats and not reg.integral_stats
+    assert not T.GBTClassifier().integral_stats
 
 
 @pytest.mark.parametrize("split_impl", ["fused", "dense"])
