@@ -62,6 +62,31 @@ histogram kernel's float accumulator at every level of every round:
 - ``gbt_reg_fit``: 32 GBT regressors x 20 rounds on the California
   split; test R^2 against sklearn's proxy minus 0.02.
 
+The streamed fits (``fit_stream``), whose chunks cross from the host
+one at a time:
+
+- ``tree_stream_fit``: config 3's learner streamed over the covtype rows
+  in 65,536-row chunks (9 chunks, the last padded; 7 passes), a
+  bin-codes and a histogram launch per chunk per level, all int32;
+  accuracy on the first 100k rows within 0.03 of the in-memory fit's;
+- ``tree_stream_hist_kernels``: every level's table of the first chunk
+  and of the padded tail, kernel against plain version, bit for bit for
+  every replica; ``tree_stream_cross_check``: kernel and dense streams
+  grow identical trees;
+- ``rf_reg_stream_fit``: the forest regressor streamed over the
+  California training split in 4,096-row chunks (the float
+  accumulator); test R^2 above 0.5;
+- ``mlp_stream_fit``: BASELINE config 4 at full size, 512 bagged MLPs
+  (hidden 32) streamed over 11,000,000 synthetic HIGGS rows in 550
+  chunks of 20,000, one epoch, 2 Adam steps a chunk; test AUC on
+  200,000 rows at or above sklearn's proxy minus 0.02; the stream's
+  seconds, row-replicas a second, peak memory, the host's chunk-making
+  time against the device's chunk visits (bootstrap draw and Adam
+  steps apart), a warm ``predict_proba``;
+- ``mlp_device_check``: a small stream and an in-memory minibatch MLP
+  fit, on the card and on the CPU in one process, parameters and
+  probabilities within the CPU parity tests' tolerance.
+
 The sklearn proxies are constants, made on a CPU host that has sklearn
 by ``python3 chip_smoke.py --sklearn-proxies``.
 
@@ -190,6 +215,38 @@ GBT_REG_PROXY_R2 = 0.7133246391671708
 GBT_CROSS = dict(n_estimators=4, n_rounds=10)
 GBT_CROSS_FEATURE_SHARE = 0.95
 GBT_CROSS_AUC_TOL = 0.002
+# BASELINE config 4 (benchmarks/run_configs.py:283-358,
+# mlp_bag512_higgs11M_streamed) at full size: 512 bagged MLPs streamed
+# over 11M synthetic HIGGS rows in 20,000-row chunks, one epoch, two
+# Adam steps a chunk; the test and proxy rows come from the stream's
+# mixture (structure seed 11) with their own row seeds
+MLP_STREAM = dict(n_rows=11_000_000, chunk_rows=20_000, n_estimators=512,
+                  n_epochs=1, steps_per_chunk=2, lr=0.01)
+MLP = dict(hidden=32, lr=0.01)
+N_MLP_TEST_ROWS = 200_000
+# sklearn MLPClassifier(hidden_layer_sizes=(32,), max_iter=30,
+# batch_size=1024, learning_rate_init=0.01, random_state=0) on
+# synthetic_higgs(50_000, seed=999_002, structure_seed=11), test AUC on
+# the 200,000 test rows (run_configs.py:311-323)
+MLP_PROXY_AUC = 0.997067283084803
+# card against CPU for the same MLP fits (mlp_device_check): the
+# tolerances tests/test_torch_mlp.py and test_torch_stream.py hold the
+# port to JAX with at these shapes: probabilities within MLP_TOL there,
+# parameters within LONG_PARAM_TOL (after tens of Adam steps a
+# near-zero gradient element's last bits move its step by up to lr)
+MLP_DEVICE_TOL = 1e-5
+MLP_DEVICE_PARAM_TOL = 2e-4
+MLP_CHECK_STREAM = dict(n_rows=40_000, chunk_rows=5_000, n_estimators=16,
+                        n_epochs=2, steps_per_chunk=2)
+MLP_CHECK_FIT = dict(n_rows=20_000, n_estimators=16, max_iter=50,
+                     batch_size=1024)
+# config 3's learner streamed over the covtype rows (tree_stream_fit):
+# 9 chunks, the last padded; accuracy on the first 100k rows within this
+# of the in-memory fit's (other bin edges, chunk-keyed weights)
+TREE_STREAM_CHUNK = 65_536
+TREE_STREAM_ACC_TOL = 0.03
+# the forest regressor streamed over the California training split
+RF_STREAM_CHUNK = 4_096
 
 
 def emit(phase: str, **fields) -> None:
@@ -1232,13 +1289,15 @@ def coded_left_stats_f64(codes, E, node, S, N: int, mode: str,
     return out
 
 
-def float_hist_row(phase: str, c: dict, R: int, mode: str, **tags) -> dict:
+def float_hist_row(phase: str, c: dict, R: int, mode: str, fit_out=None,
+                   **tags) -> dict:
     """The histogram kernel's float accumulator on one recorded level's
     inputs ``c`` in operand mode ``mode``: every replica within
     HIST_FLOAT_TOL of the plain version summed in float64 (per entry over
     the abs-sum scale; the float32 plain version's own error beside it),
-    a repeat within it too, with the call's ms, the plain version's (each
-    replica's call timed alone, summed), the library forms' and the
+    a repeat within it too, and ``fit_out``, the table the fit itself got
+    from these inputs, if given; with the call's ms, the plain version's
+    (each replica's call timed alone, summed), the library forms' and the
     shared-X bound. Emits one ``phase`` line (``tags`` added) and fails
     the phase past the tolerance."""
     from spark_bagging_tpu_torch.ops.hist import (
@@ -1268,6 +1327,10 @@ def float_hist_row(phase: str, c: dict, R: int, mode: str, **tags) -> dict:
     plain_err = float(((plain - want).abs() / scale).max())
     repeat_err = float(((out - again).abs() / scale).max())
     max_abs = float((out - want).abs().max())
+    fit_err = 0.0
+    if fit_out is not None:
+        fit_err = float(((fit_out - want).abs() / scale).max())
+        max_abs = max(max_abs, float((fit_out - want).abs().max()))
     del out, again, want, plain, scale
     spans = []
     for r in range(R):
@@ -1294,6 +1357,7 @@ def float_hist_row(phase: str, c: dict, R: int, mode: str, **tags) -> dict:
     row = dict(
         max_entry_err=err, plain_float32_entry_err=plain_err,
         repeat_entry_err=repeat_err,
+        **({} if fit_out is None else {"fit_table_entry_err": fit_err}),
         tol=HIST_FLOAT_TOL, max_abs_err=max_abs, kernel_ms=kernel_ms,
         plain_ms=plain_ms, library_ms=lib["index_add"],
         library_matmul_ms=lib["matmul"],
@@ -1305,9 +1369,10 @@ def float_hist_row(phase: str, c: dict, R: int, mode: str, **tags) -> dict:
          shape=dict(R=R, n=n, F=F, F_all=F_all, B=B, N=N, K=K),
          **row, **{f"{k}_per_replica": v / R for k, v in row.items()
                    if k.endswith("_ms")})
-    if not (err <= HIST_FLOAT_TOL and repeat_err <= HIST_FLOAT_TOL):
-        fail(phase, f"R={R} N={N} {mode}: entry error {err:.3g}, repeat "
-             f"{repeat_err:.3g} (tol {HIST_FLOAT_TOL})")
+    if not max(err, repeat_err, fit_err) <= HIST_FLOAT_TOL:
+        fail(phase, f"R={R} N={N} {mode} {tags}: entry error {err:.3g}, "
+             f"repeat {repeat_err:.3g}, the fit's table {fit_err:.3g} "
+             f"(tol {HIST_FLOAT_TOL})")
     return row
 
 
@@ -1592,16 +1657,426 @@ def phase_gbt_reg_fit(split):
     return counts["binned_left_stats"], counts["bin_codes"]
 
 
+def tree_stream_source(X: np.ndarray, y: np.ndarray, chunk_rows: int):
+    from spark_bagging_tpu_torch.utils.io import ArrayChunks
+
+    return ArrayChunks(X, y, chunk_rows)
+
+
+def stream_levels(chunk_rows: int, n_rows: int, levels: int) -> int:
+    """Histogram (and bin-codes) launches of a streamed tree fit: one a
+    chunk a level."""
+    return levels * -(-n_rows // chunk_rows)
+
+
+def phase_tree_stream_fit(X: np.ndarray, y: np.ndarray, acc_in_memory: float):
+    """Config 3's learner streamed: 256 depth-5 trees over the covtype
+    rows in 65,536-row chunks, 7 passes; every chunk's level table from
+    the bin-codes and histogram kernels, all int32."""
+    classes = np.unique(y)
+    tree_bagger(8, seed=1).fit_stream(
+        tree_stream_source(X[:N_SERVE_ROWS], y[:N_SERVE_ROWS],
+                           TREE_STREAM_CHUNK), classes=classes)
+    torch.cuda.empty_cache()
+    clf = tree_bagger(N_REPLICAS)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    clf.fit_stream(tree_stream_source(X, y, TREE_STREAM_CHUNK),
+                   classes=classes)
+    counts = read_launches()
+    rep = clf.fit_report_
+    expected = stream_levels(TREE_STREAM_CHUNK, N_ROWS, TREE["max_depth"])
+    acc = clf.score(X[:N_SERVE_ROWS], y[:N_SERVE_ROWS])
+    majority = float(np.unique(y[:N_SERVE_ROWS], return_counts=True)[1].max()
+                     / N_SERVE_ROWS)
+    emit("tree_stream_fit", ok=True, n_rows=N_ROWS, n_replicas=N_REPLICAS,
+         chunk_rows=TREE_STREAM_CHUNK, n_chunks=rep["n_chunks"],
+         n_passes=rep["n_passes"], fit_seconds=rep["fit_seconds"],
+         fits_per_sec=rep["fits_per_sec"],
+         first_step_seconds=rep["first_step_seconds"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+         launches=counts, expected_launches_each=expected,
+         accuracy_100k=acc, accuracy_in_memory=acc_in_memory,
+         majority_share_100k=majority)
+    if (counts["binned_left_stats"] != expected or counts["bin_codes"] != expected
+            or counts["binned_left_stats_float"] or counts["scaled_gram"]):
+        fail("tree_stream_fit", f"launches {counts}, expected {expected} "
+             "histogram (all int32) and bin-codes launches")
+    if not (acc > majority and abs(acc - acc_in_memory) <= TREE_STREAM_ACC_TOL):
+        fail("tree_stream_fit", f"accuracy {acc:.5f}: majority share "
+             f"{majority:.5f}, in-memory fit {acc_in_memory:.5f} "
+             f"(within {TREE_STREAM_ACC_TOL})")
+    if not torch.isfinite(clf.ensemble_["leaf_logp"]).all():
+        fail("tree_stream_fit", "non-finite leaf log-probabilities")
+    return counts["binned_left_stats"], counts["bin_codes"]
+
+
+def record_stream_levels(fit, n_chunks: int) -> list:
+    """Every level's ``_chunk_level_hist`` call of the streamed tree fit
+    ``fit()`` (``n_chunks`` chunks) for the first chunk and the padded
+    tail: the call's inputs and the table the fit got from it. The fit
+    runs through a recording wrapper put in the tree learners' place
+    only (the kernel wrappers and their launch counts are left alone)."""
+    from spark_bagging_tpu_torch.models.tree import _TreeBase
+
+    keep = {0, n_chunks - 1}
+    calls, rec = [0], []
+    original = _TreeBase._chunk_level_hist
+
+    def recorder(self, Xc, S, edges, node, N, cols=None, integral=False):
+        out = original(self, Xc, S, edges, node, N, cols=cols,
+                       integral=integral)
+        if calls[0] % n_chunks in keep:
+            rec.append(dict(chunk=calls[0] % n_chunks, X=Xc, S=S,
+                            edges=edges, node=node.clone(), N=N, cols=cols,
+                            integral=integral, out=out.clone()))
+        calls[0] += 1
+        return out
+
+    _TreeBase._chunk_level_hist = recorder
+    try:
+        fit()
+    finally:
+        _TreeBase._chunk_level_hist = original
+    return rec
+
+
+def phase_tree_stream_hist_kernels(X: np.ndarray, y: np.ndarray) -> float:
+    """Every level's per-chunk table of config 3's streamed fit, for the
+    first (full) chunk and the padded tail: the kernel path of
+    ``_chunk_level_hist`` (bin codes of the chunk, then the histogram
+    through each replica's columns) bit for bit against its plain
+    version (the plain codes, the plain histogram) for every replica,
+    with the times a call of the kernel route's step (bin codes and
+    histogram) and of the plain version, and the step's bytes bound."""
+    from spark_bagging_tpu_torch.models.tree import DecisionTreeClassifier
+    from spark_bagging_tpu_torch.ops import hist as hist_ops
+
+    rec = record_stream_levels(
+        lambda: tree_bagger(N_REPLICAS).fit_stream(
+            tree_stream_source(X, y, TREE_STREAM_CHUNK), classes=np.unique(y)),
+        -(-N_ROWS // TREE_STREAM_CHUNK))
+    learner = DecisionTreeClassifier(split_impl="fused", **TREE)
+    worst = 0.0
+    for c in rec:
+        Xc, S, E, node, N, cols = (c[k] for k in ("X", "S", "edges", "node",
+                                                  "N", "cols"))
+        out = c["out"]
+        codes = hist_ops.bin_codes(Xc, E)
+        codes_plain = hist_ops.bin_codes_plain(Xc, E)
+        Er = E[cols.long()]
+        spans, unequal, max_abs = [], 0, 0.0
+        for r in range(S.shape[0]):
+            box = []
+            spans.append(span(lambda: box.append(
+                hist_ops.coded_left_stats_plain(
+                    codes_plain, Er[r:r + 1], node[r:r + 1], S[r:r + 1],
+                    n_nodes=N, hist_dtype=learner.hist_dtype,
+                    cols=cols[r:r + 1]))))
+            unequal += not torch.equal(out[r], box[0][0])
+            max_abs = max(max_abs, float((out[r] - box[0][0]).abs().max()))
+        plain_ms = timed_spans(spans)
+        kernel_ms = cuda_ms(lambda: learner._chunk_level_hist(
+            Xc, S, E, node, N, cols=cols, integral=c["integral"]), 3)
+        codes_unequal = int((codes != codes_plain).sum())
+        n_valid = int((S.sum(dim=(0, 2)) > 0).sum())
+        # the chunk step's least bytes: the chunk's X, the edges, columns,
+        # nodes and statistics read once, the table written once
+        nbytes = 4.0 * (Xc.numel() + E.numel() + cols.numel() + node.numel()
+                        + S.numel() + out.numel())
+        emit("tree_stream_hist_kernels", chunk=c["chunk"], N=N,
+             rows=Xc.shape[0], rows_weighted=n_valid,
+             replicas=S.shape[0], replicas_unequal=unequal,
+             max_abs_err=max_abs, codes_unequal=codes_unequal,
+             integral=c["integral"], step_kernel_ms=kernel_ms,
+             plain_ms=plain_ms, bound_ms=1e3 * nbytes / PEAK_BYTES,
+             bound_by="bytes")
+        if unequal or codes_unequal or not c["integral"]:
+            fail("tree_stream_hist_kernels", f"chunk {c['chunk']} N={N}: "
+                 f"{unequal} replicas and {codes_unequal} codes unequal "
+                 f"(integral {c['integral']})")
+        worst = max(worst, max_abs)
+        del out, codes, codes_plain, Er
+    if len(rec) != 2 * TREE["max_depth"]:
+        fail("tree_stream_hist_kernels", f"{len(rec)} level tables recorded")
+    del rec
+    torch.cuda.empty_cache()
+    return worst
+
+
+def phase_tree_stream_cross_check(X: np.ndarray, y: np.ndarray) -> None:
+    """The same stream with the kernel and with the dense product on the
+    card grows the same trees, bit for bit."""
+    ens = {}
+    for impl in ("fused", "dense"):
+        ens[impl] = tree_bagger(N_TREE_CROSS_REPLICAS, split_impl=impl) \
+            .fit_stream(tree_stream_source(X, y, TREE_STREAM_CHUNK),
+                        classes=np.unique(y)).ensemble_
+        torch.cuda.empty_cache()
+    same = {k: bool(torch.equal(ens["fused"][k], ens["dense"][k]))
+            for k in ("feature", "threshold", "gain", "leaf_logp")}
+    emit("tree_stream_cross_check", ok=all(same.values()), rows=N_ROWS,
+         replicas=N_TREE_CROSS_REPLICAS, equal=same)
+    if not all(same.values()):
+        fail("tree_stream_cross_check", f"fused and dense trees differ: {same}")
+
+
+def phase_rf_reg_stream_fit(split):
+    """The forest regressor streamed over the California training split
+    in 4,096-row chunks: the float accumulator at every chunk's level."""
+    from spark_bagging_tpu_torch.utils.metrics import r2_score
+
+    Xtr, ytr, Xte, yte = split
+    est = rf_regressor()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    est.fit_stream(tree_stream_source(Xtr, ytr, RF_STREAM_CHUNK))
+    counts = read_launches()
+    rep = est.fit_report_
+    expected = stream_levels(RF_STREAM_CHUNK, len(ytr), RF_REG["max_depth"])
+    r2 = r2_score(yte, est.predict(Xte))
+    emit("rf_reg_stream_fit", ok=True, n_train=len(ytr),
+         chunk_rows=RF_STREAM_CHUNK, n_chunks=rep["n_chunks"],
+         n_replicas=RF_REG["n_estimators"], fit_seconds=rep["fit_seconds"],
+         fits_per_sec=rep["fits_per_sec"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+         launches=counts, expected_launches_each=expected,
+         float_accumulator_launches=counts["binned_left_stats_float"],
+         test_r2=r2, r2_bar=RF_R2_BAR)
+    if (counts["binned_left_stats"] != expected
+            or counts["binned_left_stats_float"] != expected
+            or counts["bin_codes"] != expected or counts["scaled_gram"]):
+        fail("rf_reg_stream_fit", f"launches {counts}, expected {expected} "
+             "float histogram and bin-codes launches")
+    if not r2 > RF_R2_BAR:
+        fail("rf_reg_stream_fit", f"test R^2 {r2:.4f} not above {RF_R2_BAR}")
+    return counts["binned_left_stats"], counts["bin_codes"]
+
+
+def phase_rf_reg_stream_hist_kernels(split) -> dict:
+    """Every level's per-chunk table of the streamed forest regressor
+    (``phase_rf_reg_stream_fit``'s fit: 128 replicas, 4,096-row chunks),
+    for the first chunk and the padded tail (128 valid rows of 4,096):
+    the bin codes of the chunk bit for bit against their plain version,
+    and the float accumulator's table, the fit's own and the kernel's
+    on the same inputs, within HIST_FLOAT_TOL of the plain version
+    summed in float64 for every replica (``float_hist_row``)."""
+    from spark_bagging_tpu_torch.ops import hist as hist_ops
+
+    Xtr, ytr = split[:2]
+    n_chunks = -(-len(ytr) // RF_STREAM_CHUNK)
+    learner_box = []
+
+    def fit():
+        est = rf_regressor().fit_stream(
+            tree_stream_source(Xtr, ytr, RF_STREAM_CHUNK))
+        learner_box.append(est._fitted_learner)
+
+    rec = record_stream_levels(fit, n_chunks)
+    learner = learner_box[0]
+    levels = RF_REG["max_depth"]
+    if [(c["chunk"], c["N"]) for c in rec] != [
+            (ch, 2**lv) for lv in range(levels) for ch in (0, n_chunks - 1)]:
+        fail("rf_reg_stream_hist_kernels", "recorded (chunk, N) "
+             f"{[(c['chunk'], c['N']) for c in rec]}")
+    rows = {}
+    for c in rec:
+        if c["integral"]:
+            fail("rf_reg_stream_hist_kernels", "the stream passed integral "
+                 "statistics")
+        # the kernel route's inputs, as _chunk_level_hist makes them
+        prepared = learner._binned(c["X"], c["edges"])
+        codes_unequal = int((prepared["codes"] != hist_ops.bin_codes_plain(
+            c["X"], c["edges"])).sum())
+        if c["cols"] is not None:
+            prepared = learner.gather_subspace(prepared, c["cols"])
+        level = dict(codes=prepared["codes"], cols=prepared.get("cols"),
+                     edges=prepared["edges"], node=c["node"], S=c["S"],
+                     N=c["N"], integral=False)
+        R = c["S"].shape[0]
+        rows[c["chunk"], c["N"]] = float_hist_row(
+            "rf_reg_stream_hist_kernels", level, R,
+            learner._hdt(c["S"].device), fit_out=c["out"], chunk=c["chunk"],
+            rows_weighted=int((c["S"].abs().sum(dim=(0, 2)) > 0).sum()),
+            codes_unequal=codes_unequal)
+        if codes_unequal:
+            fail("rf_reg_stream_hist_kernels", f"chunk {c['chunk']} N="
+                 f"{c['N']}: {codes_unequal} bin codes unequal")
+    del rec
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mlp_source(n_rows: int, chunk_rows: int):
+    """Config 4's stream: synthetic HIGGS chunks made on demand, the
+    mixture pinned by seed 11."""
+    from spark_bagging_tpu_torch.utils.datasets import synthetic_higgs
+    from spark_bagging_tpu_torch.utils.io import SyntheticChunks
+
+    return SyntheticChunks(synthetic_higgs, n_rows, chunk_rows, seed=11)
+
+
+def mlp_test_data(n_rows: int = N_MLP_TEST_ROWS):
+    from spark_bagging_tpu_torch.utils.datasets import synthetic_higgs
+
+    return synthetic_higgs(n_rows, seed=999_001, structure_seed=11)
+
+
+def mlp_bagger(n_estimators: int, device: str = "cuda", **mlp):
+    from spark_bagging_tpu_torch import BaggingClassifier, MLPClassifier
+
+    return BaggingClassifier(MLPClassifier(**{**MLP, **mlp}),
+                             n_estimators=n_estimators, seed=0, device=device)
+
+
+def stream_pace(fit_kw: dict, n_chunks: int = 10) -> dict:
+    """The pace of config 4's stream a chunk: the host's ms to make one
+    chunk (the source's own generation, the median of the first
+    ``n_chunks``), and the device's ms from a profile of the engine
+    itself (``profile_fit.profile_device``) fitting the config's
+    ensemble on a stream cut to ``n_chunks`` chunks: the bootstrap
+    draws' kernels and the rest of the device's work (the chunk copies
+    and the Adam steps)."""
+    from spark_bagging_tpu_torch.profile_fit import profile_device
+
+    cfg = MLP_STREAM
+    host, it = [], mlp_source(cfg["n_rows"], cfg["chunk_rows"]).chunks()
+    for _ in range(n_chunks):
+        t0 = time.perf_counter()
+        next(it)
+        host.append(time.perf_counter() - t0)
+    it.close()
+    est = mlp_bagger(cfg["n_estimators"])
+    prof = profile_device(lambda: est.fit_stream(
+        mlp_source(n_chunks * cfg["chunk_rows"], cfg["chunk_rows"]),
+        **fit_kw))
+    boot = prof["bootstrap_device_seconds"] or 0.0
+    return {"host_chunk_ms": 1e3 * float(np.median(host)),
+            "bootstrap_ms": 1e3 * boot / n_chunks,
+            "other_device_ms": 1e3 * (prof["device_busy_seconds"] - boot)
+            / n_chunks,
+            "profiled_chunks": n_chunks,
+            "profiled_idle_share": prof["idle_share"]}
+
+
+def phase_mlp_stream_fit() -> None:
+    """BASELINE config 4 at full size: 512 bagged MLPs streamed over
+    11,000,000 synthetic HIGGS rows (550 chunks, 1,100 Adam steps); the
+    test AUC against sklearn's proxy, a warm ``predict_proba`` of the
+    200,000 test rows, and the pace of the host's chunk making against
+    the device's chunk visits."""
+    from spark_bagging_tpu_torch.utils.metrics import roc_auc
+
+    cfg = MLP_STREAM
+    fit_kw = dict(classes=[0, 1], n_epochs=cfg["n_epochs"],
+                  steps_per_chunk=cfg["steps_per_chunk"], lr=cfg["lr"])
+    Xte, yte = mlp_test_data()
+    t0 = time.perf_counter()
+    mlp_bagger(16).fit_stream(mlp_source(40_000, cfg["chunk_rows"]), **fit_kw)
+    warmup_seconds = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    est = mlp_bagger(cfg["n_estimators"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    est.fit_stream(mlp_source(cfg["n_rows"], cfg["chunk_rows"]), **fit_kw)
+    stream_seconds = time.perf_counter() - t0
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rep = est.fit_report_
+    est.predict_proba(Xte)  # warm-up
+    t0 = time.perf_counter()
+    proba = est.predict_proba(Xte)
+    predict_seconds = time.perf_counter() - t0
+    auc = roc_auc(yte, proba[:, 1])
+    bar = MLP_PROXY_AUC - PARITY_TOL
+    pace = stream_pace(fit_kw)
+    n_chunks = -(-cfg["n_rows"] // cfg["chunk_rows"])
+    device_ms = pace["bootstrap_ms"] + pace["other_device_ms"]
+    emit("mlp_stream_fit", ok=True, **cfg, hidden=MLP["hidden"],
+         n_test=len(yte),
+         warmup_fit_seconds=warmup_seconds, stream_seconds=stream_seconds,
+         fit_seconds=rep["fit_seconds"],
+         first_step_seconds=rep["first_step_seconds"],
+         row_replica_per_sec=cfg["n_rows"] * cfg["n_epochs"]
+         * cfg["n_estimators"] / stream_seconds,
+         fits_per_sec=rep["fits_per_sec"], n_chunks=rep["n_chunks"],
+         opt_steps=rep["opt_steps"], achieved_tflops=rep["achieved_tflops"],
+         peak_mem_gb=peak, launches=counts, test_auc=auc,
+         proxy_auc=MLP_PROXY_AUC, auc_bar=bar,
+         predict_proba_seconds=predict_seconds,
+         predict_proba_rows_per_sec=len(yte) / predict_seconds,
+         **pace, host_seconds_per_stream=pace["host_chunk_ms"] * n_chunks / 1e3,
+         device_seconds_per_stream=device_ms * n_chunks / 1e3,
+         bootstrap_share_of_device=pace["bootstrap_ms"] / device_ms,
+         pace_set_by="host" if pace["host_chunk_ms"] > device_ms else "device")
+    if rep["n_chunks"] != n_chunks or rep["opt_steps"] != n_chunks * cfg[
+            "n_epochs"] * cfg["steps_per_chunk"]:
+        fail("mlp_stream_fit", f"{rep['n_chunks']} chunks, {rep['opt_steps']} "
+             "optimizer steps")
+    if any(counts.values()):
+        fail("mlp_stream_fit", f"launches {counts}: the MLP stream runs no "
+             "kernel of the repo")
+    if not (np.isfinite(proba).all() and proba.shape == (len(yte), 2)):
+        fail("mlp_stream_fit", f"bad probabilities, shape {proba.shape}")
+    if not auc >= bar:
+        fail("mlp_stream_fit", f"test AUC {auc:.5f} below the bar {bar:.5f}")
+
+
+def phase_mlp_device_check() -> None:
+    """Config 4's learner on the card against the CPU in one process: a
+    small stream (16 replicas, 40,000 rows in 5,000-row chunks, 2 epochs,
+    2 steps a chunk) and an in-memory minibatch fit (16 replicas, 50
+    steps of 1,024 rows on 20,000 rows); probabilities within
+    MLP_DEVICE_TOL and parameters within MLP_DEVICE_PARAM_TOL."""
+    from spark_bagging_tpu_torch.utils.datasets import synthetic_higgs
+
+    cs, cf = MLP_CHECK_STREAM, MLP_CHECK_FIT
+    Xi, yi = synthetic_higgs(cf["n_rows"], seed=5, structure_seed=11)
+    Xte, _ = mlp_test_data(10_000)
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        stream = mlp_bagger(cs["n_estimators"], device=dev).fit_stream(
+            mlp_source(cs["n_rows"], cs["chunk_rows"]), classes=[0, 1],
+            n_epochs=cs["n_epochs"], steps_per_chunk=cs["steps_per_chunk"],
+            lr=MLP["lr"])
+        mem = mlp_bagger(cf["n_estimators"], device=dev,
+                         max_iter=cf["max_iter"],
+                         batch_size=cf["batch_size"]).fit(Xi, yi)
+        fits[dev] = (stream, mem)
+    errs = {}
+    for i, name in enumerate(("stream", "in_memory")):
+        a, b = fits["cuda"][i], fits["cpu"][i]
+        errs[name] = {
+            **{k: float((v.cpu() - b.ensemble_[k]).abs().max())
+               for k, v in a.ensemble_.items()},
+            "predict_proba": float(np.abs(a.predict_proba(Xte)
+                                          - b.predict_proba(Xte)).max()),
+        }
+    proba = max(e.pop("predict_proba") for e in errs.values())
+    param = max(v for e in errs.values() for v in e.values())
+    ok = proba <= MLP_DEVICE_TOL and param <= MLP_DEVICE_PARAM_TOL
+    emit("mlp_device_check", ok=ok, stream=cs, in_memory=cf,
+         max_abs_err=errs, predict_proba_max_abs_err=proba,
+         proba_tol=MLP_DEVICE_TOL, param_tol=MLP_DEVICE_PARAM_TOL)
+    if not ok:
+        fail("mlp_device_check", f"card and CPU differ by {param:.3g} in "
+             f"parameters (tol {MLP_DEVICE_PARAM_TOL}) and {proba:.3g} in "
+             f"probabilities (tol {MLP_DEVICE_TOL})")
+
+
 def sklearn_proxies() -> dict:
-    """The sklearn proxies the GBT phases hold the port to (GBT_PROXY_AUC,
-    GBT_MC_PROXY_ACC, GBT_REG_PROXY_R2), as benchmarks/run_configs.py
-    computes config 7's. Needs sklearn (not on the card's machine) and
-    no GPU."""
+    """The sklearn proxies the GBT and MLP phases hold the port to
+    (GBT_PROXY_AUC, GBT_MC_PROXY_ACC, GBT_REG_PROXY_R2, MLP_PROXY_AUC), as
+    benchmarks/run_configs.py computes configs 7's and 4's. Needs sklearn
+    (not on the card's machine) and no GPU."""
     from sklearn.ensemble import (
         HistGradientBoostingClassifier,
         HistGradientBoostingRegressor,
     )
+    from sklearn.neural_network import MLPClassifier
 
+    from spark_bagging_tpu_torch.utils import datasets
     from spark_bagging_tpu_torch.utils.metrics import accuracy, r2_score, roc_auc
 
     def proxy_rows(X, y, cap=50_000, seed=0):  # run_configs._proxy_train_set
@@ -1624,6 +2099,12 @@ def sklearn_proxies() -> dict:
     m = HistGradientBoostingRegressor(max_iter=GBT_REG["n_rounds"], **sk).fit(
         *proxy_rows(Xtr, ytr))
     out["GBT_REG_PROXY_R2"] = r2_score(yte, m.predict(Xte))
+    Xte, yte = mlp_test_data()
+    m = MLPClassifier(hidden_layer_sizes=(MLP["hidden"],), max_iter=30,
+                      batch_size=1024, learning_rate_init=MLP["lr"],
+                      random_state=0).fit(*datasets.synthetic_higgs(
+                          50_000, seed=999_002, structure_seed=11))
+    out["MLP_PROXY_AUC"] = roc_auc(yte, m.predict_proba(Xte)[:, 1])
     return out
 
 
@@ -1658,11 +2139,17 @@ def main() -> int:
     phase_cross_check(X, y)
     torch.cuda.empty_cache()
     tree, tree_launches, codes_launches, tree_Rs = phase_tree_fit(X, y)
+    tree_acc = tree.score(X[:N_SERVE_ROWS], y[:N_SERVE_ROWS])
     phase_tree_serve(tree, X)
     del tree
     torch.cuda.empty_cache()
     hist_rows, codes_row = phase_hist_kernels(X, y, tree_Rs)
     phase_tree_cross_check(X, y)
+    torch.cuda.empty_cache()
+    ts_launches, ts_codes_launches = phase_tree_stream_fit(X, y, tree_acc)
+    torch.cuda.empty_cache()
+    stream_err = phase_tree_stream_hist_kernels(X, y)
+    phase_tree_stream_cross_check(X, y)
     torch.cuda.empty_cache()
     split = regression_data()
     phase_reg_fit(split)
@@ -1672,6 +2159,9 @@ def main() -> int:
     reg_rows = phase_reg_hist_kernels(split, rf_Rs)
     phase_reg_tree_cross_check(split)
     torch.cuda.empty_cache()
+    rs_launches, rs_codes_launches = phase_rf_reg_stream_fit(split)
+    torch.cuda.empty_cache()
+    rs_rows = phase_rf_reg_stream_hist_kernels(split)
     higgs = higgs_data()
     gbt_launches, gbt_codes_launches, gbt_chunks = phase_gbt_fit(higgs)
     torch.cuda.empty_cache()
@@ -1683,6 +2173,10 @@ def main() -> int:
     del X, y
     torch.cuda.empty_cache()
     gr_launches, gr_codes_launches = phase_gbt_reg_fit(split)
+    torch.cuda.empty_cache()
+    phase_mlp_stream_fit()
+    torch.cuda.empty_cache()
+    phase_mlp_device_check()
     # each kernel's line reports the largest replica chunk (and, for the
     # histogram, config 3's deepest level in the fit's bf16 mode), where
     # its fit spends its kernel time; the phase lines hold every shape.
@@ -1690,8 +2184,11 @@ def main() -> int:
     # through the replicas' column indices, what the fit asks of it. Its
     # and the bin codes' launches are every tree path's together (config
     # 3, the forest regressor, config 7's GBTs, the multiclass and
-    # regressor GBTs), and its max_abs_err is the largest of every path
-    # (the float accumulator's: the integral one is exact)
+    # regressor GBTs, and the streamed config 3 and forest regressor),
+    # and its max_abs_err is the largest of every checked table: the
+    # in-memory paths', the streamed config 3's (int32, held bit for
+    # bit) and the streamed forest regressor's (float, the fit's own
+    # tables and the kernel's on their inputs)
     f32 = rows[max(Rs)]["float32"]
     deepest = hist_rows[max(tree_Rs), 2 ** (TREE["max_depth"] - 1), "bfloat16"]
     print(json.dumps({"kernels": [{
@@ -1712,9 +2209,11 @@ def main() -> int:
         "source": "spark_bagging_tpu_torch/csrc/binned_left_stats.cu",
         "replaces": "spark_bagging_tpu/ops/hist.py:66",
         "launches": (tree_launches + rf_launches + gbt_launches
-                     + mc_launches + gr_launches),
-        "max_abs_err": max(r["max_abs_err"] for r in (
-            *hist_rows.values(), *reg_rows.values(), *gbt_rows.values())),
+                     + mc_launches + gr_launches + ts_launches
+                     + rs_launches),
+        "max_abs_err": max(stream_err, *(r["max_abs_err"] for r in (
+            *hist_rows.values(), *reg_rows.values(), *rs_rows.values(),
+            *gbt_rows.values()))),
         "ms": deepest["kernel_ms"],
         "plain_ms": deepest["plain_ms"],
         "bound_ms": deepest["bound_ms"],
@@ -1726,7 +2225,8 @@ def main() -> int:
         "source": "spark_bagging_tpu_torch/csrc/binned_left_stats.cu",
         "replaces": "spark_bagging_tpu/ops/hist.py:66",
         "launches": (codes_launches + rf_codes_launches + gbt_codes_launches
-                     + mc_codes_launches + gr_codes_launches),
+                     + mc_codes_launches + gr_codes_launches
+                     + ts_codes_launches + rs_codes_launches),
         "max_abs_err": 0.0 if not codes_row["unequal"] else None,
         "ms": codes_row["kernel_ms"],
         "plain_ms": codes_row["plain_ms"],

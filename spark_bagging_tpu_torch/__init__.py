@@ -7,7 +7,9 @@ Pallas: the scaled-Gram Hessian of logistic regression and the
 split-search histogram of decision trees, random forests and
 gradient-boosted trees. The classifiers vote; the regressors (bagged
 ridge regression, bagged regression trees and boosted trees, random
-forests) average. The JAX
+forests) average. ``fit_stream`` fits out of core from a chunk source:
+SGD learners (the MLPs, logistic and ridge regression) by Adam over
+the chunks, trees by a multi-pass level-synchronous growth. The JAX
 package stays the reference this port is held against; the port
 imports only torch and numpy.
 
@@ -28,6 +30,8 @@ from spark_bagging_tpu_torch.models import (
     GBTRegressor,
     LinearRegression,
     LogisticRegression,
+    MLPClassifier,
+    MLPRegressor,
 )
 
 __version__ = "0.2.0"
@@ -42,6 +46,8 @@ __all__ = [
     "GBTRegressor",
     "LinearRegression",
     "LogisticRegression",
+    "MLPClassifier",
+    "MLPRegressor",
     "RandomForestClassifier",
     "RandomForestRegressor",
 ]

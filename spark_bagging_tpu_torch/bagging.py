@@ -13,17 +13,23 @@ regression; ``feature``, ``threshold``, ``gain`` and ``leaf_logp`` or
 ``leaf_value`` for trees) and ``subspaces_`` ``(R, n_subspace)`` int32,
 as tensors on the estimator's device.
 
+``fit_stream`` fits out of core from a chunk source (utils/io.py) or an
+``(X, y)`` pair: SGD learners (``streamable``) by Adam over the chunks
+(streaming.py), trees by the multi-pass level-synchronous engine
+(tree_stream.py); the ``*_stream`` predicts and scores read a source
+chunk by chunk.
+
 ``device`` defaults to ``"cuda"`` and raises where CUDA is absent;
-``device="cpu"`` must be asked for. The mesh and warm-start surfaces
-and the streamed fits and predicts are not ported yet and raise
-``NotImplementedError``; ``save``/``load`` are not ported yet either
-(ROADMAP Queue A 11).
+``device="cpu"`` must be asked for. The mesh and warm-start surfaces,
+the stream checkpoints and ``save``/``load`` are not ported yet and
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
 import numbers
 import time
+from contextlib import closing
 
 import numpy as np
 import torch
@@ -46,19 +52,52 @@ from spark_bagging_tpu_torch.utils.metrics import accuracy, r2_score
 from spark_bagging_tpu_torch.utils.params import ParamsMixin
 
 _ROADMAP_SURFACES = "ROADMAP Queue A: bagging surfaces still to port"
-_ROADMAP_STREAMS = "ROADMAP Queue A 11: out-of-core"
+_ROADMAP_CHECKPOINTS = "ROADMAP Queue A 11: checkpoints and save/load"
+_ROADMAP_MESH = "ROADMAP Queue A 12: parallel/"
 
 
 def _not_ported(name: str):
-    """A method of the JAX estimators' out-of-core surface: raises
+    """A method of the JAX estimators' persistence surface: raises
     ``NotImplementedError`` naming its Queue A item."""
 
     def method(self, *args, **kwargs):
-        raise NotImplementedError(f"{name} ({_ROADMAP_STREAMS})")
+        raise NotImplementedError(f"{name} ({_ROADMAP_CHECKPOINTS})")
 
     method.__name__ = name
-    method.__doc__ = f"Not ported yet ({_ROADMAP_STREAMS}); raises."
+    method.__doc__ = f"Not ported yet ({_ROADMAP_CHECKPOINTS}); raises."
     return method
+
+
+class _EncodedChunks:
+    """Label-encoding view over a chunk source: raw labels to class
+    indices chunk by chunk (the streamed ``np.unique`` encode of
+    ``BaggingClassifier.fit``)."""
+
+    def __init__(self, inner, classes: np.ndarray):
+        self._inner = inner
+        self._classes = classes
+        self.n_features = inner.n_features
+        self.n_rows = inner.n_rows
+        self.chunk_rows = inner.chunk_rows
+
+    @property
+    def n_chunks(self) -> int:
+        return self._inner.n_chunks
+
+    def chunks(self):
+        return self.chunks_from(0)
+
+    def chunks_from(self, start: int):
+        for X, y, n_valid in self._inner.chunks_from(start):
+            idx = np.searchsorted(self._classes, y)
+            idx_c = np.minimum(idx, len(self._classes) - 1)
+            bad = self._classes[idx_c[:n_valid]] != y[:n_valid]
+            if bad.any():
+                raise ValueError(
+                    f"stream contains labels not in classes: "
+                    f"{np.unique(np.asarray(y[:n_valid])[bad])[:5]}"
+                )
+            yield X, idx_c, n_valid
 
 
 class _BaseBagging(ParamsMixin):
@@ -262,9 +301,20 @@ class _BaseBagging(ParamsMixin):
             n_subspace == n_features and not self.bootstrap_features
         )
         self._device = device
-        flops = learner.flops_per_fit(n_rows, n_subspace, n_outputs)
+        self._write_report(
+            fit_seconds, h2d_seconds, losses, n_rows, n_features, n_subspace,
+            learner.flops_per_fit(n_rows, n_subspace, n_outputs),
+            chunk_size_resolved=chunk_size)
+
+    def _write_report(self, fit_seconds, h2d_seconds, losses, n_rows,
+                      n_features, n_subspace, flops, flops_seconds=None,
+                      **extra) -> None:
+        """``fit_report_``: throughput, losses and shapes of the fit;
+        ``flops_seconds`` (default ``fit_seconds``) is the time the
+        achieved TFLOP/s divides by."""
         n = self.n_estimators_
         e2e = fit_seconds + h2d_seconds
+        flops_seconds = flops_seconds or fit_seconds
         self.fit_report_ = {
             "n_replicas": n,
             "fit_seconds": fit_seconds,
@@ -278,13 +328,174 @@ class _BaseBagging(ParamsMixin):
             "n_rows": n_rows,
             "n_features": n_features,
             "n_subspace": n_subspace,
-            "backend": device.type,
+            "backend": self._device.type,
             "n_devices": 1,
             "model_flops_per_fit": flops,
-            "achieved_tflops": (flops * n / fit_seconds / 1e12
-                                if flops and fit_seconds > 0 else None),
-            "chunk_size_resolved": chunk_size,
+            "achieved_tflops": (flops * n / flops_seconds / 1e12
+                                if flops and flops_seconds > 0 else None),
+            **extra,
         }
+
+    # -- out-of-core fit -----------------------------------------------
+
+    def _reject_stream_options(self, checkpoint_dir, checkpoint_every,
+                               resume_from) -> None:
+        """Refuse what the streamed fit does not port yet. ``fit_stream``
+        cannot extend an ensemble either: its chunk-keyed replica
+        streams are not the in-memory fit's, so a ``warm_start=True``
+        estimator that is fitted raises, as in the JAX package."""
+        if checkpoint_dir is not None or checkpoint_every or resume_from:
+            raise NotImplementedError(
+                f"stream checkpoints ({_ROADMAP_CHECKPOINTS})")
+        if self.mesh is not None:
+            raise NotImplementedError(f"mesh stream fits ({_ROADMAP_MESH})")
+        if self.warm_start and hasattr(self, "ensemble_"):
+            raise ValueError(
+                "warm_start cannot extend an ensemble via fit_stream "
+                "(stream fits use chunk-keyed replica streams): grow "
+                "with fit(), or set warm_start=False to refit from "
+                "scratch"
+            )
+
+    def _fit_stream_engine(self, source, n_outputs: int, *, n_epochs: int,
+                           steps_per_chunk: int, lr: float,
+                           prefetch: int | None = None,
+                           aux_col: int | None = None) -> None:
+        """Out-of-core fit over a chunk source: tree learners through the
+        multi-pass level-synchronous engine, ``streamable`` learners by
+        Adam over the chunks."""
+        from spark_bagging_tpu_torch.streaming import (
+            fit_ensemble_stream,
+            learner_fingerprint,
+        )
+        from spark_bagging_tpu_torch.tree_stream import (
+            fit_tree_ensemble_stream,
+        )
+        from spark_bagging_tpu_torch.utils.prefetch import (
+            PrefetchChunks,
+            worth_prefetching,
+        )
+
+        if prefetch is None:
+            # a background producer only where a spare host core can
+            # run it; an explicit int forces the choice, 0 disables
+            prefetch = 2 if worth_prefetching() else 0
+        if prefetch and not isinstance(source, PrefetchChunks):
+            source = PrefetchChunks(source, prefetch)
+        if self.n_estimators < 1:
+            raise ValueError("n_estimators must be >= 1")
+        ratio = self._sample_ratio(int(source.n_rows))
+        if self.oob_score and not self.bootstrap and ratio >= 1.0:
+            raise ValueError(
+                "oob_score requires out-of-bag rows: use bootstrap=True or "
+                "max_samples < 1.0"
+            )
+        learner = self._learner()
+        device = resolve_device(self.device)
+        # aux_col: one streamed column is the aux channel, not a feature
+        n_feat_data = source.n_features - (1 if aux_col is not None else 0)
+        n_subspace = self._n_subspace(n_feat_data)
+        key = prng.key(self.seed, device)
+        common = dict(sample_ratio=ratio, bootstrap=bool(self.bootstrap),
+                      n_subspace=n_subspace,
+                      bootstrap_features=bool(self.bootstrap_features))
+        t0 = time.perf_counter()
+        if getattr(learner, "tree_streamable", False):
+            if aux_col is not None:
+                raise ValueError(
+                    "aux_col applies to SGD-streamable uses_aux "
+                    "learners; tree streams carry no aux channel"
+                )
+            if n_epochs != 1 or steps_per_chunk != 1:
+                raise ValueError(
+                    "n_epochs/steps_per_chunk are SGD-stream knobs; a "
+                    "streamed tree fit always makes max_depth + 2 "
+                    "passes — drop them for tree learners"
+                )
+            params, subspaces, aux = fit_tree_ensemble_stream(
+                learner, source, key, self.n_estimators, n_outputs, **common)
+        else:
+            params, subspaces, aux = fit_ensemble_stream(
+                learner, source, key, self.n_estimators, n_outputs,
+                n_epochs=n_epochs, steps_per_chunk=steps_per_chunk, lr=lr,
+                aux_col=aux_col, **common)
+        losses = aux["loss"].cpu().numpy()  # completion barrier
+        fit_seconds = time.perf_counter() - t0
+        self.ensemble_ = params
+        self.subspaces_ = subspaces
+        self.n_features_in_ = int(n_feat_data)
+        self.n_estimators_ = int(self.n_estimators)
+        self._fit_key = key
+        # per-chunk weight draws: no global weight vector to replay
+        self._fit_n_rows = None
+        self._fitted_learner = learner
+        self._fitted_learner_fp = learner_fingerprint(learner)
+        self._fit_sampling = (ratio, bool(self.bootstrap))
+        # an earlier in-memory fit's chunk must not size this fit's maps
+        self._chunk_resolved = None
+        self._identity_subspace = (
+            n_subspace == n_feat_data and not self.bootstrap_features
+        )
+        self._device = device
+        # FLOPs: the tree stream does the in-memory fit's contractions;
+        # the SGD stream counts each optimizer step's matmuls. The first
+        # step, which builds the kernels, is kept out of the rate
+        if "n_passes" in aux:
+            flops = learner.flops_per_fit(int(source.n_rows), n_subspace,
+                                          n_outputs)
+            extra = {"n_passes": aux["n_passes"]}
+        else:
+            per_step = learner.sgd_step_flops(aux["chunk_rows"], n_subspace,
+                                              n_outputs)
+            flops = (per_step * aux["opt_steps"]
+                     if per_step is not None else None)
+            extra = {"opt_steps": aux["opt_steps"]}
+        first = aux["first_step_seconds"] or 0.0
+        self._write_report(
+            fit_seconds, 0.0, losses, int(source.n_rows), int(n_feat_data),
+            n_subspace, flops, flops_seconds=max(fit_seconds - first, 1e-9),
+            chunk_size_resolved=None, n_chunks=aux["n_chunks"],
+            n_epochs=aux["n_epochs"], stream_seconds=aux["stream_seconds"],
+            first_step_seconds=aux["first_step_seconds"], **extra)
+
+    def _stream_chunks(self, source, chunk_rows=None,
+                       prefetch: int | None = None):
+        """The validated chunk source of the streamed predicts and
+        scores (any chunk source, or an ``(X, y)`` pair); labels ride
+        along where they are not needed."""
+        from spark_bagging_tpu_torch.utils.io import as_chunk_source
+        from spark_bagging_tpu_torch.utils.prefetch import (
+            PrefetchChunks,
+            worth_prefetching,
+        )
+
+        self._check_fitted()
+        already_wrapped = isinstance(source, PrefetchChunks)
+        source = as_chunk_source(source, chunk_rows)
+        if source.n_features != self.n_features_in_:
+            raise ValueError(
+                f"source has {source.n_features} features; the ensemble "
+                f"was fitted on {self.n_features_in_}"
+            )
+        if prefetch is None:
+            prefetch = 2 if worth_prefetching() else 0
+        if already_wrapped or not prefetch:
+            return source
+        return PrefetchChunks(source, prefetch)
+
+    def _oob_scores_stream(self, source, n_classes: int | None):
+        """Streamed OOB: one more pass regenerating each replica's
+        chunk-keyed membership; ``(agg, votes, y)`` in stream order."""
+        from spark_bagging_tpu_torch.streaming import oob_scores_stream
+
+        ratio, replacement = self._fit_sampling
+        return oob_scores_stream(
+            self._fitted_learner, source, self._fit_key,
+            self.ensemble_, self.subspaces_, self.n_estimators_,
+            sample_ratio=ratio, bootstrap=replacement,
+            n_classes=n_classes, chunk_size=self._eff_chunk(),
+            identity_subspace=self._identity_subspace,
+        )
 
     # -- OOB -----------------------------------------------------------
 
@@ -337,8 +548,9 @@ class _BaseBagging(ParamsMixin):
         self._check_replica(i)
         if getattr(self, "_fit_n_rows", None) is None:
             raise ValueError(
-                "replica_weights needs a fit of this estimator (weights "
-                "carried across from the JAX package have no fit key)"
+                "replica_weights needs an in-memory fit of this estimator "
+                "(a stream fit draws per-chunk weights; weights carried "
+                "across from the JAX package have no fit key)"
             )
         ratio, replacement = self._fit_sampling
         w = bootstrap_weights(
@@ -393,9 +605,8 @@ class _BaseBagging(ParamsMixin):
         self._check_fitted()
         return self._replica_closure(), self.ensemble_, self.subspaces_
 
-    fit_stream = _not_ported("fit_stream")
-    predict_stream = _not_ported("predict_stream")
-    score_stream = _not_ported("score_stream")
+    save = _not_ported("save")
+    load = classmethod(_not_ported("load"))
 
     def _forward_closure(self):
         raise NotImplementedError  # per task
@@ -480,6 +691,69 @@ class BaggingClassifier(_BaseBagging):
             self._finalize_oob(counts, votes, y_enc)
         return self
 
+    def fit_stream(
+        self,
+        source,
+        *,
+        classes=None,
+        n_epochs: int = 1,
+        steps_per_chunk: int = 1,
+        lr: float = 0.01,
+        chunk_rows: int | None = None,
+        prefetch: int | None = None,
+        checkpoint_dir: str | None = None,
+        checkpoint_every: int = 0,
+        resume_from: str | None = None,
+    ) -> "BaggingClassifier":
+        """Out-of-core fit from a chunk source (utils/io.py) or an ``(X,
+        y)`` pair, chunked by ``chunk_rows``.
+
+        ``classes`` lists the label values; None makes one extra pass
+        over the source to collect them. A ``streamable`` learner takes
+        ``steps_per_chunk`` Adam steps (learning rate ``lr``) on every
+        chunk, ``n_epochs`` times over; a tree learner grows through
+        ``max_depth + 2`` passes (the SGD knobs do not apply).
+        ``prefetch`` chunks are made on a background thread while the
+        device steps (None: 2 where a spare host core exists, else
+        none; 0 disables; a source that is already a
+        ``PrefetchChunks`` keeps its depth). The checkpoint arguments
+        are not ported yet and raise ``NotImplementedError``.
+        """
+        from spark_bagging_tpu_torch.utils.io import as_chunk_source
+        from spark_bagging_tpu_torch.utils.prefetch import PrefetchChunks
+
+        self._reject_stream_options(checkpoint_dir, checkpoint_every,
+                                    resume_from)
+        source = as_chunk_source(source, chunk_rows)
+        if classes is None:
+            seen: set = set()
+            with closing(source.chunks()) as chunk_iter:
+                for _, y, n_valid in chunk_iter:
+                    seen.update(np.unique(y[:n_valid]).tolist())
+            classes = sorted(seen)
+        classes = np.asarray(classes)
+        if classes.ndim != 1 or len(classes) < 2:
+            raise ValueError("classes must be 1-D with >= 2 entries")
+        # _EncodedChunks encodes by searchsorted: sorted, no duplicates
+        self.classes_ = np.unique(classes)
+        if len(self.classes_) != len(classes):
+            raise ValueError("classes contains duplicate values")
+        self.n_classes_ = int(len(self.classes_))
+        if isinstance(source, PrefetchChunks):
+            # encode inside the caller's wrap, keeping its depth
+            enc = source.rewrap(
+                lambda inner: _EncodedChunks(inner, self.classes_))
+        else:
+            enc = _EncodedChunks(source, self.classes_)
+        self._fit_stream_engine(enc, self.n_classes_, n_epochs=n_epochs,
+                                steps_per_chunk=steps_per_chunk, lr=lr,
+                                prefetch=prefetch)
+        if self.oob_score:
+            counts, votes, y_enc = self._oob_scores_stream(
+                enc, self.n_classes_)
+            self._finalize_oob(counts, votes, y_enc)
+        return self
+
     def _finalize_oob(self, counts, votes, y_enc) -> None:
         """OOB vote counts -> ``oob_score_`` (accuracy over rows with at
         least one OOB vote) and ``oob_decision_function_`` (NaN where no
@@ -527,7 +801,36 @@ class BaggingClassifier(_BaseBagging):
             return proba[:, 1] - proba[:, 0]
         return proba
 
-    predict_proba_stream = _not_ported("predict_proba_stream")
+    def predict_proba_stream(self, source, chunk_rows=None, *,
+                             prefetch: int | None = None) -> np.ndarray:
+        """Out-of-core ``predict_proba``: one chunk on the device at a
+        time."""
+        with closing(self._stream_chunks(
+                source, chunk_rows, prefetch).chunks()) as it:
+            out = [self.predict_proba(Xc[:n]) for Xc, _, n in it]
+        if not out:
+            raise ValueError("source yielded no chunks")
+        return np.concatenate(out)
+
+    def predict_stream(self, source, chunk_rows=None, *,
+                       prefetch: int | None = None) -> np.ndarray:
+        proba = self.predict_proba_stream(source, chunk_rows,
+                                          prefetch=prefetch)
+        return self.classes_[proba.argmax(axis=1)]
+
+    def score_stream(self, source, chunk_rows=None, *,
+                     prefetch: int | None = None) -> float:
+        """Out-of-core accuracy over a labelled chunk source."""
+        correct = total = 0
+        with closing(self._stream_chunks(
+                source, chunk_rows, prefetch).chunks()) as it:
+            for Xc, yc, n in it:
+                correct += int((np.asarray(yc[:n])
+                                == self.predict(Xc[:n])).sum())
+                total += int(n)
+        if total == 0:
+            raise ValueError("source yielded no chunks")
+        return correct / total
 
     def score(self, X, y, sample_weight=None) -> float:
         return accuracy(y, self.predict(X), sample_weight=sample_weight)
@@ -577,6 +880,39 @@ class BaggingRegressor(_BaseBagging):
         self._fit_engine(X, y_t, 1, device, h2d_seconds, sample_weight)
         if self.oob_score:
             sums, votes = self._oob_scores(X, None)
+            self._finalize_oob(sums, votes, y)
+        return self
+
+    def fit_stream(
+        self,
+        source,
+        *,
+        n_epochs: int = 1,
+        steps_per_chunk: int = 1,
+        lr: float = 0.01,
+        chunk_rows: int | None = None,
+        prefetch: int | None = None,
+        checkpoint_dir: str | None = None,
+        checkpoint_every: int = 0,
+        resume_from: str | None = None,
+        aux_col: int | None = None,
+    ) -> "BaggingRegressor":
+        """Out-of-core fit from a chunk source or an ``(X, y)`` pair; see
+        :meth:`BaggingClassifier.fit_stream`. ``aux_col`` names the
+        streamed column that is a ``uses_aux`` learner's aux channel: no
+        learner of the port declares one yet (ROADMAP Queue A 10), so it
+        raises."""
+        from spark_bagging_tpu_torch.utils.io import as_chunk_source
+
+        self._reject_stream_options(checkpoint_dir, checkpoint_every,
+                                    resume_from)
+        self.__dict__.pop("_collapsed_beta_cache", None)
+        source = as_chunk_source(source, chunk_rows)
+        self._fit_stream_engine(source, 1, n_epochs=n_epochs,
+                                steps_per_chunk=steps_per_chunk, lr=lr,
+                                prefetch=prefetch, aux_col=aux_col)
+        if self.oob_score:
+            sums, votes, y = self._oob_scores_stream(source, None)
             self._finalize_oob(sums, votes, y)
         return self
 
@@ -662,6 +998,41 @@ class BaggingRegressor(_BaseBagging):
             )
         raise NotImplementedError(
             "quantiles of a survival learner (ROADMAP Queue A 10)")
+
+    def predict_stream(self, source, chunk_rows=None, *,
+                       prefetch: int | None = None) -> np.ndarray:
+        """Out-of-core ``predict``: one chunk on the device at a time."""
+        with closing(self._stream_chunks(
+                source, chunk_rows, prefetch).chunks()) as it:
+            out = [self.predict(Xc[:n]) for Xc, _, n in it]
+        if not out:
+            raise ValueError("source yielded no chunks")
+        return np.concatenate(out)
+
+    def score_stream(self, source, chunk_rows=None, *,
+                     prefetch: int | None = None) -> float:
+        """Out-of-core R² from one pass of moments, shifted by the first
+        chunk's target mean: the raw ``Σy² - (Σy)²/n`` cancels
+        catastrophically for targets with a large mean."""
+        n_tot = 0
+        shift = None
+        s_yd = s_yd2 = s_res = 0.0
+        with closing(self._stream_chunks(
+                source, chunk_rows, prefetch).chunks()) as it:
+            for Xc, yc, n in it:
+                yv = np.asarray(yc[:n], np.float64)
+                pred = np.asarray(self.predict(Xc[:n]), np.float64)
+                if shift is None:
+                    shift = float(yv.mean()) if n else 0.0
+                yd = yv - shift
+                n_tot += int(n)
+                s_yd += float(yd.sum())
+                s_yd2 += float((yd**2).sum())
+                s_res += float(((yv - pred) ** 2).sum())
+        if n_tot == 0:
+            raise ValueError("source yielded no chunks")
+        ss_tot = s_yd2 - s_yd**2 / n_tot
+        return 1.0 - s_res / ss_tot if ss_tot > 0 else 0.0
 
     def score(self, X, y, sample_weight=None) -> float:
         """R² of :meth:`predict`."""

@@ -328,14 +328,19 @@ def oob_replica_contrib(
     bootstrap: bool,
     n_classes: int | None,
     identity_subspace: bool,
+    extra_mask: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """A replica chunk's OOB votes ``(R, n, C)`` (one-hot argmax; the
-    masked predictions ``(R, n)`` for regression) and masks ``(R, n)``."""
+    masked predictions ``(R, n)`` for regression) and masks ``(R, n)``.
+    ``extra_mask`` ``(n,)`` ANDs in row validity (a stream chunk's
+    padding)."""
     w = bootstrap_weights(
         weight_key, rids, X.shape[0], ratio=sample_ratio,
         replacement=bootstrap,
     )
     mask = oob_mask(w).to(torch.float32)
+    if extra_mask is not None:
+        mask = mask * extra_mask
     scores = _score_chunk(learner, params, idx, X, identity_subspace)
     if n_classes is not None:
         onehot = torch.nn.functional.one_hot(

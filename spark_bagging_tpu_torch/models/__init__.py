@@ -3,15 +3,17 @@
 Ported so far: :class:`LogisticRegression` (Newton solver),
 :class:`LinearRegression` (weighted ridge normal equations), the
 depth-bounded trees :class:`DecisionTreeClassifier` and
-:class:`DecisionTreeRegressor`, and the gradient-boosted trees
-:class:`GBTClassifier` and :class:`GBTRegressor`. The other learner families of the JAX
-package are queued in ROADMAP.md.
+:class:`DecisionTreeRegressor`, the gradient-boosted trees
+:class:`GBTClassifier` and :class:`GBTRegressor`, and the one-hidden-layer
+MLPs :class:`MLPClassifier` and :class:`MLPRegressor` (Adam). The other
+learner families of the JAX package are queued in ROADMAP.md.
 """
 
 from spark_bagging_tpu_torch.models.base import BaseLearner
 from spark_bagging_tpu_torch.models.gbt import GBTClassifier, GBTRegressor
 from spark_bagging_tpu_torch.models.linear import LinearRegression
 from spark_bagging_tpu_torch.models.logistic import LogisticRegression
+from spark_bagging_tpu_torch.models.mlp import MLPClassifier, MLPRegressor
 from spark_bagging_tpu_torch.models.tree import (
     DecisionTreeClassifier,
     DecisionTreeRegressor,
@@ -25,4 +27,6 @@ __all__ = [
     "GBTRegressor",
     "LinearRegression",
     "LogisticRegression",
+    "MLPClassifier",
+    "MLPRegressor",
 ]

@@ -13,6 +13,10 @@ chunk being fitted.
 - ``predict_scores(params, X) -> scores`` ``(R, n, C)`` (``(R, n)`` for
   a regressor).
 
+A ``streamable`` learner also gives ``row_loss(params, X, y) -> (R, n)``,
+its unweighted per-row loss, and ``penalty(params) -> (R,)``, so the
+out-of-core engine (streaming.py) can fit it by Adam over data chunks.
+
 Params are dicts of tensors. ``sample_weight`` carries the Poisson
 bootstrap counts, which a learner treats as exact row multiplicities.
 """
@@ -49,6 +53,9 @@ class BaseLearner(ParamsMixin):
     # True: ``fit`` consumes a per-row auxiliary column (the JAX
     # package's survival learner); no learner of the port declares it yet
     uses_aux: ClassVar[bool] = False
+    # True: ``row_loss``/``penalty`` are implemented and ``fit_stream``
+    # fits the learner by Adam over data chunks (streaming.py)
+    streamable: ClassVar[bool] = False
 
     def pooled_amortizes(self, n_replicas: int) -> bool:
         """Is the pooled pre-pass worth running for an ensemble of this
@@ -81,6 +88,27 @@ class BaseLearner(ParamsMixin):
 
     def predict_scores(self, params: Params, X: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
+
+    # -- the streaming contract (streaming.py) --------------------------
+
+    def row_loss(self, params: Params, X: torch.Tensor,
+                 y: torch.Tensor) -> torch.Tensor:
+        """Unweighted loss per replica and row, ``(R, n)``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support streaming fits")
+
+    def penalty(self, params: Params) -> torch.Tensor:
+        """The regularizer of each replica, ``(R,)``."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support streaming fits")
+
+    def sgd_step_flops(self, chunk_rows: int, n_features: int,
+                       n_outputs: int) -> float | None:
+        """Matmul FLOPs of ONE streamed optimizer step (forward and
+        backward, 3x the forward products) on a padded chunk for one
+        replica; None means no cost model."""
+        del chunk_rows, n_features, n_outputs
+        return None
 
     def prepare(self, X: torch.Tensor, *,
                 row_mask: torch.Tensor | None = None) -> Any | None:

@@ -52,6 +52,10 @@ class _GBTBase(DecisionTreeRegressor):
     ``split_impl`` / ``feature_subset``.
     """
 
+    # a fit is rounds of trees over margins of the whole dataset, not the
+    # one tree the streamed tree engine grows (tree_stream.py)
+    tree_streamable = False
+
     def __init__(
         self,
         n_rounds: int = 20,

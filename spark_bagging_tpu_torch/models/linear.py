@@ -42,6 +42,7 @@ class LinearRegression(BaseLearner):
     """Weighted least squares with an L2 penalty (bias unpenalized)."""
 
     task = "regression"
+    streamable = True
 
     def __init__(self, l2: float = 1e-6, precision: str = "highest"):
         self.l2 = l2
@@ -73,6 +74,10 @@ class LinearRegression(BaseLearner):
         # subspace gather, the weights and the residuals: (n, d+1) x 3
         # and (n,) x 2 float32
         return float(4 * n_rows * (3 * (n_features + 1) + 2))
+
+    def sgd_step_flops(self, chunk_rows, n_features, n_outputs):
+        del n_outputs  # scalar output
+        return float(6 * chunk_rows * (n_features + 1))
 
     def row_loss(self, params, X, y):
         """Half squared error per replica and row, ``(R, n)``."""

@@ -55,6 +55,7 @@ class LogisticRegression(PooledStartMixin, BaseLearner):
     """
 
     task = "classification"
+    streamable = True
 
     def __init__(
         self,
@@ -133,6 +134,20 @@ class LogisticRegression(PooledStartMixin, BaseLearner):
     def predict_scores(self, params, X):
         with fp32_matmul():
             return augment_bias(X.to(torch.float32)) @ params["W"]
+
+    # -- the streaming contract (streaming.py) ---------------------------
+
+    def row_loss(self, params, X, y):
+        """Softmax NLL per replica and row, ``(R, n)``."""
+        return self._nll_from_scores(self.predict_scores(params, X),
+                                     y.long())[0]
+
+    def penalty(self, params):
+        return self._penalty(params["W"])
+
+    def sgd_step_flops(self, chunk_rows, n_features, n_outputs):
+        # one (n, d+1) @ (d+1, C) forward; x3 for forward and backward
+        return float(6 * chunk_rows * (n_features + 1) * n_outputs)
 
     # ------------------------------------------------------------------
 

@@ -34,8 +34,8 @@ CPU backend. ``precision`` is kept for parity with the JAX signature;
 every product here pins its own precision (ops/precision.py).
 
 ``to_debug_string`` renders one replica's tree (Spark's
-``toDebugString``). The streamed fit (``_chunk_level_hist``,
-``tree_stream.py``) is not ported yet (ROADMAP Queue A 11).
+``toDebugString``). ``_chunk_level_hist`` is the streamed fit's step
+(tree_stream.py): one row block's table under the stream's edges.
 """
 
 from __future__ import annotations
@@ -117,6 +117,9 @@ class _TreeBase(BaseLearner):
     # the split statistics are integers (counts) for integer weights,
     # summed exactly in int32 by the kernel; else floats
     integral_stats: ClassVar[bool] = False
+    # one tree a replica: fit_stream grows it with the multi-pass
+    # level-synchronous engine (tree_stream.py)
+    tree_streamable: ClassVar[bool] = True
 
     def __init__(
         self,
@@ -215,7 +218,12 @@ class _TreeBase(BaseLearner):
         F = X.shape[1]
         edges = torch.cat([interior, torch.full(
             (F, 1), math.inf, dtype=X.dtype, device=X.device)], dim=1)
-        edges = edges.contiguous()
+        return self._binned(X, edges.contiguous())
+
+    def _binned(self, X, edges):
+        """The prepared state of X under given edges ``(F, B)``: the bin
+        codes on the kernel path, the threshold indicator on the dense
+        one."""
         if self._resolved_impl(X.device) == "fused":
             return {"edges": edges, "codes": hist_ops.bin_codes(X, edges)}
         T = (X.t()[:, None, :] <= edges[:, :, None]).to(torch.int8)
@@ -417,6 +425,30 @@ class _TreeBase(BaseLearner):
             node = node * 2 + (x_sel > t_row).to(torch.int32)
         return (torch.cat(feats, dim=1), torch.cat(thrs, dim=1),
                 torch.cat(gains, dim=1), node, torch.stack(curve, dim=1))
+
+    def _chunk_level_hist(self, X, S, edges, node, N, cols=None,
+                          integral=False):
+        """One row block's left statistics ``(R, F, B, N, K)`` under the
+        stream's edges ``(F_all, B)``: the streamed fit's per-chunk step
+        (tree_stream.py). ``X`` ``(n, F_all)`` is the block, shared by
+        every replica and read through ``cols`` ``(R, F)`` (None: every
+        feature); ``node`` ``(R, n)``; ``S`` ``(R, n, K)``. On the kernel
+        path the block is binned (ops/hist.bin_codes) and its codes
+        histogrammed through ``cols``, so no replica copies it; the
+        dense path multiplies the block's threshold indicator."""
+        prepared = self._binned(X, edges)
+        if cols is not None:
+            prepared = self.gather_subspace(prepared, cols)
+        hdt = self._hdt(S.device)
+        if "codes" in prepared:
+            return hist_ops.coded_left_stats(
+                prepared["codes"], prepared["edges"], node, S, n_nodes=N,
+                hist_dtype=hdt, cols=prepared.get("cols"), integral=integral)
+        T = prepared["T"]
+        F, B, n = T.shape[-3:]
+        Tf = T.reshape(*T.shape[:-3], F * B, n).to(_HIST_DTYPES[hdt])
+        hist = self._dense_left_stats(Tf, S.to(_HIST_DTYPES[hdt]), node, N)
+        return hist.reshape(S.shape[0], F, B, N, S.shape[-1])
 
     def _leaf_stats(self, node, S):
         """Per-leaf statistic sums ``(R, 2^d, K)`` in full float32."""

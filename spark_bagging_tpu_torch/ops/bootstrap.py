@@ -34,6 +34,9 @@ _ROW_STREAM = 0xB0B5
 _ONLINE_STREAM = 0xA511
 # Bumped whenever the key schedule above changes.
 RNG_SCHEMA = 2
+# The profiler range around every draw: profile_fit sums its kernels'
+# device time under this name (no cost when no profiler is active).
+DRAW_RANGE = "bootstrap_weights"
 
 _ROADMAP_BOOTSTRAP = "ROADMAP Queue A: bootstrap branches still to port"
 
@@ -57,9 +60,11 @@ def poisson_counts(k: torch.Tensor, lam: float, n: int) -> torch.Tensor:
     """Poisson(lam) counts by inverse-CDF lookup, ``(..., n)`` float32:
     one uniform per row and a ``searchsorted`` (side="left") into the
     float32 CDF table."""
-    cdf = torch.as_tensor(
-        _poisson_cdf_table(lam).astype(np.float32), device=k.device
-    )
+    cdf = torch.from_numpy(_poisson_cdf_table(lam).astype(np.float32))
+    if k.device.type == "cuda":
+        # pinned and asynchronous: a copy from pageable host memory waits
+        # for the device's queue, which would stall a stream of chunks
+        cdf = cdf.pin_memory().to(k.device, non_blocking=True)
     u = prng.uniform(k, n)
     # u < cdf[j]  <=>  count <= j ; side="left" gives the smallest such j
     return torch.searchsorted(cdf, u.contiguous()).to(torch.float32)
@@ -102,23 +107,25 @@ def bootstrap_weights(
     """
     if ratio <= 0:
         raise ValueError(f"ratio={ratio} must be positive")
-    rk = prng.fold_in(prng.fold_in(k, _ROW_STREAM), replica_ids)
-    if replacement:
-        if ratio > _INV_CDF_MAX_LAM:
-            raise NotImplementedError(
-                f"ratio={ratio} > {_INV_CDF_MAX_LAM} needs the Poisson "
-                f"rejection sampler ({_ROADMAP_BOOTSTRAP})"
-            )
-        counts = poisson_counts(rk, ratio, n_rows)
-        return torch.clamp_max(counts, float(_MAX_COUNT))
-    m = max(1, int(round(ratio * n_rows)))
-    n_rep = replica_ids.shape[0]
-    if m >= n_rows:
-        return torch.ones((n_rep, n_rows), dtype=torch.float32, device=k.device)
-    u = prng.uniform(rk, n_rows)
-    # the m-th smallest u is the inclusion threshold
-    kth = torch.kthvalue(u, m, dim=-1, keepdim=True).values
-    return (u <= kth).to(torch.float32)
+    with torch.profiler.record_function(DRAW_RANGE):
+        rk = prng.fold_in(prng.fold_in(k, _ROW_STREAM), replica_ids)
+        if replacement:
+            if ratio > _INV_CDF_MAX_LAM:
+                raise NotImplementedError(
+                    f"ratio={ratio} > {_INV_CDF_MAX_LAM} needs the Poisson "
+                    f"rejection sampler ({_ROADMAP_BOOTSTRAP})"
+                )
+            counts = poisson_counts(rk, ratio, n_rows)
+            return torch.clamp_max(counts, float(_MAX_COUNT))
+        m = max(1, int(round(ratio * n_rows)))
+        n_rep = replica_ids.shape[0]
+        if m >= n_rows:
+            return torch.ones((n_rep, n_rows), dtype=torch.float32,
+                              device=k.device)
+        u = prng.uniform(rk, n_rows)
+        # the m-th smallest u is the inclusion threshold
+        kth = torch.kthvalue(u, m, dim=-1, keepdim=True).values
+        return (u <= kth).to(torch.float32)
 
 
 def feature_subspaces(

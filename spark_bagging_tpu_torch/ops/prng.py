@@ -5,8 +5,8 @@ The bootstrap of the JAX package draws every replica's row weights from
 carries its own threefry-2x32 hash and the parts of ``jax.random`` the
 bootstrap uses: ``key``, ``fold_in``, ``split``, the *partitionable*
 random-bits layout (``jax_threefry_partitionable``, the default from
-jax 0.5 on), ``uniform`` for float32, ``randint`` for int32 and
-``permutation`` of a range.
+jax 0.5 on), ``uniform`` and ``normal`` for float32, ``randint`` for
+int32 and ``permutation`` of a range.
 
 A key is an int64 tensor of shape ``(..., 2)`` holding the two uint32
 words of a JAX key (``jax.random.key_data``). uint32 arithmetic is done
@@ -61,7 +61,13 @@ def fold_in(k: torch.Tensor, data) -> torch.Tensor:
     ``k`` is ``(..., 2)``; ``data`` an int or an integer tensor that
     broadcasts against ``k[..., 0]`` (one key per entry of ``data``).
     """
-    data = torch.as_tensor(data, dtype=torch.int64, device=k.device) & _M32
+    if isinstance(data, int):
+        # filled on the device: a tensor made from a Python int would be
+        # copied from the host, which waits for the device's queue
+        data = torch.full((), data & _M32, dtype=torch.int64, device=k.device)
+    else:
+        data = torch.as_tensor(data, dtype=torch.int64,
+                               device=k.device) & _M32
     b1, b2 = threefry2x32(k[..., 0], k[..., 1], torch.zeros_like(data), data)
     return torch.stack([b1, b2], dim=-1)
 
@@ -97,6 +103,49 @@ def uniform(k: torch.Tensor, shape: int | tuple[int, ...]) -> torch.Tensor:
     bits = (random_bits(k, math.prod(shape)) >> 9) | 0x3F800000
     u = bits.to(torch.int32).view(torch.float32) - 1.0
     return torch.clamp_min(u, 0.0).reshape(*k.shape[:-1], *shape)
+
+
+# XLA's float32 ``erf_inv`` (Giles' single-precision approximation):
+# coefficients of the polynomial in w for w < 5 and for w >= 5
+_ERF_INV_W_LT_5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                   -4.39150654e-06, 0.00021858087, -0.00125372503,
+                   -0.00417768164, 0.246640727, 1.50140941)
+_ERF_INV_W_GE_5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+                   -0.00367342844, 0.00573950773, -0.0076224613,
+                   0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``erf_inv`` as XLA computes it, not ``torch.erfinv``:
+    the two approximations differ by up to ~90 ulps in the tails, and
+    JAX's normals are made by XLA's. Each Horner step ``c + p * w`` is
+    rounded once, as the fused multiply-add XLA's CPU code uses."""
+    w = -torch.log1p(-(x * x))
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+    p = None
+    for a, b in zip(_ERF_INV_W_LT_5, _ERF_INV_W_GE_5):
+        c = torch.where(lt, np.float32(a).item(), np.float32(b).item())
+        p = c if p is None else (c.double() + p.double() * w).float()
+    big = torch.finfo(torch.float32).max
+    return torch.where(x.abs() == 1, x * big, p * x)
+
+
+def normal(k: torch.Tensor, shape: int | tuple[int, ...]) -> torch.Tensor:
+    """``jax.random.normal(k, shape, float32)``, shape ``(..., *shape)``:
+    a uniform on ``[nextafter(-1, 0), 1)`` from the same bits as
+    :func:`uniform`, then ``sqrt(2) * erf_inv(u)`` with XLA's
+    ``erf_inv`` polynomial. The uniform is bitwise JAX's; the normals
+    agree to a few ulps, since ``log1p`` differs in its last bits
+    (tests/test_torch_mlp.py states how many)."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    bits = (random_bits(k, math.prod(shape)) >> 9) | 0x3F800000
+    f = bits.to(torch.int32).view(torch.float32) - 1.0
+    # (1 - lo) rounds to 2 in float32, and f * 2 is exact
+    u = torch.clamp_min(f * 2.0 + lo, lo)
+    out = _erf_inv(u) * np.float32(np.sqrt(2)).item()
+    return out.reshape(*k.shape[:-1], *shape)
 
 
 def permutation(k: torch.Tensor, n: int) -> torch.Tensor:

@@ -280,11 +280,15 @@ def test_unported_surfaces_raise():
     for kw in ({"mesh": object()}, {"warm_start": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.BaggingClassifier(device="cpu", **kw).fit(X, y)
+    # the streams run; their checkpoints and save/load are not ported yet
     clf = T.BaggingClassifier(device="cpu")
-    for name in ("fit_stream", "predict_stream", "predict_proba_stream",
-                 "score_stream"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue A 11"):
-            getattr(clf, name)((X, y))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 11"):
+        clf.fit_stream((X, y), checkpoint_dir="ckpt", checkpoint_every=1)
+    clf.fit_stream((X, y))
+    for name in ("predict_stream", "predict_proba_stream", "score_stream"):
+        getattr(clf, name)((X, y))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 11"):
+        clf.save("model")
 
 
 def test_import_leaves_jax_out():
@@ -298,6 +302,9 @@ def test_import_leaves_jax_out():
         "import spark_bagging_tpu_torch.utils.metrics\n"
         "import spark_bagging_tpu_torch.utils.native\n"
         "import spark_bagging_tpu_torch.utils.memory\n"
+        "import spark_bagging_tpu_torch.streaming\n"
+        "import spark_bagging_tpu_torch.tree_stream\n"
+        "import spark_bagging_tpu_torch.utils.prefetch\n"
         "bad = [m for m in set(sys.modules) - before if m.split('.')[0] in "
         "('jax', 'jaxlib', 'optax', 'flax', 'spark_bagging_tpu')]\n"
         "print(bad); sys.exit(1 if bad else 0)"

@@ -683,3 +683,99 @@ def test_scaled_gram_kernel_fp32_error_does_not_grow_with_depth(cuda):
         scale = scale.triu() + scale.triu(1).transpose(-1, -2)
         assert _entry_err(out[r].double(), want, scale) <= GRAM_TOL
         del xs
+
+
+@pytest.mark.parametrize("integral", [True, False])
+def test_chunk_level_hist_kernel_matches_plain_with_a_padded_tail(
+        cuda, integral):
+    # a stream's tail chunk: rows past n_valid are zero-padded and weigh
+    # nothing; the kernel route (bin codes of the chunk, then the
+    # histogram through each replica's columns) against the plain one
+    from spark_bagging_tpu_torch import DecisionTreeClassifier
+    from spark_bagging_tpu_torch.ops.hist import (
+        bin_codes,
+        binned_left_stats,
+    )
+
+    rng = np.random.default_rng(8)
+    n, n_valid, F_all, F, B, N, K, R = 4096, 1500, 20, 15, 32, 4, 3, 5
+    X = rng.standard_normal((n, F_all)).astype(np.float32)
+    X[n_valid:] = 0.0
+    X[:7, 2] = np.nan
+    edges = np.sort(rng.standard_normal((F_all, B)).astype(np.float32), 1)
+    edges[:, -1] = np.inf
+    cols = np.stack([rng.permutation(F_all)[:F] for _ in range(R)])
+    node = rng.integers(0, N, (R, n)).astype(np.int32)
+    S = (rng.integers(0, 4, (R, n, K)) if integral
+         else rng.standard_normal((R, n, K))).astype(np.float32)
+    S[:, n_valid:] = 0.0
+    tree = DecisionTreeClassifier(n_bins=B, split_impl="fused",
+                                  hist_dtype="float32")
+    args = [torch.from_numpy(a) for a in (X, S, edges, node)]
+    want = tree._chunk_level_hist(*args, N, cols=torch.from_numpy(cols))
+    before = (binned_left_stats.launches, bin_codes.launches)
+    got = tree._chunk_level_hist(*[a.to(cuda) for a in args], N,
+                                 cols=torch.from_numpy(cols).to(cuda),
+                                 integral=integral)
+    torch.cuda.synchronize()
+    assert (binned_left_stats.launches, bin_codes.launches) == (
+        before[0] + 1, before[1] + 1)
+    if integral:
+        assert torch.equal(got.cpu(), want)
+    else:
+        scale = tree._chunk_level_hist(
+            args[0], args[1].abs(), *args[2:], N,
+            cols=torch.from_numpy(cols)).clamp_min(1e-30)
+        assert float(((got.cpu() - want).abs() / scale).max()) \
+            <= HIST_FLOAT_TOL
+
+
+def test_streamed_tree_fit_on_card_matches_cpu(cuda):
+    from spark_bagging_tpu_torch import BaggingClassifier, DecisionTreeClassifier
+    from spark_bagging_tpu_torch.ops.hist import bin_codes, binned_left_stats
+    from spark_bagging_tpu_torch.utils.datasets import make_classification
+    from spark_bagging_tpu_torch.utils.io import ArrayChunks
+
+    X, y = make_classification(3000, 12, 4, seed=1)
+    fits = {}
+    for dev in ("cpu", "cuda"):
+        before = (binned_left_stats.launches, bin_codes.launches)
+        fits[dev] = BaggingClassifier(
+            DecisionTreeClassifier(max_depth=4, n_bins=16),
+            n_estimators=6, max_features=0.75, seed=0, device=dev,
+        ).fit_stream(ArrayChunks(X, y, 1024))
+        launched = (binned_left_stats.launches - before[0],
+                    bin_codes.launches - before[1])
+        # one of each a chunk a level: 3 chunks x 4 levels
+        assert launched == ((12, 12) if dev == "cuda" else (0, 0))
+    card, ref = fits["cuda"].ensemble_, fits["cpu"].ensemble_
+    for k in ("feature", "threshold", "gain"):
+        assert torch.equal(card[k].cpu(), ref[k]), k
+    np.testing.assert_array_max_ulp(card["leaf_logp"].cpu().numpy(),
+                                    ref["leaf_logp"].numpy(), maxulp=2)
+
+
+def test_streamed_mlp_fit_on_card_matches_cpu(cuda):
+    # tests/test_torch_stream.py's tolerances at this stream, which hold
+    # the CPU to JAX: parameters LONG_PARAM_TOL (Adam's normalized steps
+    # move a near-zero gradient element by up to lr on a last-bit
+    # difference), probabilities MLP_TOL
+    from spark_bagging_tpu_torch import BaggingClassifier, MLPClassifier
+    from spark_bagging_tpu_torch.utils.datasets import synthetic_higgs
+    from spark_bagging_tpu_torch.utils.io import SyntheticChunks
+
+    fits = {
+        dev: BaggingClassifier(MLPClassifier(hidden=32, lr=0.01),
+                               n_estimators=16, seed=0, device=dev)
+        .fit_stream(SyntheticChunks(synthetic_higgs, 40_000, 5_000, seed=11),
+                    classes=[0, 1], n_epochs=2, steps_per_chunk=2, lr=0.01)
+        for dev in ("cpu", "cuda")
+    }
+    for k, v in fits["cuda"].ensemble_.items():
+        np.testing.assert_allclose(v.cpu().numpy(),
+                                   fits["cpu"].ensemble_[k].numpy(),
+                                   atol=2e-4, rtol=0, err_msg=k)
+    X, _ = synthetic_higgs(5000, seed=3, structure_seed=11)
+    np.testing.assert_allclose(fits["cuda"].predict_proba(X),
+                               fits["cpu"].predict_proba(X), atol=1e-5,
+                               rtol=0)
