@@ -87,6 +87,36 @@ one at a time:
   fit, on the card and on the CPU in one process, parameters and
   probabilities within the CPU parity tests' tolerance.
 
+The histogram's float statistics (the forest regressor's, the GBTs')
+sum in the kernel's int64 fixed point: every such table above is held
+bit for bit against its plain version ``coded_left_stats_fixed``, its
+repeat and the fit's own table bitwise too (the same table in every
+run), and within 1e-5 of the function summed in float64.
+
+Then the rest of the learner zoo, each through the estimator a user
+calls at full width, with its fit seconds, fits/s, peak memory, warm
+predict rows/s, quality figure, its launch counts (the zoo's products
+are torch matmuls, as the JAX package's are XLA's: none expected) and a
+device check, the same learner on the card and on the CPU port (8
+replicas, 20,000 rows) within its CPU parity tolerance:
+
+- ``zoo_svc``, ``zoo_gaussian_nb``, ``zoo_bernoulli_nb``,
+  ``zoo_multinomial_nb`` (on ``|X|``): 256 replicas on the covtype rows;
+  ``zoo_fm_classifier`` (8 factors, 100 Adam steps) and
+  ``zoo_logistic_adam`` (100 steps): 64 replicas; accuracy on the first
+  100k rows above the majority share; ``zoo_glm_binomial``: 256
+  replicas on ``y == 1``, accuracy at 0.5 above the constant's;
+- on config 2's California split, 100 replicas each, test R^2 above 0:
+  ``zoo_glm_gaussian``, and poisson, gamma and tweedie on a positive
+  target; ``zoo_fm_regressor``; ``zoo_isotonic``; ``zoo_aft``, 20% of
+  the rows right-censored through ``aux``: the predictions' correlation
+  with the test rows' times above 0.5, ``predict_quantiles`` rising;
+- ``zoo_aft_stream``: the survival learner streamed in 4,096-row chunks
+  with the censor flags as the last column (``aux_col=-1``), its
+  ``predict_stream`` of the same wide source dropping that column;
+  ``zoo_svc_stream``: 256 ``LinearSVC`` replicas streamed over the
+  covtype rows in 65,536-row chunks.
+
 The sklearn proxies are constants, made on a CPU host that has sklearn
 by ``python3 chip_smoke.py --sklearn-proxies``.
 
@@ -243,6 +273,24 @@ MLP_CHECK_FIT = dict(n_rows=20_000, n_estimators=16, max_iter=50,
 # config 3's learner streamed over the covtype rows (tree_stream_fit):
 # 9 chunks, the last padded; accuracy on the first 100k rows within this
 # of the in-memory fit's (other bin edges, chunk-keyed weights)
+# the rest of the learner zoo (PR 9), at full width on the covtype rows
+# and config 2's California split: replicas of the Newton and closed-form
+# learners, of the Adam learners, of the regressors
+ZOO_REPLICAS = 256
+ZOO_ADAM_REPLICAS = 64
+ZOO_REG_REPLICAS = 100
+# card against the CPU port: replicas and rows, and each learner's CPU
+# parity tolerances (tests/test_torch_zoo_clf.py, test_torch_zoo_reg.py):
+# (parameters, predictions) over max(1, |CPU value|)
+ZOO_CHECK = dict(n_estimators=8, n_rows=20_000)
+ZOO_TOL = {"svc": (5e-3, 1e-4), "nb": (1e-5, 1e-5), "fm": (5e-3, 5e-3),
+           "logistic_adam": (1e-5, 1e-5), "glm": (5e-4, 5e-4),
+           "glm_binomial": (5e-3, 5e-3),
+           "iso": (1e-5, 1e-5), "aft": (2e-4, 2e-4), "stream": (1e-5, 1e-5)}
+# the survival phases' censored share (as examples/06_learner_zoo.py)
+AFT_CENSORED = 0.2
+ZOO_STREAM = dict(aft_chunk=4_096, aft_epochs=50, svc_chunk=65_536,
+                  svc_epochs=2, steps_per_chunk=4, lr=0.05)
 TREE_STREAM_CHUNK = 65_536
 TREE_STREAM_ACC_TOL = 0.03
 # the forest regressor streamed over the California training split
@@ -350,7 +398,7 @@ def sass_atomics(path: str) -> dict | None:
             # the instantiation: <code type, accumulator type>
             key = re.search(r"hist_partialI(\w)(\w)E", fn)
             name = "hist_partial<{},{}>".format(
-                *(dict(h="uint8", s="int16", f="float", i="int")[c]
+                *(dict(h="uint8", s="int16", f="float", i="int", x="int64")[c]
                   for c in key.groups()))
             per = counts.setdefault(name, {})
             per[m.group(1)] = per.get(m.group(1), 0) + 1
@@ -1291,17 +1339,20 @@ def coded_left_stats_f64(codes, E, node, S, N: int, mode: str,
 
 def float_hist_row(phase: str, c: dict, R: int, mode: str, fit_out=None,
                    **tags) -> dict:
-    """The histogram kernel's float accumulator on one recorded level's
-    inputs ``c`` in operand mode ``mode``: every replica within
-    HIST_FLOAT_TOL of the plain version summed in float64 (per entry over
-    the abs-sum scale; the float32 plain version's own error beside it),
-    a repeat within it too, and ``fit_out``, the table the fit itself got
-    from these inputs, if given; with the call's ms, the plain version's
-    (each replica's call timed alone, summed), the library forms' and the
+    """The histogram kernel's float (fixed-point) accumulator on one
+    recorded level's inputs ``c`` in operand mode ``mode``: bit for bit
+    equal to its plain version ``coded_left_stats_fixed`` for every
+    replica, a repeat bitwise equal (the same table in every run), and
+    ``fit_out``, the table the fit itself got from these inputs, if
+    given, too; every entry within HIST_FLOAT_TOL of the function summed
+    in float64 (over the abs-sum scale; the float32 plain version's own
+    error beside it); with the call's ms, the plain version's (each
+    replica's call timed alone, summed), the library forms' and the
     shared-X bound. Emits one ``phase`` line (``tags`` added) and fails
-    the phase past the tolerance."""
+    the phase past the tolerance or on any unequal bit."""
     from spark_bagging_tpu_torch.ops.hist import (
         coded_left_stats,
+        coded_left_stats_fixed,
         coded_left_stats_plain,
     )
 
@@ -1319,25 +1370,28 @@ def float_hist_row(phase: str, c: dict, R: int, mode: str, fit_out=None,
         return coded_left_stats(codes, E, node, S, integral=False, **kw)
 
     out, again = run(), run()
+    fixed = coded_left_stats_fixed(codes, E, node, S, **kw)
+    unequal = int((out != fixed).any(dim=(1, 2, 3, 4)).sum())
+    repeat_bitwise = bool(torch.equal(out, again))
+    fit_bitwise = fit_out is None or bool(torch.equal(fit_out, fixed))
+    max_abs = float((out - fixed).abs().max())
     want = coded_left_stats_f64(codes, E, node, S, N, mode, cols)
     plain = coded_left_stats_plain(codes, E, node, S, **kw)
     scale = coded_left_stats_plain(codes, E, node, S.abs(),
                                    **kw).clamp_min(1e-30)
     err = float(((out - want).abs() / scale).max())
     plain_err = float(((plain - want).abs() / scale).max())
-    repeat_err = float(((out - again).abs() / scale).max())
-    max_abs = float((out - want).abs().max())
+    f64_max_abs = float((out - want).abs().max())
     fit_err = 0.0
     if fit_out is not None:
         fit_err = float(((fit_out - want).abs() / scale).max())
-        max_abs = max(max_abs, float((fit_out - want).abs().max()))
-    del out, again, want, plain, scale
+    del out, again, want, plain, scale, fixed
     spans = []
     for r in range(R):
         one = dict(n_nodes=N, hist_dtype=mode,
                    cols=None if cols is None else cols[r:r + 1])
         Er = E if E.dim() == 2 else E[r:r + 1]
-        spans.append(span(lambda: coded_left_stats_plain(
+        spans.append(span(lambda: coded_left_stats_fixed(
             codes, Er, node[r:r + 1], S[r:r + 1], **one)))
     plain_ms = timed_spans(spans)
     kernel_ms = cuda_ms(run, 3)
@@ -1355,10 +1409,13 @@ def float_hist_row(phase: str, c: dict, R: int, mode: str, fit_out=None,
     t_ops = 1e3 * float(R) * n * F * K / PEAK_FP32
     t_bytes = 1e3 * shared_bytes / PEAK_BYTES
     row = dict(
+        replicas_unequal_to_fixed_plain=unequal,
+        bitwise_repeat=repeat_bitwise,
+        **({} if fit_out is None else {"fit_table_bitwise": fit_bitwise,
+                                       "fit_table_entry_err": fit_err}),
         max_entry_err=err, plain_float32_entry_err=plain_err,
-        repeat_entry_err=repeat_err,
-        **({} if fit_out is None else {"fit_table_entry_err": fit_err}),
-        tol=HIST_FLOAT_TOL, max_abs_err=max_abs, kernel_ms=kernel_ms,
+        tol=HIST_FLOAT_TOL, max_abs_err=max_abs,
+        f64_max_abs_err=f64_max_abs, kernel_ms=kernel_ms,
         plain_ms=plain_ms, library_ms=lib["index_add"],
         library_matmul_ms=lib["matmul"],
         bound_ms=max(t_ops, t_bytes),
@@ -1369,9 +1426,12 @@ def float_hist_row(phase: str, c: dict, R: int, mode: str, fit_out=None,
          shape=dict(R=R, n=n, F=F, F_all=F_all, B=B, N=N, K=K),
          **row, **{f"{k}_per_replica": v / R for k, v in row.items()
                    if k.endswith("_ms")})
-    if not max(err, repeat_err, fit_err) <= HIST_FLOAT_TOL:
-        fail(phase, f"R={R} N={N} {mode} {tags}: entry error {err:.3g}, "
-             f"repeat {repeat_err:.3g}, the fit's table {fit_err:.3g} "
+    if (unequal or not repeat_bitwise or not fit_bitwise
+            or not max(err, fit_err) <= HIST_FLOAT_TOL):
+        fail(phase, f"R={R} N={N} {mode} {tags}: {unequal} replicas unequal "
+             f"to the fixed-point plain version, bitwise repeat "
+             f"{repeat_bitwise}, the fit's table bitwise {fit_bitwise}; "
+             f"entry error {err:.3g}, the fit's table {fit_err:.3g} "
              f"(tol {HIST_FLOAT_TOL})")
     return row
 
@@ -1748,7 +1808,9 @@ def phase_tree_stream_hist_kernels(X: np.ndarray, y: np.ndarray) -> float:
     through each replica's columns) bit for bit against its plain
     version (the plain codes, the plain histogram) for every replica,
     with the times a call of the kernel route's step (bin codes and
-    histogram) and of the plain version, and the step's bytes bound."""
+    histogram), of the plain version and of the library yardstick
+    (``torch.searchsorted`` and ``hist_library_ms``'s ``index_add_``
+    form), and the step's bytes bound."""
     from spark_bagging_tpu_torch.models.tree import DecisionTreeClassifier
     from spark_bagging_tpu_torch.ops import hist as hist_ops
 
@@ -1778,6 +1840,13 @@ def phase_tree_stream_hist_kernels(X: np.ndarray, y: np.ndarray) -> float:
         plain_ms = timed_spans(spans)
         kernel_ms = cuda_ms(lambda: learner._chunk_level_hist(
             Xc, S, E, node, N, cols=cols, integral=c["integral"]), 3)
+        # the library yardstick of the step: torch.searchsorted for the
+        # chunk's codes, then the histogram form (index_add_ + cumsum)
+        # of each replica through its columns
+        Et, Xt = E.contiguous(), Xc.t().contiguous()
+        lib_ms = (cuda_ms(lambda: torch.searchsorted(Et, Xt), 3)
+                  + hist_library_ms(codes, cols, Er, node, S, N,
+                                    learner.hist_dtype)["index_add"])
         codes_unequal = int((codes != codes_plain).sum())
         n_valid = int((S.sum(dim=(0, 2)) > 0).sum())
         # the chunk step's least bytes: the chunk's X, the edges, columns,
@@ -1789,8 +1858,8 @@ def phase_tree_stream_hist_kernels(X: np.ndarray, y: np.ndarray) -> float:
              replicas=S.shape[0], replicas_unequal=unequal,
              max_abs_err=max_abs, codes_unequal=codes_unequal,
              integral=c["integral"], step_kernel_ms=kernel_ms,
-             plain_ms=plain_ms, bound_ms=1e3 * nbytes / PEAK_BYTES,
-             bound_by="bytes")
+             plain_ms=plain_ms, library_ms=lib_ms,
+             bound_ms=1e3 * nbytes / PEAK_BYTES, bound_by="bytes")
         if unequal or codes_unequal or not c["integral"]:
             fail("tree_stream_hist_kernels", f"chunk {c['chunk']} N={N}: "
                  f"{unequal} replicas and {codes_unequal} codes unequal "
@@ -2065,6 +2134,332 @@ def phase_mlp_device_check() -> None:
              f"probabilities (tol {MLP_DEVICE_TOL})")
 
 
+def zoo_device_check(make_est, X, y, fit_kw: dict, tol: tuple,
+                     stream=None) -> dict:
+    """The learner on the card against the CPU port (``device="cpu"``),
+    ZOO_CHECK's replicas on its first rows: the largest parameter and
+    prediction differences over ``max(1, |CPU value|)``, and whether they
+    are within ``tol`` (parameters, predictions). ``stream``: a callable
+    ``(est) -> est`` fitting a stream instead of ``fit``."""
+    n = ZOO_CHECK["n_rows"]
+    Xs, ys = X[:n], y[:n]
+    kw = {k: v[:n] for k, v in fit_kw.items()}
+    fits = {}
+    for dev in ("cuda", "cpu"):
+        est = make_est(ZOO_CHECK["n_estimators"], dev)
+        fits[dev] = stream(est) if stream else est.fit(Xs, ys, **kw)
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+
+    card, cpu = fits["cuda"], fits["cpu"]
+    param = max(rel(v.cpu().numpy(), cpu.ensemble_[k].numpy())
+                for k, v in card.ensemble_.items())
+    predict = (card.predict_proba if hasattr(card, "predict_proba")
+               else card.predict)
+    cpu_predict = (cpu.predict_proba if hasattr(cpu, "predict_proba")
+                   else cpu.predict)
+    Xe = Xs[:, :card.n_features_in_]
+    pred = rel(predict(Xe), cpu_predict(Xe))
+    return dict(replicas=ZOO_CHECK["n_estimators"], rows=len(ys),
+                param_rel_err=param, pred_rel_err=pred, param_tol=tol[0],
+                pred_tol=tol[1], ok=param <= tol[0] and pred <= tol[1])
+
+
+def zoo_phase(phase: str, make_est, X, y, R: int, quality, tol: tuple,
+              fit_kw: dict | None = None, X_pred=None) -> None:
+    """One learner of the zoo through the estimator a user calls: fit R
+    replicas on the card (launch counts set to 0 just before, read just
+    after: the zoo's products are torch matmuls, as the JAX package's
+    are XLA's, so none is expected), a warm predict of ``X_pred``, the
+    quality figure ``quality(est) -> (fields, ok)`` and the device check
+    (``zoo_device_check``). One JSON line; a failed check fails the
+    phase."""
+    fit_kw = fit_kw or {}
+    X_pred = X if X_pred is None else X_pred
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    est = make_est(R, "cuda").fit(X, y, **fit_kw)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    rep = est.fit_report_
+    predict = (est.predict_proba if hasattr(est, "predict_proba")
+               else est.predict)
+    predict(X_pred)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    predict(X_pred)
+    pred_s = time.perf_counter() - t0
+    fields, good = quality(est)
+    del est
+    torch.cuda.empty_cache()
+    check = zoo_device_check(make_est, X, y, fit_kw, tol)
+    ok = good and check["ok"]
+    emit(phase, ok=ok, replicas=R, rows=len(y), features=X.shape[1],
+         fit_seconds=rep["fit_seconds"], fits_per_sec=rep["fits_per_sec"],
+         chunk_size=rep["chunk_size_resolved"], peak_mem_gb=peak,
+         predict_rows=len(X_pred), predict_rows_per_sec=len(X_pred) / pred_s,
+         launches=launches, **fields, device_check=check)
+    if not ok:
+        fail(phase, f"quality {fields} (ok {good}), device check {check}")
+
+
+def accuracy_quality(X, y, abs_x: bool = False):
+    """Accuracy on the first N_SERVE_ROWS rows, above the majority share."""
+    from spark_bagging_tpu_torch.utils.metrics import accuracy
+
+    Xe, ye = X[:N_SERVE_ROWS], y[:N_SERVE_ROWS]
+    Xe = np.abs(Xe) if abs_x else Xe
+    floor = float(np.bincount(ye).max() / len(ye))
+
+    def q(est):
+        acc = accuracy(ye, est.predict(Xe))
+        return dict(accuracy=acc, majority_share=floor), acc > floor
+
+    return q
+
+
+def phase_zoo_classifiers(X: np.ndarray, y: np.ndarray) -> None:
+    """The zoo's classifiers on the covtype rows: ``LinearSVC(max_iter=8)``
+    and the three naive Bayes learners (``MultinomialNB`` on ``|X|``),
+    ZOO_REPLICAS each; ``FMClassifier(factor_size=8, max_iter=100)`` and
+    ``LogisticRegression(solver="adam", max_iter=100)``, ZOO_ADAM_REPLICAS
+    each; and ``GeneralizedLinearRegression(family="binomial")`` on
+    ``y == 1``, ZOO_REPLICAS, its accuracy at 0.5 above the constant's."""
+    from spark_bagging_tpu_torch import (
+        BaggingClassifier,
+        BaggingRegressor,
+        BernoulliNB,
+        FMClassifier,
+        GaussianNB,
+        GeneralizedLinearRegression,
+        LinearSVC,
+        LogisticRegression,
+        MultinomialNB,
+    )
+
+    learners = [
+        ("zoo_svc", lambda: LinearSVC(max_iter=8), ZOO_REPLICAS, "svc", False),
+        ("zoo_gaussian_nb", GaussianNB, ZOO_REPLICAS, "nb", False),
+        ("zoo_bernoulli_nb", BernoulliNB, ZOO_REPLICAS, "nb", False),
+        ("zoo_multinomial_nb", MultinomialNB, ZOO_REPLICAS, "nb", True),
+        ("zoo_fm_classifier",
+         lambda: FMClassifier(factor_size=8, max_iter=100),
+         ZOO_ADAM_REPLICAS, "fm", False),
+        ("zoo_logistic_adam",
+         lambda: LogisticRegression(solver="adam", max_iter=100),
+         ZOO_ADAM_REPLICAS, "logistic_adam", False),
+    ]
+    for phase, learner, R, tol, abs_x in learners:
+        Xp = np.abs(X) if abs_x else X
+        zoo_phase(phase, lambda r, dev, learner=learner: BaggingClassifier(
+            learner(), n_estimators=r, seed=0, device=dev), Xp, y, R,
+            accuracy_quality(X, y, abs_x), ZOO_TOL[tol],
+            X_pred=Xp[:N_SERVE_ROWS])
+    yb = (y == 1).astype(np.float32)
+    Xe, ye = X[:N_SERVE_ROWS], yb[:N_SERVE_ROWS]
+
+    def binomial_quality(est):
+        acc = float(((est.predict(Xe) > 0.5) == (ye > 0.5)).mean())
+        const = float(max(ye.mean(), 1.0 - ye.mean()))
+        return dict(accuracy=acc, constant_accuracy=const), acc > const
+
+    zoo_phase("zoo_glm_binomial", lambda r, dev: BaggingRegressor(
+        GeneralizedLinearRegression(family="binomial"), n_estimators=r,
+        seed=0, device=dev), X, yb, ZOO_REPLICAS, binomial_quality,
+        ZOO_TOL["glm_binomial"], X_pred=Xe)
+
+
+def survival_data(split):
+    """Survival times from the California target: ``t = y - min(y_train)
+    + 1``, the top AFT_CENSORED of the training times right-censored at
+    their quantile (as examples/06_learner_zoo.py): ``(t observed,
+    censor flags, t of the test rows)``."""
+    ytr, yte = split[1], split[3]
+    base = float(ytr.min()) - 1.0
+    t = (ytr - base).astype(np.float32)
+    cut = float(np.quantile(t, 1.0 - AFT_CENSORED))
+    cens = (t <= cut).astype(np.float32)
+    return np.minimum(t, cut).astype(np.float32), cens, \
+        (yte - base).astype(np.float32)
+
+
+def phase_zoo_regressors(split) -> None:
+    """The zoo's regressors on config 2's California split, ZOO_REG_REPLICAS
+    each, test R^2 above 0 (a constant's): ``GeneralizedLinearRegression``
+    gaussian on y, and poisson, gamma and tweedie on a positive target
+    (the synthetic target runs negative: ``(y - min y + 1) / mean``);
+    ``FMRegressor`` on standardized y; ``IsotonicRegression(n_bins=128,
+    increasing=False)`` (column 0 of the synthetic data falls with y,
+    correlation -0.36); ``AFTSurvivalRegression`` with AFT_CENSORED of
+    the rows censored through ``aux``: the correlation of its predictions
+    with the test rows' times above 0.5, and ``predict_quantiles``
+    finite and rising in p."""
+    from spark_bagging_tpu_torch import (
+        AFTSurvivalRegression,
+        BaggingRegressor,
+        FMRegressor,
+        GeneralizedLinearRegression,
+        IsotonicRegression,
+    )
+    from spark_bagging_tpu_torch.utils.metrics import r2_score
+
+    Xtr, ytr, Xte, yte = split
+    pos_base = float(ytr.min()) - 1.0
+    pos_mean = float((ytr - pos_base).mean())
+    mu, sd = float(ytr.mean()), float(ytr.std())
+    targets = {
+        "identity": (ytr, yte),
+        "positive": ((ytr - pos_base) / pos_mean, (yte - pos_base) / pos_mean),
+        "standard": ((ytr - mu) / sd, (yte - mu) / sd),
+    }
+
+    def r2_quality(y_test):
+        def q(est):
+            r2 = r2_score(y_test, est.predict(Xte))
+            return dict(test_r2=r2), r2 > 0.0
+        return q
+
+    learners = [
+        ("zoo_glm_gaussian", lambda: GeneralizedLinearRegression(),
+         "identity"),
+        ("zoo_glm_poisson",
+         lambda: GeneralizedLinearRegression(family="poisson"), "positive"),
+        ("zoo_glm_gamma",
+         lambda: GeneralizedLinearRegression(family="gamma"), "positive"),
+        ("zoo_glm_tweedie",
+         lambda: GeneralizedLinearRegression(family="tweedie"), "positive"),
+        ("zoo_fm_regressor", lambda: FMRegressor(factor_size=8), "standard"),
+        ("zoo_isotonic",
+         lambda: IsotonicRegression(n_bins=128, increasing=False),
+         "identity"),
+    ]
+    for phase, learner, target in learners:
+        y_tr, y_te = (np.asarray(a, np.float32) for a in targets[target])
+        tol = ZOO_TOL["fm" if "fm" in phase else
+                      "iso" if "isotonic" in phase else "glm"]
+        zoo_phase(phase, lambda r, dev, learner=learner: BaggingRegressor(
+            learner(), n_estimators=r, seed=0, device=dev), Xtr, y_tr,
+            ZOO_REG_REPLICAS, r2_quality(y_te), tol, X_pred=Xte)
+    t_obs, cens, t_test = survival_data(split)
+
+    def aft_quality(est):
+        corr = float(np.corrcoef(est.predict(Xte), t_test)[0, 1])
+        q = est.predict_quantiles(Xte, (0.1, 0.5, 0.9))
+        rising = bool(np.isfinite(q).all() and (np.diff(q, axis=1) > 0).all())
+        return (dict(corr_with_test_times=corr, quantiles_shape=list(q.shape),
+                     quantiles_finite_rising=rising,
+                     censored_share=float(1.0 - cens.mean())),
+                corr > 0.5 and rising)
+
+    zoo_phase("zoo_aft", lambda r, dev: BaggingRegressor(
+        AFTSurvivalRegression(), n_estimators=r, seed=0, device=dev), Xtr,
+        t_obs, ZOO_REG_REPLICAS, aft_quality, ZOO_TOL["aft"],
+        fit_kw={"aux": cens}, X_pred=Xte)
+
+
+def phase_zoo_streams(X: np.ndarray, y: np.ndarray, split) -> None:
+    """Two streamed fits of the zoo: ``BaggingRegressor(
+    AFTSurvivalRegression()).fit_stream`` over the California training
+    rows in chunks of 4,096 with the censor flags as the last streamed
+    column (``aux_col=-1``), its ``predict_stream`` of the same wide
+    source dropping that column; and a ``LinearSVC`` stream over the
+    covtype rows in chunks of 65,536, ZOO_REPLICAS replicas. Each with
+    its quality figure and a device check on a 20,000-row stream."""
+    from spark_bagging_tpu_torch import (
+        AFTSurvivalRegression,
+        BaggingClassifier,
+        BaggingRegressor,
+        LinearSVC,
+    )
+    from spark_bagging_tpu_torch.utils.io import ArrayChunks
+    from spark_bagging_tpu_torch.utils.metrics import accuracy
+
+    zs = ZOO_STREAM
+    Xtr, Xte = split[0], split[2]
+    t_obs, cens, t_test = survival_data(split)
+    Xa = np.concatenate([Xtr, cens[:, None]], axis=1)
+    sgd = dict(steps_per_chunk=zs["steps_per_chunk"], lr=zs["lr"],
+               prefetch=0)
+
+    def aft(r, dev):
+        return BaggingRegressor(AFTSurvivalRegression(), n_estimators=r,
+                                seed=0, device=dev)
+
+    def aft_stream(est, rows=None, epochs=zs["aft_epochs"]):
+        n = len(t_obs) if rows is None else rows
+        return est.fit_stream(ArrayChunks(Xa[:n], t_obs[:n], zs["aft_chunk"]),
+                              n_epochs=epochs, aux_col=-1, **sgd)
+
+    def svc(r, dev):
+        return BaggingClassifier(LinearSVC(), n_estimators=r, seed=0,
+                                 device=dev)
+
+    def svc_stream(est, rows=None, chunk=zs["svc_chunk"]):
+        n = len(y) if rows is None else rows
+        return est.fit_stream(ArrayChunks(X[:n], y[:n], chunk),
+                              classes=np.unique(y), n_epochs=zs["svc_epochs"],
+                              **sgd)
+
+    n_check = ZOO_CHECK["n_rows"]
+    for phase, make, run, tol_key in (
+            ("zoo_aft_stream", aft, aft_stream, "aft"),
+            ("zoo_svc_stream", svc, svc_stream, "stream")):
+        R = ZOO_REG_REPLICAS if phase == "zoo_aft_stream" else ZOO_REPLICAS
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        est = run(make(R, "cuda"))
+        launches = read_launches()
+        rep = est.fit_report_
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if phase == "zoo_aft_stream":
+            Xp = Xte
+            est.predict(Xp)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pred = est.predict(Xp)
+            pred_s = time.perf_counter() - t0
+            corr = float(np.corrcoef(pred, t_test)[0, 1])
+            wide = est.predict_stream(ArrayChunks(Xa, t_obs, zs["aft_chunk"]),
+                                      drop_aux_col=True)
+            same = bool(np.allclose(wide, est.predict(Xtr), rtol=1e-6,
+                                    atol=0))
+            fields = dict(corr_with_test_times=corr,
+                          predict_stream_drops_aux_col=same,
+                          n_features_in=est.n_features_in_)
+            good = corr > 0.5 and same and est.n_features_in_ == Xtr.shape[1]
+            check = zoo_device_check(
+                make, Xa, t_obs, {}, ZOO_TOL[tol_key],
+                stream=lambda e: aft_stream(e, n_check, 2))
+        else:
+            Xp = X[:N_SERVE_ROWS]
+            est.predict_proba(Xp)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            est.predict_proba(Xp)
+            pred_s = time.perf_counter() - t0
+            acc = accuracy(y[:N_SERVE_ROWS], est.predict(Xp))
+            floor = float(np.bincount(y[:N_SERVE_ROWS]).max() / N_SERVE_ROWS)
+            fields = dict(accuracy=acc, majority_share=floor)
+            good = acc > floor
+            check = zoo_device_check(
+                make, X, y, {}, ZOO_TOL[tol_key],
+                stream=lambda e: svc_stream(e, n_check, 5_000))
+        del est
+        ok = good and check["ok"]
+        emit(phase, ok=ok, replicas=R, stream_seconds=rep["fit_seconds"],
+             fits_per_sec=rep["fits_per_sec"], n_chunks=rep["n_chunks"],
+             n_epochs=rep["n_epochs"], opt_steps=rep["opt_steps"],
+             peak_mem_gb=peak, predict_rows=len(Xp),
+             predict_rows_per_sec=len(Xp) / pred_s, launches=launches,
+             **fields, device_check=check)
+        if not ok:
+            fail(phase, f"quality {fields} (ok {good}), device check {check}")
+
+
 def sklearn_proxies() -> dict:
     """The sklearn proxies the GBT and MLP phases hold the port to
     (GBT_PROXY_AUC, GBT_MC_PROXY_ACC, GBT_REG_PROXY_R2, MLP_PROXY_AUC), as
@@ -2170,13 +2565,16 @@ def main() -> int:
     del higgs
     torch.cuda.empty_cache()
     mc_launches, mc_codes_launches = phase_gbt_multiclass_fit(X, y)
-    del X, y
     torch.cuda.empty_cache()
     gr_launches, gr_codes_launches = phase_gbt_reg_fit(split)
     torch.cuda.empty_cache()
     phase_mlp_stream_fit()
     torch.cuda.empty_cache()
     phase_mlp_device_check()
+    phase_zoo_classifiers(X, y)
+    phase_zoo_regressors(split)
+    phase_zoo_streams(X, y, split)
+    del X, y
     # each kernel's line reports the largest replica chunk (and, for the
     # histogram, config 3's deepest level in the fit's bf16 mode), where
     # its fit spends its kernel time; the phase lines hold every shape.

@@ -17,7 +17,10 @@ as tensors on the estimator's device.
 ``(X, y)`` pair: SGD learners (``streamable``) by Adam over the chunks
 (streaming.py), trees by the multi-pass level-synchronous engine
 (tree_stream.py); the ``*_stream`` predicts and scores read a source
-chunk by chunk.
+chunk by chunk. A ``uses_aux`` learner (the survival learner) takes its
+per-row aux column as ``BaggingRegressor.fit(X, y, aux=)`` or as the
+streamed column ``aux_col``, which the stream predicts then drop from a
+source one column wider than the fit (``drop_aux_col``).
 
 ``device`` defaults to ``"cuda"`` and raises where CUDA is absent;
 ``device="cpu"`` must be asked for. The mesh and warm-start surfaces,
@@ -236,7 +239,7 @@ class _BaseBagging(ParamsMixin):
     # -- fit -----------------------------------------------------------
 
     def _fit_engine(self, X, y, n_outputs, device, h2d_seconds,
-                    sample_weight=None) -> None:
+                    sample_weight=None, aux=None) -> None:
         from spark_bagging_tpu_torch.utils.memory import auto_chunk_size
 
         if self.n_estimators < 1:
@@ -279,15 +282,15 @@ class _BaseBagging(ParamsMixin):
             )
         self._chunk_resolved = chunk_size
         t0 = time.perf_counter()
-        params, subspaces, aux = fit_ensemble(
+        params, subspaces, fit_aux = fit_ensemble(
             learner, X, y, key, ids, n_outputs,
             sample_ratio=ratio, bootstrap=bool(self.bootstrap),
             n_subspace=n_subspace,
             bootstrap_features=bool(self.bootstrap_features),
             chunk_size=chunk_size, row_mask=row_mask,
-            use_pooled_init=use_pooled,
+            use_pooled_init=use_pooled, aux=aux,
         )
-        losses = aux["loss"].cpu().numpy()  # completion barrier
+        losses = fit_aux["loss"].cpu().numpy()  # completion barrier
         fit_seconds = time.perf_counter() - t0
         self.ensemble_ = params
         self.subspaces_ = subspaces
@@ -300,6 +303,8 @@ class _BaseBagging(ParamsMixin):
         self._identity_subspace = (
             n_subspace == n_features and not self.bootstrap_features
         )
+        # an earlier stream fit's aux column does not apply to this fit
+        self._stream_aux_col = None
         self._device = device
         self._write_report(
             fit_seconds, h2d_seconds, losses, n_rows, n_features, n_subspace,
@@ -430,6 +435,7 @@ class _BaseBagging(ParamsMixin):
         self._fit_n_rows = None
         self._fitted_learner = learner
         self._fitted_learner_fp = learner_fingerprint(learner)
+        self._stream_aux_col = aux_col
         self._fit_sampling = (ratio, bool(self.bootstrap))
         # an earlier in-memory fit's chunk must not size this fit's maps
         self._chunk_resolved = None
@@ -459,11 +465,19 @@ class _BaseBagging(ParamsMixin):
             first_step_seconds=aux["first_step_seconds"], **extra)
 
     def _stream_chunks(self, source, chunk_rows=None,
-                       prefetch: int | None = None):
+                       prefetch: int | None = None,
+                       drop_aux_col: bool | None = None):
         """The validated chunk source of the streamed predicts and
         scores (any chunk source, or an ``(X, y)`` pair); labels ride
-        along where they are not needed."""
-        from spark_bagging_tpu_torch.utils.io import as_chunk_source
+        along where they are not needed. A model stream-fitted with an
+        aux column scores its own training source: the column is
+        dropped where the source is one column wider than the fit
+        (``drop_aux_col`` None: with a warning; True or False force
+        it), inside a caller's prefetch wrap if there is one."""
+        from spark_bagging_tpu_torch.utils.io import (
+            DropColumnChunks,
+            as_chunk_source,
+        )
         from spark_bagging_tpu_torch.utils.prefetch import (
             PrefetchChunks,
             worth_prefetching,
@@ -472,6 +486,31 @@ class _BaseBagging(ParamsMixin):
         self._check_fitted()
         already_wrapped = isinstance(source, PrefetchChunks)
         source = as_chunk_source(source, chunk_rows)
+        aux_col = getattr(self, "_stream_aux_col", None)
+        if (aux_col is not None and drop_aux_col is not False
+                and source.n_features == self.n_features_in_ + 1):
+            if drop_aux_col is None:
+                import warnings
+
+                warnings.warn(
+                    f"source is one column wider than the fit; dropping "
+                    f"column {aux_col} as the aux channel the model was "
+                    "stream-fitted with (pass drop_aux_col=False if this "
+                    "is a different dataset, or drop_aux_col=True to "
+                    "silence)", stacklevel=3)
+            if already_wrapped:
+                source = source.rewrap(
+                    lambda inner: DropColumnChunks(inner, aux_col))
+            else:
+                source = DropColumnChunks(source, aux_col)
+        elif drop_aux_col:
+            raise ValueError(
+                "drop_aux_col=True but the model was not stream-fitted "
+                "with an aux column" if aux_col is None else
+                f"drop_aux_col=True needs a source with "
+                f"{self.n_features_in_ + 1} columns (fitted features + "
+                f"aux), got {source.n_features}"
+            )
         if source.n_features != self.n_features_in_:
             raise ValueError(
                 f"source has {source.n_features} features; the ensemble "
@@ -495,6 +534,7 @@ class _BaseBagging(ParamsMixin):
             sample_ratio=ratio, bootstrap=replacement,
             n_classes=n_classes, chunk_size=self._eff_chunk(),
             identity_subspace=self._identity_subspace,
+            aux_col=getattr(self, "_stream_aux_col", None),
         )
 
     # -- OOB -----------------------------------------------------------
@@ -802,28 +842,32 @@ class BaggingClassifier(_BaseBagging):
         return proba
 
     def predict_proba_stream(self, source, chunk_rows=None, *,
-                             prefetch: int | None = None) -> np.ndarray:
+                             prefetch: int | None = None,
+                             drop_aux_col: bool | None = None) -> np.ndarray:
         """Out-of-core ``predict_proba``: one chunk on the device at a
-        time."""
+        time (``drop_aux_col``: see ``_stream_chunks``)."""
         with closing(self._stream_chunks(
-                source, chunk_rows, prefetch).chunks()) as it:
+                source, chunk_rows, prefetch, drop_aux_col).chunks()) as it:
             out = [self.predict_proba(Xc[:n]) for Xc, _, n in it]
         if not out:
             raise ValueError("source yielded no chunks")
         return np.concatenate(out)
 
     def predict_stream(self, source, chunk_rows=None, *,
-                       prefetch: int | None = None) -> np.ndarray:
+                       prefetch: int | None = None,
+                       drop_aux_col: bool | None = None) -> np.ndarray:
         proba = self.predict_proba_stream(source, chunk_rows,
-                                          prefetch=prefetch)
+                                          prefetch=prefetch,
+                                          drop_aux_col=drop_aux_col)
         return self.classes_[proba.argmax(axis=1)]
 
     def score_stream(self, source, chunk_rows=None, *,
-                     prefetch: int | None = None) -> float:
+                     prefetch: int | None = None,
+                     drop_aux_col: bool | None = None) -> float:
         """Out-of-core accuracy over a labelled chunk source."""
         correct = total = 0
         with closing(self._stream_chunks(
-                source, chunk_rows, prefetch).chunks()) as it:
+                source, chunk_rows, prefetch, drop_aux_col).chunks()) as it:
             for Xc, yc, n in it:
                 correct += int((np.asarray(yc[:n])
                                 == self.predict(Xc[:n])).sum())
@@ -862,9 +906,10 @@ class BaggingRegressor(_BaseBagging):
 
     def fit(self, X, y, sample_weight=None, aux=None) -> "BaggingRegressor":
         """Fit the ensemble; ``sample_weight`` as in
-        :meth:`BaggingClassifier.fit`. ``aux`` is the per-row auxiliary
-        column of a learner that declares ``uses_aux``; passing it to any
-        other learner is an error."""
+        :meth:`BaggingClassifier.fit`. ``aux`` ``(n,)`` is the per-row
+        auxiliary column of a learner that declares ``uses_aux`` (the
+        survival learner's censor flags); passing it to any other
+        learner is an error."""
         self.__dict__.pop("_collapsed_beta_cache", None)
         if aux is not None:
             learner = self._learner()
@@ -873,11 +918,19 @@ class BaggingRegressor(_BaseBagging):
                     f"aux was passed but {type(learner).__name__} does not "
                     "declare uses_aux (it would be silently ignored)"
                 )
-            raise NotImplementedError("the aux channel (ROADMAP Queue A 10)")
         X, device, h2d_seconds = self._start_fit(X)
         y = self._labels(y).astype(np.float32)
         y_t = torch.as_tensor(y, device=device)
-        self._fit_engine(X, y_t, 1, device, h2d_seconds, sample_weight)
+        aux_t = None
+        if aux is not None:
+            if isinstance(aux, torch.Tensor):
+                aux = aux.detach().cpu().numpy()
+            aux = np.asarray(aux, np.float32).ravel()
+            if aux.shape != (X.shape[0],):
+                raise ValueError(f"aux shape {aux.shape} != ({X.shape[0]},)")
+            aux_t = torch.as_tensor(aux, device=device)
+        self._fit_engine(X, y_t, 1, device, h2d_seconds, sample_weight,
+                         aux=aux_t)
         if self.oob_score:
             sums, votes = self._oob_scores(X, None)
             self._finalize_oob(sums, votes, y)
@@ -899,9 +952,10 @@ class BaggingRegressor(_BaseBagging):
     ) -> "BaggingRegressor":
         """Out-of-core fit from a chunk source or an ``(X, y)`` pair; see
         :meth:`BaggingClassifier.fit_stream`. ``aux_col`` names the
-        streamed column that is a ``uses_aux`` learner's aux channel: no
-        learner of the port declares one yet (ROADMAP Queue A 10), so it
-        raises."""
+        streamed column that is a ``uses_aux`` learner's aux channel
+        (the survival learner's censor flags): each chunk splits it off
+        before the step, and the model's features are the other
+        columns."""
         from spark_bagging_tpu_torch.utils.io import as_chunk_source
 
         self._reject_stream_options(checkpoint_dir, checkpoint_every,
@@ -934,8 +988,10 @@ class BaggingRegressor(_BaseBagging):
         if not hasattr(self, "_collapsed_beta_cache"):
             cache = None
             beta_fn = getattr(self._fitted_learner, "linear_beta", None)
-            if beta_fn is not None:
-                B = beta_fn(self.ensemble_).cpu().numpy().astype(np.float64)
+            beta = (beta_fn(self.ensemble_) if beta_fn is not None
+                    else None)
+            if beta is not None:  # None: a link that is not linear
+                B = beta.cpu().numpy().astype(np.float64)
                 subs = self.subspaces_.cpu().numpy()
                 out = np.zeros((B.shape[0], self.n_features_in_ + 1),
                                np.float64)
@@ -983,12 +1039,14 @@ class BaggingRegressor(_BaseBagging):
             self.ensemble_, self.subspaces_, X).cpu().numpy()
 
     def predict_quantiles(self, X, probs=(0.1, 0.5, 0.9)) -> np.ndarray:
-        """Per-row quantiles averaged over replicas, for a learner with
-        ``predict_quantiles``: the JAX package's survival learner, which
-        is not ported yet (ROADMAP Queue A 10). Raises
-        ``AttributeError`` for any other learner, as the JAX package
-        does."""
-        del X, probs  # the JAX estimator's signature
+        """Per-row quantiles ``(n, len(probs))`` averaged over replicas,
+        Spark's ``quantilesCol``, for a survival learner
+        (``AFTSurvivalRegression.predict_quantiles``); any other learner
+        raises ``AttributeError``."""
+        from spark_bagging_tpu_torch.ensemble import (
+            predict_quantiles_ensemble,
+        )
+
         self._check_fitted()
         learner = self.base_learner_
         if not hasattr(learner, "predict_quantiles"):
@@ -996,21 +1054,28 @@ class BaggingRegressor(_BaseBagging):
                 f"{type(learner).__name__} has no predict_quantiles "
                 "(only survival learners expose quantiles)"
             )
-        raise NotImplementedError(
-            "quantiles of a survival learner (ROADMAP Queue A 10)")
+        X = self._validate_X(X, self._device, fitted=True)
+        return predict_quantiles_ensemble(
+            learner, self.ensemble_, self.subspaces_, X,
+            tuple(float(p) for p in probs), chunk_size=self._eff_chunk(),
+            identity_subspace=self._identity_subspace,
+        ).cpu().numpy()
 
     def predict_stream(self, source, chunk_rows=None, *,
-                       prefetch: int | None = None) -> np.ndarray:
-        """Out-of-core ``predict``: one chunk on the device at a time."""
+                       prefetch: int | None = None,
+                       drop_aux_col: bool | None = None) -> np.ndarray:
+        """Out-of-core ``predict``: one chunk on the device at a time
+        (``drop_aux_col``: see ``_stream_chunks``)."""
         with closing(self._stream_chunks(
-                source, chunk_rows, prefetch).chunks()) as it:
+                source, chunk_rows, prefetch, drop_aux_col).chunks()) as it:
             out = [self.predict(Xc[:n]) for Xc, _, n in it]
         if not out:
             raise ValueError("source yielded no chunks")
         return np.concatenate(out)
 
     def score_stream(self, source, chunk_rows=None, *,
-                     prefetch: int | None = None) -> float:
+                     prefetch: int | None = None,
+                     drop_aux_col: bool | None = None) -> float:
         """Out-of-core R² from one pass of moments, shifted by the first
         chunk's target mean: the raw ``Σy² - (Σy)²/n`` cancels
         catastrophically for targets with a large mean."""
@@ -1018,7 +1083,7 @@ class BaggingRegressor(_BaseBagging):
         shift = None
         s_yd = s_yd2 = s_res = 0.0
         with closing(self._stream_chunks(
-                source, chunk_rows, prefetch).chunks()) as it:
+                source, chunk_rows, prefetch, drop_aux_col).chunks()) as it:
             for Xc, yc, n in it:
                 yv = np.asarray(yc[:n], np.float64)
                 pred = np.asarray(self.predict(Xc[:n]), np.float64)

@@ -44,10 +44,15 @@
 //     item, so a (row, feature) pair costs one code load, one address
 //     and one atomic, with no bin search, no division and no loop over K.
 //     Items x features are walked flat, so 43 features keep all 32 lanes
-//     busy. With `integral` the histogram is int32: integer statistics
-//     (Poisson counts times one-hot classes) then add with integer
-//     atomics, exact in any order, converted to float32 when the block
-//     writes its partial;
+//     busy. Both accumulators add integers, so a table is the same in
+//     every run whatever order the atomics land in: with `integral`
+//     (integer statistics: Poisson counts times one-hot classes) the
+//     histogram is int32 and each block writes its partial as float32;
+//     float statistics are fixed point, each value v staged as the int64
+//     rint(v * 2**s_r), s_r replica r's power-of-two scale (ops/hist.py
+//     sets it from max |S_r| and the row count so that every sum of the
+//     table stays below 2**52), summed in int64 and converted back once,
+//     in the finalize pass;
 //   * bytes: a block reads the 4-byte node of every row of its split and
 //     the statistics only of rows in its node tile; nodes are tiled
 //     before features, so each row's codes and statistics are read once
@@ -57,13 +62,15 @@
 //     their items to a staging buffer, walked (4 pairs a thread at a
 //     time, so 4 code loads are in flight) only when full. So the work
 //     per row outside the tile is one node load and a ballot's share.
-// Row splits write float32 partials that the finalize pass sums in
-// split order: no float atomics in global memory. Float histograms add
-// in an order that changes from run to run: integer statistics below
-// 2**24 in every partial sum give the same bits in every order, float
-// statistics repeat to rounding only.
+// Row splits write partials (float32 of the int32 sums; the int64
+// fixed-point sums as they are) that the finalize pass sums in split
+// order: no atomics in global memory. A fixed-point entry becomes
+// float32 once, as float(double(sum) * 2**-s_r): the sum is below 2**52,
+// so the double is exact and the one rounding is the float's, the same
+// on the card and in the plain version (ops/hist.py), which sums the
+// same integers.
 // bf16 != 0 rounds S to bfloat16 (round to nearest even) before it is
-// added; sums stay float32 (int32 with `integral`).
+// added (before it is scaled, in fixed point).
 // A launch on the bin slice [b0, b0 + B) of a wider table adds a row
 // whose code is below b0 into the slice's first bin and drops a code at
 // or above b0 + B (ops/hist.stat_tiles plans such slices).
@@ -97,6 +104,58 @@ constexpr int kUnroll = 4;
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
+
+// The two accumulators, both kept in 32-bit shared words so that every
+// add is a native ATOMS.ADD (a 64-bit shared atomicAdd compiles to a
+// compare-and-swap loop, ATOMS.CAST.SPIN.64): int32 sums of integer
+// statistics, one plane, written as float32 partials; int64 fixed-point
+// sums of float statistics in two planes, the low words and, `plane`
+// words on, the high words, written as int64 partials. A fixed-point
+// add puts the addend's low word into the low plane and its high word
+// plus the carry the low add made (read from the old value it returns)
+// into the high plane: whatever order the adds land in, the two planes
+// end as the exact 64-bit sum. `stage` turns a statistic into the
+// integer it adds.
+template <typename Acc>
+struct AccOps;
+
+template <>
+struct AccOps<int> {
+  using Part = float;
+  static constexpr int kPlanes = 1;
+  static __device__ __forceinline__ int stage(float v, float) {
+    return static_cast<int>(v);
+  }
+  static __device__ __forceinline__ void add(unsigned* h, int e, int v, int) {
+    atomicAdd(reinterpret_cast<int*>(h) + e, v);
+  }
+  static __device__ __forceinline__ float load(const unsigned* h, int e,
+                                               int) {
+    return static_cast<float>(static_cast<int>(h[e]));
+  }
+};
+
+template <>
+struct AccOps<long long> {
+  using Part = long long;
+  static constexpr int kPlanes = 2;
+  static __device__ __forceinline__ long long stage(float v, float scale) {
+    return __float2ll_rn(v * scale);  // exact product: scale is 2**s
+  }
+  static __device__ __forceinline__ void add(unsigned* h, int e, long long v,
+                                             int plane) {
+    const unsigned lo = static_cast<unsigned>(v);
+    const unsigned old = atomicAdd(h + e, lo);
+    const int hi = static_cast<int>(v >> 32) + (old + lo < old ? 1 : 0);
+    if (hi != 0) atomicAdd(reinterpret_cast<int*>(h + plane) + e, hi);
+  }
+  static __device__ __forceinline__ long long load(const unsigned* h, int e,
+                                                   int plane) {
+    return static_cast<long long>(static_cast<int>(h[plane + e])) *
+               4294967296LL +
+           static_cast<long long>(h[e]);
+  }
+};
 
 // codes[r, i, f] for the (R, n, F) output; grid (blocks, R). X is
 // (n, F) shared (x_rstride = 0) or (R, n, F), E (F, B) shared or (R, F,
@@ -156,10 +215,10 @@ __global__ void bin_codes_kernel(const float* __restrict__ X,
 // the slice's last bin, add into the junk bin row B.
 template <typename Code, typename Acc>
 __device__ __forceinline__ void add_pairs(
-    Acc* __restrict__ hist, const Code* __restrict__ Cr,
+    unsigned* __restrict__ hist, const Code* __restrict__ Cr,
     const int* __restrict__ s_col, const int* __restrict__ s_off,
     const int* __restrict__ s_hoff, const Acc* __restrict__ s_val, int items,
-    int nf, int b0, int B, int b_stride, int a_start, int f_start,
+    int nf, int b0, int B, int b_stride, int plane, int a_start, int f_start,
     int a_step, int f_step) {
   int a = a_start, f = f_start;
   while (a < items) {
@@ -183,7 +242,8 @@ __device__ __forceinline__ void add_pairs(
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u)
-      atomicAdd(hist + bb[u] * b_stride + s_hoff[aa[u]] + ff[u], s_val[aa[u]]);
+      AccOps<Acc>::add(hist, bb[u] * b_stride + s_hoff[aa[u]] + ff[u],
+                       s_val[aa[u]], plane);
   }
 }
 
@@ -216,7 +276,8 @@ __device__ __forceinline__ int claim(int* ctr, int& turn, int count,
 // rows [split * rows_per_split, (split + 1) * rows_per_split) of replica
 // r for features [f0, f0 + f_tile) and nodes [n0, n0 + n_tile) into its
 // slot of dst, (splits, R, F, B, N, K), uncumulated. codes: row i of
-// replica r at codes + r * c_rstride + i * c_row; cols (R, F) or null.
+// replica r at codes + r * c_rstride + i * c_row; cols (R, F) or null;
+// scale (R,): the fixed-point scales (unread by the int32 accumulator).
 //
 // Rows go through two phases. A: a pass reads kPassRows nodes (the next
 // pass's load while this one runs) and lists the rows of the node tile.
@@ -228,18 +289,22 @@ template <typename Code, typename Acc>
 __global__ void __launch_bounds__(kThreads)
 hist_partial(const Code* __restrict__ codes, long long c_rstride, int c_row,
              const int* __restrict__ cols, const int* __restrict__ node,
-             const float* __restrict__ S, float* __restrict__ dst, int n,
+             const float* __restrict__ S, const float* __restrict__ scale,
+             typename AccOps<Acc>::Part* __restrict__ dst, int n,
              int F, int B, int b0, int N, int K, int R, int f_tile,
              int n_tile, int n_tiles, int b_stride, int cap,
              int rows_per_split, int bf16) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // [B + 1][b_stride]: bin B takes the pairs that add nothing
-  Acc* hist = reinterpret_cast<Acc*>(smem_raw);
-  int* s_col = reinterpret_cast<int*>(hist + (B + 1) * b_stride);  // [f_tile]
+  // planes of [B + 1][b_stride] 32-bit words: bin B takes the pairs
+  // that add nothing. The addends follow, 8-byte aligned in fixed point
+  using Ops = AccOps<Acc>;
+  const int plane = (B + 1) * b_stride;
+  unsigned* hist = reinterpret_cast<unsigned*>(smem_raw);
+  Acc* s_val = reinterpret_cast<Acc*>(hist + Ops::kPlanes * plane);  // [cap]
+  int* s_col = reinterpret_cast<int*>(s_val + cap);  // [f_tile]
   int* s_off = s_col + f_tile;      // [cap] the item row's code offset
   int* s_hoff = s_off + cap;        // [cap] (node, k) offset in hist
-  Acc* s_val = reinterpret_cast<Acc*>(s_hoff + cap);  // [cap]
-  int* s_rows = reinterpret_cast<int*>(s_val + cap);  // [kListRows]
+  int* s_rows = s_hoff + cap;       // [kListRows]
   int* s_lctr = s_rows + kListRows;  // [3] row-list claims
   int* s_ictr = s_lctr + 3;          // [3] item claims
 
@@ -250,13 +315,14 @@ hist_partial(const Code* __restrict__ codes, long long c_rstride, int c_row,
   const int nf = min(f_tile, F - f0);
   const int nn = min(n_tile, N - n0);
 
-  for (int e = threadIdx.x; e < (B + 1) * b_stride; e += kThreads)
-    hist[e] = Acc(0);
+  for (int e = threadIdx.x; e < Ops::kPlanes * plane; e += kThreads)
+    hist[e] = 0u;
   for (int f = threadIdx.x; f < nf; f += kThreads)
     s_col[f] = cols != nullptr ? cols[(long long)r * F + f0 + f] : f0 + f;
   if (threadIdx.x < 6) s_lctr[threadIdx.x] = 0;
 
   const Code* Cr = codes + r * c_rstride;
+  const float sc = scale != nullptr ? scale[r] : 1.f;
   const int* noder = node + (long long)r * n;
   const float* Sr = S + (long long)r * n * K;
   const int row_begin = split * rows_per_split;
@@ -306,7 +372,7 @@ hist_partial(const Code* __restrict__ codes, long long c_rstride, int c_row,
               const int slot = gi - g_lo;
               s_off[slot] = off;
               s_hoff[slot] = hb + k * f_tile;
-              s_val[slot] = static_cast<Acc>(bf16 ? round_bf16(v) : v);
+              s_val[slot] = Ops::stage(bf16 ? round_bf16(v) : v, sc);
             }
             ++gi;
           };
@@ -318,7 +384,7 @@ hist_partial(const Code* __restrict__ codes, long long c_rstride, int c_row,
         if (g_end < g_lo + cap) break;  // room left: keep filling
         __syncthreads();                // the buffer is full: walk it
         add_pairs(hist, Cr, s_col, s_off, s_hoff, s_val, cap, nf, b0, B,
-                  b_stride, a_start, f_start, a_step, f_step);
+                  b_stride, plane, a_start, f_start, a_step, f_step);
         __syncthreads();
         g_lo += cap;
       }
@@ -367,11 +433,12 @@ hist_partial(const Code* __restrict__ codes, long long c_rstride, int c_row,
   stage_rows(listed);
   __syncthreads();
   add_pairs(hist, Cr, s_col, s_off, s_hoff, s_val, g - g_lo, nf, b0, B,
-            b_stride, a_start, f_start, a_step, f_step);
+            b_stride, plane, a_start, f_start, a_step, f_step);
   __syncthreads();
 
   // the block's partial, (f, b, node, k) order: runs of nn * K floats
-  float* out = dst + ((long long)split * R + r) * F * B * N * K;
+  using Part = typename Ops::Part;
+  Part* out = dst + ((long long)split * R + r) * F * B * N * K;
   const int run = nn * K;
   for (int e = threadIdx.x; e < nf * B * run; e += kThreads) {
     const int j = e % run;  // node * K + k within the tile
@@ -379,18 +446,22 @@ hist_partial(const Code* __restrict__ codes, long long c_rstride, int c_row,
     const int b = q % B;
     const int f = q / B;
     out[(((long long)(f0 + f) * B + b) * N + n0) * K + j] =
-        static_cast<float>(hist[b * b_stride + j * f_tile + f]);
+        Ops::load(hist, b * b_stride + j * f_tile + f, plane);
   }
 }
 
 // out[r, f, b, n, k] = sum over b' <= b of (sum over splits s, in order,
 // of partials[s, r, f, b', n, k]); 0 where edge[f, b] is NaN, as the
-// indicator [x <= NaN] is. One thread per (r, f, n, k) column; partials
-// may be out itself (one split), each entry read before it is written.
-__global__ void hist_finalize(const float* partials, float* out,
+// indicator [x <= NaN] is. One thread per (r, f, n, k) column; float
+// partials may be out itself (one split), each entry read before it is
+// written. int64 partials (inv_scale != null) are fixed point: the sums
+// stay integers and each entry is float(double(sum) * inv_scale[r]).
+template <typename Part>
+__global__ void hist_finalize(const Part* partials, float* out,
                               const float* __restrict__ E,
-                              long long e_rstride, int R, int F, int B,
-                              int N, int K, int splits) {
+                              long long e_rstride,
+                              const double* __restrict__ inv_scale, int R,
+                              int F, int B, int N, int K, int splits) {
   const long long cols = (long long)R * F * N * K;
   const long long per_split = cols * B;
   for (long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
@@ -402,14 +473,21 @@ __global__ void hist_finalize(const float* partials, float* out,
     const int f = static_cast<int>(q % F);
     const long long r = q / F;
     const float* Er = E + r * e_rstride + (long long)f * B;
-    float acc = 0.f;
+    const double inv = inv_scale != nullptr ? inv_scale[r] : 1.0;
+    Part acc = 0;
     for (int b = 0; b < B; ++b) {
       const long long idx = (((r * F + f) * B + b) * N + nd) * K + k;
-      float s = 0.f;
+      Part s = 0;
       for (int p = 0; p < splits; ++p) s += partials[p * per_split + idx];
       acc += s;
       const float e = Er[b];
-      out[idx] = e != e ? 0.f : acc;
+      float v;
+      if constexpr (sizeof(Part) == 8) {
+        v = __double2float_rn(__ll2double_rn(acc) * inv);
+      } else {
+        v = acc;
+      }
+      out[idx] = e != e ? 0.f : v;
     }
   }
 }
@@ -418,10 +496,10 @@ template <typename Code, typename Acc>
 cudaError_t launch_partial(dim3 grid, int smem, cudaStream_t st,
                            const void* codes, long long c_rstride, int c_row,
                            const void* cols, const void* node, const void* S,
-                           float* dst, int n, int F, int B, int b0, int N,
-                           int K, int R, int f_tile, int n_tile, int n_tiles,
-                           int b_stride, int cap, int rows_per_split,
-                           int bf16) {
+                           const float* scale, void* dst, int n, int F,
+                           int B, int b0, int N, int K, int R, int f_tile,
+                           int n_tile, int n_tiles, int b_stride, int cap,
+                           int rows_per_split, int bf16) {
   auto kern = hist_partial<Code, Acc>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -431,8 +509,9 @@ cudaError_t launch_partial(dim3 grid, int smem, cudaStream_t st,
   kern<<<grid, kThreads, smem, st>>>(
       static_cast<const Code*>(codes), c_rstride, c_row,
       static_cast<const int*>(cols), static_cast<const int*>(node),
-      static_cast<const float*>(S), dst, n, F, B, b0, N, K, R, f_tile, n_tile,
-      n_tiles, b_stride, cap, rows_per_split, bf16);
+      static_cast<const float*>(S), scale,
+      static_cast<typename AccOps<Acc>::Part*>(dst), n, F, B, b0, N, K, R,
+      f_tile, n_tile, n_tiles, b_stride, cap, rows_per_split, bf16);
   return cudaGetLastError();
 }
 
@@ -473,11 +552,13 @@ int sbt_bin_codes(const void* X, long long x_rstride, const void* E,
 // 1 or 2; cols: (R, F) int32 columns of codes, or null for the identity;
 // E: the launch's (F, B) or (R, F, B) edges (e_rstride 0 or F * B), read
 // by the finalize pass only; node: (R, n) int32; S: (R, n, K); out:
-// (R, F, B, N, K); partials: (splits, R, F, B, N, K), unused when
-// splits == 1. b0: the launch's first bin in the codes' numbering.
-// Geometry (f_tile, n_tile, f_tiles, n_tiles, b_stride, cap, splits,
-// rows_per_split, smem) comes from the Python wrapper
-// (ops/hist.py). integral != 0 sums in int32: S must hold integers.
+// (R, F, B, N, K); partials: (splits, R, F, B, N, K) float32, unused
+// when splits == 1, or int64 in fixed point. b0: the launch's first bin
+// in the codes' numbering. Geometry (f_tile, n_tile, f_tiles, n_tiles,
+// b_stride, cap, splits, rows_per_split, smem) comes from the Python
+// wrapper (ops/hist.py). scale and inv_scale null: the int32
+// accumulator (S must hold integers); else (R,) float32 2**s_r and
+// float64 2**-s_r of the int64 fixed-point accumulator.
 int sbt_binned_left_stats(const void* codes, long long c_rstride, int c_row,
                           int code_bytes, const void* cols, const void* E,
                           long long e_rstride, const void* node,
@@ -486,22 +567,27 @@ int sbt_binned_left_stats(const void* codes, long long c_rstride, int c_row,
                           int f_tile, int n_tile, int f_tiles, int n_tiles,
                           int b_stride, int cap, int splits,
                           int rows_per_split, int smem, int bf16,
-                          int integral, void* stream) {
+                          const void* scale, const void* inv_scale,
+                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* dst = static_cast<float*>(splits == 1 ? out : partials);
+  const bool fixed = scale != nullptr;
+  if (fixed != (inv_scale != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  void* dst = fixed || splits > 1 ? partials : out;
+  const float* sc = static_cast<const float*>(scale);
   const dim3 grid(R, f_tiles * n_tiles, splits);
 #define SBT_HIST_LAUNCH(CODE, ACC)                                          \
   launch_partial<CODE, ACC>(grid, smem, st, codes, c_rstride, c_row, cols, \
-                            node, S, dst, n, F, B, b0, N, K, R, f_tile,    \
-                            n_tile, n_tiles, b_stride, cap,                \
+                            node, S, sc, dst, n, F, B, b0, N, K, R,        \
+                            f_tile, n_tile, n_tiles, b_stride, cap,        \
                             rows_per_split, bf16)
   cudaError_t err;
   if (code_bytes == 1) {
-    err = integral ? SBT_HIST_LAUNCH(uint8_t, int)
-                   : SBT_HIST_LAUNCH(uint8_t, float);
+    err = fixed ? SBT_HIST_LAUNCH(uint8_t, long long)
+                : SBT_HIST_LAUNCH(uint8_t, int);
   } else if (code_bytes == 2) {
-    err = integral ? SBT_HIST_LAUNCH(int16_t, int)
-                   : SBT_HIST_LAUNCH(int16_t, float);
+    err = fixed ? SBT_HIST_LAUNCH(int16_t, long long)
+                : SBT_HIST_LAUNCH(int16_t, int);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -510,9 +596,17 @@ int sbt_binned_left_stats(const void* codes, long long c_rstride, int c_row,
   const long long cols_out = (long long)R * F * N * K;
   const long long want = (cols_out + 255) / 256;
   const int blocks = static_cast<int>(want < 8192 ? want : 8192);
-  hist_finalize<<<blocks, 256, 0, st>>>(dst, static_cast<float*>(out),
-                                        static_cast<const float*>(E),
-                                        e_rstride, R, F, B, N, K, splits);
+  const float* Ef = static_cast<const float*>(E);
+  float* outf = static_cast<float*>(out);
+  if (fixed) {
+    hist_finalize<long long><<<blocks, 256, 0, st>>>(
+        static_cast<const long long*>(dst), outf, Ef, e_rstride,
+        static_cast<const double*>(inv_scale), R, F, B, N, K, splits);
+  } else {
+    hist_finalize<float><<<blocks, 256, 0, st>>>(
+        static_cast<const float*>(dst), outf, Ef, e_rstride, nullptr, R, F,
+        B, N, K, splits);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -55,6 +55,7 @@ def fit_ensemble(
     chunk_size: int | None = None,
     row_mask: torch.Tensor | None = None,
     use_pooled_init: bool | None = None,
+    aux: torch.Tensor | None = None,
 ) -> tuple[dict[str, torch.Tensor], torch.Tensor, dict[str, torch.Tensor]]:
     """Fit all replicas in ``replica_ids``.
 
@@ -62,7 +63,9 @@ def fit_ensemble(
     a leading replica axis, ``subspaces`` is ``(R, n_subspace)`` int32
     and ``aux["loss"]`` the per-replica final losses.
 
-    ``row_mask`` multiplies into every replica's weights.
+    ``row_mask`` multiplies into every replica's weights; ``aux``
+    ``(n,)`` is the per-row auxiliary column of a ``uses_aux`` learner,
+    beside y (bagging reweights rows, so a drawn row keeps its flag).
     ``use_pooled_init`` overrides the learner's ``uses_pooled_init``
     (the estimator passes its amortization decision, keyed to the total
     ensemble size).
@@ -95,10 +98,10 @@ def fit_ensemble(
             prep = learner.gather_subspace(prepared, idx)
             Xs = (X if learner.reads_subspace_index
                   else _gather_columns(X, idx))
-        params, aux = learner.fit_from_init(
-            fit_key(key, rids), Xs, y, w, n_outputs, prepared=prep
+        params, fit_aux = learner.fit_from_init(
+            fit_key(key, rids), Xs, y, w, n_outputs, prepared=prep, aux=aux
         )
-        return params, idx, aux["loss"]
+        return params, idx, fit_aux["loss"]
 
     params, subspaces, losses = map_replicas(fit_chunk, replica_ids, chunk_size)
     return params, subspaces, {"loss": losses}
@@ -130,6 +133,30 @@ def predict_scores_ensemble(
         return _score_chunk(learner, params, idx, X, identity_subspace)
 
     return map_replicas(one, (stacked_params, subspaces), chunk_size)
+
+
+def predict_quantiles_ensemble(
+    learner: BaseLearner,
+    stacked_params: dict[str, torch.Tensor],
+    subspaces: torch.Tensor,
+    X: torch.Tensor,
+    probs: tuple[float, ...],
+    *,
+    chunk_size: int | None = None,
+    identity_subspace: bool = False,
+) -> torch.Tensor:
+    """The mean over replicas of a survival learner's quantiles ``(n,
+    len(probs))``, each chunk summed as it is computed."""
+
+    def one(chunk):
+        params, idx = chunk
+        Xs = X if identity_subspace else _gather_columns(X, idx)
+        return learner.predict_quantiles(params, Xs, probs).sum(dim=0)
+
+    chunk_sums = torch.stack(
+        _chunks_apply(one, (stacked_params, subspaces), chunk_size)
+    )
+    return mean_aggregate(chunk_sums, n_total=_leading_size(subspaces))
 
 
 def predict_ensemble_classifier(

@@ -50,8 +50,9 @@ class BaseLearner(ParamsMixin):
     # ``predict_scores(params, X, cols=idx)`` reads it the same way, so a
     # feature subspace makes no ``X[:, idx]`` copy
     reads_subspace_index: ClassVar[bool] = False
-    # True: ``fit`` consumes a per-row auxiliary column (the JAX
-    # package's survival learner); no learner of the port declares it yet
+    # True: ``fit`` and ``row_loss`` take a per-row auxiliary column as
+    # ``aux=`` (the survival learner's censor flags), which the engines
+    # thread through beside y; other learners never see the keyword
     uses_aux: ClassVar[bool] = False
     # True: ``row_loss``/``penalty`` are implemented and ``fit_stream``
     # fits the learner by Adam over data chunks (streaming.py)
@@ -154,9 +155,10 @@ class BaseLearner(ParamsMixin):
 
     def fit_from_init(self, keys: torch.Tensor, X: torch.Tensor,
                       y: torch.Tensor, sample_weight: torch.Tensor,
-                      n_outputs: int, *,
-                      prepared: Any | None = None) -> tuple[Params, Aux]:
-        """Init-then-fit with split keys; a replica chunk's whole training."""
+                      n_outputs: int, *, prepared: Any | None = None,
+                      aux: torch.Tensor | None = None) -> tuple[Params, Aux]:
+        """Init-then-fit with split keys; a replica chunk's whole
+        training. ``aux`` reaches a ``uses_aux`` learner's fit only."""
         from spark_bagging_tpu_torch.ops.bootstrap import split_init_fit
 
         init_keys, fit_keys = split_init_fit(keys)
@@ -164,6 +166,8 @@ class BaseLearner(ParamsMixin):
             init_keys, X.shape[-1], n_outputs, prepared
         )
         kwargs = {} if prepared is None else {"prepared": prepared}
+        if self.uses_aux:
+            kwargs["aux"] = aux
         return self.fit(params, X, y, sample_weight, fit_keys, **kwargs)
 
 
@@ -181,6 +185,9 @@ class PooledStartMixin:
     """
 
     _pooled_leaf: ClassVar[str] = "W"
+    # dims of one replica's pooled leaf: (d+1, C) coefficients, or a
+    # (d+1,) vector (GLM's beta)
+    _pooled_leaf_ndim: ClassVar[int] = 2
 
     @property
     def uses_pooled_init(self) -> bool:
@@ -209,13 +216,13 @@ class PooledStartMixin:
         if prepared is None:
             return None
         # each replica's rows of the pooled solution; the bias row rides
-        # along: (R, n_sub + 1, C)
+        # along: (R, n_sub + 1, ...)
         bias = prepared[-1:].expand(idx.shape[0], *prepared[-1:].shape)
         return torch.cat([prepared[idx.long()], bias], dim=1)
 
     def initial_params(self, keys, n_features, n_outputs, prepared):
         if self.init == "pooled" and prepared is not None:
-            if prepared.dim() == 2:  # shared start, one copy per replica
+            if prepared.dim() == self._pooled_leaf_ndim:  # shared start
                 prepared = prepared.expand(keys.shape[0], *prepared.shape)
             return {self._pooled_leaf: prepared.contiguous()}
         return self.init_params(keys, n_features, n_outputs)

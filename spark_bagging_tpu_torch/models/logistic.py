@@ -1,8 +1,11 @@
-"""Weighted multinomial logistic regression by damped Newton steps.
+"""Weighted multinomial logistic regression: damped Newton steps or Adam.
 
-The port of the JAX package's headline learner, Newton solver only,
-batched over a leading replica axis: every replica of a chunk takes its
-Newton steps together, with one Cholesky factorization per replica.
+The port of the JAX package's headline learner, batched over a leading
+replica axis: every replica of a chunk takes its Newton steps together,
+with one Cholesky factorization per replica. ``solver="adam"`` takes
+``max_iter`` full-batch Adam steps instead (``optim.Adam``, optax's
+arithmetic), one ``autograd`` call giving every replica's gradient, for
+problems too wide for a ``(C·d)²`` Hessian.
 
 Hessian assemblies (``hessian_impl``), all exact multinomial Newton:
 
@@ -19,8 +22,7 @@ Hessian assemblies (``hessian_impl``), all exact multinomial Newton:
 
 "auto" resolves as in the JAX package: "blocked" up to C = 8 classes,
 "fused" beyond. Every product but the kernel's runs in float32 with
-TF32 off, whatever ``precision`` says. ``solver="adam"`` is not ported
-yet and raises ``NotImplementedError``.
+TF32 off, whatever ``precision`` says.
 """
 
 from __future__ import annotations
@@ -37,13 +39,13 @@ from spark_bagging_tpu_torch.models.base import (
 from spark_bagging_tpu_torch.ops.gram import launch_bytes, scaled_grams
 from spark_bagging_tpu_torch.ops.precision import fp32_matmul, gram_op_dtype
 from spark_bagging_tpu_torch.ops.reduce import maybe_psum
+from spark_bagging_tpu_torch.optim import Adam
 
 _BIAS_JITTER = 1e-6  # keeps the softmax gauge direction solvable
 # Levenberg-style damping added to the Hessian diagonal at solve time
 # only; the gradient stays exact, so the optimum is unchanged.
 _SOLVER_DAMPING = 1e-3
 _HESSIAN_IMPLS = ("auto", "blocked", "fused", "packed", "pallas")
-_ROADMAP_SOLVERS = "ROADMAP Queue A: logistic solvers still to port"
 
 
 class LogisticRegression(PooledStartMixin, BaseLearner):
@@ -113,6 +115,10 @@ class LogisticRegression(PooledStartMixin, BaseLearner):
         # scaled copy of X or the kernel's Grams and row-split partials,
         # and the (C·d)² Hessian with its factor and the solve's copy.
         C, d = n_outputs, n_features + 1
+        if self.solver == "adam":
+            # full batch, never row-tiled: the logits, log-probs and their
+            # adjoints at (n, C), the weights, and W with Adam's moments
+            return float(4.0 * (4 * n_rows * C + 2 * n_rows) + 12.0 * d * C)
         rows = min(self.row_tile or n_rows, n_rows)
         P = C * (C + 1) // 2
         # The wide operands of "fused" (V, and the per-class scaled X of
@@ -176,17 +182,42 @@ class LogisticRegression(PooledStartMixin, BaseLearner):
         return maybe_psum(local) / w_sum + self._penalty(W)
 
     def fit(self, params, X, y, sample_weight, keys, *, prepared=None):
-        del keys, prepared  # deterministic solver; no precomputation
-        if self.solver == "adam":
-            raise NotImplementedError(f"solver='adam' ({_ROADMAP_SOLVERS})")
-        if self.solver != "newton":
+        del keys, prepared  # deterministic solvers; no precomputation
+        if self.solver not in ("newton", "adam"):
             raise ValueError(f"unknown solver {self.solver!r}")
         Xb = augment_bias(X.to(torch.float32))
         w = sample_weight.to(torch.float32)
         # floor: all-zero bootstrap draws must stay finite
         w_sum = torch.clamp_min(maybe_psum(w.sum(dim=-1)), 1e-12)
         with fp32_matmul():
+            if self.solver == "adam":
+                return self._fit_adam(params, Xb, y.long(), w, w_sum)
             return self._fit_newton(params, Xb, y.long(), w, w_sum)
+
+    # -- Adam ------------------------------------------------------------
+
+    def _fit_adam(self, params, Xb, y, w, w_sum) -> tuple[Params, Aux]:
+        """``max_iter`` full-batch Adam steps on each replica's weighted
+        mean NLL, the penalty's gradient added to the data's, as the JAX
+        learner forms it; the curve holds each step's loss before it."""
+        p = {"W": params["W"].clone()}
+        opt = Adam(p, self.lr)
+        losses = []
+        for _ in range(self.max_iter):
+            Wg = p["W"].detach().requires_grad_()
+            with torch.enable_grad(), fp32_matmul():
+                nll, _ = self._nll_from_scores(Xb @ Wg, y)
+                local = (w * nll).sum(dim=-1) / w_sum            # (R,)
+                (g,) = torch.autograd.grad(local.sum(), [Wg])
+            W = p["W"]
+            losses.append(local.detach() + self._penalty(W))
+            opt.step(p, {"W": g + self._penalty_grad(W)})
+        W = p["W"]
+        final = self._global_loss(W, Xb, y, w, w_sum,
+                                  self._row_tiles(Xb.shape[-2]))
+        curve = (torch.stack(losses, dim=1) if losses
+                 else torch.zeros((W.shape[0], 0), device=W.device))
+        return {"W": W}, {"loss": final, "loss_curve": curve}
 
     # -- Newton --------------------------------------------------------
 

@@ -18,6 +18,15 @@ first layer of every replica is one GEMM, ``X (n, F) @ W1 (F, R·H)``.
 TF32 off (ops/precision.py: only the scaled-Gram kernel takes bfloat16
 operands). ``"gelu"`` is ``jax.nn.gelu``'s default, the tanh
 approximation.
+
+On the CPU the first layer's sum over features runs in one fixed order,
+whatever the thread count: two float32 accumulators, fed by fused
+multiply-adds from the even and the odd features, then added (the order
+XLA's CPU dot takes at these widths). The sign of a pre-activation near
+0 decides a ReLU unit's activity for that row, and Adam turns such a
+flip in a unit that few rows reach into a step of up to ``lr``: with the
+library GEMM's order, one of 16 config-4 replicas drifted 3.5e-4 from
+the JAX fit over 50 steps. The backward products stay GEMMs.
 """
 
 from __future__ import annotations
@@ -38,6 +47,50 @@ _ACTIVATIONS = {
     "tanh": torch.tanh,
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
 }
+
+
+class _FixedOrderFirstLayer(torch.autograd.Function):
+    """``X @ W1`` per replica, ``(R, n, H)`` from a shared ``(n, F)`` or a
+    per-replica ``(R, n, F)`` X and ``W1 (R, F, H)``, summed over
+    features in one fixed order (the module docstring): each fused
+    multiply-add is one float64 product and sum rounded to float32 (the
+    product is exact). Its gradients are the usual products."""
+
+    @staticmethod
+    def forward(ctx, X, W1):
+        ctx.save_for_backward(X, W1)
+        R, F, H = W1.shape
+        # features in pairs, a zero feature padding an odd count (a
+        # multiply-add of 0 leaves the sum as it is): accumulator 0 takes
+        # the even features, accumulator 1 the odd, one op for both
+        pad = F % 2
+        X64 = torch.nn.functional.pad(X.to(torch.float64), (0, pad))
+        X64 = X64.unflatten(-1, (-1, 2))[..., None]        # (.., n, P, 2, 1)
+        W64 = torch.nn.functional.pad(W1.to(torch.float64), (0, 0, 0, pad))
+        W64 = W64.unflatten(1, (-1, 2))[:, None]           # (R, 1, P, 2, H)
+        n = X.shape[-2]
+        acc = torch.zeros((R, n, 2, H), dtype=torch.float64, device=X.device)
+        acc32 = torch.empty((R, n, 2, H), dtype=torch.float32,
+                            device=X.device)
+        for j in range(X64.shape[-3]):
+            acc.addcmul_(X64[..., j, :, :], W64[:, :, j])
+            acc32.copy_(acc)                               # one rounding
+            acc.copy_(acc32)
+        return acc32[:, :, 0] + acc32[:, :, 1]
+
+    @staticmethod
+    def backward(ctx, g):
+        X, W1 = ctx.saved_tensors
+        gX = gW = None
+        with fp32_matmul():
+            if ctx.needs_input_grad[0]:
+                gX = g @ W1.transpose(-1, -2)
+                if X.dim() == 2:
+                    gX = gX.sum(dim=0)
+            if ctx.needs_input_grad[1]:
+                Xr = X if X.dim() == 3 else X.expand(W1.shape[0], *X.shape)
+                gW = Xr.transpose(-1, -2) @ g
+        return gX, gW
 
 
 def _per_replica(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -105,7 +158,9 @@ class _MLPBase(BaseLearner):
         W1 = params["W1"]
         R, n_in, H = W1.shape
         with fp32_matmul():
-            if X.dim() == 2:
+            if X.device.type == "cpu":
+                pre = _FixedOrderFirstLayer.apply(X, W1)
+            elif X.dim() == 2:
                 # every replica's first layer in one GEMM; the (n, R, H)
                 # result is viewed as (R, n, H)
                 pre = X @ W1.permute(1, 0, 2).reshape(n_in, R * H)

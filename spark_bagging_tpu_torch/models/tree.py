@@ -259,8 +259,9 @@ class _TreeBase(BaseLearner):
     def fit_workset_bytes(self, n_rows, n_features, n_outputs, device=None):
         # per-replica temporaries at the deepest level (N = 2^(d-1)
         # nodes): the (F, B, N, K) f32 table with the kernel's row-split
-        # partials (ops/hist.launch_bytes; float statistics split rows
-        # at least every FLOAT_SPLIT_ROWS), its `right = total - hist`
+        # partials (ops/hist.launch_bytes: int64 in the fixed-point
+        # accumulator of float statistics, rows split at least every
+        # FIXED_SPLIT_ROWS), its `right = total - hist`
         # copy and the impurity and score temporaries of _select_splits;
         # the (n, 2^d) f32 leaf one-hot of _leaf_stats; S and the one-hot
         # labels it is made from; the node, routing and gather vectors;
@@ -269,8 +270,9 @@ class _TreeBase(BaseLearner):
         K = self._stats_per_row(n_outputs)
         N = 2 ** (self.max_depth - 1)
         table = 4.0 * n_features * self.n_bins * N * K
-        splits = 1 if self.integral_stats else hist_ops.float_splits(n_rows)
-        per = (hist_ops.launch_bytes(n_features, self.n_bins, N, K, splits)
+        splits = 1 if self.integral_stats else hist_ops.fixed_splits(n_rows)
+        per = (hist_ops.launch_bytes(n_features, self.n_bins, N, K, splits,
+                                     self.integral_stats)
                + 3 * table
                + 4.0 * n_rows * 2**self.max_depth
                + 2 * 4.0 * n_rows * K

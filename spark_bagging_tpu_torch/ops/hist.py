@@ -41,12 +41,27 @@ of the codes in [0, F_all), or None for the identity. Rows whose node
 lies outside ``[0, n_nodes)`` and NaN entries of X contribute nothing.
 
 ``hist_dtype`` is the statistics' operand type: ``"bfloat16"`` rounds S
-to bfloat16 before it is summed in float32, ``"float32"`` sums it as
-given. The 0/1 indicator is exact in either. With integer statistics
-below 256 (Poisson counts times one-hot classes) both are exact, and so
-is every sum below 2**24, whatever the order. ``integral=True`` (a
-caller whose statistics are integers, as the classifier tree's are)
-sums them in int32 on the card: exact in any order.
+to bfloat16 before it is summed, ``"float32"`` sums it as given. The 0/1
+indicator is exact in either.
+
+Both of the kernel's accumulators sum integers, so a card table is the
+same in every run, whatever order the atomics land in.
+``integral=True`` (a caller whose statistics are integers, as the
+classifier tree's are) sums them in int32. Float statistics (the
+default) are summed in fixed point: replica r's values are scaled by a
+power of two ``2**s_r`` (:func:`fixed_scales`, from ``max |S_r|`` and
+the row count, so every sum of the table stays below 2**52), rounded to
+int64, summed exactly, and each entry converted back once,
+``float32(float64(sum) * 2**-s_r)``. :func:`coded_left_stats_fixed` is
+that accumulator's plain version, bit for bit on any device. Against
+the float64 sum of the unrounded terms an entry is off by its one
+float32 rounding plus at most ``m 2**-(s_r + 1)`` for m terms, ~1e-10
+of ``max |S_r|`` a term at a million rows.
+
+The CPU path of both entry points is the float32 contraction: exact for
+integer statistics below 2**24, and for float statistics the JAX
+package's own float32 rounding (the fixed point's exact sums resolve a
+near-tie between two splits otherwise than JAX's float32 sums do).
 
 Edges must be non-decreasing along b; NaN edges (the quantile edges of a
 feature that is more than 1/B NaN) may only form a suffix, and their
@@ -76,8 +91,16 @@ _LIST_ROWS = _THREADS * (CUDA_DEFINES["SBT_HIST_ROWS_PER_THREAD"] + 1)
 _SMEM_BYTES = 72 * 1024
 _MAX_SMEM_BYTES = 232_448
 # one staged item (a nonzero statistic of a kept row): its row's code
-# offset, its (node, k) offset in the histogram, its value
-_ITEM_BYTES = 12
+# offset and its (node, k) offset in the histogram, and its addend in
+# the accumulator's type (4 bytes int32, 8 fixed point)
+_ITEM_INDEX_BYTES = 8
+# the accumulators' bytes: int32 for integral statistics, int64 fixed
+# point for float ones
+INT32_BYTES, FIXED_BYTES = 4, 8
+# every sum of a fixed-point table stays below 2**FIXED_SUM_BITS, where
+# float64 holds it exactly; the scales stay normal float32 powers of two
+FIXED_SUM_BITS = 52
+_FIXED_MAX_SHIFT = 100
 # the items a block stages before it walks them (a pass of rows with
 # more items fills the buffer in rounds)
 STAGE_ITEMS = 1536
@@ -87,14 +110,12 @@ _BLOCKS_PER_SM = 2
 # rows below which a launch is not split further for occupancy: bounds
 # the partials' memory at few replicas
 MIN_SPLIT_ROWS = 4096
-# the most rows one block sums on float statistics. A float32 running
-# sum of m like terms strays by up to ~m 2**-25 of its scale, and a
-# block adds ~its rows / B of them into one bin: at a GBT's 800,000
-# rows, 32 replicas split 9 ways (88,889 rows a block) strayed by
-# 1.9e-5 of the abs-sum scale from a float64 sum (round 0, where the
-# Newton weights repeat; H100). Integral statistics sum exactly in any
-# split.
-FLOAT_SPLIT_ROWS = 16_384
+# the most rows one block sums in fixed point. Both accumulators are
+# exact in any split: this bound is for speed. The fixed point's
+# histogram is twice as wide, so fewer nodes share a block; more,
+# shorter row splits keep the SMs busy (on config 7's shapes no bound
+# and 16,384 were both slower)
+FIXED_SPLIT_ROWS = 32_768
 # the most bins bin codes hold: codes run to B, in int16
 MAX_BINS = 32_766
 
@@ -153,6 +174,29 @@ def binned_left_stats_plain(
     return out[0] if squeeze else out
 
 
+def fixed_scales(S: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each replica's fixed-point scale ``2**s_r`` (float32) and its
+    inverse ``2**-s_r`` (float64) for the float statistics ``S (R, n,
+    K)``: the largest s_r with ``n · max|S_r| · 2**s_r <= 2**52``, so
+    every sum of the table (at most n terms) stays below 2**52, within
+    [-100, 100]. ``max |S_r| < 2**e_r`` (``frexp``), and a bfloat16
+    rounding of S stays within ``2**e_r`` too. Built from exponent bits,
+    so both are exact powers of two on every device."""
+    R, n, _ = S.shape
+    flat = S.reshape(R, -1)
+    if flat.shape[1] == 0:
+        amax = torch.zeros(R, dtype=torch.float32, device=S.device)
+    else:
+        lo, hi = torch.aminmax(flat, dim=1)
+        amax = torch.maximum(-lo, hi)
+    _, e = torch.frexp(amax)
+    shift = (FIXED_SUM_BITS - max(n, 1).bit_length() - e.to(torch.int64))
+    shift = shift.clamp(-_FIXED_MAX_SHIFT, _FIXED_MAX_SHIFT)
+    scale = ((shift + 127) << 23).to(torch.int32).view(torch.float32)
+    inv = ((1023 - shift) << 52).view(torch.float64)
+    return scale.contiguous(), inv.contiguous()
+
+
 def bin_codes_plain(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     """The plain torch version of :func:`bin_codes`: the count of edges
     (NaN read as +inf) below x, one edge at a time, and B for a NaN x."""
@@ -196,6 +240,50 @@ def coded_left_stats_plain(
         stats = _stats_matrix(node[r], S[r], n_nodes, hist_dtype)
         with fp32_matmul():
             out[r] = (T.t() @ stats).reshape(F, B, n_nodes, K)
+    return out
+
+
+def coded_left_stats_fixed(
+    codes: torch.Tensor, edges: torch.Tensor, node: torch.Tensor,
+    S: torch.Tensor, *, n_nodes: int, hist_dtype: str = "bfloat16",
+    cols: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """The plain torch version of the kernel's fixed-point accumulator
+    (float statistics on the card), on any device, bit for bit: each
+    value of replica r becomes the int64 ``rint(v · 2**s_r)``
+    (:func:`fixed_scales`), the integers are summed exactly by
+    ``index_add_`` into (feature, code, node, k), cumulated over codes,
+    and each entry converted once, ``float32(float64(sum) ·
+    2**-s_r)``; 0 at NaN edges. The sums are integers, so the table is
+    the same in any row order."""
+    R, n, K = S.shape
+    C3 = codes[None] if codes.dim() == 2 else codes
+    E3 = edges[None] if edges.dim() == 2 else edges
+    F, B = E3.shape[-2:]
+    dev = S.device
+    scale, inv = fixed_scales(S)
+    out = torch.empty((R, F, B, n_nodes, K), dtype=torch.float32, device=dev)
+    for r in range(R):
+        c = C3[r if C3.shape[0] > 1 else 0]
+        if cols is not None:
+            c = c[:, cols[r].long()]
+        keep = (node[r] >= 0) & (node[r] < n_nodes)
+        s = S[r][keep].to(torch.float32)
+        if hist_dtype == "bfloat16":
+            s = bf16_round(s)
+        q = torch.round(s * scale[r]).to(torch.int64)
+        code = c[keep].to(torch.int64).clamp(max=B)  # bin B: none
+        flat = ((torch.arange(F, device=dev) * (B + 1) + code) * n_nodes
+                + node[r][keep].to(torch.int64)[:, None])
+        idx = flat[..., None] * K + torch.arange(K, device=dev)
+        table = torch.zeros(F * (B + 1) * n_nodes * K, dtype=torch.int64,
+                            device=dev)
+        table.index_add_(0, idx.reshape(-1),
+                         q[:, None, :].expand(-1, F, -1).reshape(-1))
+        table = table.view(F, B + 1, n_nodes, K)[:, :B].cumsum(dim=1)
+        nan_e = torch.isnan(E3[r if E3.shape[0] > 1 else 0])
+        out[r] = (table.to(torch.float64) * inv[r]).to(
+            torch.float32).masked_fill(nan_e[:, :, None, None], 0.0)
     return out
 
 
@@ -317,7 +405,7 @@ def _pad(f_tile: int) -> int:
 
 
 def _b_stride(n_tile: int, f_tile: int, K: int) -> int:
-    """Words between neighbouring bins of a block's histogram
+    """Words between neighbouring bins of a block's histogram plane
     ``[b][node][k][f]``: its ``n_tile·K·f_tile`` entries rounded up to a
     multiple of :func:`_pad`, so the features one warp adds for one row
     (the same node and k, any bins) fall on distinct banks."""
@@ -325,27 +413,32 @@ def _b_stride(n_tile: int, f_tile: int, K: int) -> int:
     return -(-n_tile * K * f_tile // p) * p
 
 
-def _block_smem(B: int, n_tile: int, f_tile: int, K: int) -> int:
+def _block_smem(B: int, n_tile: int, f_tile: int, K: int,
+                acc_bytes: int = INT32_BYTES) -> int:
     """Shared bytes of a block: its ``(B + 1, b_stride)`` histogram (bin
-    B takes the pairs that add nothing), its feature columns, its staged
-    items, its row list and six claim counters."""
-    return (4 * (B + 1) * _b_stride(n_tile, f_tile, K) + 4 * f_tile
-            + _ITEM_BYTES * STAGE_ITEMS + 4 * _LIST_ROWS + 24)
+    B takes the pairs that add nothing) in one 32-bit plane a 4 bytes of
+    accumulator (the fixed point's low and high words), its feature
+    columns, its staged items, its row list and six claim counters."""
+    return (acc_bytes * (B + 1) * _b_stride(n_tile, f_tile, K)
+            + 4 * f_tile + (_ITEM_INDEX_BYTES + acc_bytes) * STAGE_ITEMS
+            + 4 * _LIST_ROWS + 24)
 
 
 def hist_geometry(n: int, F: int, B: int, n_nodes: int, K: int, R: int,
-                  n_sm: int, max_split_rows: int | None = None) -> dict:
+                  n_sm: int, acc_bytes: int = INT32_BYTES,
+                  max_split_rows: int | None = None) -> dict:
     """Launch geometry of the histogram kernel for one launch (pure
-    arithmetic, so the CPU tests can check it). A block keeps a float32
-    (int32) histogram ``[b][node][k][f]`` of ``n_tile`` nodes and
-    ``f_tile`` features in shared memory, address ``b·b_stride +
-    (node·K + k)·f_tile + f``: features fastest (stride 1, odd) and the
-    bin stride ``b_stride`` a multiple of the power of two at or above
-    ``f_tile`` (32 from 32 features on), so the features a warp adds
-    for one row fall on distinct banks whatever their bins. Beside it
-    sit the block's feature columns, a staging buffer of ``cap`` =
-    ``STAGE_ITEMS`` items and a row list. The grid is (replica, feature
-    tile x node tile, row split).
+    arithmetic, so the CPU tests can check it). A block keeps an int32
+    (``acc_bytes`` 4) or int64 fixed-point (8: a plane of low and one of
+    high 32-bit words) histogram ``[b][node][k][f]`` of ``n_tile``
+    nodes and ``f_tile`` features in shared memory, word ``b·b_stride +
+    (node·K + k)·f_tile + f`` of each plane: features fastest (stride 1,
+    odd) and the bin stride ``b_stride`` a multiple of the power of two
+    at or above ``f_tile`` (32 from 32 features on), so the features a
+    warp adds for one row fall on distinct banks whatever their bins.
+    Beside it sit the block's feature columns, a staging buffer of
+    ``cap`` = ``STAGE_ITEMS`` items and a row list. The grid is
+    (replica, feature tile x node tile, row split).
 
     Nodes are tiled before features: every feature for as many nodes
     as fit 72 KB, the node tiles evened out; one node's full-width
@@ -354,15 +447,15 @@ def hist_geometry(n: int, F: int, B: int, n_nodes: int, K: int, R: int,
     K)`` histogram beyond 227 KB refuses the shape (:func:`stat_tiles`
     splits such a table over launches). Rows are split over blocks for
     occupancy, at least ``MIN_SPLIT_ROWS`` a block and at most
-    ``max_split_rows`` (the wrapper's ``FLOAT_SPLIT_ROWS`` for float
-    statistics)."""
+    ``max_split_rows`` (the wrapper's ``FIXED_SPLIT_ROWS`` in fixed
+    point, for speed: both accumulators are exact in any split)."""
 
     def smem(n_tile, f_tile):
-        return _block_smem(B, n_tile, f_tile, K)
+        return _block_smem(B, n_tile, f_tile, K, acc_bytes)
 
     if smem(1, F) <= _MAX_SMEM_BYTES:
         f_tile = F
-        room = (_SMEM_BYTES - smem(0, F)) // (4 * (B + 1))
+        room = (_SMEM_BYTES - smem(0, F)) // (acc_bytes * (B + 1))
         n_tile = max(1, min(n_nodes, room // _pad(F) * _pad(F) // (K * F)))
     elif smem(1, 1) <= _MAX_SMEM_BYTES:
         n_tile, lo, hi = 1, 1, F  # the most features that fit, by bisection
@@ -385,7 +478,7 @@ def hist_geometry(n: int, F: int, B: int, n_nodes: int, K: int, R: int,
                          "(at most 65535)")
     want = max(1, math.ceil(_BLOCKS_PER_SM * n_sm / (R * f_tiles * n_tiles)))
     rows_per_split = max(MIN_SPLIT_ROWS, math.ceil(n / want))
-    if max_split_rows is not None:  # float statistics: bound the error
+    if max_split_rows is not None:
         rows_per_split = min(rows_per_split, max_split_rows)
     splits = max(1, math.ceil(n / rows_per_split))
     if splits > 65535:  # the grid's z extent
@@ -393,10 +486,11 @@ def hist_geometry(n: int, F: int, B: int, n_nodes: int, K: int, R: int,
     return dict(f_tile=f_tile, n_tile=n_tile, f_tiles=f_tiles,
                 n_tiles=n_tiles, b_stride=_b_stride(n_tile, f_tile, K),
                 cap=STAGE_ITEMS, splits=splits, rows_per_split=rows_per_split,
-                smem=_block_smem(B, n_tile, f_tile, K), threads=_THREADS)
+                smem=smem(n_tile, f_tile), threads=_THREADS)
 
 
-def stat_tiles(B: int, K: int) -> list[tuple[int, int, int, int]]:
+def stat_tiles(B: int, K: int,
+               acc_bytes: int = INT32_BYTES) -> list[tuple[int, int, int, int]]:
     """Contiguous ``(b0, b1, k0, k1)`` tiles that cover ``[0, B) x
     [0, K)`` exactly once, each small enough for one launch (pure
     arithmetic). The table is separable along both axes: entry
@@ -407,31 +501,34 @@ def stat_tiles(B: int, K: int) -> list[tuple[int, int, int, int]]:
     of all classes does not fit; then bins are split as evenly as fits.
     One tile where the whole ``(B, K)`` slice fits."""
     n_k = 1
-    while _block_smem(1, 1, 1, math.ceil(K / n_k)) > _MAX_SMEM_BYTES:
+    while _block_smem(1, 1, 1, math.ceil(K / n_k),
+                      acc_bytes) > _MAX_SMEM_BYTES:
         n_k += 1
     kt = math.ceil(K / n_k)
-    stage = _block_smem(0, 1, 1, kt)
-    bt = min(B, (_MAX_SMEM_BYTES - stage) // (4 * kt))
+    stage = _block_smem(0, 1, 1, kt, acc_bytes)
+    bt = min(B, (_MAX_SMEM_BYTES - stage) // (acc_bytes * kt))
     n_b = math.ceil(B / bt)
     bt = math.ceil(B / n_b)
     return [(b0, min(B, b0 + bt), k0, min(K, k0 + kt))
             for k0 in range(0, K, kt) for b0 in range(0, B, bt)]
 
 
-def launch_bytes(F: int, B: int, n_nodes: int, K: int,
-                 splits: int = 1) -> float:
+def launch_bytes(F: int, B: int, n_nodes: int, K: int, splits: int = 1,
+                 integral: bool = True) -> float:
     """Device bytes one replica adds to a launch of many replicas: its
-    ``(F, B, n_nodes, K)`` output and ``splits`` copies of it for the
-    row-split partials: one where the replicas fill the card (a launch
-    of few replicas splits rows finer, but is small), and
-    :func:`float_splits` on float statistics."""
-    return (1 + splits) * 4.0 * F * B * n_nodes * K
+    ``(F, B, n_nodes, K)`` float32 output and ``splits`` row splits'
+    partials: float32 for integral statistics, one split where the
+    replicas fill the card (a launch of few replicas splits rows finer,
+    but is small); int64 in fixed point, which always has them,
+    :func:`fixed_splits` of them."""
+    per = 4.0 if integral else FIXED_BYTES
+    return (4.0 + per * splits) * F * B * n_nodes * K
 
 
-def float_splits(n: int) -> int:
-    """Row splits of a launch on ``n`` rows of float statistics at
-    least (``FLOAT_SPLIT_ROWS`` a block at most)."""
-    return max(1, math.ceil(n / FLOAT_SPLIT_ROWS))
+def fixed_splits(n: int) -> int:
+    """Row splits of a fixed-point launch on ``n`` rows at least
+    (``FIXED_SPLIT_ROWS`` a block at most)."""
+    return max(1, math.ceil(n / FIXED_SPLIT_ROWS))
 
 
 def _stream(dev):
@@ -487,25 +584,33 @@ bin_codes.launches = 0
 
 
 def _launch_one(C3, cols, E3, node, S3, out, b0, n_nodes, hist_dtype,
-                integral):
+                scales):
     """One histogram launch: ``out`` (R, F, B, n_nodes, K) for the bin
     slice starting at ``b0`` of the codes' numbering, from operands whose
-    ``(B, K)`` slice fits one block."""
+    ``(B, K)`` slice fits one block. ``scales``: None for the int32
+    accumulator, else :func:`fixed_scales` of the whole statistics (a
+    class slice keeps the whole table's scales)."""
     from spark_bagging_tpu_torch.utils import native
 
     R, n, K = S3.shape
     F, B = E3.shape[-2:]
     c_row = C3.shape[-1]
     dev = S3.device
+    integral = scales is None
     g = hist_geometry(
         n, F, B, n_nodes, K, R,
         torch.cuda.get_device_properties(dev).multi_processor_count,
-        max_split_rows=None if integral else FLOAT_SPLIT_ROWS,
+        acc_bytes=INT32_BYTES if integral else FIXED_BYTES,
+        max_split_rows=None if integral else FIXED_SPLIT_ROWS,
     )
-    partials = (
-        torch.empty((g["splits"], *out.shape), dtype=torch.float32, device=dev)
-        if g["splits"] > 1 else out
-    )
+    if not integral:
+        partials = torch.empty((g["splits"], *out.shape), dtype=torch.int64,
+                               device=dev)
+    elif g["splits"] > 1:
+        partials = torch.empty((g["splits"], *out.shape),
+                               dtype=torch.float32, device=dev)
+    else:
+        partials = out
     lib = native.library()
     with torch.cuda.device(dev):
         err = lib.sbt_binned_left_stats(
@@ -517,7 +622,8 @@ def _launch_one(C3, cols, E3, node, S3, out, b0, n_nodes, hist_dtype,
             g["f_tile"], g["n_tile"], g["f_tiles"], g["n_tiles"],
             g["b_stride"], g["cap"], g["splits"],
             g["rows_per_split"], g["smem"], int(hist_dtype == "bfloat16"),
-            int(integral), _stream(dev),
+            None if integral else scales[0].data_ptr(),
+            None if integral else scales[1].data_ptr(), _stream(dev),
         )
     native.check(lib, err, "binned_left_stats")
     binned_left_stats.launches += 1
@@ -536,17 +642,18 @@ def _launch(codes, edges, node, S, cols, n_nodes, hist_dtype, integral):
     if n * C3.shape[-1] >= 2**31:  # row offsets into the codes are int32
         raise ValueError(
             f"{n} rows of {C3.shape[-1]} codes exceed 2**31 codes a replica")
-    tiles = stat_tiles(B, K)
+    scales = None if integral else fixed_scales(S)
+    tiles = stat_tiles(B, K, INT32_BYTES if integral else FIXED_BYTES)
     if len(tiles) == 1:
         _launch_one(C3, cols, E3, node, S, out, 0, n_nodes, hist_dtype,
-                    integral)
+                    scales)
         return out
     for b0, b1, k0, k1 in tiles:
         part = torch.empty((R, F, b1 - b0, n_nodes, k1 - k0),
                            dtype=torch.float32, device=S.device)
         _launch_one(C3, cols, E3[..., b0:b1].contiguous(), node,
                     S[..., k0:k1].contiguous(), part, b0, n_nodes,
-                    hist_dtype, integral)
+                    hist_dtype, scales)
         out[:, :, b0:b1, :, k0:k1] = part
     return out
 
@@ -558,9 +665,10 @@ def coded_left_stats(
 ) -> torch.Tensor:
     """``(R, F, B, n_nodes, K)`` left statistics of one tree level from
     bin codes read through each replica's columns (see the module
-    docstring). ``integral=True`` promises integer statistics, which
-    the kernel then sums in int32; the CPU ignores it (float32 sums of
-    integers below 2**24 are exact)."""
+    docstring). On the card ``integral=True`` promises integer
+    statistics, which the kernel then sums in int32; float statistics
+    are summed in fixed point. The CPU ignores it: its float32
+    contraction is exact for integer sums below 2**24."""
     _check_coded(codes, edges, node, S, cols, n_nodes, hist_dtype)
     if S.device.type == "cpu":
         return coded_left_stats_plain(codes, edges, node, S, n_nodes=n_nodes,
@@ -578,7 +686,8 @@ def binned_left_stats(
     """``(R, F, B, n_nodes, K)`` left statistics of one tree level (see
     the module docstring); ``(F, B, n_nodes, K)`` for the 2-D layout.
     On the card: :func:`bin_codes` of X, then the histogram kernel on
-    the codes with identity columns.
+    the codes with identity columns. Statistics are summed in fixed
+    point, as float ones are by :func:`coded_left_stats`.
 
     ``binned_left_stats.launches`` counts the histogram kernel's
     launches (CUDA tensors only, through either entry point).

@@ -1,7 +1,8 @@
 """Where the device time of an ensemble's fit goes, on one NVIDIA GPU.
 
     python -m spark_bagging_tpu_torch.profile_fit
-        [--learner logistic|tree|linear|rf-reg|gbt|mlp-stream|tree-stream]
+        [--learner logistic|tree|linear|rf-reg|gbt|mlp-stream|tree-stream|
+                   svm|nb|glm|fm|isotonic|aft|logistic-adam]
         [--n-replicas R] [--n-rows N] [--out DIR]   (default: .)
 
 Fits one of chip_smoke.py's ensembles once to warm up, then once under
@@ -27,7 +28,16 @@ Fits one of chip_smoke.py's ensembles once to warm up, then once under
   20,000 rows (one epoch, 2 Adam steps a chunk), 512 replicas;
   ``--n-rows`` cuts the stream (default the config's 11,000,000);
 - ``tree-stream``: config 3's learner ``fit_stream``-ed over the covtype
-  rows in 65,536-row chunks (7 passes), 256 replicas.
+  rows in 65,536-row chunks (7 passes), 256 replicas;
+- the rest of the learner zoo, as chip_smoke.py fits them: on the
+  covtype rows ``svm`` (``LinearSVC(max_iter=8)``, 256 replicas), ``nb``
+  (``GaussianNB()``, 256), ``fm`` (``FMClassifier(factor_size=8,
+  max_iter=100)``, 64) and ``logistic-adam`` (``LogisticRegression(
+  solver="adam", max_iter=100)``, 64); on the California split ``glm``
+  (``GeneralizedLinearRegression(family="poisson")`` on ``y /
+  mean(y)``), ``isotonic`` (``IsotonicRegression(n_bins=128)``) and
+  ``aft`` (``AFTSurvivalRegression()`` with 20% of rows censored
+  through ``aux``), 100 replicas each.
 
 Prints one JSON line: the fit's wall seconds, the device-busy seconds,
 the idle share, the device time of the bootstrap draws (each
@@ -126,11 +136,12 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--learner", default="logistic",
                    choices=("logistic", "tree", "linear", "rf-reg", "gbt",
-                            "mlp-stream", "tree-stream"))
+                            "mlp-stream", "tree-stream", "svm", "nb", "glm",
+                            "fm", "isotonic", "aft", "logistic-adam"))
     p.add_argument("--out", default=".")
     p.add_argument("--n-replicas", type=int, default=None,
-                   help="default: 256, 256, 100, 128, 32, 512, 256 by "
-                        "learner")
+                   help="default: 256, 256, 100, 128, 32, 512, 256, 256, "
+                        "256, 100, 64, 100, 100, 64 by learner")
     p.add_argument("--n-rows", type=int, default=11_000_000,
                    help="mlp-stream: the stream's rows")
     args = p.parse_args(argv)
@@ -138,11 +149,17 @@ def main(argv=None) -> int:
         print("profile_fit: no CUDA device", file=sys.stderr)
         return 2
     from spark_bagging_tpu_torch import (
+        AFTSurvivalRegression,
         BaggingClassifier,
         BaggingRegressor,
         DecisionTreeClassifier,
+        FMClassifier,
+        GaussianNB,
         GBTClassifier,
+        GeneralizedLinearRegression,
+        IsotonicRegression,
         LinearRegression,
+        LinearSVC,
         LogisticRegression,
         MLPClassifier,
         RandomForestRegressor,
@@ -150,14 +167,23 @@ def main(argv=None) -> int:
     from spark_bagging_tpu_torch.utils import datasets
     from spark_bagging_tpu_torch.utils.io import ArrayChunks, SyntheticChunks
 
+    regressors = ("linear", "rf-reg", "glm", "isotonic", "aft")
     R = args.n_replicas or {"linear": 100, "rf-reg": 128, "gbt": 32,
-                            "mlp-stream": 512}.get(args.learner, 256)
+                            "mlp-stream": 512, "glm": 100, "isotonic": 100,
+                            "aft": 100, "fm": 64,
+                            "logistic-adam": 64}.get(args.learner, 256)
     n_rows = None
+    fit_kw = {}
     if args.learner == "mlp-stream":
         n_rows = args.n_rows
-    elif args.learner in ("linear", "rf-reg"):
+    elif args.learner in regressors:
         X, y = datasets.synthetic_california(20_640)
         X, y, _, _ = datasets.train_test_split(datasets.standardize(X), y)
+        if args.learner == "glm":
+            y = (y / y.mean()).astype(np.float32)
+        elif args.learner == "aft":
+            rng = np.random.default_rng(0)
+            fit_kw = {"aux": (rng.random(len(y)) > 0.2).astype(np.float32)}
     elif args.learner == "gbt":
         X, y = datasets.synthetic_higgs(1_000_000)
         X, y, _, _ = datasets.train_test_split(datasets.standardize(X), y)
@@ -180,6 +206,21 @@ def main(argv=None) -> int:
     elif args.learner == "gbt":
         clf = BaggingClassifier(GBTClassifier(n_rounds=30, max_depth=4),
                                 n_estimators=R, seed=0)
+    elif args.learner in ("svm", "nb", "fm", "logistic-adam"):
+        clf = BaggingClassifier({
+            "svm": LinearSVC(max_iter=8),
+            "nb": GaussianNB(),
+            "fm": FMClassifier(factor_size=8, max_iter=100),
+            "logistic-adam": LogisticRegression(solver="adam", max_iter=100),
+        }[args.learner], n_estimators=R, seed=0)
+    elif args.learner in ("glm", "isotonic", "aft"):
+        clf = BaggingRegressor({
+            "glm": GeneralizedLinearRegression(family="poisson"),
+            "isotonic": IsotonicRegression(n_bins=128),
+            "aft": AFTSurvivalRegression(),
+        }[args.learner], n_estimators=R, seed=0)
+        if args.learner == "aft":
+            y = np.exp(y / y.std()).astype(np.float32)  # survival times
     else:
         clf = BaggingClassifier(
             LogisticRegression(max_iter=1, init="pooled",
@@ -196,7 +237,7 @@ def main(argv=None) -> int:
         elif args.learner == "tree-stream":
             clf.fit_stream(ArrayChunks(X, y, 65_536), classes=np.unique(y))
         else:
-            clf.fit(X, y)
+            clf.fit(X, y, **fit_kw)
 
     fit()  # warm-up: kernel build, allocator, cuBLAS handles
     os.makedirs(args.out, exist_ok=True)

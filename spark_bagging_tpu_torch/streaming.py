@@ -21,9 +21,14 @@ asynchronously, so the host makes and sends chunk c+1 while the device
 steps on chunk c. The losses stay on the device too: the one wait is
 the first step's, which times it.
 
+``aux_col`` names one streamed column as the per-row aux channel of a
+``uses_aux`` learner (the survival learner's censor flags, Spark's
+censorCol as a column): each chunk splits it off on the host
+(:func:`split_aux_col`, shared by the fit and the OOB pass), so every
+chunk source carries aux with no change of format.
+
 Not ported yet: checkpoints and resume, and ``mesh`` (the estimators
-raise naming the ROADMAP item), and the ``aux_col`` channel of a
-``uses_aux`` learner.
+raise naming the ROADMAP item).
 """
 
 from __future__ import annotations
@@ -56,7 +61,17 @@ _EPS = 1e-8
 # the chunk-keyed row draws' stream tag: the JAX package's, distinct
 # from ops/bootstrap.py's so streamed and in-memory draws never collide
 _CHUNK_STREAM = 0xC4C
-_ROADMAP_AUX = "ROADMAP Queue A 10: the aux channel of a uses_aux learner"
+
+
+def split_aux_col(Xc, aux_col: int | None
+                  ) -> tuple[np.ndarray, np.ndarray | None]:
+    """``(X without the aux column, the aux column or None)`` of a host
+    chunk, both float32: the one place the column's convention lives,
+    shared by the fit and the OOB pass."""
+    Xc = np.asarray(Xc, np.float32)
+    if aux_col is None:
+        return Xc, None
+    return np.delete(Xc, aux_col % Xc.shape[1], axis=1), Xc[:, aux_col]
 
 
 def learner_fingerprint(learner: BaseLearner) -> str:
@@ -88,13 +103,15 @@ def chunk_context(row_key: torch.Tensor, chunk_id: int, n_valid: int,
     return valid, prng.fold_in(row_key, chunk_id)
 
 
-def _loss_and_grad(learner, params, X, y, w, denom):
+def _loss_and_grad(learner, params, X, y, w, denom, aux=None):
     """Each replica's weighted mean row loss plus its penalty ``(R,)``,
     and the gradient of their sum: replicas share no parameters, so it
-    is every replica's own gradient."""
+    is every replica's own gradient. ``aux``: the chunk's aux column,
+    for a ``uses_aux`` learner."""
     p = {k: v.detach().requires_grad_() for k, v in params.items()}
+    kw = {"aux": aux} if learner.uses_aux else {}
     with torch.enable_grad(), fp32_matmul():
-        loss = ((w * learner.row_loss(p, X, y)).sum(dim=-1) / denom
+        loss = ((w * learner.row_loss(p, X, y, **kw)).sum(dim=-1) / denom
                 + learner.penalty(p))
         grads = torch.autograd.grad(loss.sum(), list(p.values()))
     return loss.detach(), dict(zip(p, grads))
@@ -123,6 +140,8 @@ def fit_ensemble_stream(
     does, so the fitted ensemble predicts like an in-memory fit.
     ``aux["loss"]`` is each replica's mean loss over the last epoch's
     chunks; ``aux["first_step_seconds"]`` the first chunk's time.
+    ``aux_col``: the streamed column that is a ``uses_aux`` learner's aux
+    channel (split off every chunk); the model's features are the others.
     """
     if not learner.streamable:
         raise TypeError(
@@ -130,16 +149,31 @@ def fit_ensemble_stream(
             "(no row_loss/penalty); use an SGD-capable learner or the "
             "in-memory fit"
         )
+    if aux_col is not None and not learner.uses_aux:
+        raise ValueError(
+            f"aux_col was passed but {type(learner).__name__} does "
+            "not declare uses_aux (the column would be silently "
+            "dropped)"
+        )
+    n_features = source.n_features - (1 if aux_col is not None else 0)
     if aux_col is not None:
-        if not learner.uses_aux:
+        if not -source.n_features <= aux_col < source.n_features:
             raise ValueError(
-                f"aux_col was passed but {type(learner).__name__} does "
-                "not declare uses_aux (the column would be silently "
-                "dropped)"
+                f"aux_col={aux_col} out of range for "
+                f"{source.n_features} streamed columns"
             )
-        raise NotImplementedError(f"aux_col ({_ROADMAP_AUX})")
+        aux_col = aux_col % source.n_features
+    elif learner.uses_aux:
+        import warnings
+
+        warnings.warn(
+            f"{type(learner).__name__} consumes a per-row aux column "
+            "but the stream carries none (aux_col=None): every row is "
+            "treated as fully observed. If the censor indicator is a "
+            "column of the stream, pass aux_col=<index> - otherwise it "
+            "is being fit as an ordinary feature.", UserWarning,
+        )
     device = key.device
-    n_features = source.n_features
     chunk_rows = source.chunk_rows
     if n_subspace is None:
         n_subspace = n_features
@@ -165,8 +199,11 @@ def fit_ensemble_stream(
         with closing(source.chunks()) as chunk_iter:
             for c, (Xc, yc, n_valid) in enumerate(chunk_iter):
                 seen = c + 1
+                Xc, auxc = split_aux_col(Xc, aux_col)
                 Xd = to_device(Xc, device, torch.float32)
                 yd = to_device(np.asarray(yc), device, y_dtype)
+                auxd = (None if auxc is None
+                        else to_device(auxc, device, torch.float32))
                 valid, chunk_key = chunk_context(row_key, c, n_valid,
                                                  chunk_rows)
                 # fixed for the visit: the objective doesn't change
@@ -180,7 +217,7 @@ def fit_ensemble_stream(
                     Xd, subspaces)
                 for _ in range(steps_per_chunk):
                     loss, grads = _loss_and_grad(learner, params, Xs, yd,
-                                                 w, denom)
+                                                 w, denom, auxd)
                     opt.step(params, grads)
                 if first_step_seconds is None:
                     synchronize(device)
@@ -224,9 +261,10 @@ def oob_scores_stream(
     n_classes: int | None = None,
     chunk_size: int | None = None,
     identity_subspace: bool = False,
+    aux_col: int | None = None,
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """OOB aggregation of a streamed fit: one more pass over the
-    source. Both stream engines draw chunk c's weights from
+    source, the fit's ``aux_col`` (if any) dropped from every chunk. Both stream engines draw chunk c's weights from
     ``fold_in(fold_in(key, 0xC4C), c)``, so regenerating them replays
     each replica's membership, and its ``w == 0`` rows of the chunk are
     its out-of-bag rows.
@@ -242,6 +280,7 @@ def oob_scores_stream(
     aggs, votes_all, ys = [], [], []
     with closing(source.chunks()) as chunk_iter:
         for c, (Xc, yc, n_valid) in enumerate(chunk_iter):
+            Xc, _ = split_aux_col(Xc, aux_col)
             Xd = to_device(Xc, device, torch.float32)
             valid, chunk_key = chunk_context(row_key, c, n_valid,
                                              chunk_rows)

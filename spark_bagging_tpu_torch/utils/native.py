@@ -155,7 +155,7 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, i32, i32, i32,                # f_tile n_tile f_tiles n_tiles
         i32, i32,                          # b_stride cap
         i32, i32, i32,                     # splits rows_per_split smem
-        i32, i32, vp,                      # bf16, integral, stream
+        i32, vp, vp, vp,                   # bf16, scale, inv_scale, stream
     ]
     lib.sbt_binned_left_stats.restype = i32
     lib.sbt_cuda_error_string.argtypes = [i32]

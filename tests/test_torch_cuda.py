@@ -132,8 +132,10 @@ def _hist_inputs(rng, n, F, B, N, K, R, *, shared, stats="onehot"):
 ])
 def test_hist_kernel_bitwise_equal_to_plain(cuda, shape, hist_dtype, shared):
     from spark_bagging_tpu_torch.ops.hist import (
+        FIXED_BYTES,
         binned_left_stats,
         binned_left_stats_plain,
+        stat_tiles,
     )
 
     n, F, B, N, K, R = shape
@@ -143,7 +145,10 @@ def test_hist_kernel_bitwise_equal_to_plain(cuda, shape, hist_dtype, shared):
     out = binned_left_stats(*args, n_nodes=N, hist_dtype=hist_dtype)
     again = binned_left_stats(*args, n_nodes=N, hist_dtype=hist_dtype)
     torch.cuda.synchronize()
-    assert binned_left_stats.launches == before + 2
+    # this entry point sums in fixed point, whose table is twice as wide:
+    # a (B, K) slice may take more than one launch
+    assert binned_left_stats.launches == before + 2 * len(
+        stat_tiles(B, K, FIXED_BYTES))
     assert out.shape == (R, F, B, N, K)
     # integer statistics: exact in any order, so equal bit for bit and
     # repeatable despite the shared-memory atomics
@@ -157,6 +162,7 @@ def test_hist_kernel_tiles_tables_beyond_one_block(cuda, B, K):
     # (B, K) slices beyond one block's shared memory: the wrapper splits
     # bins (and, where needed, classes) over launches of the same kernel
     from spark_bagging_tpu_torch.ops.hist import (
+        FIXED_BYTES,
         binned_left_stats,
         binned_left_stats_plain,
         stat_tiles,
@@ -168,7 +174,9 @@ def test_hist_kernel_tiles_tables_beyond_one_block(cuda, B, K):
     before = binned_left_stats.launches
     out = binned_left_stats(*args, n_nodes=N, hist_dtype="bfloat16")
     torch.cuda.synchronize()
-    assert binned_left_stats.launches - before == len(stat_tiles(B, K)) > 1
+    # the fixed-point accumulator's tiles (this entry point's statistics)
+    assert binned_left_stats.launches - before == len(
+        stat_tiles(B, K, FIXED_BYTES)) > 1
     assert torch.equal(out, binned_left_stats_plain(
         *args, n_nodes=N, hist_dtype="bfloat16"))
 
@@ -535,11 +543,11 @@ def test_gbt_levels_float_histogram_within_tolerance(cuda, task, hist_dtype,
 
 def test_float_accumulator_stays_accurate_over_many_rows(cuda):
     # round 0 of BASELINE config 7's GBTs (32 replicas, 800,000 x 28): the
-    # Newton weights repeat (Poisson counts x one value a replica), and a
-    # float32 running sum of like terms strays with the rows a block
-    # adds into one bin. Rows split at most every FLOAT_SPLIT_ROWS keep
-    # every entry within the float tolerance of a float64 sum of the
-    # same terms (88,889 rows a block strayed by 1.9e-5)
+    # Newton weights repeat (Poisson counts x one value a replica), where
+    # a float32 running sum of like terms strayed with the rows a block
+    # added into one bin (88,889 rows a block: 1.9e-5). The fixed-point
+    # accumulator sums integers exactly: every entry stays within the
+    # float tolerance of a float64 sum of the same terms
     from spark_bagging_tpu_torch import GBTClassifier
     from spark_bagging_tpu_torch.ops import hist as hist_ops
     from spark_bagging_tpu_torch.ops import prng
@@ -779,3 +787,156 @@ def test_streamed_mlp_fit_on_card_matches_cpu(cuda):
     np.testing.assert_allclose(fits["cuda"].predict_proba(X),
                                fits["cpu"].predict_proba(X), atol=1e-5,
                                rtol=0)
+
+
+@pytest.mark.parametrize("hist_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [
+    (20000, 54, 43, 32, 16, 3, 4),  # the headline level's width
+    (40000, 13, 9, 16, 1, 3, 3),    # one node, split rows
+    (3000, 7, 5, 32, 300, 3, 2),    # node tiles
+    (2000, 4, 3, 300, 2, 2, 2),     # int16 codes
+    (1000, 3, 3, 32, 2, 1000, 2),   # classes tiled over launches
+])
+def test_float_accumulator_bitwise_repeatable_and_equal_to_fixed_plain(
+        cuda, shape, hist_dtype):
+    # float statistics sum in fixed point: integers, exact in any order,
+    # so the table repeats bit for bit and equals its plain version
+    from spark_bagging_tpu_torch.ops.hist import (
+        coded_left_stats,
+        coded_left_stats_fixed,
+    )
+
+    n, F_all, F, B, N, K, R = shape
+    codes, cols, edges, node, S, _ = _coded_inputs(
+        np.random.default_rng(n + K), n, F_all, F, B, N, K, R, shared=True,
+        stats="float")
+    args = [t.to(cuda) for t in (codes, edges, node, S)]
+    kw = dict(n_nodes=N, hist_dtype=hist_dtype, cols=cols.to(cuda))
+    outs = [coded_left_stats(*args, **kw) for _ in range(3)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert torch.equal(outs[0], coded_left_stats_fixed(*args, **kw))
+    # the same plain version on the CPU: the same bits
+    cpu = coded_left_stats_fixed(codes, edges, node, S, n_nodes=N,
+                                 hist_dtype=hist_dtype, cols=cols)
+    assert torch.equal(outs[0].cpu(), cpu)
+
+
+def test_fixed_scales_equal_on_card_and_cpu(cuda):
+    from spark_bagging_tpu_torch.ops.hist import fixed_scales
+
+    S = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (5, 777, 3)).astype(np.float32)) * torch.tensor(
+        [1e-30, 1e-3, 1.0, 7.0, 1e30])[:, None, None]
+    for a, b in zip(fixed_scales(S.to(cuda)), fixed_scales(S)):
+        assert torch.equal(a.cpu(), b)
+
+
+def _zoo_cases():
+    from spark_bagging_tpu_torch import (
+        AFTSurvivalRegression,
+        BernoulliNB,
+        FMClassifier,
+        FMRegressor,
+        GaussianNB,
+        GeneralizedLinearRegression,
+        IsotonicRegression,
+        LinearSVC,
+        LogisticRegression,
+        MultinomialNB,
+    )
+
+    # (learner, task, the CPU parity tolerances: parameters, predictions)
+    return {
+        "svc": (lambda: LinearSVC(), "clf", 5e-3, 1e-4),
+        "gaussian_nb": (GaussianNB, "clf", 1e-5, 1e-5),
+        "bernoulli_nb": (BernoulliNB, "clf", 1e-5, 1e-5),
+        "multinomial_nb": (MultinomialNB, "clf", 1e-5, 1e-5),
+        "fm_classifier": (lambda: FMClassifier(factor_size=4, max_iter=50),
+                          "clf", 1e-5, 1e-5),
+        "logistic_adam": (lambda: LogisticRegression(solver="adam",
+                                                     max_iter=60, lr=0.05),
+                          "clf", 1e-5, 1e-5),
+        "glm_gamma": (lambda: GeneralizedLinearRegression(family="gamma"),
+                      "pos", 5e-4, 5e-4),
+        "glm_binomial": (lambda: GeneralizedLinearRegression(
+            family="binomial"), "bin", 5e-4, 5e-4),
+        "fm_regressor": (lambda: FMRegressor(factor_size=4, max_iter=50),
+                         "reg", 1e-5, 1e-5),
+        "isotonic": (lambda: IsotonicRegression(n_bins=32), "reg", 1e-5, 1e-5),
+        "aft": (lambda: AFTSurvivalRegression(max_iter=100), "aft", 2e-4,
+                2e-4),
+    }
+
+
+def _rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+
+
+@pytest.mark.parametrize("name", ["svc", "gaussian_nb", "bernoulli_nb",
+                                  "multinomial_nb", "fm_classifier",
+                                  "logistic_adam", "glm_gamma",
+                                  "glm_binomial", "fm_regressor", "isotonic",
+                                  "aft"])
+def test_zoo_fit_on_card_matches_cpu(cuda, name):
+    # the learner zoo on the card against the CPU port, within the CPU
+    # parity tests' tolerances (tests/test_torch_zoo_clf.py, _reg.py)
+    from spark_bagging_tpu_torch import BaggingClassifier, BaggingRegressor
+    from spark_bagging_tpu_torch.utils.datasets import (
+        make_classification,
+        make_regression,
+    )
+
+    learner, task, p_tol, y_tol = _zoo_cases()[name]
+    fit_kw = {}
+    if task == "clf":
+        X, y = make_classification(2000, 8, 3, seed=4)
+        if name == "multinomial_nb":
+            X = np.abs(X)
+        Est = BaggingClassifier
+    else:
+        X, y = make_regression(2000, 6, seed=4)
+        Est = BaggingRegressor
+        if task == "pos":
+            y = ((y - y.min() + 0.5) / (y - y.min() + 0.5).mean()).astype(
+                np.float32)
+        elif task == "bin":
+            y = (y > np.median(y)).astype(np.float32)
+        elif task == "aft":
+            # noisy times: noise-free ones drive sigma to 0
+            noise = np.random.default_rng(4).standard_normal(2000)
+            y = np.exp(0.3 * X[:, 0] + 0.1 * noise).astype(np.float32)
+            fit_kw = {"aux": (np.arange(2000) % 5 != 0).astype(np.float32)}
+    fits = {dev: Est(learner(), n_estimators=6, max_features=0.75, seed=0,
+                     device=dev).fit(X, y, **fit_kw)
+            for dev in ("cpu", "cuda")}
+    cpu, card = fits["cpu"], fits["cuda"]
+    assert torch.equal(card.subspaces_.cpu(), cpu.subspaces_)
+    for k, v in card.ensemble_.items():
+        assert _rel(v.cpu().numpy(), cpu.ensemble_[k].numpy()) <= p_tol, k
+    if task == "clf":
+        assert _rel(card.predict_proba(X), cpu.predict_proba(X)) <= y_tol
+    else:
+        assert _rel(card.predict(X), cpu.predict(X)) <= y_tol
+    if task == "aft":
+        assert _rel(card.predict_quantiles(X), cpu.predict_quantiles(X)) \
+            <= y_tol
+
+
+def test_aft_stream_with_aux_col_on_card_matches_cpu(cuda):
+    from spark_bagging_tpu_torch import AFTSurvivalRegression, BaggingRegressor
+    from spark_bagging_tpu_torch.utils.datasets import make_regression
+    from spark_bagging_tpu_torch.utils.io import ArrayChunks
+
+    X, _ = make_regression(3000, 6, seed=5)
+    noise = np.random.default_rng(5).standard_normal(3000)
+    t = np.exp(0.3 * X[:, 0] + 0.1 * noise).astype(np.float32)
+    cens = (np.arange(3000) % 5 != 0).astype(np.float32)
+    Xa = np.concatenate([X, cens[:, None]], axis=1)
+    fits = {dev: BaggingRegressor(AFTSurvivalRegression(), n_estimators=4,
+                                  seed=0, device=dev).fit_stream(
+        ArrayChunks(Xa, t, 512), n_epochs=3, steps_per_chunk=2, lr=0.05,
+        aux_col=-1, prefetch=0) for dev in ("cpu", "cuda")}
+    for k, v in fits["cuda"].ensemble_.items():
+        assert _rel(v.cpu().numpy(), fits["cpu"].ensemble_[k].numpy()) <= 2e-4
+    assert _rel(fits["cuda"].predict(X), fits["cpu"].predict(X)) <= 2e-4

@@ -311,8 +311,8 @@ def test_tiled_launch_assembles_each_slice(monkeypatch):
     launched = []
 
     def launch_one(C3, cols, E3, node2, S3, out, b0, n_nodes, hist_dtype,
-                   integral):
-        launched.append((b0, E3.shape[-1], S3.shape[-1], integral))
+                   scales):
+        launched.append((b0, E3.shape[-1], S3.shape[-1], scales is None))
         out.copy_(hist.coded_left_stats_plain(
             _slice_codes(C3, b0), E3, node2, S3, n_nodes=n_nodes,
             hist_dtype=hist_dtype, cols=cols))
@@ -357,31 +357,157 @@ def test_coded_slices_assemble_the_whole(tiles):
 
 def test_launch_bytes():
     assert hist.launch_bytes(43, 32, 16, 7) == 2 * 4.0 * 43 * 32 * 16 * 7
-    # float statistics: the partials of every row split
-    assert hist.float_splits(800_000) == 49 and hist.float_splits(10) == 1
-    assert hist.launch_bytes(28, 32, 8, 3, 49) == 50 * 4.0 * 28 * 32 * 8 * 3
+    # float statistics: the float32 table and every row split's int64
+    # partials (a fixed-point block sums FIXED_SPLIT_ROWS at most)
+    assert hist.fixed_splits(800_000) == 25 and hist.fixed_splits(10) == 1
+    assert hist.launch_bytes(28, 32, 8, 3, 25, integral=False) == \
+        (4.0 + 8.0 * 25) * 28 * 32 * 8 * 3
 
 
 @pytest.mark.parametrize("R", [1, 32, 128])
-def test_float_statistics_cap_the_rows_a_block_sums(R):
-    # config 7's shape: a float32 running sum strays with the rows a
-    # block adds into one bin, so float statistics split rows at least
-    # every FLOAT_SPLIT_ROWS; integral ones split for occupancy only
+def test_fixed_point_geometry_bounds_the_rows_a_block_sums(R):
+    # config 7's shape: the int64 fixed point is exact in any split; its
+    # entries are twice as wide, so a block holds fewer nodes, and rows
+    # split at least every FIXED_SPLIT_ROWS keep more blocks in flight
     n, F, B, K = 800_000, 28, 32, 3
     for N in (1, 8):
-        free = hist.hist_geometry(n, F, B, N, K, R, n_sm=132)
-        capped = hist.hist_geometry(n, F, B, N, K, R, n_sm=132,
-                                    max_split_rows=hist.FLOAT_SPLIT_ROWS)
-        assert capped["rows_per_split"] <= hist.FLOAT_SPLIT_ROWS
-        assert capped["rows_per_split"] == min(free["rows_per_split"],
-                                               hist.FLOAT_SPLIT_ROWS)
-        assert capped["splits"] * capped["rows_per_split"] >= n
-        assert capped["splits"] >= hist.float_splits(n)
-        assert free["rows_per_split"] >= hist.MIN_SPLIT_ROWS
-        assert {k: v for k, v in capped.items()
-                if k not in ("splits", "rows_per_split")} == \
-            {k: v for k, v in free.items()
-             if k not in ("splits", "rows_per_split")}
+        i32 = hist.hist_geometry(n, F, B, N, K, R, n_sm=132)
+        fixed = hist.hist_geometry(n, F, B, N, K, R, n_sm=132,
+                                   acc_bytes=hist.FIXED_BYTES,
+                                   max_split_rows=hist.FIXED_SPLIT_ROWS)
+        assert fixed["n_tile"] <= i32["n_tile"]
+        assert fixed["splits"] * fixed["rows_per_split"] >= n
+        assert fixed["rows_per_split"] <= hist.FIXED_SPLIT_ROWS
+        assert fixed["splits"] >= hist.fixed_splits(n)
+        assert fixed["smem"] == (8 * (B + 1) * fixed["b_stride"] + 4 * F
+                                 + 16 * fixed["cap"]
+                                 + 4 * hist._LIST_ROWS + 24)
+        assert fixed["smem"] <= hist._MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("shape", GEOMETRIES)
+def test_fixed_point_layout_is_bank_conflict_free(shape):
+    # the fixed point keeps its low and high words in two 32-bit planes
+    # of the int32 layout: in each, the features one warp adds for one
+    # row fall on distinct banks, and the planes fill the block's bytes
+    n, F, B, N, K, R = shape
+    try:
+        g = hist.hist_geometry(n, F, B, N, K, R, n_sm=132,
+                               acc_bytes=hist.FIXED_BYTES)
+    except ValueError:  # a table the fixed point tiles over launches
+        assert len(hist.stat_tiles(B, K, hist.FIXED_BYTES)) > 1
+        return
+    ft, bs = g["f_tile"], g["b_stride"]
+    assert bs % min(32, 1 << (ft - 1).bit_length()) == 0
+    assert bs >= g["n_tile"] * K * ft
+    assert 8 * (B + 1) * bs <= g["smem"] <= hist._MAX_SMEM_BYTES
+    plane = (B + 1) * bs
+    rng = np.random.default_rng(sum(shape))
+    for _ in range(50):
+        nd, k = rng.integers(0, g["n_tile"]), rng.integers(0, K)
+        f0 = rng.integers(0, max(1, ft - 31))
+        fs = np.arange(f0, min(ft, f0 + 32))
+        bins = rng.integers(0, B + 1, fs.size)
+        lo = bins * bs + (nd * K + k) * ft + fs
+        for words in (lo, lo + plane):
+            assert len(set(words % 32)) == fs.size
+
+
+@pytest.mark.parametrize("B,K", [(32, 7), (6000, 7), (32, 1000), (256, 3)])
+def test_fixed_point_stat_tiles_fit_a_launch(B, K):
+    tiles = hist.stat_tiles(B, K, hist.FIXED_BYTES)
+    seen = np.zeros((B, K), np.int64)
+    for b0, b1, k0, k1 in tiles:
+        seen[b0:b1, k0:k1] += 1
+        hist.hist_geometry(581_012, 43, b1 - b0, 16, k1 - k0, 114, n_sm=132,
+                           acc_bytes=hist.FIXED_BYTES)
+    assert (seen == 1).all()
+    assert len(tiles) >= len(hist.stat_tiles(B, K))
+
+
+@pytest.mark.parametrize("n,amax", [(1, 1.0), (300, 3.5), (800_000, 0.02),
+                                    (581_012, 7.0), (10, 0.0),
+                                    (1000, 2.0**-120), (1000, 3e37)])
+def test_fixed_scales_bound_every_sum_below_2_52(n, amax):
+    S = torch.zeros((2, n, 3), dtype=torch.float32)
+    S[0, 0, 1] = -amax
+    S[1, -1, 2] = amax / 3
+    scale, inv = hist.fixed_scales(S)
+    assert scale.dtype == torch.float32 and inv.dtype == torch.float64
+    for r in range(2):
+        m, e = np.frexp(np.float32(np.abs(S[r]).max()))
+        s = int(np.clip(52 - n.bit_length() - e, -100, 100))
+        assert float(scale[r]) == 2.0**s and float(inv[r]) == 2.0**-s
+        if -100 < s < 100:  # the bound holds wherever the clamp is idle
+            assert n * float(np.abs(S[r]).max()) * 2.0**s <= 2.0**52
+
+
+def _float_stats(seed, n, K=3):
+    rng = np.random.default_rng(seed)
+    w = rng.poisson(1.0, (2, n)).astype(np.float32)
+    yv = (rng.standard_normal(n) * 3.0).astype(np.float32)
+    S = np.stack([w, w * yv, w * yv * yv], axis=-1)[..., :K]
+    return torch.from_numpy(np.ascontiguousarray(S, np.float32))
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_fixed_point_table_is_the_same_in_any_row_order(mode):
+    # the sums are integers: the rows in reverse and shuffled give the
+    # same table bit for bit, as the kernel's atomics in any order do
+    n, F, B, N = 700, 4, 16, 3
+    X, edges, node, _ = _inputs(31, n, F, B, N, 3, 2, shared_x=True,
+                                shared_edges=True, stats="float")
+    S = _float_stats(31, n)
+    X, edges, node = (torch.from_numpy(a) for a in (X, edges, node))
+    codes = hist.bin_codes(X, edges)
+    kw = dict(n_nodes=N, hist_dtype=mode)
+    want = hist.coded_left_stats_fixed(codes, edges, node, S, **kw)
+    for perm in (torch.arange(n - 1, -1, -1),
+                 torch.from_numpy(np.random.default_rng(3).permutation(n))):
+        got = hist.coded_left_stats_fixed(
+            codes[perm].contiguous(), edges, node[:, perm].contiguous(),
+            S[:, perm].contiguous(), **kw)
+        assert torch.equal(got, want)
+
+
+def test_fixed_point_table_within_one_rounding_of_float64():
+    # each entry is the float32 rounding of an exact integer sum: within
+    # 2**-24 of the entry plus the quantization (n 2**-(s+1) at most)
+    # of the float64 sum of the same terms
+    n, F, B, N = 2000, 5, 16, 4
+    X, edges, node, _ = _inputs(32, n, F, B, N, 3, 2, shared_x=True,
+                                shared_edges=True, stats="float")
+    S = _float_stats(32, n)
+    X, edges, node = (torch.from_numpy(a) for a in (X, edges, node))
+    codes = hist.bin_codes(X, edges)
+    got = hist.coded_left_stats_fixed(codes, edges, node, S, n_nodes=N,
+                                hist_dtype="float32").double()
+    T = (codes.long()[:, :, None] <= torch.arange(B)).double()
+    _, inv = hist.fixed_scales(S)
+    for r in range(2):
+        onehot = torch.nn.functional.one_hot(node[r].long(), N).double()
+        st = (onehot[:, :, None] * S[r].double()[:, None, :]).reshape(n, -1)
+        want = (T.reshape(n, -1).t() @ st).reshape(F, B, N, 3)
+        bound = want.abs() * 2.0**-24 + n * float(inv[r]) / 2
+        assert ((got[r] - want).abs() <= bound).all()
+
+
+def test_fixed_point_replica_tables_do_not_depend_on_the_chunk():
+    # a replica's scale comes from its own statistics: fitted alone or
+    # in a chunk with a replica of larger values, its table is the same
+    n, F, B, N = 300, 3, 8, 2
+    X, edges, node, _ = _inputs(33, n, F, B, N, 3, 2, shared_x=True,
+                                shared_edges=True, stats="float")
+    S = _float_stats(33, n)
+    S[1] *= 1000.0
+    X, edges, node = (torch.from_numpy(a) for a in (X, edges, node))
+    codes = hist.bin_codes(X, edges)
+    kw = dict(n_nodes=N, hist_dtype="float32")
+    both = hist.coded_left_stats_fixed(codes, edges, node, S, **kw)
+    for r in range(2):
+        alone = hist.coded_left_stats_fixed(codes, edges, node[r:r + 1],
+                                      S[r:r + 1].contiguous(), **kw)
+        assert torch.equal(alone[0], both[r])
 
 
 def _valid():

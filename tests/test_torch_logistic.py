@@ -127,8 +127,14 @@ def test_auto_resolves_as_jax_and_unported_impls_raise():
         params, aux = lr.fit(lr.init_params(keys, 6, 4), Xt, yt, wt, keys)
         assert torch.isfinite(params["W"]).all()
         assert aux["loss_curve"].shape == (N_REPLICAS, 2)
-    lr = LogisticRegression(solver="adam")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the Adam solver is ported (its parity with JAX:
+    # tests/test_torch_zoo_clf.py); an unknown solver raises
+    lr = LogisticRegression(solver="adam", max_iter=3)
+    params, aux = lr.fit(lr.init_params(keys, 6, 4), Xt, yt, wt, keys)
+    assert torch.isfinite(params["W"]).all()
+    assert aux["loss_curve"].shape == (N_REPLICAS, 3)
+    lr = LogisticRegression(solver="lbfgs")
+    with pytest.raises(ValueError, match="solver"):
         lr.fit(lr.init_params(keys, 6, 4), Xt, yt, wt, keys)
     with pytest.raises(ValueError):
         LogisticRegression(hessian_impl="dense")

@@ -19,8 +19,10 @@ Tolerances, found on this CPU (jax 0.9.0, torch 2.13):
   growing with the step count, so the bound leaves a factor of ~20.
 - config 4's learner at the shapes chip_smoke's ``mlp_device_check``
   holds the card to (16 replicas, 50 steps of 1,024 rows of 20,000):
-  ``predict_proba`` within MLP_TOL (found 1.8e-7), parameters within
-  LONG_PARAM_TOL (2e-4; found up to 6.7e-5 over seeds 0-3). That is
+  ``predict_proba`` within MLP_TOL (found 1.3e-6), parameters within
+  LONG_PARAM_TOL (2e-4; found up to 6.9e-5 over seeds 0-3, the same
+  with one thread and with eight: the port's CPU first layer sums its
+  features in one fixed order, models/mlp.py). That is
   past 1e-4 because Adam divides each element's first moment by the
   root of its second: an element whose gradient stays near zero turns
   a last-bit difference into a step difference of up to ``lr`` (0.01),
@@ -153,6 +155,73 @@ def test_config4_learner_fit_at_the_card_checks_shapes_matches_jax():
     Xte, _ = synthetic_higgs(10_000, seed=999_001, structure_seed=11)
     np.testing.assert_allclose(tf.predict_proba(Xte), jf.predict_proba(Xte),
                                atol=MLP_TOL, rtol=0)
+
+
+_JAX_CONFIG4_FITS: dict = {}
+
+
+def _config4_fits(seed, threads):
+    """JAX's and the port's config-4 learner fits (the shapes of the
+    test above) with ``seed``, the port's on ``threads`` CPU threads
+    (None: the default); JAX's fit is made once a seed."""
+    X, y = synthetic_higgs(20_000, seed=5, structure_seed=11)
+    kw = dict(hidden=32, lr=0.01, max_iter=50, batch_size=1024)
+    if seed not in _JAX_CONFIG4_FITS:
+        _JAX_CONFIG4_FITS[seed] = J.BaggingClassifier(
+            jmlp.MLPClassifier(**kw), n_estimators=16, seed=seed).fit(X, y)
+    before = torch.get_num_threads()
+    try:
+        if threads is not None:
+            torch.set_num_threads(threads)
+        tf = T.BaggingClassifier(T.MLPClassifier(**kw), n_estimators=16,
+                                 seed=seed, device="cpu").fit(X, y)
+    finally:
+        torch.set_num_threads(before)
+    return _JAX_CONFIG4_FITS[seed], tf
+
+
+@pytest.mark.parametrize("seed,threads", [(1, None), (2, None), (3, None),
+                                          (0, 1), (1, 1), (2, 1), (3, 1)])
+def test_config4_learner_parity_holds_for_each_seed_and_thread_count(
+        seed, threads):
+    # the test above at seeds 0-3, with torch's default CPU threads and
+    # with one: the port's CPU fit is the same either way (a ReLU unit's
+    # activity is decided by a fixed-order sum, models/mlp.py)
+    jf, tf = _config4_fits(seed, threads)
+    for k, v in tf.ensemble_.items():
+        np.testing.assert_allclose(v.numpy(), np.asarray(jf.ensemble_[k]),
+                                   atol=LONG_PARAM_TOL, rtol=0, err_msg=k)
+    Xte, _ = synthetic_higgs(10_000, seed=999_001, structure_seed=11)
+    np.testing.assert_allclose(tf.predict_proba(Xte), jf.predict_proba(Xte),
+                               atol=MLP_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("F", [28, 27])
+def test_cpu_first_layer_is_the_same_on_any_thread_count(F):
+    X = np.random.default_rng(F).standard_normal((4, 1024, F)).astype(
+        np.float32)
+    W1 = tmlp.MLPClassifier(hidden=32).init_params(
+        prng.split(prng.key(0), 4), F, 2)["W1"]
+    Xt = torch.from_numpy(X)
+    before = torch.get_num_threads()
+    try:
+        outs = []
+        for threads in (1, max(2, before)):
+            torch.set_num_threads(threads)
+            outs.append(tmlp._FixedOrderFirstLayer.apply(Xt, W1))
+    finally:
+        torch.set_num_threads(before)
+    assert torch.equal(outs[0], outs[1])
+    # two float32 multiply-add chains, even and odd features, then added
+    x, w = X.astype(np.float64), W1.numpy().astype(np.float64)
+    lanes = [np.zeros((4, 1024, 32), np.float32) for _ in range(2)]
+    for k in range(F):
+        lanes[k % 2] = (x[..., k, None] * w[:, None, k]
+                        + lanes[k % 2]).astype(np.float32)
+    np.testing.assert_array_equal(outs[0].numpy(), lanes[0] + lanes[1])
+    if F == 28:  # config 4's width: XLA's CPU dot sums the same way
+        want = jax.vmap(jnp.matmul)(jnp.asarray(X), jnp.asarray(W1.numpy()))
+        np.testing.assert_array_equal(outs[0].numpy(), np.asarray(want))
 
 
 def test_init_params_within_ulps_of_jax():

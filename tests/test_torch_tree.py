@@ -305,14 +305,14 @@ def test_memory_model_prices_the_tree_fit():
                             n_features=F)
     assert chunk == int((budget - n * F) // (per + 48.0 * n))
     # integer counts split rows for occupancy only; a regression tree's
-    # float moments at least every FLOAT_SPLIT_ROWS, each split a
+    # float moments at least every FIXED_SPLIT_ROWS, each split an int64
     # partial table a replica
     from spark_bagging_tpu_torch.ops import hist
 
     reg = T.DecisionTreeRegressor(max_depth=5, n_bins=32)
     moments = 4.0 * k * 32 * 16 * 3
     assert reg.fit_workset_bytes(n, k, 1) - reg.fit_workset_bytes(
-        hist.FLOAT_SPLIT_ROWS, k, 1) >= (hist.float_splits(n) - 1) * moments
+        hist.FIXED_SPLIT_ROWS, k, 1) >= (hist.fixed_splits(n) - 1) * 2 * moments
     assert t.integral_stats and not reg.integral_stats
     assert not T.GBTClassifier().integral_stats
 
