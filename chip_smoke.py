@@ -22,6 +22,31 @@ on the full 581,012 x 54 synthetic covtype:
   fit launched it with, in both operand modes and both accumulators;
   kernel and dense split search cross-checked to give identical trees.
 
+The serving plane (``spark_bagging_tpu_torch.serving``) runs right after
+each of those two fits' ``serve`` phases, on the fitted bag itself:
+
+- ``serving_ladder_bench`` / ``serving_ladder_default``: the logistic bag
+  registered with warm-up on benchmarks/serving_latency.py's ladder
+  (1..256, 9 buckets) and on the executor's default (8..4096, 10), each
+  as a fresh process would (empty program cache): one CUDA-graph
+  capture a bucket and none on requests, the graph pool's bytes, every
+  bucket's replay bit for bit the same closure run eagerly, and 40
+  requests of 1-300 rows (slabs beyond 256) within SERVE_TOL of
+  ``predict_proba``;
+- ``serving_latency``: 3,200 closed-loop single-row requests a run at
+  concurrency 1, 4 and 16 through ``MicroBatcher(max_delay_ms=0.5,
+  max_batch_rows=256)`` against naive per-request ``predict_proba``,
+  rows/s and p50/p99 ms as serving_latency.py measures them (one
+  discarded run, the median of SERVE_REPEATS);
+- ``serving_swap``: a second 256-replica fit swapped in under four
+  clients' traffic: no failed or mixed request, the new version served
+  after the swap, every capture the swap's own pre-capture;
+- ``serving_checkpoint``: ``registry.save`` then ``registry.load`` under
+  a new name (its own captures): the same served bits;
+- ``serving_trees_*``: config 3's hard-vote trees on both ladders, served
+  votes bit for bit ``predict_proba``'s, and their served rows/s at
+  concurrency 16.
+
 The scaled-Gram kernel is also held against its plain version at
 d = 250 (``wide_gram``), and its fp32 mode against a float64 reference
 at a shallow and at the capped accumulation depth (``depth``).
@@ -295,6 +320,18 @@ TREE_STREAM_CHUNK = 65_536
 TREE_STREAM_ACC_TOL = 0.03
 # the forest regressor streamed over the California training split
 RF_STREAM_CHUNK = 4_096
+# the serving plane: the ladder benchmarks/serving_latency.py:416 serves
+# on (1..256, 9 buckets) and the executor's default (8..4096, 10)
+SERVE_LADDERS = {"bench": dict(min_bucket_rows=1, max_batch_rows=256),
+                 "default": dict()}
+# served soft votes against the unpadded predict_proba: a padded bucket
+# is another GEMM shape, which cuBLAS may run with another kernel
+SERVE_TOL = 1e-5
+SERVE_LEVELS = (1, 4, 16)
+SERVE_REQUESTS = 3_200
+SERVE_REPEATS = 3
+SERVE_BATCHER = dict(max_delay_ms=0.5, max_batch_rows=256, max_queue=4096)
+SERVE_SWAP_WINDOW_S = 0.5
 
 
 def emit(phase: str, **fields) -> None:
@@ -2460,6 +2497,342 @@ def phase_zoo_streams(X: np.ndarray, y: np.ndarray, split) -> None:
             fail(phase, f"quality {fields} (ok {good}), device check {check}")
 
 
+# -- the serving plane -------------------------------------------------
+
+def serving_compiles() -> float:
+    """Bucket builds so far (on the card each is one graph capture)."""
+    from spark_bagging_tpu_torch import telemetry
+
+    return telemetry.registry().counter("sbt_serving_compiles_total").value
+
+
+def serving_ladders(model, X: np.ndarray, name: str, exact: bool) -> dict:
+    """Register ``model`` on each ladder of SERVE_LADDERS as a fresh
+    process would (an empty program cache), with warm-up; hold every
+    bucket's graph replay bit for bit against the same closure run
+    eagerly at that bucket, and the served output of requests of 1-300
+    rows against ``predict_proba`` (bitwise for hard votes, else within
+    SERVE_TOL). Returns the registry and the per-ladder facts."""
+    from spark_bagging_tpu_torch.serving import ModelRegistry, program_cache
+
+    rng = np.random.default_rng(0)
+    reg = ModelRegistry()
+    fn, params, subs = model.aggregated_forward()
+    sizes = [1, 2, 3, 7, 31, 64, 100, 255, 256, 257, 300,
+             *rng.integers(1, 301, 29).tolist()]
+    out = {"registry": reg}
+    for ladder, opts in SERVE_LADDERS.items():
+        program_cache.clear()
+        c0 = serving_compiles()
+        t0 = time.perf_counter()
+        ex = reg.register(f"{name}_{ladder}", model, warmup=True, **opts)
+        warm_s = time.perf_counter() - t0
+        captures = serving_compiles() - c0
+        replay_unequal = []
+        for b in ex.compiled_buckets:
+            Xb = X[rng.integers(0, len(X), b)]
+            eager = fn(params, subs,
+                       torch.from_numpy(Xb).to(subs.device)).cpu().numpy()
+            if not np.array_equal(ex.program(b).run(Xb, b), eager):
+                replay_unequal.append(b)
+        err = 0.0
+        c1 = serving_compiles()
+        for n in sizes:
+            i = int(rng.integers(0, len(X) - n))
+            got, want = ex.forward(X[i:i + n]), model.predict_proba(X[i:i + n])
+            err = max(err, float(np.abs(got - want).max()))
+        post = serving_compiles() - c1
+        fields = dict(buckets=list(ex.compiled_buckets),
+                      captures_at_warmup=captures, warmup_seconds=warm_s,
+                      graph_pool_bytes=ex.graph_pool_bytes,
+                      replay_buckets_unequal_to_eager=replay_unequal,
+                      requests=len(sizes), max_rows=max(sizes),
+                      max_abs_err_vs_predict_proba=err,
+                      tol=0.0 if exact else SERVE_TOL,
+                      captures_on_requests=post)
+        ok = (captures == len(ex.compiled_buckets) and not replay_unequal
+              and post == 0 and err <= fields["tol"]
+              and ex.graph_pool_bytes > 0)
+        emit(f"{name}_ladder_{ladder}", ok=ok, **fields)
+        if not ok:
+            fail(f"{name}_ladder_{ladder}", f"checks failed: {fields}")
+        out[ladder] = ex
+    return out
+
+
+def percentile(sorted_vals: list, q: float) -> float:
+    i = min(len(sorted_vals) - 1, int(round(q * (len(sorted_vals) - 1))))
+    return sorted_vals[i]
+
+
+def run_clients(X: np.ndarray, n_clients: int, n_requests: int, call):
+    """One closed-loop run of benchmarks/serving_latency.py's naive
+    path: each of ``n_clients`` threads issues its share of single-row
+    requests back to back. Returns (latencies, requests a second)."""
+    import threading
+
+    per = max(1, n_requests // n_clients)
+    lat, lock, gate, errors = [], threading.Lock(), threading.Event(), []
+
+    def client(seed):
+        rng = np.random.default_rng(seed)
+        mine = []
+        gate.wait()
+        try:
+            for _ in range(per):
+                i = int(rng.integers(0, X.shape[0]))
+                t0 = time.perf_counter()
+                call(X[i:i + 1])
+                mine.append(time.perf_counter() - t0)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+        with lock:
+            lat.extend(mine)
+
+    threads = [threading.Thread(target=client, args=(s,))
+               for s in range(n_clients)]
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    gate.set()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return lat, len(lat) / wall
+
+
+def run_window(X: np.ndarray, window: int, n_requests: int, submit):
+    """One run of serving_latency.py's served path: one dispatcher keeps
+    ``window`` single-row futures in flight, refilling as they resolve.
+    Returns (latencies, requests a second)."""
+    from concurrent.futures import FIRST_COMPLETED, wait
+
+    rng = np.random.default_rng(0)
+    pending, lat = {}, []
+
+    def one():
+        i = int(rng.integers(0, X.shape[0]))
+        pending[submit(X[i:i + 1])] = time.perf_counter()
+
+    t0 = time.perf_counter()
+    issued = 0
+    for _ in range(min(window, n_requests)):
+        one()
+        issued += 1
+    while pending:
+        done = [f for f in pending if f.done()]
+        if not done:
+            done, _ = wait(list(pending), return_when=FIRST_COMPLETED)
+        now = time.perf_counter()
+        for f in done:
+            f.result()
+            lat.append(now - pending.pop(f))
+            if issued < n_requests:
+                one()
+                issued += 1
+    return lat, len(lat) / (time.perf_counter() - t0)
+
+
+def measure(run_once) -> dict:
+    """serving_latency.py's protocol: one discarded warm run, then the
+    median requests/s of SERVE_REPEATS runs, latency percentiles pooled
+    over them."""
+    import statistics
+
+    run_once()
+    lat_all, rps = [], []
+    for _ in range(SERVE_REPEATS):
+        lat, r = run_once()
+        lat_all.extend(lat)
+        rps.append(r)
+    lat_all.sort()
+    return {"rows_per_sec": statistics.median(rps),
+            "rows_per_sec_runs": sorted(rps),
+            "p50_ms": percentile(lat_all, 0.5) * 1e3,
+            "p99_ms": percentile(lat_all, 0.99) * 1e3}
+
+
+def phase_serving(clf, X: np.ndarray, y: np.ndarray) -> None:
+    """The serving plane on the headline logistic bag: the two ladders,
+    closed-loop single-row traffic through the micro-batcher against
+    naive per-request ``predict_proba``, a hot swap mid-traffic to a
+    second fit, and ``registry.save`` / ``load`` under a new name."""
+    import tempfile
+    import threading
+
+    from spark_bagging_tpu_torch import BaggingClassifier, LogisticRegression
+    from spark_bagging_tpu_torch.serving import MicroBatcher
+
+    t_phase = time.perf_counter()
+    Xs = X[:N_SERVE_ROWS]
+    ladders = serving_ladders(clf, Xs, "serving", exact=False)
+    reg, ex = ladders["registry"], ladders["bench"]
+    name = "serving_bench"
+    # closed-loop single-row traffic, as benchmarks/serving_latency.py
+    c0 = serving_compiles()
+    levels = []
+    for conc in SERVE_LEVELS:
+        naive = measure(lambda: run_clients(
+            Xs, conc, SERVE_REQUESTS, clf.predict_proba))
+        with MicroBatcher(ex, **SERVE_BATCHER) as b:
+            served = measure(lambda: run_window(
+                Xs, conc, SERVE_REQUESTS, b.submit))
+            split = {"direct": b.stats()["direct"],
+                     "coalesced": b.stats()["coalesced"]}
+        levels.append({"concurrency": conc, "naive": naive,
+                       "served": served, "dispatch_so_far": split,
+                       "speedup": served["rows_per_sec"]
+                       / naive["rows_per_sec"]})
+    captures = serving_compiles() - c0
+    emit("serving_latency", ok=captures == 0, requests_per_run=SERVE_REQUESTS,
+         repeats=SERVE_REPEATS, warm_runs_discarded=1,
+         batcher={k: v for k, v in SERVE_BATCHER.items() if k != "max_queue"},
+         ladder=list(ex.compiled_buckets), levels=levels,
+         captures_during_traffic=captures)
+    if captures:
+        fail("serving_latency", f"{captures} captures on the request path")
+    # a hot swap mid-traffic to a second fit of another seed
+    learner = LogisticRegression(**clf.base_learner_.get_params())
+    clf_b = BaggingClassifier(learner, n_estimators=clf.n_estimators_,
+                              seed=1, device=clf.device).fit(X, y)
+    rows = np.arange(2000)
+    ref_a, ref_b = clf.predict_proba(Xs[rows]), clf_b.predict_proba(Xs[rows])
+    stop, errors, wrong, results = threading.Event(), [], [], []
+    v_before = reg.version(name)
+
+    def client(seed):
+        rng = np.random.default_rng(seed)
+        while not stop.is_set():
+            i = int(rng.integers(0, len(rows)))
+            try:
+                fut = b.submit(Xs[i:i + 1])
+                r = fut.result(60)
+            except Exception as e:  # noqa: BLE001 - counted
+                errors.append(repr(e))
+                continue
+            version = fut.trace.breakdown.get("model_version")
+            near_a = np.abs(r - ref_a[i:i + 1]).max() <= SERVE_TOL
+            near_b = np.abs(r - ref_b[i:i + 1]).max() <= SERVE_TOL
+            results.append(version)
+            if not ((version == v_before and near_a)
+                    or (version == v_before + 1 and near_b)):
+                wrong.append((i, version))
+
+    c0 = serving_compiles()
+    with reg.batcher(name, **SERVE_BATCHER) as b:
+        threads = [threading.Thread(target=client, args=(s,))
+                   for s in range(4)]
+        for t in threads:
+            t.start()
+        time.sleep(SERVE_SWAP_WINDOW_S)
+        t0 = time.perf_counter()
+        new_ex = reg.swap(name, clf_b)
+        swap_s = time.perf_counter() - t0
+        swap_captures = serving_compiles() - c0
+        time.sleep(SERVE_SWAP_WINDOW_S)
+        stop.set()
+        for t in threads:
+            t.join(60)
+        after = b.submit(Xs[:5]).result(60)
+    request_captures = serving_compiles() - c0 - swap_captures
+    n_after = sum(1 for v in results if v == v_before + 1)
+    after_err = float(np.abs(after - ref_b[:5]).max())
+    fields = dict(requests=len(results), failed=len(errors),
+                  wrong_or_mixed=len(wrong), served_new_version=n_after,
+                  version_after=reg.version(name), swap_seconds=swap_s,
+                  swap_pre_captures=swap_captures,
+                  captures_on_requests=request_captures,
+                  new_graph_pool_bytes=new_ex.graph_pool_bytes,
+                  after_swap_max_abs_err=after_err, errors=errors[:3])
+    ok = (not errors and not wrong and n_after > 0 and request_captures == 0
+          and swap_captures == len(new_ex.compiled_buckets)
+          and new_ex.graph_pool_bytes > 0
+          and reg.version(name) == v_before + 1 and after_err <= SERVE_TOL)
+    emit("serving_swap", ok=ok, **fields)
+    if not ok:
+        fail("serving_swap", f"checks failed: {fields}")
+    # registry.save, then load under a new name with the program cache
+    # live, as a second name in the same process does: the loaded
+    # executor adopts the saved executor's captures. The saved name is
+    # then swapped back to the first fit, the second fit is dropped and
+    # freed, and the allocator's free blocks are refilled with NaN: the
+    # adopted graphs hold the tensors they read, so the loaded name
+    # serves the same bits
+    import gc
+    import shutil
+
+    path = tempfile.mkdtemp(prefix="serving_ckpt_")
+    t0 = time.perf_counter()
+    reg.save(name, path)
+    save_s = time.perf_counter() - t0
+    c0 = serving_compiles()
+    t0 = time.perf_counter()
+    loaded = reg.load("serving_loaded", path, device=clf.device)
+    load_s = time.perf_counter() - t0
+    load_captures = serving_compiles() - c0
+    shutil.rmtree(path, ignore_errors=True)
+    adopted = all(loaded.program(bk) is reg.executor(name).program(bk)
+                  for bk in loaded.compiled_buckets)
+    rng = np.random.default_rng(1)
+    reqs = [Xs[rng.integers(0, len(Xs), n)] for n in (1, 5, 64, 200, 256,
+                                                      300)]
+    served = [loaded.forward(Xr) for Xr in reqs]
+    unequal = sum(int(not np.array_equal(s, reg.executor(name).forward(Xr)))
+                  for s, Xr in zip(served, reqs))
+    fields = dict(save_seconds=save_s, load_and_warm_seconds=load_s,
+                  captures_at_load=load_captures, adopted_captures=adopted,
+                  loaded_version=reg.version("serving_loaded"),
+                  saved_version=reg.version(name),
+                  loaded_buckets=list(loaded.compiled_buckets),
+                  request_sizes_unequal=unequal)
+    ok = (unequal == 0 and fields["loaded_version"] == fields["saved_version"]
+          and loaded.compiled_buckets == reg.executor(name).compiled_buckets
+          and load_captures == 0 and adopted)
+    emit("serving_checkpoint", ok=ok, **fields)
+    if not ok:
+        fail("serving_checkpoint", f"checks failed: {fields}")
+    reg.swap(name, clf)
+    del clf_b, new_ex
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    junk = [torch.full((64 << 20,), float("nan"), device=clf.device)
+            for _ in range(8)]
+    torch.cuda.synchronize()
+    del junk
+    unequal_after = sum(int(not np.array_equal(loaded.forward(Xr), s))
+                        for s, Xr in zip(served, reqs))
+    fields = dict(saved_name_version=reg.version(name),
+                  freed_model_refilled_bytes=8 * (64 << 20) * 4,
+                  request_sizes_unequal_after=unequal_after,
+                  phase_seconds=time.perf_counter() - t_phase)
+    ok = unequal_after == 0
+    emit("serving_adopted_after_free", ok=ok, **fields)
+    if not ok:
+        fail("serving_adopted_after_free", f"checks failed: {fields}")
+
+
+def phase_serving_trees(tree, X: np.ndarray) -> None:
+    """Config 3's tree bag (hard vote) on both ladders: captures, graph
+    replay against the eager closure and the served votes against
+    ``predict_proba``, bit for bit; and a batched throughput figure."""
+    from spark_bagging_tpu_torch.serving import MicroBatcher
+
+    Xs = X[:N_SERVE_ROWS]
+    ladders = serving_ladders(tree, Xs, "serving_trees", exact=True)
+    ex = ladders["default"]
+    c0 = serving_compiles()
+    with MicroBatcher(ex, **SERVE_BATCHER) as b:
+        served = measure(lambda: run_window(Xs, 16, SERVE_REQUESTS, b.submit))
+    emit("serving_trees_latency", ok=serving_compiles() == c0,
+         concurrency=16, served=served,
+         captures_during_traffic=serving_compiles() - c0)
+    if serving_compiles() != c0:
+        fail("serving_trees_latency", "captures on the request path")
+
+
 def sklearn_proxies() -> dict:
     """The sklearn proxies the GBT and MLP phases hold the port to
     (GBT_PROXY_AUC, GBT_MC_PROXY_ACC, GBT_REG_PROXY_R2, MLP_PROXY_AUC), as
@@ -2525,6 +2898,7 @@ def main() -> int:
     X, y = headline_data()
     clf, launches, Rs = phase_fit(X, y)
     phase_serve(clf, X)
+    phase_serving(clf, X, y)
     del clf
     torch.cuda.empty_cache()
     rows = phase_kernels(X, Rs)
@@ -2536,6 +2910,7 @@ def main() -> int:
     tree, tree_launches, codes_launches, tree_Rs = phase_tree_fit(X, y)
     tree_acc = tree.score(X[:N_SERVE_ROWS], y[:N_SERVE_ROWS])
     phase_tree_serve(tree, X)
+    phase_serving_trees(tree, X)
     del tree
     torch.cuda.empty_cache()
     hist_rows, codes_row = phase_hist_kernels(X, y, tree_Rs)

@@ -12,13 +12,17 @@ trees, forests, GBTs and MLPs. The classifiers vote; the regressors
 average. ``fit_stream`` fits out of core from a chunk source: SGD
 learners by Adam over the chunks (the survival learner's censor flags
 as a streamed column, ``aux_col``), trees by a multi-pass
-level-synchronous growth. The JAX package stays the reference this
-port is held against; the port imports only torch and numpy.
+level-synchronous growth. ``save``/``load`` write and read the JAX
+package's checkpoint format. ``serving`` is the online plane: one CUDA
+graph a row bucket (``EnsembleExecutor``), a micro-batcher and a model
+registry with hot swap. The JAX package stays the reference this port
+is held against; the port imports only torch and numpy.
 
 Entry points run on the card (``device="cuda"``, the default) and raise
 where CUDA is absent; ``device="cpu"`` must be asked for.
 """
 
+from spark_bagging_tpu_torch import serving, telemetry
 from spark_bagging_tpu_torch.bagging import BaggingClassifier, BaggingRegressor
 from spark_bagging_tpu_torch.forest import (
     RandomForestClassifier,
@@ -70,4 +74,6 @@ __all__ = [
     "MultinomialNB",
     "RandomForestClassifier",
     "RandomForestRegressor",
+    "serving",
+    "telemetry",
 ]

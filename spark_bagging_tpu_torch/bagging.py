@@ -22,10 +22,14 @@ per-row aux column as ``BaggingRegressor.fit(X, y, aux=)`` or as the
 streamed column ``aux_col``, which the stream predicts then drop from a
 source one column wider than the fit (``drop_aux_col``).
 
+``save``/``load`` write and read the JAX package's checkpoint format
+(utils/checkpoint.py): a checkpoint saved by either package loads in
+the other.
+
 ``device`` defaults to ``"cuda"`` and raises where CUDA is absent;
-``device="cpu"`` must be asked for. The mesh and warm-start surfaces,
-the stream checkpoints and ``save``/``load`` are not ported yet and
-raise ``NotImplementedError`` naming their ROADMAP item.
+``device="cpu"`` must be asked for. The mesh and warm-start surfaces
+and the stream checkpoints are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -55,20 +59,8 @@ from spark_bagging_tpu_torch.utils.metrics import accuracy, r2_score
 from spark_bagging_tpu_torch.utils.params import ParamsMixin
 
 _ROADMAP_SURFACES = "ROADMAP Queue A: bagging surfaces still to port"
-_ROADMAP_CHECKPOINTS = "ROADMAP Queue A 11: checkpoints and save/load"
+_ROADMAP_CHECKPOINTS = "ROADMAP Queue A 11: stream checkpoints and resume"
 _ROADMAP_MESH = "ROADMAP Queue A 12: parallel/"
-
-
-def _not_ported(name: str):
-    """A method of the JAX estimators' persistence surface: raises
-    ``NotImplementedError`` naming its Queue A item."""
-
-    def method(self, *args, **kwargs):
-        raise NotImplementedError(f"{name} ({_ROADMAP_CHECKPOINTS})")
-
-    method.__name__ = name
-    method.__doc__ = f"Not ported yet ({_ROADMAP_CHECKPOINTS}); raises."
-    return method
 
 
 class _EncodedChunks:
@@ -645,8 +637,28 @@ class _BaseBagging(ParamsMixin):
         self._check_fitted()
         return self._replica_closure(), self.ensemble_, self.subspaces_
 
-    save = _not_ported("save")
-    load = classmethod(_not_ported("load"))
+    def save(self, path: str, *, compress: bool | str = "auto") -> None:
+        """Persist the fitted ensemble in the JAX package's checkpoint
+        format (manifest + msgpack tree, zstd-compressed where the
+        zstandard module imports, else zlib); the JAX package's
+        ``load`` reads it too."""
+        from spark_bagging_tpu_torch.utils.checkpoint import save_model
+
+        save_model(self, path, compress=compress)
+
+    @classmethod
+    def load(cls, path: str, *, device: str = "cuda"):
+        """Load a fitted ensemble saved by :meth:`save` or by the JAX
+        package's ``save``, onto ``device``."""
+        from spark_bagging_tpu_torch.utils.checkpoint import load_model
+
+        model = load_model(path, device=device)
+        if not isinstance(model, cls):
+            raise TypeError(
+                f"checkpoint at {path} holds {type(model).__name__}, "
+                f"not {cls.__name__}"
+            )
+        return model
 
     def _forward_closure(self):
         raise NotImplementedError  # per task

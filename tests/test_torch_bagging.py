@@ -275,20 +275,21 @@ def test_default_device_is_cuda_and_raises_without_it():
         T.BaggingClassifier(device="cuda:0")
 
 
-def test_unported_surfaces_raise():
+def test_unported_surfaces_raise(tmp_path):
     X, y = make_classification(50, 3, 2, seed=0)
     for kw in ({"mesh": object()}, {"warm_start": True}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             T.BaggingClassifier(device="cpu", **kw).fit(X, y)
-    # the streams run; their checkpoints and save/load are not ported yet
+    # the streams run; their checkpoints are not ported yet, save/load is
     clf = T.BaggingClassifier(device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue A 11"):
         clf.fit_stream((X, y), checkpoint_dir="ckpt", checkpoint_every=1)
     clf.fit_stream((X, y))
     for name in ("predict_stream", "predict_proba_stream", "score_stream"):
         getattr(clf, name)((X, y))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 11"):
-        clf.save("model")
+    clf.save(str(tmp_path / "model"))
+    back = T.BaggingClassifier.load(str(tmp_path / "model"), device="cpu")
+    np.testing.assert_array_equal(back.predict_proba(X), clf.predict_proba(X))
 
 
 def test_import_leaves_jax_out():

@@ -940,3 +940,304 @@ def test_aft_stream_with_aux_col_on_card_matches_cpu(cuda):
     for k, v in fits["cuda"].ensemble_.items():
         assert _rel(v.cpu().numpy(), fits["cpu"].ensemble_[k].numpy()) <= 2e-4
     assert _rel(fits["cuda"].predict(X), fits["cpu"].predict(X)) <= 2e-4
+
+
+# -- the serving plane: one CUDA graph a bucket --------------------------
+
+def _serving_cases():
+    from spark_bagging_tpu_torch import (
+        AFTSurvivalRegression,
+        BernoulliNB,
+        DecisionTreeClassifier,
+        DecisionTreeRegressor,
+        FMClassifier,
+        GaussianNB,
+        GBTClassifier,
+        GBTRegressor,
+        GeneralizedLinearRegression,
+        IsotonicRegression,
+        LinearRegression,
+        LinearSVC,
+        LogisticRegression,
+        MLPClassifier,
+        MultinomialNB,
+    )
+
+    # (learner, task, estimator options): every learner family's
+    # aggregated forward, each captured at every bucket of a small ladder
+    return {
+        "logistic": (lambda: LogisticRegression(max_iter=3), "clf", {}),
+        "logistic_chunked": (lambda: LogisticRegression(max_iter=3), "clf",
+                             {"chunk_size": 3, "max_features": 0.75}),
+        "tree_hard": (lambda: DecisionTreeClassifier(max_depth=4), "clf",
+                      {"voting": "hard", "max_features": 0.75}),
+        "gbt_binary": (lambda: GBTClassifier(n_rounds=3, max_depth=3),
+                       "bin_clf", {}),
+        "gbt_multiclass": (lambda: GBTClassifier(n_rounds=3, max_depth=3),
+                           "clf", {}),
+        "svc": (LinearSVC, "clf", {}),
+        "gaussian_nb": (GaussianNB, "clf", {}),
+        "bernoulli_nb": (BernoulliNB, "clf", {}),
+        "multinomial_nb": (MultinomialNB, "abs_clf", {}),
+        "fm": (lambda: FMClassifier(factor_size=4, max_iter=10), "clf", {}),
+        "mlp": (lambda: MLPClassifier(hidden=8, max_iter=5), "clf", {}),
+        "ridge": (LinearRegression, "reg", {}),
+        "tree_reg": (lambda: DecisionTreeRegressor(max_depth=4), "reg",
+                     {"max_features": 0.75}),
+        "gbt_reg": (lambda: GBTRegressor(n_rounds=3, max_depth=3), "reg",
+                    {}),
+        "glm": (lambda: GeneralizedLinearRegression(family="gaussian"),
+                "reg", {}),
+        "isotonic": (lambda: IsotonicRegression(n_bins=32), "iso", {}),
+        "aft": (lambda: AFTSurvivalRegression(max_iter=20), "aft", {}),
+    }
+
+
+def _serving_model(name, device="cuda", seed=0):
+    from spark_bagging_tpu_torch import BaggingClassifier, BaggingRegressor
+    from spark_bagging_tpu_torch.utils.datasets import (
+        make_classification,
+        make_regression,
+    )
+
+    learner, task, opts = _serving_cases()[name]
+    fit_kw = {}
+    if task in ("clf", "bin_clf", "abs_clf"):
+        X, y = make_classification(1500, 10, 2 if task == "bin_clf" else 3,
+                                   seed=3)
+        if task == "abs_clf":
+            X = np.abs(X)
+        Est = BaggingClassifier
+    else:
+        X, y = make_regression(1500, 1 if task == "iso" else 6, seed=3)
+        Est = BaggingRegressor
+        if task == "aft":
+            y = np.exp(0.3 * X[:, 0]).astype(np.float32)
+            fit_kw = {"aux": (np.arange(1500) % 5 != 0).astype(np.float32)}
+    est = Est(learner(), n_estimators=6, seed=seed, device=device,
+              **opts).fit(X, y, **fit_kw)
+    return est, X
+
+
+@pytest.mark.parametrize("name", sorted(_serving_cases()))
+def test_serving_graph_replay_equals_eager_every_bucket(cuda, name):
+    # every bucket's captured graph gives bit for bit what the same
+    # closure gives run eagerly at that bucket, and the served output
+    # stays within float32 rounding of the unpadded predict
+    from spark_bagging_tpu_torch.serving import EnsembleExecutor
+
+    est, X = _serving_model(name)
+    ex = EnsembleExecutor(est, min_bucket_rows=1, max_batch_rows=64)
+    assert ex.warmup() == (1, 2, 4, 8, 16, 32, 64)
+    fn, params, subs = est.aggregated_forward()
+    for b in ex.compiled_buckets:
+        Xb = np.ascontiguousarray(X[:b], np.float32)
+        eager = fn(params, subs, torch.from_numpy(Xb).to(cuda)).cpu().numpy()
+        np.testing.assert_array_equal(ex.program(b).run(Xb, b), eager)
+    want = (est.predict_proba(X[:300]) if est.task == "classification"
+            else est.predict(X[:300]))
+    np.testing.assert_allclose(ex.forward(X[:300]), want, rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_serving_zero_captures_after_warmup(cuda):
+    from spark_bagging_tpu_torch import telemetry
+    from spark_bagging_tpu_torch.serving import ModelRegistry
+
+    est, X = _serving_model("logistic")
+    reg = ModelRegistry()
+    ex = reg.register("m", est, warmup=True, min_bucket_rows=1,
+                      max_batch_rows=256)
+    assert ex.compiled_buckets == (1, 2, 4, 8, 16, 32, 64, 128, 256)
+    assert ex.graph_pool_bytes > 0
+    c0 = telemetry.registry().counter("sbt_serving_compiles_total").value
+    rng = np.random.default_rng(0)
+    with reg.batcher("m", max_delay_ms=0.5, max_batch_rows=256) as b:
+        futs = [b.submit(X[i:i + n]) for i, n in
+                zip(rng.integers(0, 1000, 60), rng.integers(1, 300, 60))]
+        for f in futs:
+            f.result(30)
+    assert telemetry.registry().counter(
+        "sbt_serving_compiles_total").value == c0
+
+
+def test_serving_two_threads_replay_one_bucket_get_their_own_rows(cuda):
+    import threading
+
+    from spark_bagging_tpu_torch.serving import EnsembleExecutor
+
+    est, X = _serving_model("logistic")
+    ex = EnsembleExecutor(est, min_bucket_rows=8, max_batch_rows=8)
+    ex.warmup()
+    want = [ex.forward(X[8 * t:8 * t + 8]) for t in range(2)]
+    errors = []
+
+    def hammer(t):
+        try:
+            for _ in range(300):
+                got = ex.forward(X[8 * t:8 * t + 8])
+                if not np.array_equal(got, want[t]):
+                    errors.append(t)
+                    return
+        except Exception as e:  # noqa: BLE001 - reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=hammer, args=(t,)) for t in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120)
+    assert not errors and not any(th.is_alive() for th in threads)
+
+
+def test_serving_swap_frees_the_old_pool(cuda):
+    # trees: no cuBLAS, so the card's reserved bytes are the graphs' and
+    # the buffers' alone (cuBLAS keeps a workspace per stream)
+    import gc
+    import weakref
+
+    from spark_bagging_tpu_torch.serving import ModelRegistry
+
+    old, X = _serving_model("tree_hard", seed=0)
+    new, _ = _serving_model("tree_hard", seed=1)
+    reg = ModelRegistry(min_bucket_rows=1, max_batch_rows=1024)
+    ex = reg.register("m", old, warmup=True)
+    pool = ex.graph_pool_bytes
+    assert pool > 0
+    graphs = [weakref.ref(ex.program(b).graph) for b in ex.compiled_buckets]
+    del old, ex
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    reg.swap("m", new)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # the old executor's graphs are gone, and their pool with them: the
+    # card holds the new executor's captures in place of the old ones
+    assert all(g() is None for g in graphs)
+    after = torch.cuda.memory_reserved()
+    assert after <= before + 0.25 * pool
+    np.testing.assert_array_equal(reg.executor("m").forward(X[:5]),
+                                  new.predict_proba(X[:5]))
+
+
+def _churn_the_allocator(nbytes: int) -> None:
+    # take the freed blocks back and fill them with NaN, so a graph that
+    # replays against freed memory reads garbage
+    junk = [torch.full((nbytes // 4 // 8,), float("nan"), device="cuda")
+            for _ in range(8)]
+    torch.cuda.synchronize()
+    del junk
+
+
+def test_serving_adopted_graphs_outlive_the_model_they_read(cuda, tmp_path):
+    # a checkpoint loaded under a second name adopts the first name's
+    # captured graphs (the cache is not cleared); the first name is then
+    # swapped to another model and everything of the first model is
+    # dropped and freed. The adopted graphs hold the tensors they read,
+    # so the second name serves the same bits
+    import gc
+
+    from spark_bagging_tpu_torch import telemetry
+    from spark_bagging_tpu_torch.serving import ModelRegistry
+
+    first, X = _serving_model("logistic", seed=0)
+    other, _ = _serving_model("logistic", seed=1)
+    reg = ModelRegistry(min_bucket_rows=1, max_batch_rows=64)
+    reg.register("a", first, warmup=True)
+    reg.save("a", str(tmp_path / "a"))
+    c0 = telemetry.registry().counter("sbt_serving_compiles_total").value
+    ex_b = reg.load("b", str(tmp_path / "a"))
+    assert telemetry.registry().counter(
+        "sbt_serving_compiles_total").value == c0
+    assert ex_b.program(64) is reg.executor("a").program(64)
+    sizes = (1, 3, 17, 64, 100)
+    want = [ex_b.forward(X[:n]) for n in sizes]
+    ref = ex_b.model.predict_proba(X[:100])
+    reg.swap("a", other)
+    del first
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    _churn_the_allocator(256 << 20)
+    for n, w in zip(sizes, want):
+        np.testing.assert_array_equal(ex_b.forward(X[:n]), w)
+    np.testing.assert_allclose(ex_b.forward(X[:100]), ref, rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_serving_graph_pool_bytes_are_the_pools_segments(cuda):
+    from spark_bagging_tpu_torch.serving import EnsembleExecutor
+    from spark_bagging_tpu_torch.serving.executor import pool_reserved_bytes
+
+    est, _ = _serving_model("tree_hard")
+    ex = EnsembleExecutor(est, min_bucket_rows=1, max_batch_rows=256)
+    ex.warmup()
+    progs = [ex.program(b) for b in ex.compiled_buckets]
+    static = sum(p.x.nbytes + p.out.nbytes for p in progs)
+    assert all(p.nbytes >= p.x.nbytes + p.out.nbytes for p in progs)
+    assert ex.graph_pool_bytes == pool_reserved_bytes(ex._pool) + static
+    assert 0 < ex.graph_pool_bytes <= torch.cuda.memory_reserved()
+
+
+def test_serving_failed_swap_releases_its_captures(cuda):
+    import gc
+    import weakref
+
+    from spark_bagging_tpu_torch import faults
+    from spark_bagging_tpu_torch.serving import ModelRegistry, program_cache
+
+    old, _ = _serving_model("tree_hard", seed=0)
+    new, _ = _serving_model("tree_hard", seed=1)
+    reg = ModelRegistry(min_bucket_rows=1, max_batch_rows=64)
+    reg.register("m", old, warmup=True)
+    made = []
+    put = program_cache.ProgramCache.put
+
+    def spy(self, key, prog):
+        made.append(weakref.ref(prog))
+        return put(self, key, prog)
+
+    plan = faults.FaultPlan([{"site": "registry.swap.precompile",
+                              "action": "error", "at": [4]}])
+    program_cache.ProgramCache.put = spy
+    try:
+        with faults.armed(plan), pytest.raises(RuntimeError,
+                                               match="rolled") as info:
+            reg.swap("m", new)
+    finally:
+        program_cache.ProgramCache.put = put
+    gc.collect()
+    # freed even while the error (whose traceback holds the replacement
+    # executor) is kept
+    assert info.value is not None
+    assert len(made) == 3 and all(r() is None for r in made)
+
+
+def test_serving_failed_capture_raises_instead_of_serving_eagerly(cuda):
+    # last in the file: a capture that syncs with the host invalidates
+    # the capture; the executor must raise, never fall back to eager
+    from spark_bagging_tpu_torch.serving import EnsembleExecutor
+
+    est, X = _serving_model("logistic")
+    fn, params, subs = est.aggregated_forward()
+
+    def syncing(p, s, x):
+        out = fn(p, s, x)
+        if float(out.sum().item()) < -1.0:  # host sync inside the forward
+            out = out * 2
+        return out
+
+    class Syncing:
+        task, n_features_in_, classes_ = est.task, est.n_features_in_, \
+            est.classes_
+
+        def aggregated_forward(self):
+            return syncing, params, subs
+
+    ex = EnsembleExecutor(Syncing(), min_bucket_rows=4, max_batch_rows=4)
+    with pytest.raises(RuntimeError, match="never served eagerly"):
+        ex.forward(X[:3])
+    assert ex.compiled_buckets == ()
