@@ -142,6 +142,30 @@ replicas, 20,000 rows) within its CPU parity tolerance:
   ``zoo_svc_stream``: 256 ``LinearSVC`` replicas streamed over the
   covtype rows in 65,536-row chunks.
 
+Growth and resume, each against the fit it must reproduce:
+
+- ``warm_start``: the logistic headline grown 128 -> 256 replicas
+  (``warm_start=True``) against ``fit``'s cold 256: bootstrap weights
+  and subspaces bitwise, ``predict_proba``'s max |delta| against
+  WARM_PROBA_TOL (the growth's Gram launches hold 128 replicas, not
+  256: bitwise is a finding, not the contract), scaled-Gram launches
+  pooled_iter + ceil(128 / chunk), the growth's seconds beside the cold
+  fit's;
+- ``warm_start_trees``: config 3's 256 trees grown from 128 against
+  ``tree_fit``'s: every leaf and ``predict`` bitwise, histogram
+  launches 5 x ceil(128 / chunk), one bin-codes launch;
+- ``stream_resume_trees``: config 3's tree stream killed in level pass
+  3 and resumed from its snapshot: bitwise ``tree_stream_fit``'s, the
+  kernels launched only for the 3 levels left (27 each);
+- ``stream_resume_mlp``: config 4 at full size snapshotted every 100
+  chunk-steps, killed after chunk 275 and resumed: every parameter
+  bitwise ``mlp_stream_fit``'s; seconds and bytes a snapshot;
+- ``bootstrap_rejection``: ``bootstrap_weights`` at rates 33, 100 and
+  1000 (JAX's rejection sampler) over 16 replicas x 65,536 rows on the
+  card against the same call on the CPU: 0 differing draws.
+
+Snapshots go to a temporary directory the script removes.
+
 The sklearn proxies are constants, made on a CPU host that has sklearn
 by ``python3 chip_smoke.py --sklearn-proxies``.
 
@@ -158,8 +182,10 @@ Exits non-zero without a result where CUDA is unavailable.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -332,6 +358,16 @@ SERVE_REQUESTS = 3_200
 SERVE_REPEATS = 3
 SERVE_BATCHER = dict(max_delay_ms=0.5, max_batch_rows=256, max_queue=4096)
 SERVE_SWAP_WINDOW_S = 0.5
+# growth and resume: the warm logistic growth's predict_proba against
+# the cold fit's (the card's logistic tolerance, as serving's); the
+# first fit's replicas, and where the streams are killed
+WARM_PROBA_TOL = 1e-5
+WARM_FROM = 128
+MLP_SNAPSHOT_EVERY = 100
+MLP_KILL_AFTER_CHUNK = 275
+TREE_KILL_PASS = 3          # killed in level pass 3: levels 0 and 1 done
+BOOT_RATES = (33.0, 100.0, 1000.0)
+BOOT_SHAPE = (16, 65_536)
 
 
 def emit(phase: str, **fields) -> None:
@@ -416,7 +452,6 @@ def sass_atomics(path: str) -> dict | None:
     built library, by opcode (``cuobjdump -sass``): ``ATOMS.ADD`` is the
     native add, ``ATOMS.CAST.SPIN`` the compare-and-swap loop a float
     add compiles to. None where the toolkit has no cuobjdump."""
-    import os
     import re
 
     tool = "/usr/local/cuda/bin/cuobjdump"
@@ -1805,7 +1840,7 @@ def phase_tree_stream_fit(X: np.ndarray, y: np.ndarray, acc_in_memory: float):
              f"(within {TREE_STREAM_ACC_TOL})")
     if not torch.isfinite(clf.ensemble_["leaf_logp"]).all():
         fail("tree_stream_fit", "non-finite leaf log-probabilities")
-    return counts["binned_left_stats"], counts["bin_codes"]
+    return clf, counts["binned_left_stats"], counts["bin_codes"]
 
 
 def record_stream_levels(fit, n_chunks: int) -> list:
@@ -2127,6 +2162,7 @@ def phase_mlp_stream_fit() -> None:
         fail("mlp_stream_fit", f"bad probabilities, shape {proba.shape}")
     if not auc >= bar:
         fail("mlp_stream_fit", f"test AUC {auc:.5f} below the bar {bar:.5f}")
+    return est
 
 
 def phase_mlp_device_check() -> None:
@@ -2833,6 +2869,275 @@ def phase_serving_trees(tree, X: np.ndarray) -> None:
         fail("serving_trees_latency", "captures on the request path")
 
 
+# -- growth and resume ------------------------------------------------
+
+class Killed(Exception):
+    """The fault a killed stream's source raises."""
+
+
+def dying(source, last_chunk: int | None = None,
+          after_yields: int | None = None):
+    """``source`` wrapped to raise :class:`Killed` once it has yielded
+    chunk ``last_chunk`` of a pass, or ``after_yields`` chunks over all
+    passes: a stream killed mid-fit."""
+    from spark_bagging_tpu_torch.utils.io import ChunkSource
+
+    class Dying(ChunkSource):
+        n_features, n_rows = source.n_features, source.n_rows
+        chunk_rows = source.chunk_rows
+        yielded = 0
+
+        def chunks(self):
+            return self.chunks_from(0)
+
+        def chunks_from(self, start):
+            for c, chunk in enumerate(source.chunks_from(start),
+                                      start=start):
+                if ((last_chunk is not None and c > last_chunk)
+                        or (after_yields is not None
+                            and self.yielded >= after_yields)):
+                    raise Killed(f"killed at chunk {c}")
+                self.yielded += 1
+                yield chunk
+
+    return Dying()
+
+
+def expect_killed(phase: str, fn) -> None:
+    """Run ``fn``, which must raise :class:`Killed` and nothing else."""
+    try:
+        fn()
+    except Killed:
+        return
+    fail(phase, "the killed stream ran to its end")
+
+
+def phase_warm_start(cold, X: np.ndarray, y: np.ndarray) -> int:
+    """The logistic headline grown 128 -> 256 replicas against ``fit``'s
+    cold 256-replica fit: the new replicas' Newton fits (and the pooled
+    pre-pass again) on the scaled-Gram kernel."""
+    from spark_bagging_tpu_torch import BaggingClassifier, LogisticRegression
+
+    learner = cold._fitted_learner
+    warm = BaggingClassifier(LogisticRegression(**learner.get_params()),
+                             n_estimators=WARM_FROM, seed=0,
+                             warm_start=True).fit(X, y)
+    warm.set_params(n_estimators=N_REPLICAS)
+    reset_launches()
+    t0 = time.perf_counter()
+    warm.fit(X, y)
+    grow_seconds = time.perf_counter() - t0
+    counts = read_launches()
+    rep = warm.fit_report_
+    chunk = rep["chunk_size_resolved"] or (N_REPLICAS - WARM_FROM)
+    expected = (learner.pooled_iter
+                + learner.max_iter * -(-(N_REPLICAS - WARM_FROM) // chunk))
+    sampled = [0, WARM_FROM - 1, WARM_FROM, N_REPLICAS - 1]
+    weights_equal = all(np.array_equal(warm.replica_weights(i),
+                                       cold.replica_weights(i))
+                        for i in sampled)
+    subspaces_equal = bool(torch.equal(warm.subspaces_, cold.subspaces_))
+    pw = warm.predict_proba(X[:N_SERVE_ROWS])
+    pc = cold.predict_proba(X[:N_SERVE_ROWS])
+    d_proba = float(np.abs(pw - pc).max())
+    Ww, Wc = warm.ensemble_["W"], cold.ensemble_["W"]
+    emit("warm_start", ok=True, n_rows=N_ROWS, grown_from=WARM_FROM,
+         n_replicas=N_REPLICAS, grow_seconds=grow_seconds,
+         grow_fit_seconds=rep["fit_seconds"],
+         cold_fit_seconds=cold.fit_report_["fit_seconds"],
+         chunk_size=rep["chunk_size_resolved"], launches=counts,
+         expected_scaled_gram_launches=expected,
+         sampled_replicas=sampled, weights_bitwise=weights_equal,
+         subspaces_bitwise=subspaces_equal,
+         W_bitwise=bool(torch.equal(Ww, Wc)),
+         W_max_rel_delta=float((Ww - Wc).abs().max() / Wc.abs().max()),
+         proba_max_abs_delta=d_proba, proba_bitwise=bool((pw == pc).all()),
+         proba_tol=WARM_PROBA_TOL)
+    if counts["scaled_gram"] != expected:
+        fail("warm_start", f"{counts['scaled_gram']} scaled-Gram launches, "
+             f"expected {expected}")
+    if not (weights_equal and subspaces_equal):
+        fail("warm_start", "grown weights or subspaces differ from the "
+             "cold fit's")
+    if not d_proba <= WARM_PROBA_TOL:
+        fail("warm_start", f"predict_proba differs by {d_proba:.3g} > "
+             f"{WARM_PROBA_TOL}")
+    return counts["scaled_gram"]
+
+
+def phase_warm_start_trees(cold, X: np.ndarray, y: np.ndarray):
+    """Config 3's 256 trees grown from 128 against ``tree_fit``'s cold
+    fit: integral statistics, so every leaf is bitwise."""
+    warm = tree_bagger(WARM_FROM)
+    warm.set_params(warm_start=True).fit(X, y)
+    warm.set_params(n_estimators=N_REPLICAS)
+    reset_launches()
+    t0 = time.perf_counter()
+    warm.fit(X, y)
+    grow_seconds = time.perf_counter() - t0
+    counts = read_launches()
+    rep = warm.fit_report_
+    chunk = rep["chunk_size_resolved"] or (N_REPLICAS - WARM_FROM)
+    expected = TREE["max_depth"] * -(-(N_REPLICAS - WARM_FROM) // chunk)
+    unequal = [k for k in cold.ensemble_
+               if not torch.equal(warm.ensemble_[k], cold.ensemble_[k])]
+    pred_equal = bool(np.array_equal(warm.predict(X[:N_SERVE_ROWS]),
+                                     cold.predict(X[:N_SERVE_ROWS])))
+    emit("warm_start_trees", ok=True, grown_from=WARM_FROM,
+         n_replicas=N_REPLICAS, grow_seconds=grow_seconds,
+         grow_fit_seconds=rep["fit_seconds"],
+         cold_fit_seconds=cold.fit_report_["fit_seconds"],
+         chunk_size=rep["chunk_size_resolved"], launches=counts,
+         expected_binned_left_stats_launches=expected,
+         leaves_unequal=unequal, predict_bitwise=pred_equal,
+         subspaces_bitwise=bool(torch.equal(warm.subspaces_,
+                                            cold.subspaces_)))
+    if counts["binned_left_stats"] != expected or counts["bin_codes"] != 1:
+        fail("warm_start_trees", f"launches {counts}, expected {expected} "
+             "histogram and one bin-codes launch")
+    if unequal or not pred_equal:
+        fail("warm_start_trees", f"grown trees differ from the cold fit's "
+             f"in {unequal} (predict bitwise: {pred_equal})")
+    return counts["binned_left_stats"], counts["bin_codes"]
+
+
+def phase_stream_resume_trees(full, X: np.ndarray, y: np.ndarray):
+    """Config 3's tree stream killed in level pass TREE_KILL_PASS and
+    resumed: bitwise ``tree_stream_fit``'s, the kernels launched only
+    for the levels left."""
+    classes = np.unique(y)
+    n_chunks = -(-N_ROWS // TREE_STREAM_CHUNK)
+    # the edge pass and TREE_KILL_PASS - 1 levels, then 4 chunks more
+    after = TREE_KILL_PASS * n_chunks + 4
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = f"{tmp}/trees"
+        expect_killed("stream_resume_trees", lambda: tree_bagger(
+            N_REPLICAS).fit_stream(
+            dying(tree_stream_source(X, y, TREE_STREAM_CHUNK),
+                  after_yields=after),
+            classes=classes, checkpoint_dir=ckpt))
+        with open(f"{ckpt}/meta.json") as f:
+            next_pass = json.load(f)["next_pass"]
+        levels_done = next_pass - 1
+        reset_launches()
+        t0 = time.perf_counter()
+        clf = tree_bagger(N_REPLICAS).fit_stream(
+            tree_stream_source(X, y, TREE_STREAM_CHUNK), classes=classes,
+            resume_from=ckpt)
+        resume_seconds = time.perf_counter() - t0
+        counts = read_launches()
+    expected = (TREE["max_depth"] - levels_done) * n_chunks
+    unequal = [k for k in full.ensemble_
+               if not torch.equal(clf.ensemble_[k], full.ensemble_[k])]
+    emit("stream_resume_trees", ok=True, n_chunks=n_chunks,
+         killed_after_chunks=after, levels_done=levels_done,
+         resume_seconds=resume_seconds,
+         full_fit_seconds=full.fit_report_["fit_seconds"], launches=counts,
+         expected_launches_each=expected, leaves_unequal=unequal)
+    if levels_done != TREE_KILL_PASS - 1:
+        fail("stream_resume_trees", f"snapshot after {levels_done} levels, "
+             f"expected {TREE_KILL_PASS - 1}")
+    if (counts["binned_left_stats"] != expected
+            or counts["bin_codes"] != expected):
+        fail("stream_resume_trees", f"launches {counts}, expected {expected} "
+             "histogram and bin-codes launches")
+    if unequal:
+        fail("stream_resume_trees", f"resumed trees differ in {unequal}")
+    return counts["binned_left_stats"], counts["bin_codes"]
+
+
+def phase_stream_resume_mlp(full) -> None:
+    """Config 4 at full size, snapshotted every MLP_SNAPSHOT_EVERY
+    chunk-steps, killed after chunk MLP_KILL_AFTER_CHUNK and resumed:
+    every parameter bitwise ``mlp_stream_fit``'s (the same shapes and
+    launches)."""
+    from spark_bagging_tpu_torch.optim import Adam
+    from spark_bagging_tpu_torch.streaming import _save_stream_checkpoint
+
+    cfg = MLP_STREAM
+    fit_kw = dict(classes=[0, 1], n_epochs=cfg["n_epochs"],
+                  steps_per_chunk=cfg["steps_per_chunk"], lr=cfg["lr"])
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = f"{tmp}/mlp"
+        est = mlp_bagger(cfg["n_estimators"])
+        t0 = time.perf_counter()
+        expect_killed("stream_resume_mlp", lambda: est.fit_stream(
+            dying(mlp_source(cfg["n_rows"], cfg["chunk_rows"]),
+                  last_chunk=MLP_KILL_AFTER_CHUNK),
+            checkpoint_dir=ckpt, checkpoint_every=MLP_SNAPSHOT_EVERY,
+            **fit_kw))
+        killed_seconds = time.perf_counter() - t0
+        with open(f"{ckpt}/meta.json") as f:
+            meta = json.load(f)
+        snap_bytes = os.path.getsize(f"{ckpt}/state.msgpack")
+        # the snapshot's own cost: one more, timed alone
+        opt = Adam(full.ensemble_, cfg["lr"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _save_stream_checkpoint(f"{tmp}/timed", full.ensemble_, opt, [],
+                                meta)
+        snap_seconds = time.perf_counter() - t0
+        reset_launches()
+        est = mlp_bagger(cfg["n_estimators"])
+        t0 = time.perf_counter()
+        est.fit_stream(mlp_source(cfg["n_rows"], cfg["chunk_rows"]),
+                       resume_from=ckpt, **fit_kw)
+        resume_seconds = time.perf_counter() - t0
+        counts = read_launches()
+    unequal = [k for k in full.ensemble_
+               if not torch.equal(est.ensemble_[k], full.ensemble_[k])]
+    n_chunks = -(-cfg["n_rows"] // cfg["chunk_rows"])
+    emit("stream_resume_mlp", ok=True, **cfg,
+         snapshot_every=MLP_SNAPSHOT_EVERY,
+         killed_after_chunk=MLP_KILL_AFTER_CHUNK,
+         snapshot_next_chunk=meta["next_chunk"],
+         snapshot_bytes=snap_bytes, snapshot_seconds=snap_seconds,
+         killed_run_seconds=killed_seconds, resume_seconds=resume_seconds,
+         resumed_opt_steps=est.fit_report_["opt_steps"],
+         full_stream_seconds=full.fit_report_["fit_seconds"],
+         launches=counts, params_unequal=unequal)
+    want_next = (MLP_KILL_AFTER_CHUNK + 1) // MLP_SNAPSHOT_EVERY \
+        * MLP_SNAPSHOT_EVERY
+    if meta["next_chunk"] != want_next:
+        fail("stream_resume_mlp", f"snapshot at chunk {meta['next_chunk']}, "
+             f"expected {want_next}")
+    if est.fit_report_["opt_steps"] != (n_chunks - want_next) * cfg[
+            "steps_per_chunk"]:
+        fail("stream_resume_mlp", f"{est.fit_report_['opt_steps']} resumed "
+             "optimizer steps")
+    if unequal:
+        fail("stream_resume_mlp", f"resumed parameters differ in {unequal}")
+
+
+def phase_bootstrap_rejection() -> None:
+    """``bootstrap_weights`` above rate 32 (JAX's rejection sampler) on
+    the card against the same call on the CPU: the same IEEE operations
+    on both, so every draw is equal."""
+    from spark_bagging_tpu_torch.ops import prng
+    from spark_bagging_tpu_torch.ops.bootstrap import bootstrap_weights
+
+    R, n = BOOT_SHAPE
+    rows = []
+    for rate in BOOT_RATES:
+        args = dict(ratio=rate, replacement=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = bootstrap_weights(prng.key(0, "cuda"),
+                                 torch.arange(R, device="cuda"), n, **args)
+        torch.cuda.synchronize()
+        card_seconds = time.perf_counter() - t0
+        cpu = bootstrap_weights(prng.key(0), torch.arange(R), n, **args)
+        diff = int((card.cpu() != cpu).sum())
+        rows.append({"rate": rate, "differing_draws": diff,
+                     "mean_count": float(cpu.mean()),
+                     "card_seconds": card_seconds})
+    emit("bootstrap_rejection", ok=True, replicas=R, rows_per_replica=n,
+         rates=rows)
+    bad = [r for r in rows if r["differing_draws"]]
+    if bad:
+        fail("bootstrap_rejection", f"card draws differ from the CPU's: {bad}")
+
+
 def sklearn_proxies() -> dict:
     """The sklearn proxies the GBT and MLP phases hold the port to
     (GBT_PROXY_AUC, GBT_MC_PROXY_ACC, GBT_REG_PROXY_R2, MLP_PROXY_AUC), as
@@ -2899,6 +3204,8 @@ def main() -> int:
     clf, launches, Rs = phase_fit(X, y)
     phase_serve(clf, X)
     phase_serving(clf, X, y)
+    torch.cuda.empty_cache()
+    warm_launches = phase_warm_start(clf, X, y)
     del clf
     torch.cuda.empty_cache()
     rows = phase_kernels(X, Rs)
@@ -2911,12 +3218,17 @@ def main() -> int:
     tree_acc = tree.score(X[:N_SERVE_ROWS], y[:N_SERVE_ROWS])
     phase_tree_serve(tree, X)
     phase_serving_trees(tree, X)
+    wt_launches, wt_codes_launches = phase_warm_start_trees(tree, X, y)
     del tree
     torch.cuda.empty_cache()
     hist_rows, codes_row = phase_hist_kernels(X, y, tree_Rs)
     phase_tree_cross_check(X, y)
     torch.cuda.empty_cache()
-    ts_launches, ts_codes_launches = phase_tree_stream_fit(X, y, tree_acc)
+    ts_fit, ts_launches, ts_codes_launches = phase_tree_stream_fit(
+        X, y, tree_acc)
+    torch.cuda.empty_cache()
+    tr_launches, tr_codes_launches = phase_stream_resume_trees(ts_fit, X, y)
+    del ts_fit
     torch.cuda.empty_cache()
     stream_err = phase_tree_stream_hist_kernels(X, y)
     phase_tree_stream_cross_check(X, y)
@@ -2943,8 +3255,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     gr_launches, gr_codes_launches = phase_gbt_reg_fit(split)
     torch.cuda.empty_cache()
-    phase_mlp_stream_fit()
+    mlp_fit = phase_mlp_stream_fit()
     torch.cuda.empty_cache()
+    phase_stream_resume_mlp(mlp_fit)
+    del mlp_fit
+    torch.cuda.empty_cache()
+    phase_bootstrap_rejection()
     phase_mlp_device_check()
     phase_zoo_classifiers(X, y)
     phase_zoo_regressors(split)
@@ -2961,7 +3277,9 @@ def main() -> int:
     # and its max_abs_err is the largest of every checked table: the
     # in-memory paths', the streamed config 3's (int32, held bit for
     # bit) and the streamed forest regressor's (float, the fit's own
-    # tables and the kernel's on their inputs)
+    # tables and the kernel's on their inputs). The growth and resume
+    # paths count too: the logistic growth's Gram launches, the grown
+    # trees' and the resumed tree stream's histogram and codes launches
     f32 = rows[max(Rs)]["float32"]
     deepest = hist_rows[max(tree_Rs), 2 ** (TREE["max_depth"] - 1), "bfloat16"]
     print(json.dumps({"kernels": [{
@@ -2969,7 +3287,7 @@ def main() -> int:
         "route": "cuda",
         "source": "spark_bagging_tpu_torch/csrc/scaled_gram.cu",
         "replaces": "spark_bagging_tpu/ops/gram.py:53",
-        "launches": launches,
+        "launches": launches + warm_launches,
         "max_abs_err": f32["max_abs_err"],
         "ms": f32["kernel_ms"],
         "plain_ms": f32["plain_ms"],
@@ -2983,7 +3301,7 @@ def main() -> int:
         "replaces": "spark_bagging_tpu/ops/hist.py:66",
         "launches": (tree_launches + rf_launches + gbt_launches
                      + mc_launches + gr_launches + ts_launches
-                     + rs_launches),
+                     + rs_launches + wt_launches + tr_launches),
         "max_abs_err": max(stream_err, *(r["max_abs_err"] for r in (
             *hist_rows.values(), *reg_rows.values(), *rs_rows.values(),
             *gbt_rows.values()))),
@@ -2999,7 +3317,8 @@ def main() -> int:
         "replaces": "spark_bagging_tpu/ops/hist.py:66",
         "launches": (codes_launches + rf_codes_launches + gbt_codes_launches
                      + mc_codes_launches + gr_codes_launches
-                     + ts_codes_launches + rs_codes_launches),
+                     + ts_codes_launches + rs_codes_launches
+                     + wt_codes_launches + tr_codes_launches),
         "max_abs_err": 0.0 if not codes_row["unequal"] else None,
         "ms": codes_row["kernel_ms"],
         "plain_ms": codes_row["plain_ms"],

@@ -12,8 +12,9 @@ trees, forests, GBTs and MLPs. The classifiers vote; the regressors
 average. ``fit_stream`` fits out of core from a chunk source: SGD
 learners by Adam over the chunks (the survival learner's censor flags
 as a streamed column, ``aux_col``), trees by a multi-pass
-level-synchronous growth. ``save``/``load`` write and read the JAX
-package's checkpoint format. ``serving`` is the online plane: one CUDA
+level-synchronous growth, with snapshots to resume from; ``warm_start``
+grows a fitted ensemble. ``save``/``load`` (and ``save_model``/
+``load_model``) write and read the JAX package's checkpoint format. ``serving`` is the online plane: one CUDA
 graph a row bucket (``EnsembleExecutor``), a micro-batcher and a model
 registry with hot swap. The JAX package stays the reference this port
 is held against; the port imports only torch and numpy.
@@ -48,15 +49,23 @@ from spark_bagging_tpu_torch.models import (
     MLPRegressor,
     MultinomialNB,
 )
+from spark_bagging_tpu_torch.utils.checkpoint import load_model, save_model
+from spark_bagging_tpu_torch.utils.io import (
+    ArrayChunks,
+    ChunkSource,
+    SyntheticChunks,
+)
 
 __version__ = "0.3.0"
 
 __all__ = [
     "AFTSurvivalRegression",
+    "ArrayChunks",
     "BaggingClassifier",
     "BaggingRegressor",
     "BaseLearner",
     "BernoulliNB",
+    "ChunkSource",
     "DecisionTreeClassifier",
     "DecisionTreeRegressor",
     "FMClassifier",
@@ -74,6 +83,9 @@ __all__ = [
     "MultinomialNB",
     "RandomForestClassifier",
     "RandomForestRegressor",
+    "SyntheticChunks",
+    "load_model",
+    "save_model",
     "serving",
     "telemetry",
 ]

@@ -26,10 +26,16 @@ source one column wider than the fit (``drop_aux_col``).
 (utils/checkpoint.py): a checkpoint saved by either package loads in
 the other.
 
+``warm_start=True`` grows a fitted ensemble: replica streams are keyed
+by (seed, id), so fitting ids ``[R_old, R_new)`` and splicing them after
+the old replicas is the cold fit of ``R_new`` (``_warm_start_from``
+refuses whatever would break that). ``fit_stream`` snapshots and
+resumes (``checkpoint_dir``, ``checkpoint_every``, ``resume_from``) in
+the JAX package's snapshot format.
+
 ``device`` defaults to ``"cuda"`` and raises where CUDA is absent;
-``device="cpu"`` must be asked for. The mesh and warm-start surfaces
-and the stream checkpoints are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+``device="cpu"`` must be asked for. The mesh surfaces are not ported
+yet and raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -59,7 +65,6 @@ from spark_bagging_tpu_torch.utils.metrics import accuracy, r2_score
 from spark_bagging_tpu_torch.utils.params import ParamsMixin
 
 _ROADMAP_SURFACES = "ROADMAP Queue A: bagging surfaces still to port"
-_ROADMAP_CHECKPOINTS = "ROADMAP Queue A 11: stream checkpoints and resume"
 _ROADMAP_MESH = "ROADMAP Queue A 12: parallel/"
 
 
@@ -130,6 +135,30 @@ class _BaseBagging(ParamsMixin):
         self.warm_start = warm_start
         self.device = device
         resolve_device(device)
+
+    # -- sklearn interop -----------------------------------------------
+
+    def __sklearn_tags__(self):
+        """Estimator tags for sklearn >= 1.6 (``Pipeline`` and
+        ``GridSearchCV`` query them); sklearn is imported only when
+        sklearn itself calls this."""
+        from sklearn.utils import (
+            ClassifierTags,
+            RegressorTags,
+            Tags,
+            TargetTags,
+        )
+
+        classifier = self.task == "classification"
+        return Tags(
+            estimator_type="classifier" if classifier else "regressor",
+            target_tags=TargetTags(required=True),
+            classifier_tags=ClassifierTags() if classifier else None,
+            regressor_tags=None if classifier else RegressorTags(),
+        )
+
+    def __sklearn_is_fitted__(self) -> bool:
+        return hasattr(self, "ensemble_")
 
     # -- helpers -------------------------------------------------------
 
@@ -220,18 +249,156 @@ class _BaseBagging(ParamsMixin):
         seconds the copy took."""
         if self.mesh is not None:
             raise NotImplementedError(f"mesh fits ({_ROADMAP_SURFACES})")
-        if self.warm_start:
-            raise NotImplementedError(f"warm_start ({_ROADMAP_SURFACES})")
         device = resolve_device(self.device)
         t0 = time.perf_counter()
         X = self._validate_X(X, device)
         synchronize(device)
         return X, device, time.perf_counter() - t0
 
+    # -- warm start ----------------------------------------------------
+
+    @staticmethod
+    def _row_vector_digest(arr) -> str | None:
+        """A small stable digest of a per-row vector (``sample_weight``,
+        ``aux``) for the warm-start check; keeping the vectors would
+        double the fit's memory."""
+        if arr is None:
+            return None
+        import hashlib
+
+        if isinstance(arr, torch.Tensor):
+            arr = arr.detach().cpu().numpy()
+        a = np.ascontiguousarray(np.asarray(arr, np.float32))
+        return hashlib.sha1(a.tobytes()).hexdigest()
+
+    def _warm_start_from(self, X, learner, sample_weight=None,
+                         aux=None) -> int:
+        """Validate a warm start and return the first NEW replica id.
+
+        Replica streams are keyed by (seed, id), so fitting ids
+        ``[R_old, R_new)`` and splicing them after the old replicas
+        reproduces exactly the cold fit of the larger ensemble, provided
+        nothing that shapes the streams changed: every such input that
+        did not freeze at the first fit is checked here, in the JAX
+        package's order and with its messages."""
+        from spark_bagging_tpu_torch.streaming import learner_fingerprint
+
+        if self.n_estimators < self.n_estimators_:
+            raise ValueError(
+                f"warm_start cannot shrink the ensemble "
+                f"({self.n_estimators_} -> {self.n_estimators})"
+            )
+        if X.shape[1] != self.n_features_in_:
+            raise ValueError(
+                f"warm_start X has {X.shape[1]} features; fitted on "
+                f"{self.n_features_in_}"
+            )
+        # the fit-time snapshot, never the (mutable) fitted instance: a
+        # missing snapshot is a mismatch
+        if learner_fingerprint(learner) != getattr(
+                self, "_fitted_learner_fp", None):
+            raise ValueError(
+                "warm_start requires the same base learner "
+                "hyperparameters as the original fit (set_params on "
+                "the base learner after fit changes them; ensembles "
+                "fitted before the fingerprint existed cannot extend)"
+            )
+        if prng.key(self.seed).tolist() != self._fit_key.cpu().tolist():
+            raise ValueError(
+                "warm_start requires the original seed: old replicas "
+                "drew from it, and OOB replays every replica's stream "
+                "from one key"
+            )
+        if (self._sample_ratio(X.shape[0]),
+                bool(self.bootstrap)) != self._fit_sampling:
+            raise ValueError(
+                "warm_start requires unchanged max_samples/bootstrap "
+                "(an int max_samples resolves against the CURRENT row "
+                "count \u2014 a different-sized X changes the rate)"
+            )
+        if getattr(self, "_fit_subspace_cfg", None) is None:
+            raise ValueError(
+                "warm_start requires an in-session in-memory fit to "
+                "extend (stream-fitted or checkpoint-loaded ensembles "
+                "use different replica streams)"
+            )
+        # the pooled pre-pass gate keys on the TOTAL ensemble size:
+        # growing across its threshold would start the new replicas
+        # from another init than the cold fit gave them
+        new_gate = bool(learner.uses_pooled_init
+                        and learner.pooled_amortizes(int(self.n_estimators)))
+        if new_gate != getattr(self, "_fit_pooled_gate", new_gate):
+            raise ValueError(
+                "warm_start would change the pooled-init decision: the "
+                f"original fit {'ran' if self._fit_pooled_gate else 'skipped'} "
+                "the pooled pre-pass (amortization gate on ensemble "
+                f"size), but the grown ensemble would "
+                f"{'run' if new_gate else 'skip'} it \u2014 refit from "
+                "scratch, or pin the behavior with init='zeros'"
+            )
+        fit_rows = getattr(self, "_fit_n_rows", None)
+        if fit_rows is not None and X.shape[0] != fit_rows:
+            raise ValueError(
+                "warm_start requires the same row count as the "
+                "original fit: old replicas drew (and OOB/"
+                "replica_weights replay) per-row weight streams over "
+                f"{fit_rows} rows, got {X.shape[0]}"
+            )
+        if (self._n_subspace(X.shape[1]),
+                bool(self.bootstrap_features)) != self._fit_subspace_cfg:
+            raise ValueError(
+                "warm_start requires unchanged max_features/"
+                "bootstrap_features"
+            )
+        # no mesh fits on this port yet: the layout is None on both sides
+        if getattr(self, "_fit_mesh_layout", None) is not None:
+            raise ValueError(
+                "warm_start requires the original mesh layout: "
+                "data-sharded replicas draw per-shard weight streams "
+                "(fold_in(key, shard)), so a changed mesh would splice "
+                "replicas from different stream families and silently "
+                "corrupt OOB replay"
+            )
+        if self._row_vector_digest(sample_weight) != getattr(
+                self, "_fit_sw_digest", None):
+            raise ValueError(
+                "warm_start requires the same sample_weight as the "
+                "original fit (pass it again, identically)"
+            )
+        if self._row_vector_digest(aux) != getattr(
+                self, "_fit_aux_digest", None):
+            raise ValueError(
+                "warm_start requires the same aux column as the "
+                "original fit (pass it again, identically)"
+            )
+        return self.n_estimators_
+
+    def _warm_start_id(self, X, sample_weight=None, aux=None) -> int:
+        """The first replica id this fit draws: 0 for a fresh fit, the
+        fitted ensemble's size for a warm start (``_warm_start_from``)."""
+        if not (self.warm_start and hasattr(self, "ensemble_")):
+            return 0
+        return self._warm_start_from(X, self._learner(),
+                                     sample_weight=sample_weight, aux=aux)
+
+    def _nothing_to_grow(self, id_start: int) -> bool:
+        """A warm start at the fitted size refits nothing (with a
+        warning, as the JAX package does)."""
+        if id_start == 0 or id_start != self.n_estimators:
+            return False
+        import warnings
+
+        warnings.warn(
+            "warm_start fit without increasing n_estimators: "
+            "nothing refit (OOB state unchanged)", UserWarning,
+        )
+        return True
+
     # -- fit -----------------------------------------------------------
 
     def _fit_engine(self, X, y, n_outputs, device, h2d_seconds,
-                    sample_weight=None, aux=None) -> None:
+                    sample_weight=None, aux=None, id_start: int = 0) -> None:
+        from spark_bagging_tpu_torch.streaming import learner_fingerprint
         from spark_bagging_tpu_torch.utils.memory import auto_chunk_size
 
         if self.n_estimators < 1:
@@ -260,7 +427,11 @@ class _BaseBagging(ParamsMixin):
         learner = self._learner()
         n_subspace = self._n_subspace(n_features)
         key = prng.key(self.seed, device)
-        ids = torch.arange(self.n_estimators, dtype=torch.int64, device=device)
+        n_new = self.n_estimators - id_start
+        ids = torch.arange(id_start, self.n_estimators, dtype=torch.int64,
+                           device=device)
+        # the pooled pre-pass gate keys on the TOTAL ensemble size, so a
+        # warm-grown ensemble decides as the cold fit it reproduces
         use_pooled = bool(
             learner.uses_pooled_init
             and learner.pooled_amortizes(int(self.n_estimators))
@@ -268,7 +439,7 @@ class _BaseBagging(ParamsMixin):
         chunk_size = self.chunk_size
         if chunk_size is None:
             chunk_size = auto_chunk_size(
-                learner, n_rows, n_subspace, n_outputs, self.n_estimators,
+                learner, n_rows, n_subspace, n_outputs, n_new,
                 device, n_features=n_features,
                 bootstrap_features=self.bootstrap_features,
             )
@@ -284,6 +455,11 @@ class _BaseBagging(ParamsMixin):
         )
         losses = fit_aux["loss"].cpu().numpy()  # completion barrier
         fit_seconds = time.perf_counter() - t0
+        if id_start > 0:
+            # warm start: the new replicas after the old, on the device
+            params = {k: torch.cat([self.ensemble_[k], v])
+                      for k, v in params.items()}
+            subspaces = torch.cat([self.subspaces_, subspaces])
         self.ensemble_ = params
         self.subspaces_ = subspaces
         self.n_features_in_ = n_features
@@ -291,25 +467,34 @@ class _BaseBagging(ParamsMixin):
         self._fit_key = key
         self._fit_n_rows = n_rows
         self._fitted_learner = learner
+        # the hyperparameters as a snapshot, not the mutable instance
+        self._fitted_learner_fp = learner_fingerprint(learner)
         self._fit_sampling = (ratio, bool(self.bootstrap))
+        self._fit_subspace_cfg = (n_subspace, bool(self.bootstrap_features))
+        self._fit_mesh_layout = None
+        self._fit_sw_digest = self._row_vector_digest(sample_weight)
+        self._fit_aux_digest = self._row_vector_digest(aux)
+        self._fit_pooled_gate = use_pooled
         self._identity_subspace = (
             n_subspace == n_features and not self.bootstrap_features
         )
         # an earlier stream fit's aux column does not apply to this fit
         self._stream_aux_col = None
         self._device = device
+        extra = {"warm_started_from": id_start} if id_start > 0 else {}
         self._write_report(
             fit_seconds, h2d_seconds, losses, n_rows, n_features, n_subspace,
             learner.flops_per_fit(n_rows, n_subspace, n_outputs),
-            chunk_size_resolved=chunk_size)
+            chunk_size_resolved=chunk_size, n_replicas=n_new, **extra)
 
     def _write_report(self, fit_seconds, h2d_seconds, losses, n_rows,
                       n_features, n_subspace, flops, flops_seconds=None,
-                      **extra) -> None:
+                      n_replicas=None, **extra) -> None:
         """``fit_report_``: throughput, losses and shapes of the fit;
         ``flops_seconds`` (default ``fit_seconds``) is the time the
-        achieved TFLOP/s divides by."""
-        n = self.n_estimators_
+        achieved TFLOP/s divides by; ``n_replicas`` (default the whole
+        ensemble) the replicas this call fitted."""
+        n = self.n_estimators_ if n_replicas is None else n_replicas
         e2e = fit_seconds + h2d_seconds
         flops_seconds = flops_seconds or fit_seconds
         self.fit_report_ = {
@@ -335,15 +520,11 @@ class _BaseBagging(ParamsMixin):
 
     # -- out-of-core fit -----------------------------------------------
 
-    def _reject_stream_options(self, checkpoint_dir, checkpoint_every,
-                               resume_from) -> None:
+    def _reject_stream_options(self) -> None:
         """Refuse what the streamed fit does not port yet. ``fit_stream``
         cannot extend an ensemble either: its chunk-keyed replica
         streams are not the in-memory fit's, so a ``warm_start=True``
         estimator that is fitted raises, as in the JAX package."""
-        if checkpoint_dir is not None or checkpoint_every or resume_from:
-            raise NotImplementedError(
-                f"stream checkpoints ({_ROADMAP_CHECKPOINTS})")
         if self.mesh is not None:
             raise NotImplementedError(f"mesh stream fits ({_ROADMAP_MESH})")
         if self.warm_start and hasattr(self, "ensemble_"):
@@ -357,10 +538,14 @@ class _BaseBagging(ParamsMixin):
     def _fit_stream_engine(self, source, n_outputs: int, *, n_epochs: int,
                            steps_per_chunk: int, lr: float,
                            prefetch: int | None = None,
+                           checkpoint_dir: str | None = None,
+                           checkpoint_every: int = 0,
+                           resume_from: str | None = None,
                            aux_col: int | None = None) -> None:
         """Out-of-core fit over a chunk source: tree learners through the
-        multi-pass level-synchronous engine, ``streamable`` learners by
-        Adam over the chunks."""
+        multi-pass level-synchronous engine (a snapshot at every pass
+        boundary; ``checkpoint_every`` does not apply), ``streamable``
+        learners by Adam over the chunks."""
         from spark_bagging_tpu_torch.streaming import (
             fit_ensemble_stream,
             learner_fingerprint,
@@ -410,11 +595,15 @@ class _BaseBagging(ParamsMixin):
                     "passes — drop them for tree learners"
                 )
             params, subspaces, aux = fit_tree_ensemble_stream(
-                learner, source, key, self.n_estimators, n_outputs, **common)
+                learner, source, key, self.n_estimators, n_outputs,
+                checkpoint_dir=checkpoint_dir, resume_from=resume_from,
+                **common)
         else:
             params, subspaces, aux = fit_ensemble_stream(
                 learner, source, key, self.n_estimators, n_outputs,
                 n_epochs=n_epochs, steps_per_chunk=steps_per_chunk, lr=lr,
+                checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every, resume_from=resume_from,
                 aux_col=aux_col, **common)
         losses = aux["loss"].cpu().numpy()  # completion barrier
         fit_seconds = time.perf_counter() - t0
@@ -429,18 +618,26 @@ class _BaseBagging(ParamsMixin):
         self._fitted_learner_fp = learner_fingerprint(learner)
         self._stream_aux_col = aux_col
         self._fit_sampling = (ratio, bool(self.bootstrap))
+        # chunk-keyed replica streams: not extendable by the in-memory
+        # warm start (its guard keys on _fit_subspace_cfg)
+        self._fit_subspace_cfg = None
+        self._fit_pooled_gate = False  # streams run no pooled pre-pass
+        self._fit_sw_digest = None
+        self._fit_aux_digest = None
         # an earlier in-memory fit's chunk must not size this fit's maps
         self._chunk_resolved = None
         self._identity_subspace = (
             n_subspace == n_feat_data and not self.bootstrap_features
         )
         self._device = device
-        # FLOPs: the tree stream does the in-memory fit's contractions;
-        # the SGD stream counts each optimizer step's matmuls. The first
+        # FLOPs: the tree stream does the in-memory fit's contractions
+        # (a resumed one skips finished passes: no figure); the SGD
+        # stream counts the optimizer steps this call made. The first
         # step, which builds the kernels, is kept out of the rate
         if "n_passes" in aux:
-            flops = learner.flops_per_fit(int(source.n_rows), n_subspace,
-                                          n_outputs)
+            flops = (learner.flops_per_fit(int(source.n_rows), n_subspace,
+                                           n_outputs)
+                     if resume_from is None else None)
             extra = {"n_passes": aux["n_passes"]}
         else:
             per_step = learner.sgd_step_flops(aux["chunk_rows"], n_subspace,
@@ -728,16 +925,28 @@ class BaggingClassifier(_BaseBagging):
 
     def fit(self, X, y, sample_weight=None) -> "BaggingClassifier":
         """Fit the ensemble. ``sample_weight`` multiplies every replica's
-        bootstrap counts; OOB membership stays weight-independent."""
+        bootstrap counts; OOB membership stays weight-independent. With
+        ``warm_start=True`` a fitted ensemble grows to ``n_estimators``
+        (the same X, y and ``sample_weight`` as its first fit); OOB is
+        then scored over the whole grown ensemble."""
         X, device, h2d_seconds = self._start_fit(X)
         classes, y_enc = np.unique(self._labels(y), return_inverse=True)
+        if self.warm_start and hasattr(self, "ensemble_"):
+            if not np.array_equal(classes, self.classes_):
+                raise ValueError(
+                    "warm_start requires the same class set as the "
+                    "original fit"
+                )
+        id_start = self._warm_start_id(X, sample_weight)
+        if self._nothing_to_grow(id_start):
+            return self
         if len(classes) < 2:
             raise ValueError("y has a single class")
         self.classes_ = classes
         self.n_classes_ = int(len(classes))
         y_t = torch.as_tensor(y_enc.astype(np.int64), device=device)
         self._fit_engine(X, y_t, self.n_classes_, device, h2d_seconds,
-                         sample_weight)
+                         sample_weight, id_start=id_start)
         if self.oob_score:
             counts, votes = self._oob_scores(X, self.n_classes_)
             self._finalize_oob(counts, votes, y_enc)
@@ -768,14 +977,16 @@ class BaggingClassifier(_BaseBagging):
         ``prefetch`` chunks are made on a background thread while the
         device steps (None: 2 where a spare host core exists, else
         none; 0 disables; a source that is already a
-        ``PrefetchChunks`` keeps its depth). The checkpoint arguments
-        are not ported yet and raise ``NotImplementedError``.
+        ``PrefetchChunks`` keeps its depth). ``checkpoint_dir`` with
+        ``checkpoint_every=N`` snapshots the fit every N chunk-steps (a
+        tree learner at every pass boundary, whatever N is);
+        ``resume_from`` resumes a snapshot, the JAX package's too, and
+        the resumed fit is bit for bit the uninterrupted one.
         """
         from spark_bagging_tpu_torch.utils.io import as_chunk_source
         from spark_bagging_tpu_torch.utils.prefetch import PrefetchChunks
 
-        self._reject_stream_options(checkpoint_dir, checkpoint_every,
-                                    resume_from)
+        self._reject_stream_options()
         source = as_chunk_source(source, chunk_rows)
         if classes is None:
             seen: set = set()
@@ -799,7 +1010,10 @@ class BaggingClassifier(_BaseBagging):
             enc = _EncodedChunks(source, self.classes_)
         self._fit_stream_engine(enc, self.n_classes_, n_epochs=n_epochs,
                                 steps_per_chunk=steps_per_chunk, lr=lr,
-                                prefetch=prefetch)
+                                prefetch=prefetch,
+                                checkpoint_dir=checkpoint_dir,
+                                checkpoint_every=checkpoint_every,
+                                resume_from=resume_from)
         if self.oob_score:
             counts, votes, y_enc = self._oob_scores_stream(
                 enc, self.n_classes_)
@@ -917,7 +1131,7 @@ class BaggingRegressor(_BaseBagging):
     _default_learner = LinearRegression
 
     def fit(self, X, y, sample_weight=None, aux=None) -> "BaggingRegressor":
-        """Fit the ensemble; ``sample_weight`` as in
+        """Fit the ensemble; ``sample_weight`` and ``warm_start`` as in
         :meth:`BaggingClassifier.fit`. ``aux`` ``(n,)`` is the per-row
         auxiliary column of a learner that declares ``uses_aux`` (the
         survival learner's censor flags); passing it to any other
@@ -941,8 +1155,11 @@ class BaggingRegressor(_BaseBagging):
             if aux.shape != (X.shape[0],):
                 raise ValueError(f"aux shape {aux.shape} != ({X.shape[0]},)")
             aux_t = torch.as_tensor(aux, device=device)
+        id_start = self._warm_start_id(X, sample_weight, aux)
+        if self._nothing_to_grow(id_start):
+            return self
         self._fit_engine(X, y_t, 1, device, h2d_seconds, sample_weight,
-                         aux=aux_t)
+                         aux=aux_t, id_start=id_start)
         if self.oob_score:
             sums, votes = self._oob_scores(X, None)
             self._finalize_oob(sums, votes, y)
@@ -970,13 +1187,15 @@ class BaggingRegressor(_BaseBagging):
         columns."""
         from spark_bagging_tpu_torch.utils.io import as_chunk_source
 
-        self._reject_stream_options(checkpoint_dir, checkpoint_every,
-                                    resume_from)
+        self._reject_stream_options()
         self.__dict__.pop("_collapsed_beta_cache", None)
         source = as_chunk_source(source, chunk_rows)
         self._fit_stream_engine(source, 1, n_epochs=n_epochs,
                                 steps_per_chunk=steps_per_chunk, lr=lr,
-                                prefetch=prefetch, aux_col=aux_col)
+                                prefetch=prefetch,
+                                checkpoint_dir=checkpoint_dir,
+                                checkpoint_every=checkpoint_every,
+                                resume_from=resume_from, aux_col=aux_col)
         if self.oob_score:
             sums, votes, y = self._oob_scores_stream(source, None)
             self._finalize_oob(sums, votes, y)

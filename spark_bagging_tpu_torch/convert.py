@@ -8,6 +8,8 @@ the same layout, so carrying a model across is a copy onto the device.
 The caller passes numpy arrays (``np.asarray`` of the JAX arrays): the
 port imports nothing of JAX. :func:`params_to_jax` is the inverse, the
 numpy leaves a JAX checkpoint holds (``utils/checkpoint.py``).
+:func:`adam_state_to_jax` and :func:`adam_state_from_jax` carry the
+streamed fits' optimizer state (``optim.Adam``) to and from optax's.
 """
 
 from __future__ import annotations
@@ -51,3 +53,30 @@ def params_to_jax(
     subs = np.ascontiguousarray(
         subspaces.detach().cpu().numpy().astype(np.int32, copy=False))
     return params, subs
+
+
+def adam_state_to_jax(opt, n_replicas: int) -> dict:
+    """``optim.Adam``'s state as flax's state dict of the vmapped
+    ``optax.adam`` state ``(ScaleByAdamState(count, mu, nu),
+    EmptyState())``: ``{"0": {"count": (R,) int32, "mu": {...}, "nu":
+    {...}}, "1": {}}`` with numpy leaves."""
+    host = lambda d: {k: v.detach().cpu().numpy() for k, v in d.items()}  # noqa: E731
+    return {
+        "0": {"count": np.full((n_replicas,), opt.count, np.int32),
+              "mu": host(opt.mu), "nu": host(opt.nu)},
+        "1": {},
+    }
+
+
+def adam_state_from_jax(opt, state: dict) -> None:
+    """Load optax's Adam state dict (:func:`adam_state_to_jax`'s form)
+    into ``opt``, in place. The replicas share one step count, as the
+    vmapped counts are all equal."""
+    adam = state["0"]
+    counts = np.unique(np.asarray(adam["count"]))
+    if counts.size != 1:
+        raise ValueError(f"replicas' Adam step counts differ: {counts}")
+    opt.count = int(counts[0])
+    for moments, saved in ((opt.mu, adam["mu"]), (opt.nu, adam["nu"])):
+        for name, leaf in saved.items():
+            moments[name].copy_(torch.from_numpy(np.array(leaf)))

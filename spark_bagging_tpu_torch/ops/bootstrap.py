@@ -21,8 +21,9 @@ from spark_bagging_tpu_torch.ops import prng
 # Poisson(lam<=1) essentially never exceeds this; counts fit in uint8.
 _MAX_COUNT = 255
 
-# Largest rate the inverse-CDF sampler handles (the JAX package falls
-# back to jax.random.poisson's rejection sampler above it).
+# Largest rate the inverse-CDF sampler handles; above it the draws are
+# jax.random.poisson's rejection sampler (prng.poisson), as in the JAX
+# package.
 _INV_CDF_MAX_LAM = 32.0
 
 # Stream tags folded into the base key so row draws, feature draws,
@@ -37,8 +38,6 @@ RNG_SCHEMA = 2
 # The profiler range around every draw: profile_fit sums its kernels'
 # device time under this name (no cost when no profiler is active).
 DRAW_RANGE = "bootstrap_weights"
-
-_ROADMAP_BOOTSTRAP = "ROADMAP Queue A: bootstrap branches still to port"
 
 
 def _poisson_cdf_table(lam: float) -> np.ndarray:
@@ -98,7 +97,9 @@ def bootstrap_weights(
 ) -> torch.Tensor:
     """Per-row sample weights of each replica, ``(R, n_rows)`` float32.
 
-    - ``replacement=True``: Poisson(ratio) counts, clamped at 255.
+    - ``replacement=True``: Poisson(ratio) counts, clamped at 255: the
+      inverse-CDF lookup up to a rate of 32, JAX's rejection sampler
+      above it.
     - ``replacement=False``: an exact ``round(ratio * n_rows)``-subset
       (at least 1) without replacement, as a 0/1 mask.
 
@@ -110,12 +111,10 @@ def bootstrap_weights(
     with torch.profiler.record_function(DRAW_RANGE):
         rk = prng.fold_in(prng.fold_in(k, _ROW_STREAM), replica_ids)
         if replacement:
-            if ratio > _INV_CDF_MAX_LAM:
-                raise NotImplementedError(
-                    f"ratio={ratio} > {_INV_CDF_MAX_LAM} needs the Poisson "
-                    f"rejection sampler ({_ROADMAP_BOOTSTRAP})"
-                )
-            counts = poisson_counts(rk, ratio, n_rows)
+            if ratio <= _INV_CDF_MAX_LAM:
+                counts = poisson_counts(rk, ratio, n_rows)
+            else:  # huge oversampling: the exact rejection sampler
+                counts = prng.poisson(rk, ratio, n_rows)
             return torch.clamp_max(counts, float(_MAX_COUNT))
         m = max(1, int(round(ratio * n_rows)))
         n_rep = replica_ids.shape[0]

@@ -6,7 +6,8 @@ carries its own threefry-2x32 hash and the parts of ``jax.random`` the
 bootstrap uses: ``key``, ``fold_in``, ``split``, the *partitionable*
 random-bits layout (``jax_threefry_partitionable``, the default from
 jax 0.5 on), ``uniform`` and ``normal`` for float32, ``randint`` for
-int32 and ``permutation`` of a range.
+int32, ``permutation`` of a range and ``poisson``'s rejection sampler
+for rates of 10 and more.
 
 A key is an int64 tensor of shape ``(..., 2)`` holding the two uint32
 words of a JAX key (``jax.random.key_data``). uint32 arithmetic is done
@@ -18,6 +19,7 @@ and runs on whichever device the key lies on.
 from __future__ import annotations
 
 import math
+import struct
 
 import numpy as np
 import torch
@@ -185,3 +187,172 @@ def randint(k: torch.Tensor, n: int, minval: int, maxval: int) -> torch.Tensor:
     offset = (((higher % span) * multiplier) & _M32) + lower % span
     offset = (offset & _M32) % span
     return (offset + minval).to(torch.int32)
+
+
+# -- jax.random.poisson's transformed rejection (Hoermann), rates >= 10 --
+#
+# Each round accepts or rejects through ``s <= t``, and a last-bit
+# difference in either side flips a draw. So the two are computed as
+# XLA's CPU code computes them, from IEEE operations that round the same
+# on the CPU and on the card: its float32 ``log`` (Cephes' polynomial),
+# ``log1p`` and ``lgamma`` (the Lanczos sum), with the multiply-adds its
+# code generator fuses done as one rounding (:func:`_fma32`).
+
+def _f32(hex64: str) -> float:
+    """A float32 constant from the 64-bit hex form LLVM prints it in."""
+    return float(np.float32(struct.unpack(">d", bytes.fromhex(hex64))[0]))
+
+
+_LOG_P = tuple(_f32(h) for h in (
+    "3FB2043760000000", "BFBD7A3700000000", "3FBDE4A340000000",
+    "BFBFCBA9E0000000", "3FC23D37E0000000", "BFC555CA00000000",
+    "3FC999D580000000", "BFCFFFFF80000000", "3FD5555540000000"))
+_LOG_SQRTHF = _f32("3FE6A09E60000000")
+_LOG_Q1 = _f32("BF2BD01060000000")
+_LOG_Q2 = _f32("3FE6300000000000")
+_FLT_MIN = float(np.finfo(np.float32).tiny)
+# log1p's rational approximation below |x| < sqrt(2) - 1
+_LOG1P_DEN = tuple(_f32(h) for h in (
+    "402E2035A0000000", "4054C30B60000000", "406BB865A0000000",
+    "4073519460000000", "406B0DB140000000", "404E0F3040000000"))
+_LOG1P_NUM = tuple(_f32(h) for h in (
+    "3F07BC0960000000", "3FDFE818A0000000", "401A509F40000000",
+    "403DE97380000000", "404E798EC0000000", "404C8E75A0000000",
+    "40340A2020000000"))
+_LOG1P_SMALL = _f32("3FDA8279A0000000")
+_LANCZOS = tuple(float(np.float32(c)) for c in (
+    676.520368121885098567009190444019, -1259.13921672240287047156078755283,
+    771.3234287776530788486528258894, -176.61502916214059906584551354,
+    12.507343278686904814458936853, -0.13857109526572011689554707,
+    9.984369578019570859563e-6, 1.50563273514931155834e-7))
+_LANCZOS_G = 7.5                                   # lanczos gamma + 1/2
+_INV_LANCZOS_G = float(np.float32(1 / np.float32(7.5)))
+_LOG_LANCZOS_G = float(np.float32(np.log(7.5)))
+_LOG_SQRT_2PI = float(np.float32(0.91893853320467274178))
+
+
+def _fma32(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as a fused multiply-add: the
+    product is exact in float64, so only the sum rounds (to float64,
+    then float32; a double rounding that is off only when the float64
+    sum lands exactly halfway between two floats)."""
+    a, b, c = (x.double() if isinstance(x, torch.Tensor) else x
+               for x in (a, b, c))
+    return (a * b + c).float()
+
+
+def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
+    """A 0-d float32 tensor: ``v / t`` of a Python float is computed as
+    ``t.reciprocal() * v``, two roundings; a tensor numerator divides."""
+    return torch.tensor(v, dtype=torch.float32, device=like.device)
+
+
+def xla_log(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``log`` as XLA's CPU code computes it (``jnp.log``):
+    Cephes' ``logf`` polynomial on the mantissa in [sqrt(1/2), sqrt(2)),
+    with the multiply-adds fused. ``torch.log`` differs from it in the
+    last bit for about one input in six."""
+    xm = torch.clamp_min(x, _FLT_MIN)
+    bits = xm.view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    m = ((bits & 0x007FFFFF) | 0x3F000000).view(torch.float32)
+    small = m < _LOG_SQRTHF
+    r = (m - 1.0) + torch.where(small, m, 0.0)
+    e = e - small.to(torch.float32)
+    r2 = r * r
+    r3 = r2 * r
+    p = _LOG_P
+    y = _fma32(_fma32(r, p[0], p[1]), r, p[2])
+    y1 = _fma32(_fma32(r, p[3], p[4]), r, p[5])
+    y2 = _fma32(_fma32(r, p[6], p[7]), r, p[8])
+    y = _fma32(_fma32(_fma32(y, r3, y1), r3, y2), r3, e * _LOG_Q1)
+    out = _fma32(e, _LOG_Q2, _fma32(r2, -0.5, r) + y)
+    out = torch.where((x < 0) | torch.isnan(x), math.nan, out)
+    out = torch.where(x == 0, -math.inf, out)
+    return torch.where(x == math.inf, x, out)
+
+
+def _xla_log1p(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``log1p`` as XLA's CPU code computes it: ``log(1 + x)``,
+    and a rational approximation where ``|x| < sqrt(2) - 1``."""
+    x2 = x * x
+    den = torch.ones_like(x)
+    for c in _LOG1P_DEN:
+        den = _fma32(den, x, c)
+    num = torch.full_like(x, _LOG1P_NUM[0])
+    for c in _LOG1P_NUM[1:]:
+        num = _fma32(num, x, c)
+    near = x + _fma32(x2, -0.5, (x * x2) * (num / den))
+    return torch.where(x.abs() < _LOG1P_SMALL, near, xla_log(x + 1.0))
+
+
+def _lgamma_1p(k: torch.Tensor) -> torch.Tensor:
+    """``lgamma(k + 1)`` for ``k >= 0`` as XLA computes ``lax.lgamma``
+    in float32: the Lanczos sum, with ``(k + 1) - 1`` simplified to
+    ``k`` and the division by 7.5 turned into a product, as XLA does."""
+    z = k
+    log_t = _xla_log1p(z * _INV_LANCZOS_G) + _LOG_LANCZOS_G
+    acc = _scalar(_LANCZOS[0], z) / (z + 1.0) + 1.0
+    for i, c in enumerate(_LANCZOS[1:], start=2):
+        acc = acc + _scalar(c, z) / (z + float(i))
+    log_y = _fma32((z + 0.5) - (z + _LANCZOS_G) / log_t, log_t,
+                   _LOG_SQRT_2PI)
+    return log_y + xla_log(acc)
+
+
+def _rejection_constants(lam: float) -> tuple[float, ...]:
+    """The per-rate constants of the rejection sampler, on the host:
+    ``(lam, log lam, b, a, 1/alpha, v_r)`` in float32."""
+    f = lambda v: float(np.float32(v))  # noqa: E731
+    lam32 = np.float32(lam)
+    log_lam = float(xla_log(torch.tensor([lam32]))[0])
+    sq = float(np.sqrt(lam32))  # correctly rounded; torch.sqrt is not
+    b = float(_fma32(torch.tensor(f(2.53)), sq, f(0.931)))
+    a = float(_fma32(torch.tensor(f(0.02483)), b, f(-0.059)))
+    inv_alpha = f(np.float32(1.1239) + np.float32(1.1328)
+                  / (np.float32(b) - np.float32(3.4)))
+    v_r = f(np.float32(0.9277) - np.float32(3.6224)
+            / (np.float32(b) - np.float32(2)))
+    return float(lam32), log_lam, b, a, inv_alpha, v_r
+
+
+def poisson(k: torch.Tensor, lam: float, n: int) -> torch.Tensor:
+    """``jax.random.poisson(k, lam, (n,))`` for a rate ``lam >= 10``,
+    shape ``(..., n)`` float32 counts: Hoermann's transformed rejection,
+    JAX's branch for such rates.
+
+    Each round splits every key in three, draws ``u`` and ``v`` and
+    accepts a row by ``accept1 | (~reject & (s <= t))``; a row accepted
+    again in a later round takes the later value, as JAX's loop does.
+    Each key (a replica under ``vmap``) loops until all of its own rows
+    have accepted and then stays frozen while the others go on."""
+    if not lam >= 10:
+        raise ValueError(f"poisson's rejection sampler needs lam >= 10, "
+                         f"got {lam}")
+    lam, log_lam, b, a, inv_alpha, v_r = _rejection_constants(lam)
+    f = lambda v: float(np.float32(v))  # noqa: E731
+    lead = k.shape[:-1]
+    keys = k.reshape(-1, 2).clone()
+    out = torch.full((keys.shape[0], n), -1.0, device=k.device)
+    accepted = torch.zeros((keys.shape[0], n), dtype=torch.bool,
+                           device=k.device)
+    two_a = _scalar(2 * a, out)
+    a_t = _scalar(a, out)
+    while True:
+        live = (~accepted).any(dim=1).nonzero().squeeze(1)
+        if live.numel() == 0:
+            break
+        sub = split(keys[live], 3)
+        u = uniform(sub[:, 1], n) - 0.5
+        v = uniform(sub[:, 2], n)
+        us = 0.5 - u.abs()
+        cand = torch.floor(_fma32(two_a / us + b, u, lam) + f(0.43))
+        s = xla_log((v * inv_alpha) / (a_t / (us * us) + b))
+        t = _fma32(cand, log_lam, -lam) - _lgamma_1p(cand.clamp_min(0.0))
+        accept = (((us >= f(0.07)) & (v <= v_r))
+                  | (~((cand < 0) | ((us < f(0.013)) & (v > us)))
+                     & (s <= t)))
+        out[live] = torch.where(accept, cand, out[live])
+        accepted[live] |= accept
+        keys[live] = sub[:, 0]
+    return out.reshape(*lead, n)

@@ -27,12 +27,21 @@ censorCol as a column): each chunk splits it off on the host
 (:func:`split_aux_col`, shared by the fit and the OOB pass), so every
 chunk source carries aux with no change of format.
 
-Not ported yet: checkpoints and resume, and ``mesh`` (the estimators
+Checkpoints: ``checkpoint_dir`` with ``checkpoint_every=N`` snapshots
+``(params, Adam state, cursor, last epoch's losses)`` every N
+chunk-steps, in the JAX package's format (``state.msgpack`` in flax's
+msgpack layout, ``meta.json``), installed atomically
+(:func:`save_snapshot`); ``resume_from`` restores one, the JAX
+package's included, and replays the stream from its cursor. Chunk-keyed
+draws do not depend on when a chunk is visited, so a resumed fit is bit
+for bit the uninterrupted one. Not ported yet: ``mesh`` (the estimators
 raise naming the ROADMAP item).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from contextlib import closing
 from typing import Any
@@ -40,6 +49,11 @@ from typing import Any
 import numpy as np
 import torch
 
+from spark_bagging_tpu_torch import telemetry
+from spark_bagging_tpu_torch.convert import (
+    adam_state_from_jax,
+    adam_state_to_jax,
+)
 from spark_bagging_tpu_torch.ensemble import (
     _chunks_apply,
     _gather_columns,
@@ -48,6 +62,7 @@ from spark_bagging_tpu_torch.ensemble import (
 from spark_bagging_tpu_torch.models.base import BaseLearner
 from spark_bagging_tpu_torch.ops import prng
 from spark_bagging_tpu_torch.ops.bootstrap import (
+    RNG_SCHEMA,
     bootstrap_weights,
     feature_subspaces,
     replica_init_fit_keys,
@@ -55,6 +70,8 @@ from spark_bagging_tpu_torch.ops.bootstrap import (
 from spark_bagging_tpu_torch.ops.precision import fp32_matmul
 from spark_bagging_tpu_torch.optim import Adam
 from spark_bagging_tpu_torch.utils.device import synchronize
+from spark_bagging_tpu_torch.utils import msgpack
+from spark_bagging_tpu_torch.utils.checkpoint import install, reap_stale_tmp
 from spark_bagging_tpu_torch.utils.io import ChunkSource
 
 _EPS = 1e-8
@@ -81,6 +98,76 @@ def learner_fingerprint(learner: BaseLearner) -> str:
     key = sorted((k, repr(v))
                  for k, v in learner.get_params(deep=False).items())
     return repr(key) + type(learner).__qualname__
+
+
+def check_resume_config(meta: dict, config: dict, path: str) -> None:
+    """A resumed run must continue THIS fit: raise naming the mismatched
+    keys if the snapshot's config fingerprint differs."""
+    saved = meta.get("config", {})
+    if saved != config:
+        diff = {k for k in set(saved) | set(config)
+                if saved.get(k) != config.get(k)}
+        raise ValueError(
+            f"checkpoint at {path} was written by a different fit "
+            f"configuration (mismatched: {sorted(diff)})"
+        )
+
+
+def save_snapshot(path: str, tree: Any, meta: dict) -> None:
+    """Atomically install a snapshot at ``path``: ``state.msgpack``
+    (``tree``, a dict of numpy leaves, in flax's msgpack layout) and
+    ``meta.json``, written to ``path.tmp.<pid>`` and renamed into place.
+    The previous snapshot moves aside to ``path.old`` until the new one
+    is installed, so a kill at any point leaves one valid snapshot
+    (:func:`_load_stream_checkpoint` falls back to ``path.old``). One
+    writer (this process) per ``path``."""
+    tmp = f"{path}.tmp.{os.getpid()}"
+    reap_stale_tmp(path, tmp)
+    os.makedirs(tmp, exist_ok=True)
+    with telemetry.span("checkpoint_save", metric="sbt_checkpoint_seconds"):
+        payload = msgpack.serialize(tree)
+        with open(os.path.join(tmp, "state.msgpack"), "wb") as f:
+            f.write(payload)
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump(meta, f, indent=2)
+    telemetry.inc("sbt_checkpoint_bytes_total", float(len(payload)),
+                  labels={"kind": "stream", "op": "save"})
+    install(tmp, path)
+
+
+def _save_stream_checkpoint(path: str, params, opt: Adam,
+                            host_losses: list[np.ndarray],
+                            meta: dict) -> None:
+    """Snapshot an SGD stream fit: the parameters, the Adam state as
+    optax's state dict, and the last epoch's per-chunk losses so far
+    (``host_losses``: the caller's host mirror, extended between
+    snapshots)."""
+    n_rep = next(iter(params.values())).shape[0]
+    tree = {
+        "params": {k: v.detach().cpu().numpy() for k, v in params.items()},
+        "opt_state": adam_state_to_jax(opt, n_rep),
+        "final_epoch_losses": (np.stack(host_losses) if host_losses
+                               else np.zeros((0, 0), np.float32)),
+    }
+    save_snapshot(path, tree, meta)
+
+
+def _load_stream_checkpoint(path: str) -> tuple[dict, dict]:
+    """``(meta, state tree)`` of the snapshot at ``path``, or of
+    ``path.old`` after a crash between the two renames."""
+    if not os.path.isdir(path) and os.path.isdir(f"{path}.old"):
+        path = f"{path}.old"
+    with open(os.path.join(path, "meta.json")) as f:
+        meta = json.load(f)
+    with open(os.path.join(path, "state.msgpack"), "rb") as f:
+        tree = msgpack.restore(f.read())
+    return meta, tree
+
+
+def key_data(key: torch.Tensor) -> list[int]:
+    """The key as the config fingerprint stores it (JAX's
+    ``key_data(key).tolist()``)."""
+    return [int(w) for w in key.cpu().tolist()]
 
 
 def to_device(a: np.ndarray, device: torch.device,
@@ -131,6 +218,9 @@ def fit_ensemble_stream(
     bootstrap: bool = True,
     n_subspace: int | None = None,
     bootstrap_features: bool = False,
+    checkpoint_dir: str | None = None,
+    checkpoint_every: int = 0,
+    resume_from: str | None = None,
     aux_col: int | None = None,
 ) -> tuple[dict[str, torch.Tensor], torch.Tensor, dict[str, Any]]:
     """Fit all replicas by streaming chunks from ``source`` on the
@@ -142,12 +232,22 @@ def fit_ensemble_stream(
     chunks; ``aux["first_step_seconds"]`` the first chunk's time.
     ``aux_col``: the streamed column that is a ``uses_aux`` learner's aux
     channel (split off every chunk); the model's features are the others.
+
+    ``checkpoint_dir`` with ``checkpoint_every=N`` snapshots the fit
+    every N chunk-steps; ``resume_from`` restores a snapshot, whose
+    config fingerprint must match this call, and goes on from its
+    cursor.
     """
     if not learner.streamable:
         raise TypeError(
             f"{type(learner).__name__} does not support streaming fits "
             "(no row_loss/penalty); use an SGD-capable learner or the "
             "in-memory fit"
+        )
+    if checkpoint_dir is not None and checkpoint_every <= 0:
+        raise ValueError(
+            "checkpoint_dir is set but checkpoint_every is 0 \u2014 no "
+            "snapshot would ever be written; pass checkpoint_every=N"
         )
     if aux_col is not None and not learner.uses_aux:
         raise ValueError(
@@ -189,16 +289,59 @@ def fit_ensemble_stream(
     y_dtype = (torch.int64 if learner.task == "classification"
                else torch.float32)
 
+    # the config fingerprint: a resumed run must be continuing THIS fit
+    # (the JAX package's fields, so either package resumes the other's)
+    config = {
+        "key": key_data(key),
+        "n_replicas": n_replicas,
+        "n_outputs": n_outputs,
+        "n_epochs": n_epochs,
+        "steps_per_chunk": steps_per_chunk,
+        "lr": lr,
+        "sample_ratio": sample_ratio,
+        "bootstrap": bootstrap,
+        "n_subspace": n_subspace,
+        "bootstrap_features": bootstrap_features,
+        "chunk_rows": chunk_rows,
+        "n_features": n_features,
+        "n_rows": source.n_rows,
+        "n_chunks": source.n_chunks,
+        "rng_schema": RNG_SCHEMA,
+        "aux_col": aux_col,
+        "learner": learner_fingerprint(learner),
+    }
+    start_epoch, start_chunk = 0, 0
+    final_epoch_losses: list[torch.Tensor] = []
+    # host mirror of final_epoch_losses, extended at snapshot time only
+    host_losses: list[np.ndarray] = []
+    if resume_from is not None:
+        meta, tree = _load_stream_checkpoint(resume_from)
+        saved_cfg = meta.setdefault("config", {})
+        saved_cfg.setdefault("aux_col", None)
+        if saved_cfg["aux_col"] is not None:
+            saved_cfg["aux_col"] %= source.n_features
+        saved_cfg.setdefault("n_rows", source.n_rows)
+        saved_cfg.setdefault("n_chunks", source.n_chunks)
+        check_resume_config(meta, config, resume_from)
+        for name, leaf in tree["params"].items():
+            params[name].copy_(torch.from_numpy(np.array(leaf)))
+        adam_state_from_jax(opt, tree["opt_state"])
+        start_epoch, start_chunk = meta["epoch"], meta["next_chunk"]
+        host_losses = [np.asarray(l) for l in tree["final_epoch_losses"]]
+        final_epoch_losses = [torch.as_tensor(np.array(l), device=device)
+                              for l in host_losses]
+
     n_chunks = source.n_chunks
     t0 = time.perf_counter()
     first_step_seconds = None
-    final_epoch_losses: list[torch.Tensor] = []
     steps_done = 0
-    for epoch in range(n_epochs):
-        seen = 0
-        with closing(source.chunks()) as chunk_iter:
-            for c, (Xc, yc, n_valid) in enumerate(chunk_iter):
-                seen = c + 1
+    for epoch in range(start_epoch, n_epochs):
+        # a resume seeks straight to its cursor
+        offset = start_chunk if epoch == start_epoch else 0
+        seen = offset - 1
+        with closing(source.chunks_from(offset)) as chunk_iter:
+            for c, (Xc, yc, n_valid) in enumerate(chunk_iter, start=offset):
+                seen = c
                 Xc, auxc = split_aux_col(Xc, aux_col)
                 Xd = to_device(Xc, device, torch.float32)
                 yd = to_device(np.asarray(yc), device, y_dtype)
@@ -225,13 +368,27 @@ def fit_ensemble_stream(
                 if epoch == n_epochs - 1:
                     final_epoch_losses.append(loss)
                 steps_done += 1
-        # a source that yields another count than it declares would
-        # visit chunks under the wrong ids on a later epoch
-        if seen != n_chunks:
+                if (checkpoint_dir is not None
+                        and steps_done % checkpoint_every == 0):
+                    nxt_epoch, nxt_chunk = epoch, c + 1
+                    if nxt_chunk >= n_chunks:
+                        nxt_epoch, nxt_chunk = epoch + 1, 0
+                    host_losses.extend(
+                        l.cpu().numpy()
+                        for l in final_epoch_losses[len(host_losses):])
+                    _save_stream_checkpoint(
+                        checkpoint_dir, params, opt, host_losses,
+                        {"config": config, "epoch": nxt_epoch,
+                         "next_chunk": nxt_chunk, "steps_done": steps_done})
+        # the declared n_chunks drives a resume's epoch rollover: a
+        # source that yields another count would skip or revisit chunks
+        if seen + 1 != n_chunks:
             raise ValueError(
-                f"source yielded {seen} chunk(s) for an epoch; it "
+                f"source yielded {seen + 1 - offset} chunk(s) for an "
+                f"epoch spanning chunks [{offset}, {n_chunks}) \u2014 it "
                 f"declares n_chunks={n_chunks} (n_rows={source.n_rows}, "
-                f"chunk_rows={chunk_rows})"
+                f"chunk_rows={chunk_rows}); a miscounted source breaks "
+                "checkpoint-resume exactness"
             )
     if not final_epoch_losses:
         raise ValueError("source yielded no chunks")

@@ -25,7 +25,13 @@ exactly: in int32 within a chunk on the card, and in float32 over
 chunks, exact below 2**24. So streamed Gini trees are bitwise the JAX
 package's.
 
-Not ported yet: checkpoints and resume, and ``mesh``.
+Checkpoints: with ``checkpoint_dir`` the engine snapshots ``(edges,
+the splits of every finished level, the pass cursor)`` after the edge
+pass and after every level, in the JAX package's format
+(``streaming.save_snapshot``); ``resume_from`` skips the finished
+passes and runs only the rest, so a resumed fit launches ``bin_codes``
+and the histogram only for the levels it has left, and equals the
+uninterrupted fit bit for bit. Not ported yet: ``mesh``.
 """
 
 from __future__ import annotations
@@ -35,6 +41,7 @@ import time
 from contextlib import closing
 from typing import Any
 
+import numpy as np
 import torch
 
 from spark_bagging_tpu_torch.models.tree import (
@@ -44,13 +51,19 @@ from spark_bagging_tpu_torch.models.tree import (
 )
 from spark_bagging_tpu_torch.ops import prng
 from spark_bagging_tpu_torch.ops.bootstrap import (
+    RNG_SCHEMA,
     bootstrap_weights,
     feature_subspaces,
     replica_init_fit_keys,
 )
 from spark_bagging_tpu_torch.streaming import (
     _CHUNK_STREAM,
+    _load_stream_checkpoint,
+    check_resume_config,
     chunk_context,
+    key_data,
+    learner_fingerprint,
+    save_snapshot,
     to_device,
 )
 from spark_bagging_tpu_torch.utils.device import synchronize
@@ -81,9 +94,14 @@ def fit_tree_ensemble_stream(
     bootstrap: bool = True,
     n_subspace: int | None = None,
     bootstrap_features: bool = False,
+    checkpoint_dir: str | None = None,
+    resume_from: str | None = None,
 ) -> tuple[dict[str, torch.Tensor], torch.Tensor, dict[str, Any]]:
     """Stream-fit a tree ensemble on the device ``key`` lies on; the
-    return contract of ``streaming.fit_ensemble_stream``."""
+    return contract of ``streaming.fit_ensemble_stream``.
+    ``checkpoint_dir`` snapshots at every pass boundary (the state is
+    ``O(R 2^d)``, not the mid-pass histogram); ``resume_from`` goes on
+    after a snapshot's last finished pass."""
     if not getattr(learner, "tree_streamable", False):
         raise ValueError(
             f"{type(learner).__name__} is not tree-streamable "
@@ -109,6 +127,50 @@ def fit_tree_ensemble_stream(
     t0 = time.perf_counter()
     first_step_seconds = None
 
+    # pass cursor: 0 the edge pass, 1..d the level passes, d+1 the leaves
+    config = {
+        "key": key_data(key),
+        "n_replicas": n_replicas,
+        "n_outputs": n_outputs,
+        "sample_ratio": sample_ratio,
+        "bootstrap": bootstrap,
+        "n_subspace": n_subspace,
+        "bootstrap_features": bootstrap_features,
+        "chunk_rows": chunk_rows,
+        "n_features": n_features,
+        "n_rows": source.n_rows,
+        "n_chunks": source.n_chunks,
+        "rng_schema": RNG_SCHEMA,
+        # the data-axis size the weight stream folds (1: no mesh)
+        "data_size": 1,
+        "learner": learner_fingerprint(learner),
+    }
+    start_pass = 0
+    state: dict | None = None
+    if resume_from is not None:
+        meta, state = _load_stream_checkpoint(resume_from)
+        saved_cfg = meta.setdefault("config", {})
+        saved_cfg.setdefault("n_rows", source.n_rows)
+        saved_cfg.setdefault("n_chunks", source.n_chunks)
+        check_resume_config(meta, config, resume_from)
+        start_pass = meta["next_pass"]
+        if start_pass >= 1 and "gains" not in state:
+            raise ValueError(
+                "tree-stream snapshot predates split-gain tracking "
+                "(no 'gains' key) \u2014 re-run the fit to produce a "
+                "current-format checkpoint"
+            )
+    feats, thrs, gains, curve = [], [], [], []
+
+    def snapshot(next_pass: int) -> None:
+        if checkpoint_dir is None:
+            return
+        host = lambda ts: [t.cpu().numpy() for t in ts]  # noqa: E731
+        save_snapshot(checkpoint_dir, {
+            "edges": edges.cpu().numpy(), "feats": host(feats),
+            "thrs": host(thrs), "gains": host(gains), "curve": host(curve),
+        }, {"config": config, "next_pass": next_pass})
+
     def chunks():
         """One pass: each chunk on the device as ``(c, X, y, valid mask,
         weights (R, chunk_rows))``."""
@@ -127,32 +189,44 @@ def fit_tree_ensemble_stream(
                     synchronize(device)
                     first_step_seconds = time.perf_counter() - t0
 
-    # -- pass 0: averaged per-chunk quantile edges over every feature
-    #    (replicas read their subspace's rows of them later)
-    e_sum = torch.zeros((n_features, B - 1), dtype=torch.float32,
-                        device=device)
-    e_cnt = torch.zeros((), dtype=torch.float32, device=device)
-    n_chunks = 0
-    for X, _, valid, _ in chunks():
-        interior, nv = _quantile_edges(X, valid, B)
-        has = (nv > 0).to(torch.float32)
-        e_sum += torch.where(torch.isfinite(interior), interior, 0.0) * has
-        e_cnt += has
-        n_chunks += 1
-    if n_chunks == 0:
-        raise ValueError("source yielded no chunks")
-    edges = torch.cat([
-        e_sum / torch.clamp_min(e_cnt, 1.0),
-        torch.full((n_features, 1), math.inf, dtype=torch.float32,
-                   device=device),
-    ], dim=1).contiguous()
+    if start_pass == 0:
+        # -- pass 0: averaged per-chunk quantile edges over every
+        #    feature (replicas read their subspace's rows of them later)
+        e_sum = torch.zeros((n_features, B - 1), dtype=torch.float32,
+                            device=device)
+        e_cnt = torch.zeros((), dtype=torch.float32, device=device)
+        n_chunks = 0
+        for X, _, valid, _ in chunks():
+            interior, nv = _quantile_edges(X, valid, B)
+            has = (nv > 0).to(torch.float32)
+            e_sum += torch.where(torch.isfinite(interior), interior,
+                                 0.0) * has
+            e_cnt += has
+            n_chunks += 1
+        if n_chunks == 0:
+            raise ValueError("source yielded no chunks")
+        edges = torch.cat([
+            e_sum / torch.clamp_min(e_cnt, 1.0),
+            torch.full((n_features, 1), math.inf, dtype=torch.float32,
+                       device=device),
+        ], dim=1).contiguous()
+        snapshot(1)
+    else:
+        # the edge pass and start_pass - 1 levels finished before the
+        # snapshot
+        n_chunks = source.n_chunks
+        edges = torch.as_tensor(np.array(state["edges"]),
+                                device=device).contiguous()
+        as_dev = lambda xs: [torch.as_tensor(np.array(x), device=device)  # noqa: E731
+                             for x in xs]
+        feats, thrs = as_dev(state["feats"]), as_dev(state["thrs"])
+        gains, curve = as_dev(state["gains"]), as_dev(state["curve"])
     edges_r = edges if identity else edges[subspaces.long()]
 
     # -- passes 1..d: one histogram accumulation pass per level
     k_split = learner._n_split_features(n_subspace)
     fit_keys = replica_init_fit_keys(key, ids)[1]
-    feats, thrs, gains, curve = [], [], [], []
-    for level in range(d):
+    for level in range(len(feats), d):
         N = 2**level
         hist = torch.zeros((n_replicas, n_subspace, B, N, K),
                            dtype=torch.float32, device=device)
@@ -173,6 +247,7 @@ def fit_tree_ensemble_stream(
         thrs.append(thr)
         gains.append(gain)
         curve.append(score)
+        snapshot(level + 2)
 
     # -- last pass: leaf statistics
     leaf_acc = torch.zeros((n_replicas, 2**d, K), dtype=torch.float32,

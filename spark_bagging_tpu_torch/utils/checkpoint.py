@@ -28,9 +28,11 @@ pickle: the manifest names the classes to instantiate.
 
 from __future__ import annotations
 
+import glob
 import importlib
 import json
 import os
+import shutil
 import warnings
 from typing import Any
 
@@ -247,10 +249,41 @@ def _manifest(model: Any) -> dict:
     }
 
 
-def _save_model_impl(model: Any, path: str, *, compress: bool | str) -> None:
-    import glob
-    import shutil
+def reap_stale_tmp(path: str, tmp: str) -> None:
+    """Remove the ``path.tmp.<pid>`` dirs of savers that died mid-write;
+    a live process's (and ``tmp``, this one's) is left alone."""
+    for stale in glob.glob(glob.escape(path) + ".tmp.*"):
+        suffix = stale.rsplit(".", 1)[1]
+        if stale == tmp or not suffix.isdigit() or not os.path.isdir(stale):
+            continue
+        try:
+            os.kill(int(suffix), 0)  # raises if no such process
+        except ProcessLookupError:
+            shutil.rmtree(stale, ignore_errors=True)
+        except PermissionError:
+            pass  # pid exists under another uid: leave it
 
+
+def install(tmp: str, path: str) -> None:
+    """Rename the complete ``tmp`` dir into ``path``. ``path + ".old"``
+    is the crash-recovery slot: a crash between the two renames leaves
+    the previous complete copy there, where the loaders fall back to;
+    after such a crash it is the only valid copy, so it goes only once
+    the new one is installed."""
+    old = f"{path}.old"
+    if os.path.exists(path):
+        if os.path.isdir(old):
+            shutil.rmtree(old)  # `path` is intact: the slot is stale
+        os.replace(path, old)
+        os.replace(tmp, path)
+        shutil.rmtree(old)
+    else:
+        os.replace(tmp, path)
+        if os.path.isdir(old):
+            shutil.rmtree(old)  # recovery slot superseded by this save
+
+
+def _save_model_impl(model: Any, path: str, *, compress: bool | str) -> None:
     from spark_bagging_tpu_torch.convert import params_to_jax
 
     model._check_fitted()
@@ -268,16 +301,7 @@ def _save_model_impl(model: Any, path: str, *, compress: bool | str) -> None:
     # arrays, nor a stale arrays file of another compression beside them.
     # Temp dirs of dead savers are reaped; a live one's is left alone.
     tmp = f"{path}.tmp.{os.getpid()}"
-    for stale in glob.glob(glob.escape(path) + ".tmp.*"):
-        suffix = stale.rsplit(".", 1)[1]
-        if stale == tmp or not suffix.isdigit() or not os.path.isdir(stale):
-            continue
-        try:
-            os.kill(int(suffix), 0)  # raises if no such process
-        except ProcessLookupError:
-            shutil.rmtree(stale, ignore_errors=True)
-        except PermissionError:
-            pass  # pid exists under another uid: leave it
+    reap_stale_tmp(path, tmp)
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
@@ -288,20 +312,7 @@ def _save_model_impl(model: Any, path: str, *, compress: bool | str) -> None:
         # torn-write drill: a kill here leaves only tmp debris; the
         # installed checkpoint and its .old slot stay loadable
         faults.fire("checkpoint.write")
-    # `path + ".old"` is the crash-recovery slot: a crash between the two
-    # renames leaves the previous complete checkpoint there, where
-    # load_model falls back to
-    old = f"{path}.old"
-    if os.path.exists(path):
-        if os.path.isdir(old):
-            shutil.rmtree(old)  # `path` is intact: the slot is stale
-        os.replace(path, old)
-        os.replace(tmp, path)
-        shutil.rmtree(old)
-    else:
-        os.replace(tmp, path)
-        if os.path.isdir(old):
-            shutil.rmtree(old)  # recovery slot superseded by this save
+    install(tmp, path)
 
 
 def load_model(path: str, *, device: str = "cuda") -> Any:

@@ -35,6 +35,17 @@ def assert_w_close(got, want, tol=W_TOL):
     assert err <= tol, f"max |dW| is {err:.3g} of max |W| (> {tol})"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU fits here take one intra-op thread: under xdist each
+    worker's default pool takes every core of the host and the workers'
+    pools spin against one another (tests/test_torch_stream.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _near_tie_rows(proba_a, proba_b):
     """Rows whose argmax differs between two probability tables; each
     must be a near-tie (top-two margin below NEAR_TIE) in both."""
@@ -277,13 +288,25 @@ def test_default_device_is_cuda_and_raises_without_it():
 
 def test_unported_surfaces_raise(tmp_path):
     X, y = make_classification(50, 3, 2, seed=0)
-    for kw in ({"mesh": object()}, {"warm_start": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.BaggingClassifier(device="cpu", **kw).fit(X, y)
-    # the streams run; their checkpoints are not ported yet, save/load is
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.BaggingClassifier(device="cpu", mesh=object()).fit(X, y)
+    # warm_start grows a fitted ensemble (the growth's contract:
+    # test_warm_growth_equals_the_cold_fit)
+    grown = T.BaggingClassifier(n_estimators=3, warm_start=True,
+                                device="cpu").fit(X, y)
+    grown.set_params(n_estimators=4).fit(X, y)
+    assert grown.n_estimators_ == 4
+    assert grown.fit_report_["warm_started_from"] == 3
+    # a stream snapshots and resumes (tests/test_torch_resume.py holds
+    # the resumed fit to the uninterrupted one); save/load runs
     clf = T.BaggingClassifier(device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue A 11"):
-        clf.fit_stream((X, y), checkpoint_dir="ckpt", checkpoint_every=1)
+    ckpt = str(tmp_path / "ckpt")
+    clf.fit_stream((X, y), checkpoint_dir=ckpt, checkpoint_every=1)
+    assert sorted(os.listdir(ckpt)) == ["meta.json", "state.msgpack"]
+    back = T.BaggingClassifier(device="cpu").fit_stream((X, y),
+                                                        resume_from=ckpt)
+    for k in clf.ensemble_:
+        assert torch.equal(back.ensemble_[k], clf.ensemble_[k])
     clf.fit_stream((X, y))
     for name in ("predict_stream", "predict_proba_stream", "score_stream"):
         getattr(clf, name)((X, y))
@@ -335,3 +358,191 @@ def test_no_file_of_the_port_imports_jax():
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "optax", "flax",
                             "spark_bagging_tpu"}, path
+
+
+# -- warm start, the sklearn hooks, the package surface -----------------
+
+WARM = dict(max_features=0.75, oob_score=True, seed=0)
+
+
+def _grow(pkg, learner, small, big, X, y, **kw):
+    """A fit of ``small`` replicas grown to ``big`` (warm_start)."""
+    est = pkg.BaggingClassifier(learner, n_estimators=small, warm_start=True,
+                                **WARM, **kw).fit(X, y)
+    return est.set_params(n_estimators=big).fit(X, y)
+
+
+@pytest.fixture(scope="module", params=["logistic", "gini_tree"])
+def warm_fits(request):
+    """4 -> 8 replicas grown and 8 fitted cold, in both packages."""
+    X, y = make_classification(300, 6, 3, seed=1)
+    if request.param == "logistic":
+        jl, tl = (pkg.LogisticRegression(max_iter=2, hessian_impl="blocked")
+                  for pkg in (J, T))
+    else:
+        jl, tl = (pkg.DecisionTreeClassifier(max_depth=3, n_bins=16,
+                                             split_impl="dense")
+                  for pkg in (J, T))
+    fits = {
+        "jax_warm": _grow(J, jl, 4, 8, X, y),
+        "jax_cold": J.BaggingClassifier(jl, n_estimators=8, **WARM).fit(X, y),
+        "port_warm": _grow(T, tl, 4, 8, X, y, device="cpu"),
+        "port_cold": T.BaggingClassifier(tl, n_estimators=8, device="cpu",
+                                         **WARM).fit(X, y),
+    }
+    return request.param, X, y, fits
+
+
+def test_warm_growth_equals_the_cold_fit(warm_fits):
+    """Replica streams are keyed by (seed, id): growing 4 -> 8 draws the
+    cold fit's bootstrap weights and subspaces bit for bit, in both
+    packages, and Gini trees (integral statistics) come out bitwise; a
+    logistic bag's predict_proba stays within PROBA_ATOL of the cold
+    fit's and of the JAX package's grown bag."""
+    kind, X, y, f = warm_fits
+    for pkg in ("jax", "port"):
+        warm, cold = f[f"{pkg}_warm"], f[f"{pkg}_cold"]
+        np.testing.assert_array_equal(np.asarray(warm.subspaces_),
+                                      np.asarray(cold.subspaces_))
+        for i in (0, 4, 7):
+            np.testing.assert_array_equal(warm.replica_weights(i),
+                                          cold.replica_weights(i))
+        assert warm.fit_report_["warm_started_from"] == 4
+        np.testing.assert_allclose(warm.predict_proba(X),
+                                   cold.predict_proba(X), atol=PROBA_ATOL,
+                                   rtol=0)
+        if kind == "gini_tree":
+            for k in cold.ensemble_:
+                np.testing.assert_array_equal(
+                    np.asarray(warm.ensemble_[k]), np.asarray(cold.ensemble_[k]),
+                    err_msg=k)
+            assert warm.oob_score_ == cold.oob_score_
+    # the port's grown bag against the JAX package's grown bag
+    jw, tw = f["jax_warm"], f["port_warm"]
+    np.testing.assert_array_equal(np.asarray(jw.subspaces_),
+                                  tw.subspaces_.numpy())
+    np.testing.assert_allclose(tw.predict_proba(X), jw.predict_proba(X),
+                               atol=PROBA_ATOL, rtol=0)
+    if kind == "gini_tree":
+        for k in ("feature", "threshold", "gain"):
+            np.testing.assert_array_equal(np.asarray(jw.ensemble_[k]),
+                                          tw.ensemble_[k].numpy(), err_msg=k)
+        np.testing.assert_array_max_ulp(np.asarray(jw.ensemble_["leaf_logp"]),
+                                        tw.ensemble_["leaf_logp"].numpy(),
+                                        maxulp=2)
+    else:
+        assert_w_close(tw.ensemble_["W"].numpy(), np.asarray(jw.ensemble_["W"]))
+    with pytest.warns(UserWarning, match="without increasing n_estimators"):
+        assert tw.fit(X, y) is tw
+
+
+def _refusal_case(case, pkg, est_kw, X, y):
+    """A fitted estimator of ``pkg`` and the call that must refuse to
+    grow it; every case changes one input of the first fit."""
+    kw = dict(n_estimators=4, warm_start=True, max_features=0.75, seed=0)
+    if pkg is T:
+        kw["device"] = "cpu"
+    kw.update(est_kw)
+    learner = (pkg.AFTSurvivalRegression(max_iter=5) if case == "aux"
+               else pkg.LogisticRegression(max_iter=1, init="pooled",
+                                           hessian_impl="blocked"))
+    n = X.shape[0]
+    if case == "aux":
+        aux = (np.arange(n) % 3 > 0).astype(np.float32)
+        est = pkg.BaggingRegressor(learner, **kw).fit(
+            X, y.astype(np.float32), aux=aux)
+        return lambda: est.set_params(n_estimators=6).fit(
+            X, y.astype(np.float32), aux=1 - aux)
+    if case == "pooled_gate":
+        kw["n_estimators"] = 2  # 2 * 2 < pooled_iter: no pre-pass
+    est = pkg.BaggingClassifier(learner, **kw)
+    sw = np.linspace(0.5, 1.5, n).astype(np.float32)
+    if case == "in_memory_fit":
+        est.set_params(warm_start=False).fit_stream((X, y), prefetch=0)
+        est.set_params(warm_start=True)
+    else:
+        est.fit(X, y, sample_weight=sw)
+    if case == "mesh_layout":
+        est._fit_mesh_layout = (("data", 2),)  # as if fitted on a mesh
+    grow = {"n_estimators": 6}
+    Xg, yg, swg = X, y, sw
+    if case == "shrink":
+        grow = {"n_estimators": 2}
+    elif case == "features":
+        Xg = X[:, :-1]
+    elif case == "learner":
+        est.set_params(base_learner__max_iter=2)
+    elif case == "seed":
+        grow["seed"] = 1
+    elif case == "sampling":
+        grow["max_samples"] = 0.5
+    elif case == "pooled_gate":
+        grow = {"n_estimators": 4}
+    elif case == "rows":
+        Xg, yg, swg = X[:-10], y[:-10], sw[:-10]
+    elif case == "subspace":
+        grow["max_features"] = 0.5
+    elif case == "sample_weight":
+        swg = sw[::-1].copy()
+    elif case == "classes":
+        yg = np.where(y == 2, 1, y)
+    return lambda: est.set_params(**grow).fit(Xg, yg, sample_weight=swg)
+
+
+@pytest.mark.parametrize("case", [
+    "shrink", "features", "learner", "seed", "sampling", "in_memory_fit",
+    "pooled_gate", "rows", "subspace", "mesh_layout", "sample_weight", "aux",
+    "classes"])
+def test_warm_start_refusals_match_jax(case):
+    """Every refusal of ``_warm_start_from`` (and the class-set check
+    before it): the port raises the JAX package's exception type with
+    its message, word for word."""
+    X, y = make_classification(120, 5, 3, seed=2)
+    raised = []
+    for pkg in (J, T):
+        with pytest.raises(ValueError) as err:
+            _refusal_case(case, pkg, {}, X, y)()
+        raised.append((type(err.value), str(err.value)))
+    assert raised[0] == raised[1]
+
+
+def test_sklearn_hooks():
+    sk_base = pytest.importorskip("sklearn.base")
+    from sklearn.exceptions import NotFittedError
+    from sklearn.utils.validation import check_is_fitted
+
+    X, y = make_classification(60, 4, 2, seed=0)
+    clf = T.BaggingClassifier(n_estimators=2, device="cpu")
+    reg = T.BaggingRegressor(n_estimators=2, device="cpu")
+    assert sk_base.is_classifier(clf) and not sk_base.is_regressor(clf)
+    assert sk_base.is_regressor(reg) and not sk_base.is_classifier(reg)
+    for est, yy in ((clf, y), (reg, y.astype(np.float32))):
+        with pytest.raises(NotFittedError):
+            check_is_fitted(est)
+        check_is_fitted(est.fit(X, yy))
+    # the JAX package answers the same
+    assert sk_base.is_classifier(J.BaggingClassifier())
+    assert sk_base.is_regressor(J.BaggingRegressor())
+
+
+def _all_names(init_path: str) -> set[str]:
+    """A package's ``__all__``, read with ``ast`` (never imported)."""
+    tree = ast.parse(open(init_path).read())
+    for node in tree.body:
+        if (isinstance(node, ast.Assign)
+                and any(getattr(t, "id", None) == "__all__"
+                        for t in node.targets)):
+            return set(ast.literal_eval(node.value))
+    raise AssertionError(f"no __all__ in {init_path}")
+
+
+def test_exports_are_the_jax_packages_less_the_unported():
+    jax_names = _all_names(os.path.join(REPO, "spark_bagging_tpu",
+                                        "__init__.py"))
+    port_names = _all_names(os.path.join(PKG, "__init__.py"))
+    assert jax_names - port_names == {
+        "ArrowChunks", "CSVChunks", "FeatureHasher", "HashedCSVChunks",
+        "LibsvmChunks", "clear_compiled_caches", "make_mesh"}
+    assert port_names - jax_names == set()
+    for name in port_names:
+        assert hasattr(T, name), name

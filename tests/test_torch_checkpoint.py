@@ -39,6 +39,17 @@ PKG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "spark_bagging_tpu_torch")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU fits here take one intra-op thread: under xdist each
+    worker's default pool takes every core of the host and the workers'
+    pools spin against one another (tests/test_torch_stream.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def cls_data():
     return make_classification(240, 6, 3, seed=1)

@@ -1241,3 +1241,109 @@ def test_serving_failed_capture_raises_instead_of_serving_eagerly(cuda):
     with pytest.raises(RuntimeError, match="never served eagerly"):
         ex.forward(X[:3])
     assert ex.compiled_buckets == ()
+
+
+# -- growth and resume on the card ------------------------------------
+
+@pytest.mark.parametrize("kind", ["logistic", "gini_tree"])
+def test_warm_growth_on_card_equals_the_cold_fit(cuda, kind):
+    """4 -> 8 replicas grown on the card: bootstrap weights and
+    subspaces bitwise the cold fit's, Gini trees bitwise (integral
+    statistics in int32). The Gram kernel splits its rows by the
+    replicas a launch holds (4 here against the cold fit's 8, at 3,000
+    rows), so the logistic Hessians sum in another order: its weights
+    are held to chip_smoke's W_REL_TOL (1e-3 of the largest) and its
+    probabilities to 1e-4 (2.7e-5 found on an H100 after two Newton
+    steps), not bitwise."""
+    from spark_bagging_tpu_torch import (
+        BaggingClassifier,
+        DecisionTreeClassifier,
+        LogisticRegression,
+    )
+    from spark_bagging_tpu_torch.ops.gram import scaled_grams
+    from spark_bagging_tpu_torch.ops.hist import bin_codes
+    from spark_bagging_tpu_torch.utils.datasets import make_classification
+
+    X, y = make_classification(3000, 12, 4, seed=1)
+    learner = (LogisticRegression(max_iter=2, hessian_impl="pallas")
+               if kind == "logistic" else
+               DecisionTreeClassifier(max_depth=4, n_bins=16,
+                                      split_impl="fused"))
+    kw = dict(max_features=0.75, seed=0, device="cuda", oob_score=True)
+    cold = BaggingClassifier(learner, n_estimators=8, **kw).fit(X, y)
+    warm = BaggingClassifier(learner, n_estimators=4, warm_start=True,
+                             **kw).fit(X, y)
+    before = (scaled_grams.launches, bin_codes.launches)
+    warm.set_params(n_estimators=8).fit(X, y)
+    grams, codes = (scaled_grams.launches - before[0],
+                    bin_codes.launches - before[1])
+    assert (grams > 0) if kind == "logistic" else (codes == 1)
+    assert torch.equal(warm.subspaces_, cold.subspaces_)
+    for i in (0, 5):
+        np.testing.assert_array_equal(warm.replica_weights(i),
+                                      cold.replica_weights(i))
+    if kind == "gini_tree":
+        for k in cold.ensemble_:
+            assert torch.equal(warm.ensemble_[k], cold.ensemble_[k]), k
+        tol = 0.0
+    else:
+        assert _rel_err(warm.ensemble_["W"], cold.ensemble_["W"]) <= 1e-3
+        tol = 1e-4
+    np.testing.assert_allclose(warm.predict_proba(X), cold.predict_proba(X),
+                               atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["mlp", "tree"])
+def test_resumed_stream_on_card_equals_the_uninterrupted_fit(cuda, tmp_path,
+                                                             kind):
+    """A stream killed mid-fit on the card and resumed from its snapshot
+    equals the uninterrupted card fit bit for bit: the same shapes and
+    the same launches; the resumed tree stream launches the histogram
+    only for the levels it has left."""
+    from spark_bagging_tpu_torch import (
+        BaggingClassifier,
+        DecisionTreeClassifier,
+        MLPClassifier,
+    )
+    from spark_bagging_tpu_torch.ops.hist import binned_left_stats
+    from spark_bagging_tpu_torch.utils.datasets import make_classification
+    from spark_bagging_tpu_torch.utils.io import ArrayChunks
+
+    class Killed(Exception):
+        pass
+
+    class Dying(ArrayChunks):
+        yielded, after = 0, None
+
+        def chunks_from(self, start):
+            for chunk in super().chunks_from(start):
+                if self.after is not None and self.yielded >= self.after:
+                    raise Killed()
+                self.yielded += 1
+                yield chunk
+
+    X, y = make_classification(3000, 12, 4, seed=1)
+    if kind == "mlp":
+        learner, fit = MLPClassifier(hidden=8), dict(
+            n_epochs=2, steps_per_chunk=2, lr=0.01)
+    else:
+        learner, fit = DecisionTreeClassifier(max_depth=4, n_bins=16), {}
+
+    def run(src, **kw):
+        return BaggingClassifier(learner, n_estimators=6, max_features=0.75,
+                                 seed=0, device="cuda").fit_stream(
+            src, classes=[0, 1, 2, 3], prefetch=0, **fit, **kw)
+
+    full = run(ArrayChunks(X, y, 512))
+    ckpt = str(tmp_path / "ckpt")
+    dying = Dying(X, y, 512)
+    dying.after = 8 if kind == "mlp" else 20  # tree: level pass 2
+    with pytest.raises(Killed):
+        run(dying, checkpoint_dir=ckpt, checkpoint_every=3)
+    before = binned_left_stats.launches
+    resumed = run(ArrayChunks(X, y, 512), resume_from=ckpt)
+    if kind == "tree":
+        # 6 chunks a pass; levels 0 and 1 were done: 2 levels left
+        assert binned_left_stats.launches - before == 2 * 6
+    for k in full.ensemble_:
+        assert torch.equal(resumed.ensemble_[k], full.ensemble_[k]), k

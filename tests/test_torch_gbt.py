@@ -53,6 +53,17 @@ MAX_TIE_SHARE = 0.1
 TASKS = ("binary", "multiclass", "regression")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU fits here take one intra-op thread: under xdist each
+    worker's default pool takes every core of the host and the workers'
+    pools spin against one another (tests/test_torch_stream.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(v):
     return v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 

@@ -39,6 +39,17 @@ def assert_w_close(got, want, tol=W_TOL):
     assert err <= tol, f"max |dW| is {err:.3g} of max |W| (> {tol})"
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU fits here take one intra-op thread: under xdist each
+    worker's default pool takes every core of the host and the workers'
+    pools spin against one another (tests/test_torch_stream.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _data(n=300, d=6, C=4):
     X, y = make_classification(n, d, C, seed=1)
     w = np.random.default_rng(2).poisson(1.0, (N_REPLICAS, n)).astype(
@@ -62,10 +73,11 @@ def _fit_both(impl, init, max_iter, row_tile=None):
     else:
         W0j = jnp.zeros((X.shape[1] + 1, C), jnp.float32)
         W0t = torch.zeros((X.shape[1] + 1, C))
-    want = jax.vmap(
+    # jitted: run eagerly, every op of the Newton loop dispatches alone
+    want = jax.jit(jax.vmap(
         lambda wr: jl.fit({"W": W0j}, jnp.asarray(X), jnp.asarray(y), wr,
                           jkey)[0]["W"]
-    )(jnp.asarray(w))
+    ))(jnp.asarray(w))
     keys = prng.split(tkey, N_REPLICAS)
     params0 = tl.initial_params(keys, X.shape[1], C, W0t)
     got, aux = tl.fit(params0, Xt, yt, torch.from_numpy(w), keys)

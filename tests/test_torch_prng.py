@@ -24,6 +24,17 @@ SEEDS = [0, 1, 2**31 - 1]
 REPLICA_IDS = [0, 1, 3862, 3863, 3864, 70000]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU fits here take one intra-op thread: under xdist each
+    worker's default pool takes every core of the host and the workers'
+    pools spin against one another (tests/test_torch_stream.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _jkey_data(k):
     return np.asarray(jax.random.key_data(k))
 
@@ -129,11 +140,59 @@ def test_bootstrap_weights_bitwise(seed, n_rows, ratio, replacement):
 
 
 def test_bootstrap_rejects_what_is_not_ported():
+    # a rate above 32 draws through the rejection sampler now (bitwise:
+    # test_rejection_sampler_bitwise); a rate of 0 still raises
     ids = torch.tensor([0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tboot.bootstrap_weights(prng.key(0), ids, 10, ratio=40.0)
+    w = tboot.bootstrap_weights(prng.key(0), ids, 10, ratio=40.0)
+    np.testing.assert_array_equal(w.numpy(), np.asarray(
+        jboot.bootstrap_weights(jax.random.key(0), jnp.asarray([0]), 10,
+                                ratio=40.0)))
     with pytest.raises(ValueError):
         tboot.bootstrap_weights(prng.key(0), ids, 10, ratio=0.0)
+
+
+@pytest.mark.parametrize("ratio", [32.5, 50.0, 200.0, 1000.0])
+def test_rejection_sampler_bitwise(ratio):
+    """lambda > 32: jax.random.poisson's rejection branch, bitwise. Eight
+    replicas stop after different numbers of rounds (each loops until
+    its own 4,096 rows accept and then freezes) and rows accepted twice
+    keep the later value; a last-bit difference in log or lgamma would
+    flip a row. At 1000 every count clamps to 255."""
+    ids = jnp.arange(8, dtype=jnp.int32)
+    want = np.asarray(jax.vmap(lambda r: jboot.bootstrap_weights_one(
+        jax.random.key(3), r, 4096, ratio=ratio))(ids))
+    got = tboot.bootstrap_weights(prng.key(3), torch.arange(8), 4096,
+                                  ratio=ratio).numpy()
+    np.testing.assert_array_equal(want, got)
+    # the unclamped counts too, where the clamp does not hide them
+    if ratio < 200:
+        rk = jax.vmap(lambda r: jax.random.fold_in(jax.random.fold_in(
+            jax.random.key(3), jboot._ROW_STREAM), r))(ids)
+        raw = np.asarray(jax.vmap(
+            lambda k: jax.random.poisson(k, ratio, (4096,)))(rk))
+        trk = prng.fold_in(prng.fold_in(prng.key(3), tboot._ROW_STREAM),
+                           torch.arange(8))
+        np.testing.assert_array_equal(
+            raw, prng.poisson(trk, ratio, 4096).numpy())
+
+
+def test_xla_log_and_lgamma_bitwise():
+    """The float32 log and lgamma the sampler's accept test reads: XLA's
+    CPU code (Cephes log, Lanczos lgamma, fused multiply-adds), bitwise,
+    where torch.log differs in about one input in six."""
+    x = np.concatenate([
+        np.arange(0x3F000000, 0x40000000, 37, dtype=np.uint32).view(
+            np.float32),
+        np.random.default_rng(0).uniform(1e-6, 1e4, 200_000).astype(
+            np.float32)])
+    np.testing.assert_array_equal(np.asarray(jax.jit(jnp.log)(x)),
+                                  prng.xla_log(torch.from_numpy(x)).numpy())
+    k = np.arange(0, 20_000, dtype=np.float32)
+    np.testing.assert_array_equal(
+        np.asarray(jax.jit(lambda k: jax.lax.lgamma(k + 1))(k)),
+        prng._lgamma_1p(torch.from_numpy(k)).numpy())
+    with pytest.raises(ValueError, match="lam >= 10"):
+        prng.poisson(prng.key(0), 5.0, 4)
 
 
 @pytest.mark.parametrize("n", [1, 2, 7, 43, 54, 1000])

@@ -32,6 +32,17 @@ PRED_TOL = 1e-4
 TREE = dict(max_depth=3, n_bins=16)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU fits here take one intra-op thread: under xdist each
+    worker's default pool takes every core of the host and the workers'
+    pools spin against one another (tests/test_torch_stream.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(v):
     return v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
@@ -287,14 +298,25 @@ def test_regressor_surface_rules(data):
         tr.replica_params(2)
     with pytest.raises(ValueError, match="features"):
         tr.predict(X[:, :3])
-    # the streams run; their checkpoints are not ported yet
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.fit_stream((X, y), resume_from="ckpt")
+    # the streams run, and resume from a snapshot (a missing one raises)
+    with pytest.raises(FileNotFoundError):
+        tr.fit_stream((X, y), resume_from="no-such-snapshot")
     np.testing.assert_array_equal(tr.predict_stream((X, y)), tr.predict(X))
     assert tr.score_stream((X, y)) == pytest.approx(tr.score(X, y))
-    for kw in ({"mesh": object()}, {"warm_start": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            T.BaggingRegressor(device="cpu", **kw).fit(X, y)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        T.BaggingRegressor(device="cpu", mesh=object()).fit(X, y)
+    # warm_start grows: the grown bag draws the cold fit's weights bit
+    # for bit; its ridge solves, batched over 1 replica instead of 3,
+    # round alike to within an ulp or two
+    grown = T.BaggingRegressor(n_estimators=2, warm_start=True,
+                               device="cpu").fit(X, y)
+    grown.set_params(n_estimators=3).fit(X, y)
+    cold = T.BaggingRegressor(n_estimators=3, device="cpu").fit(X, y)
+    np.testing.assert_array_equal(grown.replica_weights(2),
+                                  cold.replica_weights(2))
+    np.testing.assert_allclose(grown.ensemble_["beta"].numpy(),
+                               cold.ensemble_["beta"].numpy(), rtol=0,
+                               atol=1e-6)
 
 
 def test_regressors_default_to_cuda_and_raise_without_it():

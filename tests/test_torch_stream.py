@@ -263,10 +263,13 @@ def test_stream_guards_raise_by_name(tmp_path):
                            device="cpu").fit_stream((Xr, yr), aux_col=0)
     with pytest.raises(ValueError, match="does not declare uses_aux"):
         T.BaggingRegressor(device="cpu").fit_stream((Xr, yr), aux_col=0)
-    for kw in (dict(checkpoint_dir="ckpt", checkpoint_every=1),
-               dict(resume_from="ckpt")):
-        with pytest.raises(NotImplementedError, match="Queue A 11"):
-            T.BaggingClassifier(device="cpu").fit_stream((X, y), **kw)
+    # Queue A 11's snapshots run: a snapshot and its resume round trip
+    ckpt = str(tmp_path / "ckpt")
+    snap = T.BaggingClassifier(n_estimators=2, device="cpu").fit_stream(
+        (X, y), checkpoint_dir=ckpt, checkpoint_every=1, prefetch=0)
+    again = T.BaggingClassifier(n_estimators=2, device="cpu").fit_stream(
+        (X, y), resume_from=ckpt, prefetch=0)
+    assert torch.equal(again.ensemble_["W"], snap.ensemble_["W"])
     with pytest.raises(NotImplementedError, match="Queue A 12"):
         T.BaggingClassifier(mesh=object(), device="cpu").fit_stream((X, y))
     clf = T.BaggingClassifier(n_estimators=2, device="cpu").fit_stream(

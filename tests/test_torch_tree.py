@@ -37,6 +37,17 @@ TREE = dict(max_depth=4, n_bins=16)
 PROBA_ATOL = 1e-6
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU fits here take one intra-op thread: under xdist each
+    worker's default pool takes every core of the host and the workers'
+    pools spin against one another (tests/test_torch_stream.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _np(v):
     return v.numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
 
@@ -52,7 +63,7 @@ def assert_trees_equal(jparams, tparams, leaf="leaf_logp"):
 
 @pytest.fixture(scope="module")
 def data():
-    return make_classification(600, 10, 3, seed=0)
+    return make_classification(400, 10, 3, seed=0)
 
 
 @pytest.fixture(scope="module", params=["dense", "fused"])
@@ -178,8 +189,10 @@ def test_regression_tree_learner_matches_jax(target, feature_subset):
     ids = jnp.arange(R, dtype=jnp.int32)
     jkeys = jax.vmap(lambda r: jboot.fit_key(jax.random.key(0), r))(ids)
     prep = jl.prepare(jnp.asarray(X))
-    jp, jaux = jax.vmap(lambda k, w: jl.fit_from_init(
-        k, jnp.asarray(X), jnp.asarray(y), w, 1, prepared=prep))(
+    # jitted: run eagerly, the Pallas kernel's interpret mode dispatches
+    # op by op (~10x the time)
+    jp, jaux = jax.jit(jax.vmap(lambda k, w: jl.fit_from_init(
+        k, jnp.asarray(X), jnp.asarray(y), w, 1, prepared=prep)))(
         jkeys, jnp.asarray(W))
     tl = T.DecisionTreeRegressor(**kw)
     tkeys = tboot.fit_key(prng.key(0), torch.arange(R))

@@ -45,6 +45,17 @@ LOGP_ULPS = 2
 GAIN_RTOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's CPU fits here take one intra-op thread: under xdist each
+    worker's default pool takes every core of the host and the workers'
+    pools spin against one another (tests/test_torch_stream.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _ulps(a, b) -> int:
     a = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
     b = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
