@@ -166,6 +166,36 @@ Growth and resume, each against the fit it must reproduce:
 
 Snapshots go to a temporary directory the script removes.
 
+Online updates (``online.OnlineUpdater``) and the data plane, each time
+printed with the card's name and power limit:
+
+- ``online_update``: 8 warm ``partial_fit`` steps of 16,384 fresh
+  covtype rows on the logistic headline bag (Poisson(1) weights keyed by
+  ``online_step_key``, a damped Newton step from the current params, an
+  out-of-bag tap before it): each step's seconds, the running OOB
+  estimate, the scaled-Gram launches (steps x chunks) and their (R, n),
+  the kernel against its plain version at each such shape, and one step
+  on the card against the CPU from the same state (16 replicas);
+- ``online_publish``: the updated candidate (``to_estimator()``)
+  swapped into a serving registry under four clients' traffic: no
+  failed request, every served row within SERVE_TOL of its version;
+- ``online_anchor``: ``OnlineUpdater(warm=False)`` over a
+  ``bootstrap=False`` 16-replica bag's own 50,000 rows replays the batch
+  fit: params bitwise, the same Gram launches;
+- ``readers``: 200,000 synthetic HIGGS rows written as libsvm, CSV and a
+  hashed CSV (3 categorical columns), streamed through ``LibsvmChunks``,
+  ``CSVChunks`` and ``HashedCSVChunks`` on the g++-built host loader
+  (which must serve): every chunk bitwise the ``ArrayChunks`` chunk of
+  the same rows (the hashed one bitwise the pure-Python hasher's); a
+  64-replica logistic ``fit_stream`` over the CSV bitwise the same
+  stream over the arrays; each reader's MB/s;
+- ``criteo_stream``: BASELINE config 8 at full width (128 logistic
+  replicas, 1024 features, 200,000-row chunks, 2 Adam steps a chunk),
+  its rows cut from 40M to the config's 5M pre-flight floor: test AUC
+  on 100,000 fresh rows at or above sklearn's proxy minus 0.02, the
+  stream's seconds, row-replicas/s, peak memory and the host's chunk
+  making against the device's chunk visits.
+
 The sklearn proxies are constants, made on a CPU host that has sklearn
 by ``python3 chip_smoke.py --sklearn-proxies``.
 
@@ -368,6 +398,39 @@ MLP_KILL_AFTER_CHUNK = 275
 TREE_KILL_PASS = 3          # killed in level pass 3: levels 0 and 1 done
 BOOT_RATES = (33.0, 100.0, 1000.0)
 BOOT_SHAPE = (16, 65_536)
+# online updates: warm partial_fit steps of fresh covtype rows on
+# the headline bag (row seed 70, the headline's structure); the card
+# against the CPU after one step from the same state on a 16-replica bag
+# of the headline's learner, held to the CPU parity tests' logistic
+# tolerance (max |dW| over max |W|, tests/test_torch_online.py)
+ONLINE = dict(steps=8, rows=16_384, seed=70)
+ONLINE_CHECK = dict(n_estimators=16, n_rows=20_000)
+ONLINE_W_TOL = 1e-4
+# accuracy floor on the first 100k headline rows after the steps: each
+# warm step is a Newton step from the current params on that step's
+# rows alone, so the bag drifts toward a 16,384-row fit (0.7639 after 8
+# steps with 8 replicas on the CPU, from 0.7673): the headline bar less
+# 0.01
+ONLINE_ACC_BAR = ACC_BAR - 0.01
+# the file readers: synthetic HIGGS rows written as libsvm, CSV
+# and a hashed CSV with a few categorical columns, streamed in chunks
+READERS = dict(n_rows=200_000, chunk_rows=65_536, n_estimators=64,
+               n_categorical=3, n_hash=64)
+# BASELINE config 8 (benchmarks/run_configs.py:551-664) at full width,
+# its rows cut from 40,000,000 to the config's own pre-flight floor
+# (run_configs.py:603, floor_rows=5_000_000): 25 chunks of 200,000 x 1024
+CRITEO = dict(n_rows=5_000_000, n_features=1024, chunk_rows=200_000,
+              n_estimators=128, n_epochs=1, steps_per_chunk=2, lr=0.05,
+              l2=1e-4, n_test=100_000)
+# sklearn LogisticRegression(max_iter=100, C=1 / (1e-4 * 50,000)) on
+# synthetic_criteo(50_000, 1024, seed=999_004, structure_seed=13), test
+# AUC on the 100,000 test rows (run_configs.py:606-615), sklearn 1.9.0
+CRITEO_PROXY_AUC = 1.0
+# chunks of config 8's stream timed for the host's and the device's pace
+CRITEO_PACE_CHUNKS = 2
+# the card's `nvidia-smi` name and power limit, printed with every time
+# of the online and data-plane phases
+CARD = ""
 
 
 def emit(phase: str, **fields) -> None:
@@ -783,11 +846,15 @@ def phase_fit(X: np.ndarray, y: np.ndarray):
          warmup_fit_seconds=warmup_seconds, fit_seconds=rep["fit_seconds"], fits_per_sec=rep["fits_per_sec"],
          h2d_seconds=rep["h2d_seconds"], chunk_size=rep["chunk_size_resolved"],
          achieved_tflops=rep["achieved_tflops"],
+         peak_tflops_bf16=rep["peak_tflops_bf16"], mfu=rep["mfu"],
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
          launches=counts, expected_scaled_gram_launches=expected,
          accuracy_100k=acc, acc_bar=ACC_BAR)
     if launches <= 0 or launches != expected:
         fail("fit", f"{launches} scaled-Gram launches, expected {expected}")
+    if not (rep["mfu"] is not None and 0 < rep["mfu"] < 1):
+        fail("fit", f"fit_report_ mfu {rep['mfu']} (peak "
+             f"{rep['peak_tflops_bf16']}) is not in (0, 1)")
     if counts["binned_left_stats"] or counts["bin_codes"]:
         fail("fit", "the logistic fit launched a histogram kernel")
     if not acc >= ACC_BAR:
@@ -2070,27 +2137,26 @@ def mlp_bagger(n_estimators: int, device: str = "cuda", **mlp):
                              n_estimators=n_estimators, seed=0, device=device)
 
 
-def stream_pace(fit_kw: dict, n_chunks: int = 10) -> dict:
-    """The pace of config 4's stream a chunk: the host's ms to make one
+def stream_pace(make_source, make_est, fit_kw: dict,
+                n_chunks: int = 10) -> dict:
+    """The pace of a synthetic stream a chunk: the host's ms to make one
     chunk (the source's own generation, the median of the first
     ``n_chunks``), and the device's ms from a profile of the engine
-    itself (``profile_fit.profile_device``) fitting the config's
-    ensemble on a stream cut to ``n_chunks`` chunks: the bootstrap
-    draws' kernels and the rest of the device's work (the chunk copies
-    and the Adam steps)."""
+    itself (``profile_fit.profile_device``) fitting ``make_est()`` on
+    ``make_source(n_chunks)``, the stream cut to ``n_chunks`` chunks: the
+    bootstrap draws' kernels and the rest of the device's work (the
+    chunk copies and the optimizer steps)."""
     from spark_bagging_tpu_torch.profile_fit import profile_device
 
-    cfg = MLP_STREAM
-    host, it = [], mlp_source(cfg["n_rows"], cfg["chunk_rows"]).chunks()
+    host, it = [], make_source(n_chunks).chunks()
     for _ in range(n_chunks):
         t0 = time.perf_counter()
         next(it)
         host.append(time.perf_counter() - t0)
     it.close()
-    est = mlp_bagger(cfg["n_estimators"])
-    prof = profile_device(lambda: est.fit_stream(
-        mlp_source(n_chunks * cfg["chunk_rows"], cfg["chunk_rows"]),
-        **fit_kw))
+    est = make_est()
+    prof = profile_device(lambda: est.fit_stream(make_source(n_chunks),
+                                                 **fit_kw))
     boot = prof["bootstrap_device_seconds"] or 0.0
     return {"host_chunk_ms": 1e3 * float(np.median(host)),
             "bootstrap_ms": 1e3 * boot / n_chunks,
@@ -2131,7 +2197,9 @@ def phase_mlp_stream_fit() -> None:
     predict_seconds = time.perf_counter() - t0
     auc = roc_auc(yte, proba[:, 1])
     bar = MLP_PROXY_AUC - PARITY_TOL
-    pace = stream_pace(fit_kw)
+    pace = stream_pace(
+        lambda k: mlp_source(k * cfg["chunk_rows"], cfg["chunk_rows"]),
+        lambda: mlp_bagger(cfg["n_estimators"]), fit_kw)
     n_chunks = -(-cfg["n_rows"] // cfg["chunk_rows"])
     device_ms = pace["bootstrap_ms"] + pace["other_device_ms"]
     emit("mlp_stream_fit", ok=True, **cfg, hidden=MLP["hidden"],
@@ -2690,13 +2758,77 @@ def measure(run_once) -> dict:
             "p99_ms": percentile(lat_all, 0.99) * 1e3}
 
 
+def swap_under_traffic(reg, name: str, new_model, Xr: np.ndarray,
+                       ref_a: np.ndarray, ref_b: np.ndarray):
+    """Four clients' closed-loop single-row traffic on ``name`` through
+    its registry batcher while ``new_model`` is swapped in mid-traffic.
+    Every request must be served by the old version within SERVE_TOL of
+    ``ref_a`` or by the new within SERVE_TOL of ``ref_b`` (the rows of
+    ``Xr``), none may fail, the new version must serve after the swap
+    and the swap's captures are its own pre-captures. Returns (facts,
+    whether they hold, the new executor)."""
+    import threading
+
+    stop, errors, wrong, results = threading.Event(), [], [], []
+    v_before = reg.version(name)
+
+    def client(seed):
+        rng = np.random.default_rng(seed)
+        while not stop.is_set():
+            i = int(rng.integers(0, len(Xr)))
+            try:
+                fut = b.submit(Xr[i:i + 1])
+                r = fut.result(60)
+            except Exception as e:  # noqa: BLE001 - counted
+                errors.append(repr(e))
+                continue
+            version = fut.trace.breakdown.get("model_version")
+            near_a = np.abs(r - ref_a[i:i + 1]).max() <= SERVE_TOL
+            near_b = np.abs(r - ref_b[i:i + 1]).max() <= SERVE_TOL
+            results.append(version)
+            if not ((version == v_before and near_a)
+                    or (version == v_before + 1 and near_b)):
+                wrong.append((i, version))
+
+    c0 = serving_compiles()
+    with reg.batcher(name, **SERVE_BATCHER) as b:
+        threads = [threading.Thread(target=client, args=(s,))
+                   for s in range(4)]
+        for t in threads:
+            t.start()
+        time.sleep(SERVE_SWAP_WINDOW_S)
+        t0 = time.perf_counter()
+        new_ex = reg.swap(name, new_model)
+        swap_s = time.perf_counter() - t0
+        swap_captures = serving_compiles() - c0
+        time.sleep(SERVE_SWAP_WINDOW_S)
+        stop.set()
+        for t in threads:
+            t.join(60)
+        after = b.submit(Xr[:5]).result(60)
+    request_captures = serving_compiles() - c0 - swap_captures
+    n_after = sum(1 for v in results if v == v_before + 1)
+    after_err = float(np.abs(after - ref_b[:5]).max())
+    fields = dict(requests=len(results), failed=len(errors),
+                  wrong_or_mixed=len(wrong), served_new_version=n_after,
+                  version_after=reg.version(name), swap_seconds=swap_s,
+                  swap_pre_captures=swap_captures,
+                  captures_on_requests=request_captures,
+                  new_graph_pool_bytes=new_ex.graph_pool_bytes,
+                  after_swap_max_abs_err=after_err, errors=errors[:3])
+    ok = (not errors and not wrong and n_after > 0 and request_captures == 0
+          and swap_captures == len(new_ex.compiled_buckets)
+          and new_ex.graph_pool_bytes > 0
+          and reg.version(name) == v_before + 1 and after_err <= SERVE_TOL)
+    return fields, ok, new_ex
+
+
 def phase_serving(clf, X: np.ndarray, y: np.ndarray) -> None:
     """The serving plane on the headline logistic bag: the two ladders,
     closed-loop single-row traffic through the micro-batcher against
     naive per-request ``predict_proba``, a hot swap mid-traffic to a
     second fit, and ``registry.save`` / ``load`` under a new name."""
     import tempfile
-    import threading
 
     from spark_bagging_tpu_torch import BaggingClassifier, LogisticRegression
     from spark_bagging_tpu_torch.serving import MicroBatcher
@@ -2734,58 +2866,9 @@ def phase_serving(clf, X: np.ndarray, y: np.ndarray) -> None:
     clf_b = BaggingClassifier(learner, n_estimators=clf.n_estimators_,
                               seed=1, device=clf.device).fit(X, y)
     rows = np.arange(2000)
-    ref_a, ref_b = clf.predict_proba(Xs[rows]), clf_b.predict_proba(Xs[rows])
-    stop, errors, wrong, results = threading.Event(), [], [], []
-    v_before = reg.version(name)
-
-    def client(seed):
-        rng = np.random.default_rng(seed)
-        while not stop.is_set():
-            i = int(rng.integers(0, len(rows)))
-            try:
-                fut = b.submit(Xs[i:i + 1])
-                r = fut.result(60)
-            except Exception as e:  # noqa: BLE001 - counted
-                errors.append(repr(e))
-                continue
-            version = fut.trace.breakdown.get("model_version")
-            near_a = np.abs(r - ref_a[i:i + 1]).max() <= SERVE_TOL
-            near_b = np.abs(r - ref_b[i:i + 1]).max() <= SERVE_TOL
-            results.append(version)
-            if not ((version == v_before and near_a)
-                    or (version == v_before + 1 and near_b)):
-                wrong.append((i, version))
-
-    c0 = serving_compiles()
-    with reg.batcher(name, **SERVE_BATCHER) as b:
-        threads = [threading.Thread(target=client, args=(s,))
-                   for s in range(4)]
-        for t in threads:
-            t.start()
-        time.sleep(SERVE_SWAP_WINDOW_S)
-        t0 = time.perf_counter()
-        new_ex = reg.swap(name, clf_b)
-        swap_s = time.perf_counter() - t0
-        swap_captures = serving_compiles() - c0
-        time.sleep(SERVE_SWAP_WINDOW_S)
-        stop.set()
-        for t in threads:
-            t.join(60)
-        after = b.submit(Xs[:5]).result(60)
-    request_captures = serving_compiles() - c0 - swap_captures
-    n_after = sum(1 for v in results if v == v_before + 1)
-    after_err = float(np.abs(after - ref_b[:5]).max())
-    fields = dict(requests=len(results), failed=len(errors),
-                  wrong_or_mixed=len(wrong), served_new_version=n_after,
-                  version_after=reg.version(name), swap_seconds=swap_s,
-                  swap_pre_captures=swap_captures,
-                  captures_on_requests=request_captures,
-                  new_graph_pool_bytes=new_ex.graph_pool_bytes,
-                  after_swap_max_abs_err=after_err, errors=errors[:3])
-    ok = (not errors and not wrong and n_after > 0 and request_captures == 0
-          and swap_captures == len(new_ex.compiled_buckets)
-          and new_ex.graph_pool_bytes > 0
-          and reg.version(name) == v_before + 1 and after_err <= SERVE_TOL)
+    fields, ok, new_ex = swap_under_traffic(
+        reg, name, clf_b, Xs[rows], clf.predict_proba(Xs[rows]),
+        clf_b.predict_proba(Xs[rows]))
     emit("serving_swap", ok=ok, **fields)
     if not ok:
         fail("serving_swap", f"checks failed: {fields}")
@@ -3138,11 +3221,453 @@ def phase_bootstrap_rejection() -> None:
         fail("bootstrap_rejection", f"card draws differ from the CPU's: {bad}")
 
 
+# -- online updates --------------------------------------------------
+
+def fresh_covtype(n_rows: int, seed: int):
+    """``n_rows`` fresh covtype rows of the headline's mixture (another
+    row seed, the same structure), standardized with the headline
+    data's own column statistics."""
+    from spark_bagging_tpu_torch.utils.datasets import synthetic_covtype
+
+    raw, _ = synthetic_covtype(N_ROWS)
+    mu, sigma = raw.mean(0), raw.std(0) + 1e-8
+    del raw
+    X, y = synthetic_covtype(n_rows, seed=seed, structure_seed=7)
+    return ((X - mu) / sigma).astype(np.float32), y
+
+
+def record_gram_shapes():
+    """Patch the logistic learner's scaled-Gram call with one that
+    records each launch's (R, n) and calls through; returns the list and
+    the undo."""
+    from spark_bagging_tpu_torch.models import logistic
+
+    real, shapes = logistic.scaled_grams, []
+
+    def recording(Xb, S, **kw):
+        shapes.append((int(S.shape[0]), int(S.shape[1])))
+        return real(Xb, S, **kw)
+
+    logistic.scaled_grams = recording
+    return shapes, lambda: setattr(logistic, "scaled_grams", real)
+
+
+def gram_at_shapes(X: np.ndarray, Rs: list[int]) -> list[dict]:
+    """The scaled-Gram kernel (fp32 mode, the headline's) against its
+    plain version at each replica count on ``X``'s rows, every replica
+    compared (per-entry error over the abs-sum scale), with the
+    kernel's, the plain version's and the library yardstick's times and
+    the bound (as ``phase_kernels`` computes them)."""
+    from spark_bagging_tpu_torch.ops.gram import scaled_grams, scaled_grams_plain
+
+    out = []
+    for R in Rs:
+        Xb, S = kernel_inputs(X, R)
+        (n, d), P = Xb.shape, S.shape[2]
+        scale = torch.stack([scaled_grams_plain(Xb.abs(), S[r].abs())
+                             for r in range(R)]).clamp_min(1e-30)
+        err, abs_err = entry_errors(scaled_grams(Xb, S), Xb, S, "float32",
+                                    scale)
+        flops = float(n) * P * d * (d + 1) * R
+        t_ops = min(1e3 * flops / PEAK_FP32, 3e3 * flops / PEAK_TF32)
+        t_bytes = 1e3 * 4.0 * (n * d + R * n * P + R * P * d * d) / PEAK_BYTES
+        out.append(dict(R=R, n=n, d=d, P=P,
+                        max_entry_err=err, max_abs_err=abs_err, tol=GRAM_TOL,
+                        kernel_ms=cuda_ms(lambda: scaled_grams(Xb, S), 3),
+                        plain_ms=cuda_ms(lambda: scaled_grams_plain(Xb, S),
+                                         1),
+                        library_ms=library_ms(Xb, S, torch.float32),
+                        bound_ms=max(t_ops, t_bytes),
+                        bound_by="operations" if t_ops >= t_bytes
+                        else "bytes"))
+        del Xb, S, scale
+    torch.cuda.empty_cache()
+    return out
+
+
+def online_device_check(Xf: np.ndarray, yf: np.ndarray, X: np.ndarray,
+                        y: np.ndarray) -> dict:
+    """One warm step on the card and on the CPU from the same state: a
+    16-replica headline-learner bag fitted on the card, its CPU twin
+    (the same configuration fitted on the CPU) given the card's params,
+    then each steps over the same fresh rows; max |dW| over max |W|."""
+    from spark_bagging_tpu_torch import BaggingClassifier, LogisticRegression
+    from spark_bagging_tpu_torch.online import OnlineUpdater
+
+    n, R = ONLINE_CHECK["n_rows"], ONLINE_CHECK["n_estimators"]
+    learner = dict(max_iter=1, init="pooled", hessian_impl="pallas",
+                   precision="highest")
+    card = BaggingClassifier(LogisticRegression(**learner), n_estimators=R,
+                             seed=0).fit(X[:n], y[:n])
+    cpu = BaggingClassifier(LogisticRegression(**learner), n_estimators=R,
+                            seed=0, device="cpu").fit(X[:n], y[:n])
+    cpu.ensemble_ = {k: v.cpu() for k, v in card.ensemble_.items()}
+    W = {}
+    for name, est in (("card", card), ("cpu", cpu)):
+        upd = OnlineUpdater(est)
+        upd.partial_fit(Xf, yf)
+        W[name] = upd.to_estimator().ensemble_["W"].cpu()
+    rel = float((W["card"] - W["cpu"]).abs().max() / W["cpu"].abs().max())
+    return dict(replicas=R, fit_rows=n, step_rows=len(yf),
+                max_rel_w_diff=rel, tol=ONLINE_W_TOL)
+
+
+def phase_online_update(clf, X: np.ndarray, y: np.ndarray):
+    """ONLINE["steps"] warm ``partial_fit`` steps of ONLINE["rows"] fresh
+    covtype rows on the headline bag (256 replicas, Newton Hessians
+    through the scaled-Gram kernel): each step's seconds, the running
+    OOB estimate, the kernel's launches and their (R, n); the kernel
+    against its plain version at each such shape; one step on the card
+    against the CPU. Returns the candidate and the launches."""
+    from spark_bagging_tpu_torch.online import OnlineUpdater
+
+    steps, rows = ONLINE["steps"], ONLINE["rows"]
+    Xf, yf = fresh_covtype((steps + 1) * rows, ONLINE["seed"])
+    upd = OnlineUpdater(clf)
+    chunk = clf._eff_chunk() or clf.n_estimators_
+    chunks = [min(chunk, clf.n_estimators_ - s)
+              for s in range(0, clf.n_estimators_, chunk)]
+    expected = steps * clf.base_learner_.max_iter * len(chunks)
+    secs, oob = [], []
+    shapes, undo = record_gram_shapes()
+    reset_launches()
+    try:
+        for s in range(steps):
+            sl = slice(s * rows, (s + 1) * rows)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = upd.partial_fit(Xf[sl], yf[sl])
+            secs.append(time.perf_counter() - t0)
+            oob.append(rep["oob_estimate"])
+    finally:
+        undo()
+    counts = read_launches()
+    cand = upd.to_estimator()
+    acc = cand.score(X[:N_SERVE_ROWS], y[:N_SERVE_ROWS])
+    kernel_rows = gram_at_shapes(Xf[:rows], sorted({r for r, _ in shapes}))
+    check = online_device_check(Xf[steps * rows:], yf[steps * rows:], X, y)
+    fields = dict(steps=steps, rows_per_step=rows, replicas=clf.n_estimators_,
+                  chunk=chunk, step_seconds=secs, oob_estimate=oob,
+                  oob_rows=upd.oob_rows, accuracy_100k_after=acc,
+                  acc_bar=ONLINE_ACC_BAR,
+                  launches=counts, expected_scaled_gram_launches=expected,
+                  gram_launch_shapes=sorted(set(shapes)),
+                  gram_at_step_shapes=kernel_rows, device_check=check,
+                  card=CARD)
+    ok = (counts["scaled_gram"] == expected == len(shapes)
+          and all(r["max_entry_err"] <= GRAM_TOL for r in kernel_rows)
+          and check["max_rel_w_diff"] <= ONLINE_W_TOL
+          and oob[-1] is not None and acc >= ONLINE_ACC_BAR
+          and bool(np.isfinite(cand.ensemble_["W"].cpu().numpy()).all()))
+    emit("online_update", ok=ok, **fields)
+    if not ok:
+        fail("online_update", f"checks failed: launches {counts} (expected "
+             f"{expected}), kernel rows {kernel_rows}, device check {check}, "
+             f"accuracy {acc}")
+    return cand, counts["scaled_gram"]
+
+
+def phase_online_publish(clf, cand, X: np.ndarray) -> None:
+    """The updated candidate swapped into a serving registry under four
+    clients' traffic: no request fails, every served row within
+    SERVE_TOL of the version that served it (the candidate's
+    ``predict_proba`` after the swap)."""
+    from spark_bagging_tpu_torch.serving import ModelRegistry
+
+    Xs = X[:2000]
+    reg = ModelRegistry(**SERVE_LADDERS["bench"])
+    reg.register("online", clf, warmup=True)
+    fields, ok, _ = swap_under_traffic(
+        reg, "online", cand, Xs, clf.predict_proba(Xs),
+        cand.predict_proba(Xs))
+    emit("online_publish", ok=ok, **fields, card=CARD)
+    if not ok:
+        fail("online_publish", f"checks failed: {fields}")
+
+
+def phase_online_anchor(X: np.ndarray, y: np.ndarray) -> int:
+    """A ``bootstrap=False`` 16-replica logistic bag on 50,000 covtype
+    rows; ``OnlineUpdater(warm=False).partial_fit`` over the same rows
+    replays the batch fit: params bitwise, the same Gram launches.
+    Returns the replay's launches."""
+    from spark_bagging_tpu_torch import BaggingClassifier, LogisticRegression
+    from spark_bagging_tpu_torch.online import OnlineUpdater
+
+    Xa, ya = X[:N_CROSS_ROWS], y[:N_CROSS_ROWS]
+    reset_launches()
+    est = BaggingClassifier(
+        LogisticRegression(max_iter=1, init="pooled", hessian_impl="pallas",
+                           precision="highest"),
+        n_estimators=N_CROSS_REPLICAS, bootstrap=False, seed=0).fit(Xa, ya)
+    fit_launches = read_launches()["scaled_gram"]
+    upd = OnlineUpdater(est, warm=False)
+    reset_launches()
+    t0 = time.perf_counter()
+    upd.partial_fit(Xa, ya)
+    replay_seconds = time.perf_counter() - t0
+    launches = read_launches()["scaled_gram"]
+    replay = upd.to_estimator().ensemble_
+    unequal = [k for k in est.ensemble_
+               if not torch.equal(est.ensemble_[k], replay[k])]
+    ok = not unequal and launches == fit_launches > 0
+    emit("online_anchor", ok=ok, rows=N_CROSS_ROWS,
+         replicas=N_CROSS_REPLICAS, fit_seconds=est.fit_report_["fit_seconds"],
+         replay_seconds=replay_seconds, fit_launches=fit_launches,
+         replay_launches=launches, params_unequal=unequal, card=CARD)
+    if not ok:
+        fail("online_anchor", f"replay differs in {unequal} or launches "
+             f"{launches} != {fit_launches}")
+    return launches
+
+
+# -- the data plane: file readers and config 8 -------------------------
+
+def write_reader_files(d: str, X: np.ndarray, y: np.ndarray,
+                       cats: np.ndarray) -> dict:
+    """The rows as libsvm, as CSV (label last) and as a hashed CSV (label
+    first, the numeric columns, then the categorical ones), floats with
+    %.9g so float32 round-trips exactly."""
+    yX = np.c_[y.astype(np.float32), X]
+    paths = {"libsvm": os.path.join(d, "higgs.svm"),
+             "csv": os.path.join(d, "higgs.csv"),
+             "hashed_csv": os.path.join(d, "higgs_hashed.csv")}
+    np.savetxt(paths["libsvm"], yX, fmt="%.9g " + " ".join(
+        f"{j + 1}:%.9g" for j in range(X.shape[1])))
+    np.savetxt(paths["csv"], np.c_[X, y.astype(np.float32)], fmt="%.9g",
+               delimiter=",")
+    fmt = ",".join(["%.9g"] * (X.shape[1] + 1) + ["%s"] * cats.shape[1])
+    with open(paths["hashed_csv"], "w") as f:
+        for row, c in zip(yX.tolist(), cats.tolist()):
+            f.write(fmt % (*row, *c) + "\n")
+    return paths
+
+
+def stream_all(src) -> tuple[list, float]:
+    t0 = time.perf_counter()
+    chunks = [(Xc.copy(), yc.copy(), n) for Xc, yc, n in src.chunks()]
+    return chunks, time.perf_counter() - t0
+
+
+def chunks_unequal(a: list, b: list) -> int:
+    """Chunks that differ in X, y (values and dtype) or valid rows."""
+    if len(a) != len(b):
+        return max(len(a), len(b))
+    return sum(int(not (np.array_equal(p[0], q[0]) and p[0].dtype == q[0].dtype
+                        and np.array_equal(p[1], q[1])
+                        and p[1].dtype == q[1].dtype and p[2] == q[2]))
+               for p, q in zip(a, b))
+
+
+def python_path():
+    """Force the readers' pure-Python parsers (the host loader's
+    ``get_lib`` answers None) until the returned undo is called."""
+    from spark_bagging_tpu_torch.utils import host_native
+
+    real = host_native.get_lib
+    host_native.get_lib = lambda: None
+    return lambda: setattr(host_native, "get_lib", real)
+
+
+def phase_readers() -> None:
+    """READERS["n_rows"] synthetic HIGGS rows written as libsvm, CSV and
+    hashed CSV, each streamed through its reader on the host loader's
+    native path: every chunk bitwise the ``ArrayChunks`` chunk of the
+    same rows (the hashed one: bitwise the pure-Python hasher's, its
+    numeric columns the rows'); a 64-replica logistic ``fit_stream``
+    over the CSV bitwise the same stream over ``ArrayChunks``; each
+    reader's host MB/s."""
+    import shutil
+
+    from spark_bagging_tpu_torch import BaggingClassifier, LogisticRegression
+    from spark_bagging_tpu_torch.utils import host_native
+    from spark_bagging_tpu_torch.utils.datasets import synthetic_higgs
+    from spark_bagging_tpu_torch.utils.hashing import HashedCSVChunks
+    from spark_bagging_tpu_torch.utils.io import (
+        ArrayChunks,
+        CSVChunks,
+        LibsvmChunks,
+    )
+
+    cfg = READERS
+    n, ch, F = cfg["n_rows"], cfg["chunk_rows"], 28
+    X, y = synthetic_higgs(n, seed=999_006, structure_seed=11)
+    yf = y.astype(np.float32)
+    rng = np.random.default_rng(3)
+    cats = np.char.add("c", rng.zipf(1.5, (n, cfg["n_categorical"]))
+                       .astype(str))
+    d = tempfile.mkdtemp(prefix="readers_")
+    try:
+        t0 = time.perf_counter()
+        paths = write_reader_files(d, X, y, cats)
+        write_seconds = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lib = host_native.get_lib()
+        build_seconds = time.perf_counter() - t0
+        if lib is None:
+            fail("readers", "the host loader did not build (g++)")
+        ref, _ = stream_all(ArrayChunks(X, yf, ch))
+        hashed_kw = dict(chunk_rows=ch, label_col=0,
+                         numeric_cols=list(range(1, F + 1)),
+                         categorical_cols=list(range(F + 1, F + 1 + cats.shape[1])),
+                         n_hash=cfg["n_hash"])
+        readers = {
+            "libsvm": lambda: LibsvmChunks(paths["libsvm"], F, ch),
+            "csv": lambda: CSVChunks(paths["csv"], ch),
+            "hashed_csv": lambda: HashedCSVChunks(paths["hashed_csv"],
+                                                  **hashed_kw),
+        }
+        rows, got = {}, {}
+        for name, make in readers.items():
+            before = dict(host_native.served)
+            got[name], secs = stream_all(make())
+            native = host_native.served["native"] - before["native"]
+            python = host_native.served["python"] - before["python"]
+            mb = os.path.getsize(paths[name]) / 1e6
+            rows[name] = dict(seconds=secs, file_mb=mb, mb_per_sec=mb / secs,
+                              chunks=len(got[name]), native_reads=native,
+                              python_reads=python)
+        for name in ("libsvm", "csv"):
+            rows[name]["chunks_unequal_to_arrays"] = chunks_unequal(
+                got[name], ref)
+        undo = python_path()
+        try:
+            py_hashed, py_secs = stream_all(readers["hashed_csv"]())
+        finally:
+            undo()
+        rows["hashed_csv"].update(
+            chunks_unequal_to_python=chunks_unequal(got["hashed_csv"],
+                                                    py_hashed),
+            python_seconds=py_secs,
+            numeric_unequal_to_arrays=sum(
+                int(not (np.array_equal(h[0][:, :F], r[0])
+                         and np.array_equal(h[1], r[1])))
+                for h, r in zip(got["hashed_csv"], ref)))
+        # the stream over the CSV against the same stream over the arrays
+        fits = {}
+        reset_launches()
+        for name, src in (("csv", CSVChunks(paths["csv"], ch)),
+                          ("arrays", ArrayChunks(X, yf, ch))):
+            est = BaggingClassifier(LogisticRegression(l2=1e-4),
+                                    n_estimators=cfg["n_estimators"], seed=0)
+            t0 = time.perf_counter()
+            est.fit_stream(src, classes=[0, 1])
+            fits[name] = (est.ensemble_, time.perf_counter() - t0)
+        counts = read_launches()
+        fit_unequal = [k for k in fits["csv"][0]
+                       if not torch.equal(fits["csv"][0][k],
+                                          fits["arrays"][0][k])]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    ok = (all(r["native_reads"] >= 1 and r["python_reads"] == 0
+              for r in rows.values())
+          and rows["libsvm"]["chunks_unequal_to_arrays"] == 0
+          and rows["csv"]["chunks_unequal_to_arrays"] == 0
+          and rows["hashed_csv"]["chunks_unequal_to_python"] == 0
+          and rows["hashed_csv"]["numeric_unequal_to_arrays"] == 0
+          and not fit_unequal and not any(counts.values()))
+    emit("readers", ok=ok, n_rows=n, chunk_rows=ch, n_features=F,
+         categorical=cats.shape[1], n_hash=cfg["n_hash"],
+         write_seconds=write_seconds, loader_build_seconds=build_seconds,
+         readers=rows, stream_fit_replicas=cfg["n_estimators"],
+         stream_fit_seconds={k: v[1] for k, v in fits.items()},
+         stream_fit_params_unequal=fit_unequal, launches=counts, card=CARD)
+    if not ok:
+        fail("readers", f"checks failed: {rows}, fit params unequal "
+             f"{fit_unequal}, launches {counts}")
+
+
+def criteo_make(n: int, seed: int = 13, structure_seed: int | None = None):
+    """Config 8's rows: the Criteo-shaped synthetic at its width."""
+    from spark_bagging_tpu_torch.utils.datasets import synthetic_criteo
+
+    return synthetic_criteo(n, CRITEO["n_features"], seed=seed,
+                            structure_seed=structure_seed)
+
+
+def criteo_source(n_rows: int):
+    from spark_bagging_tpu_torch.utils.io import SyntheticChunks
+
+    return SyntheticChunks(criteo_make, n_rows, CRITEO["chunk_rows"],
+                           seed=13)
+
+
+def criteo_bagger(n_estimators: int = CRITEO["n_estimators"]):
+    from spark_bagging_tpu_torch import BaggingClassifier, LogisticRegression
+
+    return BaggingClassifier(LogisticRegression(l2=CRITEO["l2"]),
+                             n_estimators=n_estimators, seed=0)
+
+
+def phase_criteo_stream() -> None:
+    """BASELINE config 8 at full width, its rows cut to CRITEO["n_rows"]
+    (run_configs.py's own pre-flight floor): 128 bagged logistic
+    regressions streamed by Adam over Criteo-shaped synthetic chunks of
+    200,000 x 1024; test AUC on 100,000 fresh rows against sklearn's
+    proxy minus 0.02; the stream's seconds, row-replicas/s, peak memory
+    and the host's chunk making against the device's chunk visits."""
+    from spark_bagging_tpu_torch.utils.metrics import roc_auc
+
+    cfg = CRITEO
+    fit_kw = dict(classes=[0, 1], n_epochs=cfg["n_epochs"],
+                  steps_per_chunk=cfg["steps_per_chunk"], lr=cfg["lr"])
+    Xte, yte = criteo_make(cfg["n_test"], seed=999_003, structure_seed=13)
+    t0 = time.perf_counter()
+    criteo_bagger(16).fit_stream(criteo_source(cfg["chunk_rows"] // 10),
+                                 **fit_kw)
+    warmup_seconds = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    est = criteo_bagger()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    est.fit_stream(criteo_source(cfg["n_rows"]), **fit_kw)
+    stream_seconds = time.perf_counter() - t0
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rep = est.fit_report_
+    proba = est.predict_proba(Xte)
+    auc = roc_auc(yte, proba[:, 1])
+    bar = CRITEO_PROXY_AUC - PARITY_TOL
+    pace = stream_pace(
+        lambda k: criteo_source(k * cfg["chunk_rows"]), criteo_bagger,
+        fit_kw, n_chunks=CRITEO_PACE_CHUNKS)
+    n_chunks = -(-cfg["n_rows"] // cfg["chunk_rows"])
+    device_ms = pace["bootstrap_ms"] + pace["other_device_ms"]
+    data_gib = cfg["n_rows"] * cfg["n_features"] * 4 / 2**30
+    emit("criteo_stream", ok=True, **cfg, rows_cut_from=40_000_000,
+         data_gib=data_gib,
+         exceeds="nothing: 5,000,000 x 1024 float32 would fit the 80 GB card"
+                 "; streamed chunk by chunk all the same",
+         warmup_fit_seconds=warmup_seconds, stream_seconds=stream_seconds,
+         first_step_seconds=rep["first_step_seconds"],
+         row_replica_per_sec=cfg["n_rows"] * cfg["n_epochs"]
+         * cfg["n_estimators"] / stream_seconds,
+         n_chunks=rep["n_chunks"], opt_steps=rep["opt_steps"],
+         achieved_tflops=rep["achieved_tflops"], mfu=rep["mfu"],
+         peak_mem_gb=peak, launches=counts, test_auc=auc,
+         proxy_auc=CRITEO_PROXY_AUC, auc_bar=bar, **pace,
+         host_seconds_per_stream=pace["host_chunk_ms"] * n_chunks / 1e3,
+         device_seconds_per_stream=device_ms * n_chunks / 1e3,
+         pace_set_by="host" if pace["host_chunk_ms"] > device_ms else "device",
+         card=CARD)
+    if rep["n_chunks"] != n_chunks or rep["opt_steps"] != n_chunks * cfg[
+            "n_epochs"] * cfg["steps_per_chunk"]:
+        fail("criteo_stream", f"{rep['n_chunks']} chunks, {rep['opt_steps']} "
+             "optimizer steps")
+    if any(counts.values()):
+        fail("criteo_stream", f"launches {counts}: the logistic stream (Adam) "
+             "runs no kernel of the repo")
+    if not (np.isfinite(proba).all() and proba.shape == (len(yte), 2)):
+        fail("criteo_stream", f"bad probabilities, shape {proba.shape}")
+    if not auc >= bar:
+        fail("criteo_stream", f"test AUC {auc:.5f} below the bar {bar:.5f}")
+
+
 def sklearn_proxies() -> dict:
-    """The sklearn proxies the GBT and MLP phases hold the port to
-    (GBT_PROXY_AUC, GBT_MC_PROXY_ACC, GBT_REG_PROXY_R2, MLP_PROXY_AUC), as
-    benchmarks/run_configs.py computes configs 7's and 4's. Needs sklearn
-    (not on the card's machine) and no GPU."""
+    """The sklearn proxies the GBT, MLP and config 8 phases hold the port
+    to (GBT_PROXY_AUC, GBT_MC_PROXY_ACC, GBT_REG_PROXY_R2, MLP_PROXY_AUC,
+    CRITEO_PROXY_AUC), as benchmarks/run_configs.py computes configs 7's,
+    4's and 8's. Needs sklearn (not on the card's machine) and no GPU."""
     from sklearn.ensemble import (
         HistGradientBoostingClassifier,
         HistGradientBoostingRegressor,
@@ -3178,6 +3703,12 @@ def sklearn_proxies() -> dict:
                       random_state=0).fit(*datasets.synthetic_higgs(
                           50_000, seed=999_002, structure_seed=11))
     out["MLP_PROXY_AUC"] = roc_auc(yte, m.predict_proba(Xte)[:, 1])
+    from sklearn.linear_model import LogisticRegression as SkLR
+
+    Xte, yte = criteo_make(CRITEO["n_test"], seed=999_003, structure_seed=13)
+    Xp, yp = criteo_make(50_000, seed=999_004, structure_seed=13)
+    m = SkLR(max_iter=100, C=1.0 / (CRITEO["l2"] * len(yp))).fit(Xp, yp)
+    out["CRITEO_PROXY_AUC"] = roc_auc(yte, m.predict_proba(Xte)[:, 1])
     return out
 
 
@@ -3196,9 +3727,11 @@ def main() -> int:
     # the repo fails here
     import spark_bagging_tpu_torch  # noqa: F401
 
+    global CARD
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name, smi = phase_env()
+    CARD = smi
     phase_build()
     X, y = headline_data()
     clf, launches, Rs = phase_fit(X, y)
@@ -3206,7 +3739,12 @@ def main() -> int:
     phase_serving(clf, X, y)
     torch.cuda.empty_cache()
     warm_launches = phase_warm_start(clf, X, y)
-    del clf
+    torch.cuda.empty_cache()
+    cand, online_launches = phase_online_update(clf, X, y)
+    phase_online_publish(clf, cand, X)
+    del clf, cand
+    torch.cuda.empty_cache()
+    anchor_launches = phase_online_anchor(X, y)
     torch.cuda.empty_cache()
     rows = phase_kernels(X, Rs)
     phase_wide_gram()
@@ -3266,6 +3804,9 @@ def main() -> int:
     phase_zoo_regressors(split)
     phase_zoo_streams(X, y, split)
     del X, y
+    torch.cuda.empty_cache()
+    phase_readers()
+    phase_criteo_stream()
     # each kernel's line reports the largest replica chunk (and, for the
     # histogram, config 3's deepest level in the fit's bf16 mode), where
     # its fit spends its kernel time; the phase lines hold every shape.
@@ -3279,7 +3820,9 @@ def main() -> int:
     # bit) and the streamed forest regressor's (float, the fit's own
     # tables and the kernel's on their inputs). The growth and resume
     # paths count too: the logistic growth's Gram launches, the grown
-    # trees' and the resumed tree stream's histogram and codes launches
+    # trees' and the resumed tree stream's histogram and codes launches;
+    # so do the online paths: the warm steps' and the anchor replay's
+    # Gram launches
     f32 = rows[max(Rs)]["float32"]
     deepest = hist_rows[max(tree_Rs), 2 ** (TREE["max_depth"] - 1), "bfloat16"]
     print(json.dumps({"kernels": [{
@@ -3287,7 +3830,8 @@ def main() -> int:
         "route": "cuda",
         "source": "spark_bagging_tpu_torch/csrc/scaled_gram.cu",
         "replaces": "spark_bagging_tpu/ops/gram.py:53",
-        "launches": launches + warm_launches,
+        "launches": launches + warm_launches + online_launches
+        + anchor_launches,
         "max_abs_err": f32["max_abs_err"],
         "ms": f32["kernel_ms"],
         "plain_ms": f32["plain_ms"],

@@ -9,11 +9,14 @@ gradient-boosted trees. Every learner family of the JAX package is
 here (models/): logistic regression, linear SVM, naive Bayes, ridge,
 GLM, factorization machines, isotonic and AFT survival regression,
 trees, forests, GBTs and MLPs. The classifiers vote; the regressors
-average. ``fit_stream`` fits out of core from a chunk source: SGD
+average. ``fit_stream`` fits out of core from a chunk source (arrays,
+synthetic streams, libsvm, CSV, hashed-categorical CSV or Arrow files;
+the text readers parse through a g++-built host loader): SGD
 learners by Adam over the chunks (the survival learner's censor flags
 as a streamed column, ``aux_col``), trees by a multi-pass
 level-synchronous growth, with snapshots to resume from; ``warm_start``
-grows a fitted ensemble. ``save``/``load`` (and ``save_model``/
+grows a fitted ensemble; ``online.OnlineUpdater`` applies streaming
+Poisson-weight ``partial_fit`` steps to a fitted one. ``save``/``load`` (and ``save_model``/
 ``load_model``) write and read the JAX package's checkpoint format. ``serving`` is the online plane: one CUDA
 graph a row bucket (``EnsembleExecutor``), a micro-batcher and a model
 registry with hot swap. The JAX package stays the reference this port
@@ -49,10 +52,17 @@ from spark_bagging_tpu_torch.models import (
     MLPRegressor,
     MultinomialNB,
 )
+from spark_bagging_tpu_torch.utils.arrow import ArrowChunks
 from spark_bagging_tpu_torch.utils.checkpoint import load_model, save_model
+from spark_bagging_tpu_torch.utils.hashing import (
+    FeatureHasher,
+    HashedCSVChunks,
+)
 from spark_bagging_tpu_torch.utils.io import (
     ArrayChunks,
     ChunkSource,
+    CSVChunks,
+    LibsvmChunks,
     SyntheticChunks,
 )
 
@@ -61,20 +71,25 @@ __version__ = "0.3.0"
 __all__ = [
     "AFTSurvivalRegression",
     "ArrayChunks",
+    "ArrowChunks",
     "BaggingClassifier",
     "BaggingRegressor",
     "BaseLearner",
     "BernoulliNB",
+    "CSVChunks",
     "ChunkSource",
     "DecisionTreeClassifier",
     "DecisionTreeRegressor",
     "FMClassifier",
     "FMRegressor",
+    "FeatureHasher",
     "GBTClassifier",
     "GBTRegressor",
     "GaussianNB",
     "GeneralizedLinearRegression",
+    "HashedCSVChunks",
     "IsotonicRegression",
+    "LibsvmChunks",
     "LinearRegression",
     "LinearSVC",
     "LogisticRegression",

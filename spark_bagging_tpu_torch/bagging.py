@@ -494,9 +494,14 @@ class _BaseBagging(ParamsMixin):
         ``flops_seconds`` (default ``fit_seconds``) is the time the
         achieved TFLOP/s divides by; ``n_replicas`` (default the whole
         ensemble) the replicas this call fitted."""
+        from spark_bagging_tpu_torch.utils.profiling import device_peak_tflops
+
         n = self.n_estimators_ if n_replicas is None else n_replicas
         e2e = fit_seconds + h2d_seconds
         flops_seconds = flops_seconds or fit_seconds
+        achieved = (flops * n / flops_seconds / 1e12
+                    if flops and flops_seconds > 0 else None)
+        peak = device_peak_tflops(self._device)
         self.fit_report_ = {
             "n_replicas": n,
             "fit_seconds": fit_seconds,
@@ -513,8 +518,13 @@ class _BaseBagging(ParamsMixin):
             "backend": self._device.type,
             "n_devices": 1,
             "model_flops_per_fit": flops,
-            "achieved_tflops": (flops * n / flops_seconds / 1e12
-                                if flops and flops_seconds > 0 else None),
+            "achieved_tflops": achieved,
+            # against the peak of the fit's one device (the JAX package
+            # divides by the summed peak of its devices); None without a
+            # known peak, as on the CPU
+            "peak_tflops_bf16": peak,
+            "mfu": (achieved / peak if achieved is not None and peak
+                    else None),
             **extra,
         }
 

@@ -33,6 +33,7 @@ from spark_bagging_tpu_torch.ops.bootstrap import (
     fit_key,
     oob_mask,
 )
+from spark_bagging_tpu_torch.utils.debug import check_bootstrap_weights
 
 
 def _gather_columns(X: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -87,6 +88,7 @@ def fit_ensemble(
         w = bootstrap_weights(
             key, rids, n_rows, ratio=sample_ratio, replacement=bootstrap
         )
+        check_bootstrap_weights(w)  # no-op unless debug_mode()
         if row_mask is not None:
             w = w * row_mask
         idx = feature_subspaces(

@@ -74,6 +74,16 @@ def fit_key(k: torch.Tensor, replica_ids: torch.Tensor) -> torch.Tensor:
     return prng.fold_in(prng.fold_in(k, _FIT_STREAM), replica_ids)
 
 
+def online_step_key(k: torch.Tensor, step: int) -> torch.Tensor:
+    """THE base key of online-update step ``step`` (online/updater.py):
+    ``fold_in(fold_in(k, _ONLINE_STREAM), step)``, as the JAX package
+    derives it. The returned key is consumed exactly like a batch fit's
+    base key (row draws fold ``_ROW_STREAM``, fit keys ``_FIT_STREAM``,
+    then the replica id), so the whole update stream is a pure function
+    of ``(seed, step, replica_id)``."""
+    return prng.fold_in(prng.fold_in(k, _ONLINE_STREAM), step)
+
+
 def split_init_fit(k: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Split replica training keys ``(..., 2)`` into their (init, fit) pair."""
     keys = prng.split(k, 2)

@@ -73,6 +73,13 @@ SERIES_HELP: dict[str, str] = {
     "sbt_serving_model_version": "Live model version per registered name (gauge)",
     "sbt_serving_batch_errors_total": "Micro-batches failed by an executor error",
     "sbt_serving_programs_released_total": "Bucket programs dropped by executor release_programs",
+    "sbt_profile_captures_total": "On-demand torch.profiler captures started (utils/profiling start_profile, trace())",
+    "sbt_profile_rejected_total": "Profile captures rejected by the single-flight guard (one capture per process)",
+    "sbt_profile_active": "A device-profile capture is currently running (gauge, 0/1)",
+    "sbt_online_updates_total": "Streaming partial_fit steps applied by online updaters (labels as the updater's)",
+    "sbt_online_examples_total": "Rows consumed by streaming online updates",
+    "sbt_online_oob_rows_total": "Rows scored by the streaming out-of-bag quality tap (Poisson draw 0 replicas)",
+    "sbt_online_oob_estimate": "Running streaming OOB quality estimate: accuracy or R2 over OOB-voted rows (gauge)",
 }
 
 

@@ -1,20 +1,146 @@
-"""Deterministic synthetic datasets (numpy only).
+"""Dataset registry, file parsers and deterministic synthetics (numpy).
 
-A copy of ``make_classification``, ``make_regression``,
-``synthetic_covtype``, ``synthetic_higgs`` and ``synthetic_california``
-from the JAX
-package's ``utils/datasets.py``, and of the benchmark configurations'
-``standardize`` and ``train_test_split`` (``benchmarks/run_configs.py``). Both packages must produce bitwise the
-same arrays from the same seed: the parity tests and the headline
-workload feed identical data to each. ``SYNTHETICS_VERSION`` is bumped
-together with the JAX package's.
+A copy of the JAX package's ``utils/datasets.py``: the libsvm and CSV
+parsers (``parse_libsvm``, ``load_csv``: the g++-built host loader,
+``utils/host_native.py``, where it builds, else the pure-Python
+parsers, which give the same arrays), ``make_classification``,
+``make_regression``, ``synthetic_covtype``, ``synthetic_higgs``,
+``synthetic_criteo`` and ``synthetic_california``, and the
+``load_dataset`` registry over sklearn's bundled datasets (sklearn is
+imported only when one is loaded), local files and the synthetics;
+and of the benchmark configurations' ``standardize`` and
+``train_test_split`` (``benchmarks/run_configs.py``). Both packages
+must produce bitwise the same arrays from the same seed: the parity
+tests and the headline workload feed identical data to each.
+``SYNTHETICS_VERSION`` is bumped together with the JAX package's.
 """
 
 from __future__ import annotations
 
+import os
+from typing import Callable
+
 import numpy as np
 
 SYNTHETICS_VERSION = "v4"
+
+# ---------------------------------------------------------------------
+# File parsers
+# ---------------------------------------------------------------------
+
+
+def parse_libsvm(
+    path: str, n_features: int | None = None, zero_based: bool = False
+) -> tuple[np.ndarray, np.ndarray]:
+    """Parse a (dense-ified) libsvm file: ``label idx:val idx:val ...``.
+
+    Uses the native C++ parser (utils/host_native.py) when available;
+    the pure-Python path below is the portable fallback.
+    """
+    from spark_bagging_tpu_torch.utils.host_native import (
+        note_served,
+        parse_libsvm_native,
+    )
+
+    native = parse_libsvm_native(path, n_features, zero_based)
+    if native is not None:
+        note_served("native")
+        return native
+    note_served("python")
+    labels: list[float] = []
+    rows: list[dict[int, float]] = []
+    max_idx = -1
+    with open(path) as f:
+        for line in f:
+            line = line.split("#", 1)[0].strip()
+            if not line:
+                continue
+            parts = line.split()
+            labels.append(float(parts[0]))
+            entries: dict[int, float] = {}
+            for item in parts[1:]:
+                idx_s, val_s = item.split(":", 1)
+                try:
+                    idx = int(idx_s) - (0 if zero_based else 1)
+                except ValueError:
+                    raise ValueError(
+                        f"unsupported libsvm token {item!r} (ranking "
+                        "extensions like 'qid:' are not supported — "
+                        "strip them before loading)"
+                    ) from None
+                if idx < 0:  # match native parser: drop invalid indices
+                    continue
+                entries[idx] = float(val_s)
+                max_idx = max(max_idx, idx)
+            rows.append(entries)
+    d = n_features if n_features is not None else max_idx + 1
+    X = np.zeros((len(rows), d), np.float32)
+    for i, entries in enumerate(rows):
+        for j, v in entries.items():
+            if j < d:
+                X[i, j] = v
+    return X, np.asarray(labels, np.float32)
+
+
+def load_csv(
+    path: str, *, label_col: int = -1, skip_header: bool = False
+) -> tuple[np.ndarray, np.ndarray]:
+    """Load a numeric CSV into (X, y); native C++ parser when
+    available, numpy fallback otherwise."""
+    from spark_bagging_tpu_torch.utils.host_native import (
+        load_csv_native,
+        note_served,
+    )
+
+    try:
+        native = load_csv_native(
+            path, label_col=label_col, skip_header=skip_header
+        )
+        if native is not None:
+            note_served("native")
+            return native
+    except ValueError:
+        # the native parser is strict; fall through to genfromtxt so
+        # malformed fields behave identically (NaN) with or without a
+        # toolchain
+        pass
+    note_served("python")
+    # mirror the native parser: the header is the first NON-blank
+    # line, and n_cols comes from the first data line — genfromtxt's
+    # raw-line skip_header would otherwise consume a leading blank and
+    # parse the real header into an all-NaN data row
+    skip = 0
+    n_cols = 0
+    with open(path) as f:
+        pending_header = skip_header
+        for i, line in enumerate(f):
+            if not line.strip():
+                continue
+            if pending_header:
+                skip = i + 1
+                pending_header = False
+                continue
+            n_cols = len(line.split(","))
+            break
+    if n_cols < 2:
+        raise ValueError(
+            f"CSV needs >= 2 columns (features + label), got {n_cols}"
+        )
+    data = np.genfromtxt(
+        path, delimiter=",", skip_header=skip, dtype=np.float32,
+    )
+    if data.ndim == 1:
+        # exactly one data row (a single-COLUMN file cannot reach here
+        # — n_cols >= 2 was checked above)
+        data = data[None, :]
+    y = data[:, label_col]
+    X = np.delete(data, label_col % data.shape[1], axis=1)
+    return np.ascontiguousarray(X), y
+
+
+# ---------------------------------------------------------------------
+# Synthetic generators (deterministic in seed)
+# ---------------------------------------------------------------------
 
 
 def make_classification(
@@ -124,4 +250,66 @@ def synthetic_higgs(
     return make_classification(
         n_rows, 28, 2, seed=seed, class_sep=0.6,
         structure_seed=structure_seed,
+    )
+
+
+def synthetic_criteo(
+    n_rows: int = 1_000_000, n_features: int = 1024, seed: int = 13,
+    structure_seed: int | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Criteo-shaped signature: wide hashed-categorical-style features,
+    binary CTR labels. Dense stand-in at configurable width."""
+    return make_classification(
+        n_rows, n_features, 2, seed=seed, class_sep=0.25,
+        class_imbalance=True, structure_seed=structure_seed,
+    )
+
+
+# ---------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------
+
+
+def _sklearn_loader(name: str) -> Callable[[], tuple[np.ndarray, np.ndarray]]:
+    def load():
+        from sklearn import datasets as skd
+
+        X, y = getattr(skd, f"load_{name}")(return_X_y=True)
+        return X.astype(np.float32), y
+
+    return load
+
+
+_REGISTRY: dict[str, Callable[..., tuple[np.ndarray, np.ndarray]]] = {
+    # bundled with sklearn: available offline
+    "breast_cancer": _sklearn_loader("breast_cancer"),
+    "iris": _sklearn_loader("iris"),
+    "diabetes": _sklearn_loader("diabetes"),
+    "wine": _sklearn_loader("wine"),
+    "digits": _sklearn_loader("digits"),
+    # the baseline configurations' synthetic stand-ins
+    "covtype_synth": synthetic_covtype,
+    "higgs_synth": synthetic_higgs,
+    "criteo_synth": synthetic_criteo,
+    "california_synth": synthetic_california,
+}
+
+
+def load_dataset(name: str, **kwargs) -> tuple[np.ndarray, np.ndarray]:
+    """Load a dataset by registry name, or from a local ``.svm``/``.csv``
+    path. Raises KeyError with the available names otherwise."""
+    if name in _REGISTRY:
+        return _REGISTRY[name](**kwargs)
+    if os.path.exists(name):
+        if name.endswith((".svm", ".libsvm", ".txt")):
+            return parse_libsvm(name, **kwargs)
+        if name.endswith(".csv"):
+            return load_csv(name, **kwargs)
+        if name.endswith((".parquet", ".pq", ".feather", ".arrow", ".ipc")):
+            from spark_bagging_tpu_torch.utils.arrow import load_arrow
+
+            return load_arrow(name, **kwargs)
+        raise ValueError(f"unknown file format: {name}")
+    raise KeyError(
+        f"unknown dataset {name!r}; available: {sorted(_REGISTRY)}"
     )

@@ -12,9 +12,12 @@ Every source yields ``(X, y, n_valid)`` with **constant shapes**
 chunk is zero-padded and ``n_valid`` marks the real rows.
 
 Copied: ``ChunkSource``, ``DropColumnChunks``, ``ArrayChunks``,
-``SyntheticChunks`` and ``as_chunk_source``, without the telemetry
-counters. The file readers (``LibsvmChunks``, ``CSVChunks``, Arrow,
-hashing) are not ported yet (ROADMAP Queue A 11).
+``SyntheticChunks``, the file readers ``LibsvmChunks`` and
+``CSVChunks`` (the g++-built host loader, ``utils/host_native.py``,
+where it builds; the pure-Python parsers, which give the same chunks,
+where it does not), ``as_chunk_source`` and the optional zstd codec
+resolution, without the chunk telemetry counters. The Arrow reader is
+``utils/arrow.py``, the hashed CSV reader ``utils/hashing.py``.
 """
 
 from __future__ import annotations
@@ -24,6 +27,43 @@ from typing import Callable, Iterator
 import numpy as np
 
 Chunk = tuple[np.ndarray, np.ndarray, int]
+
+# -- optional compression codec ---------------------------------------
+#
+# zstandard is a soft dependency everywhere in this package: payload
+# compression must degrade, never gate. A consumer of `optional_zstd()`
+# falls back to the stdlib `zlib` codec when it returns None, with the
+# one-time warning of `warn_zstd_fallback`, so the degradation is
+# visible without being fatal.
+
+_WARNED_NO_ZSTD = False
+
+
+def optional_zstd():
+    """The ``zstandard`` module, or None when not installed."""
+    try:
+        import zstandard
+
+        return zstandard
+    except ImportError:
+        return None
+
+
+def warn_zstd_fallback(context: str) -> None:
+    """One-time (per process) notice that zstd was requested but the
+    stdlib codec is being used instead."""
+    global _WARNED_NO_ZSTD
+    if _WARNED_NO_ZSTD:
+        return
+    _WARNED_NO_ZSTD = True
+    import warnings
+
+    warnings.warn(
+        f"zstandard is not installed; {context} falls back to the "
+        "stdlib zlib codec (slower, larger payloads). `pip install "
+        "zstandard` to restore zstd compression.",
+        stacklevel=3,
+    )
 
 
 def _pad_chunk(
@@ -225,6 +265,204 @@ class SyntheticChunks(ChunkSource):
         for c in range(start_chunk, self.n_chunks):
             n = min(self.chunk_rows, self.n_rows - c * self.chunk_rows)
             yield self._make_fn(n, seed=self._chunk_seed(c))
+
+
+class LibsvmChunks(ChunkSource):
+    """Stream a libsvm file in chunks without loading it whole.
+
+    ``n_features`` must be given (a streaming reader can't know the
+    global max index up front); rows are densified per chunk.
+    """
+
+    def __init__(
+        self,
+        path: str,
+        n_features: int,
+        chunk_rows: int,
+        *,
+        zero_based: bool = False,
+        n_rows: int | None = None,
+    ):
+        self.path = path
+        self.n_features = int(n_features)
+        self.chunk_rows = int(chunk_rows)
+        self._zero_based = zero_based
+        if n_rows is None:
+            n_rows = self._count_rows()
+        self.n_rows = int(n_rows)
+
+    def _count_rows(self) -> int:
+        from spark_bagging_tpu_torch.utils.host_native import get_lib
+
+        lib = get_lib()
+        if lib is not None:  # native scan: the file may be huge
+            import ctypes
+
+            rows, maxf = ctypes.c_int64(), ctypes.c_int64()
+            rc = lib.svm_dims(
+                self.path.encode(), int(self._zero_based),
+                ctypes.byref(rows), ctypes.byref(maxf),
+            )
+            if rc == 0:
+                return int(rows.value)
+        with open(self.path) as f:
+            return sum(
+                1 for line in f if line.split("#", 1)[0].strip()
+            )
+
+    def _iter_raw(self):
+        from spark_bagging_tpu_torch.utils.host_native import (
+            NativeReader,
+            note_served,
+        )
+
+        reader = NativeReader.open_svm(
+            self.path, self.n_features, self.chunk_rows,
+            zero_based=self._zero_based,
+        )
+        if reader is not None:  # native C++ streaming parser
+            note_served("native")
+            yield from reader
+            return
+        note_served("python")
+        X = np.zeros((self.chunk_rows, self.n_features), np.float32)
+        y = np.zeros((self.chunk_rows,), np.float32)
+        i = 0
+        with open(self.path) as f:
+            for line in f:
+                line = line.split("#", 1)[0].strip()
+                if not line:
+                    continue
+                parts = line.split()
+                y[i] = float(parts[0])
+                for item in parts[1:]:
+                    idx_s, val_s = item.split(":")
+                    j = int(idx_s) - (0 if self._zero_based else 1)
+                    if 0 <= j < self.n_features:
+                        X[i, j] = float(val_s)
+                i += 1
+                if i == self.chunk_rows:
+                    yield X.copy(), y.copy()
+                    X[:] = 0.0
+                    i = 0
+        if i > 0:
+            yield X[:i].copy(), y[:i].copy()
+
+
+class CSVChunks(ChunkSource):
+    """Stream a numeric CSV in chunks (label in ``label_col``)."""
+
+    def __init__(
+        self,
+        path: str,
+        chunk_rows: int,
+        *,
+        label_col: int = -1,
+        skip_header: bool = False,
+        n_rows: int | None = None,
+    ):
+        self.path = path
+        self.chunk_rows = int(chunk_rows)
+        self._label_col = label_col
+        self._skip_header = skip_header
+        counted_rows = 0
+        if n_rows is not None:
+            # the counting pass exists only to learn n_rows; with it
+            # supplied, only the first non-blank line is needed for
+            # n_cols: a Criteo-scale file must not be read twice
+            n_cols = 0
+            with open(path) as f:
+                for line in f:
+                    if line.strip():
+                        n_cols = len(line.split(","))
+                        break
+        else:
+            dims = self._native_dims()
+            if dims is not None:
+                counted_rows, n_cols = dims
+            else:
+                # mirror the native csv_dims exactly: blank lines never
+                # count, and n_cols comes from the first NON-blank line
+                n_cols = counted_rows = 0
+                with open(path) as f:
+                    for line in f:
+                        if not line.strip():
+                            continue
+                        if n_cols == 0:
+                            n_cols = len(line.split(","))
+                        counted_rows += 1
+                if skip_header and counted_rows > 0:
+                    counted_rows -= 1
+        lc = label_col + n_cols if label_col < 0 else label_col
+        if n_cols < 2 or lc < 0 or lc >= n_cols:
+            raise ValueError(
+                f"label_col {label_col} out of range for {n_cols} columns"
+            )
+        self.n_features = n_cols - 1
+        self.n_rows = int(n_rows if n_rows is not None else counted_rows)
+
+    def _native_dims(self) -> tuple[int, int] | None:
+        from spark_bagging_tpu_torch.utils.host_native import get_lib
+
+        lib = get_lib()
+        if lib is None:
+            return None
+        import ctypes
+
+        rows, cols = ctypes.c_int64(), ctypes.c_int64()
+        rc = lib.csv_dims(
+            self.path.encode(), int(self._skip_header),
+            ctypes.byref(rows), ctypes.byref(cols),
+        )
+        if rc != 0:
+            return None
+        return int(rows.value), int(cols.value)
+
+    def _iter_raw(self):
+        from spark_bagging_tpu_torch.utils.host_native import (
+            NativeReader,
+            note_served,
+        )
+
+        reader = NativeReader.open_csv(
+            self.path, self.n_features + 1, self.chunk_rows,
+            label_col=self._label_col, skip_header=self._skip_header,
+        )
+        if reader is not None:  # native C++ streaming parser
+            note_served("native")
+            yield from reader
+            return
+        note_served("python")
+        # parse into a preallocated f32 buffer row by row (as the
+        # libsvm fallback does): a list-of-lists of boxed floats costs
+        # ~8x the chunk's array size transiently
+        n_cols = self.n_features + 1
+        buf = np.empty((self.chunk_rows, n_cols), np.float32)
+        filled = 0
+        with open(self.path) as f:
+            if self._skip_header:
+                # discard the first non-blank line (the header), as the
+                # native reader and csv_dims do
+                for line in f:
+                    if line.strip():
+                        break
+            for line in f:
+                line = line.strip()
+                if not line:
+                    continue
+                buf[filled] = line.split(",")
+                filled += 1
+                if filled == self.chunk_rows:
+                    yield self._to_xy(buf, filled)
+                    filled = 0
+        if filled:
+            yield self._to_xy(buf, filled)
+
+    def _to_xy(self, buf: np.ndarray, n: int):
+        data = buf[:n]
+        y = data[:, self._label_col].copy()
+        X = np.delete(data, self._label_col % data.shape[1], axis=1)
+        return np.ascontiguousarray(X), y
 
 
 def as_chunk_source(data, chunk_rows: int | None = None) -> ChunkSource:

@@ -1,7 +1,7 @@
 """Evaluation metrics (numpy, on the host).
 
-A copy of ``accuracy``, ``rmse``, ``r2_score``, ``mae``, ``roc_auc`` and
-``pr_auc`` from the JAX package's ``utils/metrics.py``: the estimators'
+A copy of ``accuracy``, ``rmse``, ``r2_score``, ``mae``, ``roc_auc``,
+``pr_auc`` and ``f1_score`` from the JAX package's ``utils/metrics.py``: the estimators'
 ``score`` and OOB scores use them, and both packages must score the
 same predictions the same way.
 """
@@ -133,3 +133,26 @@ def pr_auc(y_true: np.ndarray, scores: np.ndarray) -> float:
     precision = tp / np.maximum(tp + fp, 1)
     recall = tp / n_pos
     return float(np.sum(np.diff(np.r_[0.0, recall]) * precision))
+
+
+def f1_score(y_true, y_pred, average: str = "weighted") -> float:
+    """Multiclass F1 (Spark MulticlassClassificationEvaluator
+    metricName=f1 is the weighted variant)."""
+    y_true = np.asarray(y_true).ravel()
+    y_pred = np.asarray(y_pred).ravel()
+    classes = np.unique(np.concatenate([y_true, y_pred]))
+    f1s, weights = [], []
+    for c in classes:
+        tp = float(((y_pred == c) & (y_true == c)).sum())
+        fp = float(((y_pred == c) & (y_true != c)).sum())
+        fn = float(((y_pred != c) & (y_true == c)).sum())
+        denom = 2 * tp + fp + fn
+        f1s.append(2 * tp / denom if denom > 0 else 0.0)
+        weights.append(float((y_true == c).sum()))
+    f1s = np.asarray(f1s)
+    if average == "macro":
+        return float(f1s.mean())
+    if average == "weighted":
+        w = np.asarray(weights)
+        return float((f1s * w).sum() / max(w.sum(), 1.0))
+    raise ValueError(f"average must be weighted|macro, got {average!r}")

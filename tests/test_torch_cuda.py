@@ -1347,3 +1347,58 @@ def test_resumed_stream_on_card_equals_the_uninterrupted_fit(cuda, tmp_path,
         assert binned_left_stats.launches - before == 2 * 6
     for k in full.ensemble_:
         assert torch.equal(resumed.ensemble_[k], full.ensemble_[k]), k
+
+
+# -- online updates and the file readers on the card --------------------
+
+def test_online_step_on_card_matches_cpu(cuda):
+    """One warm ``partial_fit`` step on the card and on the CPU from the
+    same state (the CPU twin of the card's fit carries the card's
+    params): the Newton step's Hessians go through the scaled-Gram
+    kernel on the card, so the params are held within the CPU parity
+    tests' logistic tolerance (max |dW| within 1e-4 of max |W|,
+    tests/test_torch_online.py), not bitwise. The step launches the
+    kernel once a replica chunk."""
+    from spark_bagging_tpu_torch import BaggingClassifier, LogisticRegression
+    from spark_bagging_tpu_torch.online import OnlineUpdater
+    from spark_bagging_tpu_torch.ops.gram import scaled_grams
+    from spark_bagging_tpu_torch.utils.datasets import make_classification
+
+    X, y = make_classification(4000, 12, 4, seed=1, class_sep=0.5)
+    kw = dict(n_estimators=8, seed=0, chunk_size=8)
+    learner = LogisticRegression(max_iter=1, hessian_impl="pallas")
+    card = BaggingClassifier(learner, device="cuda", **kw).fit(X[:3000],
+                                                               y[:3000])
+    cpu = BaggingClassifier(learner, device="cpu", **kw).fit(X[:3000],
+                                                             y[:3000])
+    cpu.ensemble_ = {k: v.cpu() for k, v in card.ensemble_.items()}
+    before = scaled_grams.launches
+    W = {}
+    for name, est in (("card", card), ("cpu", cpu)):
+        upd = OnlineUpdater(est)
+        rep = upd.partial_fit(X[3000:], y[3000:])
+        W[name] = upd.to_estimator().ensemble_["W"].cpu()
+        assert rep["oob_rows"] > 0
+    assert scaled_grams.launches - before == 1
+    assert _rel_err(W["card"], W["cpu"]) <= 1e-4
+
+
+def test_csv_stream_on_card_equals_the_array_stream(cuda, tmp_path):
+    """A CSV written with %.9g, streamed through ``CSVChunks`` (the host
+    loader), fits bitwise the same ensemble on the card as the same
+    rows through ``ArrayChunks``: the chunks are bitwise equal and the
+    device steps are the same launches."""
+    from spark_bagging_tpu_torch import BaggingClassifier, LogisticRegression
+    from spark_bagging_tpu_torch.utils.datasets import make_classification
+    from spark_bagging_tpu_torch.utils.io import ArrayChunks, CSVChunks
+
+    X, y = make_classification(3000, 8, 2, seed=2)
+    path = tmp_path / "rows.csv"
+    np.savetxt(path, np.c_[X, y], fmt="%.9g", delimiter=",")
+    fits = [BaggingClassifier(LogisticRegression(l2=1e-4), n_estimators=8,
+                              seed=0, device="cuda").fit_stream(
+        src, classes=[0, 1], steps_per_chunk=2, lr=0.05)
+        for src in (CSVChunks(str(path), 512),
+                    ArrayChunks(X, y.astype(np.float32), 512))]
+    for k in fits[0].ensemble_:
+        assert torch.equal(fits[0].ensemble_[k], fits[1].ensemble_[k]), k

@@ -54,6 +54,20 @@ from spark_bagging_tpu_torch.utils.datasets import (  # noqa: E402
 NORMAL_ULPS = 3
 MLP_TOL = 1e-5
 LONG_PARAM_TOL = 2e-4
+# torch's default CPU thread count, read before the module fixture below
+# sets one thread: the thread-count tests use it where they mean "the
+# default"
+DEFAULT_THREADS = torch.get_num_threads()
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread, as tests/test_torch_stream.py explains; the
+    thread-count tests set their own counts."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _ulps(a, b) -> int:
@@ -143,12 +157,7 @@ def test_in_memory_fit_matches_jax(task, activation, batch_size):
 
 
 def test_config4_learner_fit_at_the_card_checks_shapes_matches_jax():
-    X, y = synthetic_higgs(20_000, seed=5, structure_seed=11)
-    kw = dict(hidden=32, lr=0.01, max_iter=50, batch_size=1024)
-    jf = J.BaggingClassifier(jmlp.MLPClassifier(**kw), n_estimators=16,
-                             seed=0).fit(X, y)
-    tf = T.BaggingClassifier(T.MLPClassifier(**kw), n_estimators=16,
-                             seed=0, device="cpu").fit(X, y)
+    jf, tf = _config4_fits(0, 1)
     for k, v in tf.ensemble_.items():
         np.testing.assert_allclose(v.numpy(), np.asarray(jf.ensemble_[k]),
                                    atol=LONG_PARAM_TOL, rtol=0, err_msg=k)
@@ -157,31 +166,51 @@ def test_config4_learner_fit_at_the_card_checks_shapes_matches_jax():
                                atol=MLP_TOL, rtol=0)
 
 
+CONFIG4_MLP = dict(hidden=32, lr=0.01, max_iter=50, batch_size=1024)
 _JAX_CONFIG4_FITS: dict = {}
+_PORT_CONFIG4_FITS: dict = {}
+
+
+def _config4_port_fit(seed, threads):
+    """The port's config-4 learner fit (the shapes of chip_smoke's
+    ``mlp_device_check``) with ``seed`` on ``threads`` CPU threads
+    (None: torch's default, DEFAULT_THREADS), made once a key."""
+    if (seed, threads) not in _PORT_CONFIG4_FITS:
+        X, y = synthetic_higgs(20_000, seed=5, structure_seed=11)
+        before = torch.get_num_threads()
+        try:
+            torch.set_num_threads(DEFAULT_THREADS if threads is None
+                                  else threads)
+            _PORT_CONFIG4_FITS[seed, threads] = T.BaggingClassifier(
+                T.MLPClassifier(**CONFIG4_MLP), n_estimators=16, seed=seed,
+                device="cpu").fit(X, y)
+        finally:
+            torch.set_num_threads(before)
+    return _PORT_CONFIG4_FITS[seed, threads]
 
 
 def _config4_fits(seed, threads):
-    """JAX's and the port's config-4 learner fits (the shapes of the
-    test above) with ``seed``, the port's on ``threads`` CPU threads
-    (None: the default); JAX's fit is made once a seed."""
-    X, y = synthetic_higgs(20_000, seed=5, structure_seed=11)
-    kw = dict(hidden=32, lr=0.01, max_iter=50, batch_size=1024)
+    """JAX's and the port's config-4 learner fits with ``seed``, the
+    port's on ``threads`` CPU threads; each is made once."""
     if seed not in _JAX_CONFIG4_FITS:
+        X, y = synthetic_higgs(20_000, seed=5, structure_seed=11)
         _JAX_CONFIG4_FITS[seed] = J.BaggingClassifier(
-            jmlp.MLPClassifier(**kw), n_estimators=16, seed=seed).fit(X, y)
-    before = torch.get_num_threads()
-    try:
-        if threads is not None:
-            torch.set_num_threads(threads)
-        tf = T.BaggingClassifier(T.MLPClassifier(**kw), n_estimators=16,
-                                 seed=seed, device="cpu").fit(X, y)
-    finally:
-        torch.set_num_threads(before)
-    return _JAX_CONFIG4_FITS[seed], tf
+            jmlp.MLPClassifier(**CONFIG4_MLP), n_estimators=16,
+            seed=seed).fit(X, y)
+    return _JAX_CONFIG4_FITS[seed], _config4_port_fit(seed, threads)
 
 
-@pytest.mark.parametrize("seed,threads", [(1, None), (2, None), (3, None),
-                                          (0, 1), (1, 1), (2, 1), (3, 1)])
+# The (seed, None) cases fit on torch's default thread count (8 on an
+# 8-core host) and are in `slow`: in tier-1 each of the 6 xdist workers
+# would run 8 threads, and each case took 36-54 s there against ~5 s
+# alone. Tier-1 keeps the one-thread cases and
+# test_config4_learner_fit_is_bitwise_the_same_on_the_default_threads,
+# which holds the default-thread fit bitwise to the one-thread fit.
+@pytest.mark.parametrize("seed,threads", [
+    pytest.param(1, None, marks=pytest.mark.slow),
+    pytest.param(2, None, marks=pytest.mark.slow),
+    pytest.param(3, None, marks=pytest.mark.slow),
+    (0, 1), (1, 1), (2, 1), (3, 1)])
 def test_config4_learner_parity_holds_for_each_seed_and_thread_count(
         seed, threads):
     # the test above at seeds 0-3, with torch's default CPU threads and
@@ -196,6 +225,16 @@ def test_config4_learner_parity_holds_for_each_seed_and_thread_count(
                                atol=MLP_TOL, rtol=0)
 
 
+def test_config4_learner_fit_is_bitwise_the_same_on_the_default_threads():
+    """The config-4 learner's CPU fit on torch's default thread count is
+    bit for bit its one-thread fit (which the case above holds to JAX):
+    the first layer sums in a fixed order (models/mlp.py), and the rest
+    does not split its sums by thread."""
+    one, default = _config4_port_fit(1, 1), _config4_port_fit(1, None)
+    for k, v in one.ensemble_.items():
+        assert torch.equal(default.ensemble_[k], v), k
+
+
 @pytest.mark.parametrize("F", [28, 27])
 def test_cpu_first_layer_is_the_same_on_any_thread_count(F):
     X = np.random.default_rng(F).standard_normal((4, 1024, F)).astype(
@@ -206,7 +245,7 @@ def test_cpu_first_layer_is_the_same_on_any_thread_count(F):
     before = torch.get_num_threads()
     try:
         outs = []
-        for threads in (1, max(2, before)):
+        for threads in (1, max(2, DEFAULT_THREADS)):
             torch.set_num_threads(threads)
             outs.append(tmlp._FixedOrderFirstLayer.apply(Xt, W1))
     finally:

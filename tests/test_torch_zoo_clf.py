@@ -207,10 +207,13 @@ def test_fm_classifier_matches_jax(n_classes):
     _assert_ensembles(jf, tf, FM_TOL, PROBA_TOL, X)
 
 
-def test_fm_classifier_at_the_card_checks_shapes_matches_jax():
+def _fm_long_fit_both(n_rows: int):
+    """FM classifiers of chip_smoke's device check (8 factors, 100 Adam
+    steps, 8 replicas) on the first ``n_rows`` standardized covtype
+    rows, in both packages, held to FM_LONG_TOL."""
     from spark_bagging_tpu_torch.utils import datasets
 
-    X, y = datasets.synthetic_covtype(20_000)
+    X, y = datasets.synthetic_covtype(n_rows)
     X = datasets.standardize(X)
     kw = dict(factor_size=8, max_iter=100)
     est = dict(n_estimators=8, seed=0)
@@ -221,6 +224,19 @@ def test_fm_classifier_at_the_card_checks_shapes_matches_jax():
     _close(tf.predict_proba(X), jf.predict_proba(X), FM_LONG_TOL, "proba")
     assert abs(tf.fit_report_["loss_mean"]
                - jf.fit_report_["loss_mean"]) <= 1e-5
+
+
+# In `slow`: 86-98 s of tier-1 worker time under xdist (the port's side,
+# 100 Adam steps over 8 x 20,000 rows on one thread, takes ~30 s alone).
+# Tier-1 keeps test_fm_classifier_long_fit_matches_jax, the same learner,
+# replicas, steps and tolerance on 4,000 rows.
+@pytest.mark.slow
+def test_fm_classifier_at_the_card_checks_shapes_matches_jax():
+    _fm_long_fit_both(20_000)
+
+
+def test_fm_classifier_long_fit_matches_jax():
+    _fm_long_fit_both(4_000)
 
 
 def test_fm_init_within_ulps_of_jax():
