@@ -182,6 +182,26 @@ printed with the card's name and power limit:
 - ``online_anchor``: ``OnlineUpdater(warm=False)`` over a
   ``bootstrap=False`` 16-replica bag's own 50,000 rows replays the batch
   fit: params bitwise, the same Gram launches;
+- ``quality_tap`` (after ``online_publish``, on the headline bag) and
+  ``quality_tap_trees`` (after ``serving_trees_*``, on config 3's trees):
+  ``ModelRegistry.enable_quality`` with disagreement sampling captures
+  one per-replica CUDA graph a bucket at warm-up and none of either
+  kind on requests; each replay bit for bit the eager
+  ``replica_forward`` closure, its mean (soft vote) within SERVE_TOL of
+  the served output, its vote count (hard vote) exactly it; served
+  outputs bitwise with and without the monitor; rows/s and p50/p99 at
+  concurrency 4 with and without it; the monitor's host microseconds a
+  single-row batch and a sampled batch's tap replay;
+- ``drift_loop``: the closed loop on the headline bag. Four clients send
+  3,200 fresh rows, then covariate-shifted ones (``X + 4.0``), through
+  the batcher; the default drift rules fire on the monitor's PSI gauge
+  (none before the shift), the ``OnlineTrainer`` (stepped) refits on
+  the 1,024 labelled rows served after the alert (its Newton Hessians
+  through the scaled-Gram kernel, held against the plain version at
+  the refit's shapes), validates, swaps and saves; 0 failed requests,
+  the max feature PSI back under the threshold after the swap, the
+  published directory served bitwise by a fresh registry, and one
+  forced rejection writing one ``refit_rejected`` flight dump;
 - ``readers``: 200,000 synthetic HIGGS rows written as libsvm, CSV and a
   hashed CSV (3 categorical columns), streamed through ``LibsvmChunks``,
   ``CSVChunks`` and ``HashedCSVChunks`` on the g++-built host loader
@@ -412,6 +432,29 @@ ONLINE_W_TOL = 1e-4
 # steps with 8 replicas on the CPU, from 0.7673): the headline bar less
 # 0.01
 ONLINE_ACC_BAR = ACC_BAR - 0.01
+# the quality plane on a served bag: the monitor's refresh cadence in
+# rows and its disagreement sampling (every 8th packed batch, replay.py's
+# default)
+QUALITY = dict(refresh_every=64, disagreement_every=8)
+# the closed loop on the headline bag: 3,200 fresh rows of the headline
+# mixture (row seed 71, not used before), then rows shifted as
+# benchmarks/replay.py:188-206 shifts them at its defaults (scale 1.0,
+# shift 4.0, :529-530); at least 3,200 of them, and on until 1,024 rows
+# were served after the publish swap. The default drift rules
+# (threshold 0.5) on a virtual clock of 1 ms a served row, with 128 and
+# 256 ms windows; the monitor's PSI gauges read 0 below 256 rows. The
+# trainer refits on the 1,024 labelled rows served after the alert
+# (collect_rows = the buffer's capacity: the post-change window, as
+# replay.py's trainer does), with example 10's margin. The refit starts
+# from scratch (``updater_opts={"warm": False}``: the headline learner's
+# pooled pre-pass and Newton step on the window's Poisson(1) weights):
+# a warm Newton step from the incumbent diverges under a 4-sigma shift
+# of all 54 features (the incumbent's softmax saturates; on the CPU at
+# 16 replicas one warm step moved W by 680 and took the window's
+# accuracy from 0.293 to 0.277, a cold refit to 0.820)
+DRIFT = dict(fresh=3_200, shifted=3_200, post_swap=1_024, seed=71,
+             scale=1.0, shift=4.0, dt=1e-3, fast_s=0.128, slow_s=0.256,
+             min_rows=256, window=1_024, margin=0.05, warm=False)
 # the file readers: synthetic HIGGS rows written as libsvm, CSV
 # and a hashed CSV with a few categorical columns, streamed in chunks
 READERS = dict(n_rows=200_000, chunk_rows=65_536, n_estimators=64,
@@ -3420,6 +3463,364 @@ def phase_online_anchor(X: np.ndarray, y: np.ndarray) -> int:
     return launches
 
 
+# -- the closed loop: the quality plane and the online trainer ----------
+
+def quality_compiles() -> tuple[float, float]:
+    """(serving captures, disagreement-tap captures) so far."""
+    from spark_bagging_tpu_torch import telemetry
+
+    r = telemetry.registry()
+    return (r.counter("sbt_serving_compiles_total").value,
+            r.counter("sbt_quality_disagreement_compiles_total").value)
+
+
+def phase_quality_tap(model, X: np.ndarray, name: str) -> None:
+    """The disagreement tap on a fitted bag: registered on
+    serving_latency.py's ladder with warm-up, then
+    ``enable_quality(disagreement_every=QUALITY["disagreement_every"])``:
+    one per-replica graph a bucket captured at warm-up and none on
+    requests (of either kind); every bucket's per-replica replay bit for
+    bit the eager ``replica_forward`` closure, its mean (soft vote) or
+    vote count (hard vote) the served output; served outputs bitwise with
+    and without the monitor; rows/s and p50/p99 at concurrency 4 with and
+    without it on the same 3,200 rows; the monitor's host microseconds a
+    single-row batch and a sampled batch's tap replay."""
+    from spark_bagging_tpu_torch.serving import (
+        MicroBatcher,
+        ModelRegistry,
+        program_cache,
+    )
+
+    Xs = X[:N_SERVE_ROWS]
+    hard = getattr(model, "voting", None) == "hard"
+    program_cache.clear()
+    reg = ModelRegistry(**SERVE_LADDERS["bench"])
+    ex = reg.register(name, model, warmup=True)
+    rng = np.random.default_rng(2)
+    reqs = [Xs[rng.integers(0, len(Xs), n)] for n in (1, 5, 64, 200, 256,
+                                                      300)]
+    base = [ex.forward(r) for r in reqs]
+    pool0 = ex.graph_pool_bytes
+    with MicroBatcher(ex, **SERVE_BATCHER) as b:
+        plain = measure(lambda: run_window(Xs, 4, SERVE_REQUESTS, b.submit))
+    reset_launches()
+    c0 = quality_compiles()
+    t0 = time.perf_counter()
+    mon = reg.enable_quality(name, refresh_every=QUALITY["refresh_every"],
+                             disagreement_every=QUALITY["disagreement_every"])
+    attach_s = time.perf_counter() - t0
+    c1 = quality_compiles()
+    tapped = [ex.forward(r) for r in reqs]
+    unequal = sum(int(not np.array_equal(a, b)) for a, b in zip(tapped, base))
+    fn, params, subs = model.replica_forward()
+    replay_unequal, agg_err, vote_unequal = [], 0.0, 0
+    for bk in ex.replica_buckets:
+        Xb = Xs[rng.integers(0, len(Xs), bk)]
+        rep = ex.replica_program(bk).run(Xb, bk)
+        eager = fn(params, subs,
+                   torch.from_numpy(Xb).to(subs.device)).cpu().numpy()
+        if not np.array_equal(rep, eager):
+            replay_unequal.append(bk)
+        served = ex.forward(Xb)
+        if hard:
+            vote_unequal += int(not np.array_equal(
+                rep.sum(0), np.rint(served * model.n_estimators_)))
+        else:
+            agg_err = max(agg_err, float(np.abs(rep.mean(0) - served).max()))
+    with MicroBatcher(ex, **SERVE_BATCHER) as b:
+        monitored = measure(lambda: run_window(Xs, 4, SERVE_REQUESTS,
+                                               b.submit))
+    c2 = quality_compiles()
+    launches = read_launches()
+    # the monitor's host cost a batch: one single-row batch's sketches,
+    # and a sampled batch's per-replica replay at bucket 1
+    x1 = Xs[:1]
+    o1 = ex.forward(x1)
+    n_obs = 2000
+    t0 = time.perf_counter()
+    for i in range(n_obs):
+        mon.observe_parts([Xs[i:i + 1]], [o1])
+    observe_us = 1e6 * (time.perf_counter() - t0) / n_obs
+    t0 = time.perf_counter()
+    for _ in range(200):
+        ex._replica_piece(x1, 1)
+    replay_us = 1e6 * (time.perf_counter() - t0) / 200
+    summ = mon.summary()
+    fields = dict(
+        replicas=model.n_estimators_, vote="hard" if hard else "soft",
+        ladder=list(ex.compiled_buckets),
+        replica_captures_at_warmup=c1[1] - c0[1],
+        serving_captures_at_warmup=c1[0] - c0[0],
+        captures_on_requests={"serving": c2[0] - c1[0],
+                              "replica": c2[1] - c1[1]},
+        attach_and_capture_seconds=attach_s,
+        graph_pool_bytes={"serving": pool0,
+                          "with_tap": ex.graph_pool_bytes},
+        request_sizes_unequal_with_monitor=unequal,
+        replica_buckets_unequal_to_eager=replay_unequal,
+        replica_mean_max_abs_err_vs_served=None if hard else agg_err,
+        replica_vote_buckets_unequal=vote_unequal if hard else None,
+        served_without_monitor=plain, served_with_monitor=monitored,
+        disagreement_every=QUALITY["disagreement_every"],
+        refresh_every=QUALITY["refresh_every"],
+        disagreement_samples=summ["disagreement_samples"],
+        disagreement_mean=(summ["drift"] or {}).get("disagreement_mean"),
+        monitor_host_us_per_single_row_batch=observe_us,
+        tap_replay_us_per_sampled_batch=replay_us,
+        launches=launches, card=CARD)
+    ok = (fields["replica_captures_at_warmup"] == len(ex.compiled_buckets)
+          and fields["serving_captures_at_warmup"] == 0
+          and c2 == c1 and unequal == 0 and not replay_unequal
+          and ex.graph_pool_bytes > pool0
+          and (vote_unequal == 0 if hard else agg_err <= SERVE_TOL)
+          and summ["disagreement_samples"] > 0
+          and launches["scaled_gram"] == 0)
+    emit(name, ok=ok, **fields)
+    if not ok:
+        fail(name, f"checks failed: {fields}")
+    reg.disable_quality(name)
+
+
+def phase_drift_loop(clf, X: np.ndarray) -> int:
+    """serve -> drift sketches -> PSI gauges -> alert -> OnlineTrainer
+    refit -> validate -> publish swap -> the drift gauge recovers, on the
+    headline bag (256 replicas at full width), with an armed flight
+    recorder and a recording workload recorder, as example 10's loop and
+    ``replay --drift --online`` run it in the JAX package.
+
+    Four clients send single rows through ``MicroBatcher(max_delay_ms=
+    0.5)``: DRIFT["fresh"] fresh rows of the headline mixture, then rows
+    covariate-shifted as replay.py shifts them (``X * scale + shift``),
+    at least DRIFT["shifted"] of them and on until DRIFT["post_swap"]
+    have been served after the publish swap; each served row with its
+    label goes into the trainer's ``LabeledBuffer``. The main thread
+    evaluates the default drift rules on a virtual clock (DRIFT["dt"]
+    seconds a served row) and steps the trainer, which refits once the
+    buffer holds DRIFT["window"] rows served after the alert. Then one
+    refit is forced to fail validation (its margin set below -1) and
+    must write one ``refit_rejected`` flight dump. Returns the loop's
+    scaled-Gram launches."""
+    import shutil
+    import threading
+
+    from spark_bagging_tpu_torch.online import (
+        LabeledBuffer,
+        OnlineTrainer,
+        trainer as trainer_mod,
+    )
+    from spark_bagging_tpu_torch.serving import ModelRegistry, program_cache
+    from spark_bagging_tpu_torch.telemetry import alerts, recorder, workload
+
+    t_phase = time.perf_counter()
+    n_fresh, n_shift = DRIFT["fresh"], DRIFT["shifted"]
+    n_pool = n_shift + DRIFT["post_swap"] + 4 * DRIFT["window"]
+    Xf, yf = fresh_covtype(n_fresh + n_pool, DRIFT["seed"])
+    Xs = np.concatenate([Xf[:n_fresh], Xf[n_fresh:] * np.float32(
+        DRIFT["scale"]) + np.float32(DRIFT["shift"])])
+    tmp = tempfile.mkdtemp(prefix="drift_loop_")
+    publish_dir = os.path.join(tmp, "publish")
+    reg = ModelRegistry(**SERVE_LADDERS["bench"])
+    reg.register("drift", clf, warmup=True)
+    mon = reg.enable_quality("drift", refresh_every=QUALITY["refresh_every"],
+                             disagreement_every=QUALITY["disagreement_every"],
+                             min_rows=DRIFT["min_rows"])
+    rules = alerts.default_drift_rules(
+        labels=mon.labels, fast_window_s=DRIFT["fast_s"],
+        slow_window_s=DRIFT["slow_s"], cooldown_s=1e9)
+    engine = alerts.AlertEngine(rules)
+    threshold = rules[0].threshold
+    flight = recorder.FlightRecorder(dir=os.path.join(tmp, "flight"),
+                                     cooldown_s=3600).arm()
+    rec = workload.WorkloadRecorder().start()
+    buffer = LabeledBuffer(capacity_rows=DRIFT["window"],
+                           labels={"model": "drift"})
+    trainer = OnlineTrainer(reg, "drift", buffer, workload_recorder=rec,
+                            epochs=1, batch_rows=DRIFT["window"],
+                            min_refit_rows=DRIFT["window"] // 2,
+                            collect_rows=DRIFT["window"],
+                            margin=DRIFT["margin"], seed=DRIFT["seed"],
+                            publish_dir=publish_dir,
+                            trigger_rules=(rules[0].name,),
+                            updater_opts={"warm": DRIFT["warm"]})
+    engine.subscribe(trainer.on_alert)
+    # each phase's seconds: the buffer's drain, the updater's steps, the
+    # registry's swap and save; validate is the rest of the cycle
+    timing = {"drain": 0.0, "refit": 0.0, "publish": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                timing[key] += time.perf_counter() - t0
+        return run
+
+    real_partial_fit = trainer_mod.OnlineUpdater.partial_fit
+    trainer_mod.OnlineUpdater.partial_fit = timed("refit", real_partial_fit)
+    drained = []
+    real_drain = buffer.drain
+
+    def keep_drain():
+        out = real_drain()
+        drained.append(out)
+        return out
+
+    buffer.drain = timed("drain", keep_drain)
+    reg.swap = timed("publish", reg.swap)
+    reg.save = timed("publish", reg.save)
+    shapes, undo = record_gram_shapes()
+
+    lock = threading.Lock()
+    state = dict(next=0, served=0, stop=False, swap_at=None)
+    errors, versions = [], []
+    # the shifted rows wait until the fresh ones are all served and the
+    # monitor's pre-shift reading is taken
+    shift_gate = threading.Event()
+
+    def client(b):
+        while True:
+            with lock:
+                if state["stop"]:
+                    return
+                i = state["next"]
+                state["next"] += 1
+            if i >= len(Xs):
+                return
+            if i >= n_fresh:
+                shift_gate.wait(600)
+            xi = Xs[i:i + 1]
+            try:
+                fut = b.submit(xi)
+                fut.result(60)
+                versions.append(fut.trace.breakdown.get("model_version"))
+            except Exception as e:  # noqa: BLE001 - counted
+                errors.append(repr(e))
+                continue
+            buffer.add(xi, yf[i:i + 1])
+            with lock:
+                state["served"] += 1
+                done = state["served"]
+                if state["swap_at"] is not None and (
+                        done >= n_fresh + n_shift
+                        and done >= state["swap_at"] + DRIFT["post_swap"]):
+                    state["stop"] = True
+
+    psi_before_shift = psi_at_alert = alert_at = None
+    reset_launches()
+    try:
+        with reg.batcher("drift", **SERVE_BATCHER) as b:
+            threads = [threading.Thread(target=client, args=(b,))
+                       for _ in range(4)]
+            t_serve = time.perf_counter()
+            for t in threads:
+                t.start()
+            while any(t.is_alive() for t in threads):
+                with lock:
+                    served = state["served"]
+                if psi_before_shift is None and served >= n_fresh:
+                    psi_before_shift = mon.drift()["psi_max"]
+                    shift_gate.set()
+                for ev in engine.evaluate(now=served * DRIFT["dt"]):
+                    if ev["kind"] == "alert_fired" and alert_at is None:
+                        alert_at = served
+                        psi_at_alert = mon.drift()["psi_max"]
+                if trainer.run_pending():
+                    with lock:
+                        state["swap_at"] = state["served"]
+                time.sleep(0.002)
+            for t in threads:
+                t.join(60)
+            serve_s = time.perf_counter() - t_serve
+    finally:
+        undo()
+        trainer_mod.OnlineUpdater.partial_fit = real_partial_fit
+    launches = read_launches()
+    live = reg.executor("drift")
+    psi_after = live.quality.drift()
+    (record,) = trainer.transcript or [{}]
+    phases = {"drain": timing["drain"], "refit": timing["refit"],
+              "validate": max(0.0, record.get("seconds", 0.0)
+                              - sum(timing.values())),
+              "publish": timing["publish"]}
+    # the refit's Gram launches against the plain version at their
+    # shapes, on the window the trainer drained
+    window = drained[0][0] if drained and drained[0] else Xs[:DRIFT["window"]]
+    kernel_rows = gram_at_shapes(window, sorted({r for r, _ in shapes}))
+    # a fresh registry serves publish_dir bitwise what the live one serves
+    fresh_version, fresh_unequal = None, None
+    if os.path.isfile(os.path.join(publish_dir, "serve_config.json")):
+        program_cache.clear()
+        fresh = ModelRegistry()
+        fresh_ex = fresh.load("fresh", publish_dir, device=clf.device)
+        fresh_version = fresh.version("fresh")
+        rng = np.random.default_rng(3)
+        probe = [Xs[n_fresh + rng.integers(0, n_shift, n)]
+                 for n in (1, 5, 64, 200, 256, 300)]
+        fresh_unequal = sum(int(not np.array_equal(fresh_ex.forward(p),
+                                                   live.forward(p)))
+                            for p in probe)
+    # one forced rejection: no candidate clears incumbent + 2
+    trainer.margin = -2.0
+    forced = Xs[n_fresh + n_shift:][-DRIFT["window"]:]
+    forced_y = yf[n_fresh + n_shift:][-DRIFT["window"]:]
+    trainer.trigger(reason="forced-rejection")
+    for i in range(len(forced)):  # the trigger's post-change window
+        buffer.add(forced[i:i + 1], forced_y[i:i + 1])
+    rejected = trainer.run_pending()
+    flight.disarm()
+    wl = rec.stop()
+    kinds = [d["kind"] for d in flight.dump_records]
+    v_live = reg.version("drift")
+    fields = dict(
+        replicas=clf.n_estimators_, rows_fresh=n_fresh,
+        rows_shifted=state["served"] - n_fresh,
+        shift=dict(scale=DRIFT["scale"], shift=DRIFT["shift"]),
+        served_rows=state["served"], serve_seconds=serve_s,
+        failed_requests=len(errors), errors=errors[:3],
+        rows_served_before_first_alert=alert_at,
+        psi_threshold=threshold,
+        max_feature_psi={"before_shift": psi_before_shift,
+                         "at_alert": psi_at_alert,
+                         "after_swap": psi_after["psi_max"]},
+        rows_after_swap=(state["served"] - state["swap_at"]
+                         if state["swap_at"] is not None else None),
+        refit=dict(record, seconds=record.get("seconds")),
+        refit_phase_seconds=phases,
+        gram_launches=launches["scaled_gram"],
+        gram_launch_shapes=sorted(set(shapes)),
+        gram_at_refit_shapes=kernel_rows,
+        scores={"incumbent": record.get("incumbent_score"),
+                "candidate_window": record.get("candidate_window_score"),
+                "candidate_claim": record.get("candidate_score")},
+        versions_served=sorted({v for v in versions if v is not None}),
+        live_version=v_live,
+        fresh_registry_version=fresh_version,
+        fresh_registry_request_sizes_unequal=fresh_unequal,
+        forced_rejection=[r.get("action") for r in rejected],
+        flight_dump_kinds=kinds,
+        workload_requests_recorded=wl.n_requests + record.get(
+            "window_requests", 0),
+        phase_seconds=time.perf_counter() - t_phase, card=CARD)
+    shutil.rmtree(tmp, ignore_errors=True)
+    ok = (not errors and alert_at is not None and alert_at >= n_fresh
+          and psi_before_shift is not None and psi_before_shift < threshold
+          and record.get("action") == "published"
+          and record.get("candidate_window_score", -1)
+          >= record.get("incumbent_score", 2)
+          and psi_after["warmed"] and psi_after["psi_max"] < threshold
+          and v_live == 2 and fields["fresh_registry_version"] == 2
+          and fresh_unequal == 0
+          and launches["scaled_gram"] == len(shapes) > 0
+          and all(r["max_entry_err"] <= GRAM_TOL for r in kernel_rows)
+          and [r.get("action") for r in rejected] == ["rejected"]
+          and kinds.count("refit_rejected") == 1)
+    emit("drift_loop", ok=ok, **fields)
+    if not ok:
+        fail("drift_loop", f"checks failed: {fields}")
+    return launches["scaled_gram"]
+
+
 # -- the data plane: file readers and config 8 -------------------------
 
 def write_reader_files(d: str, X: np.ndarray, y: np.ndarray,
@@ -3742,7 +4143,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     cand, online_launches = phase_online_update(clf, X, y)
     phase_online_publish(clf, cand, X)
-    del clf, cand
+    del cand
+    torch.cuda.empty_cache()
+    phase_quality_tap(clf, X, "quality_tap")
+    loop_launches = phase_drift_loop(clf, X)
+    del clf
     torch.cuda.empty_cache()
     anchor_launches = phase_online_anchor(X, y)
     torch.cuda.empty_cache()
@@ -3756,6 +4161,7 @@ def main() -> int:
     tree_acc = tree.score(X[:N_SERVE_ROWS], y[:N_SERVE_ROWS])
     phase_tree_serve(tree, X)
     phase_serving_trees(tree, X)
+    phase_quality_tap(tree, X, "quality_tap_trees")
     wt_launches, wt_codes_launches = phase_warm_start_trees(tree, X, y)
     del tree
     torch.cuda.empty_cache()
@@ -3822,7 +4228,7 @@ def main() -> int:
     # paths count too: the logistic growth's Gram launches, the grown
     # trees' and the resumed tree stream's histogram and codes launches;
     # so do the online paths: the warm steps' and the anchor replay's
-    # Gram launches
+    # Gram launches, and the drift loop's refit
     f32 = rows[max(Rs)]["float32"]
     deepest = hist_rows[max(tree_Rs), 2 ** (TREE["max_depth"] - 1), "bfloat16"]
     print(json.dumps({"kernels": [{
@@ -3831,7 +4237,7 @@ def main() -> int:
         "source": "spark_bagging_tpu_torch/csrc/scaled_gram.cu",
         "replaces": "spark_bagging_tpu/ops/gram.py:53",
         "launches": launches + warm_launches + online_launches
-        + anchor_launches,
+        + anchor_launches + loop_launches,
         "max_abs_err": f32["max_abs_err"],
         "ms": f32["kernel_ms"],
         "plain_ms": f32["plain_ms"],

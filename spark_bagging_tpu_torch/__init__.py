@@ -16,11 +16,16 @@ learners by Adam over the chunks (the survival learner's censor flags
 as a streamed column, ``aux_col``), trees by a multi-pass
 level-synchronous growth, with snapshots to resume from; ``warm_start``
 grows a fitted ensemble; ``online.OnlineUpdater`` applies streaming
-Poisson-weight ``partial_fit`` steps to a fitted one. ``save``/``load`` (and ``save_model``/
-``load_model``) write and read the JAX package's checkpoint format. ``serving`` is the online plane: one CUDA
-graph a row bucket (``EnsembleExecutor``), a micro-batcher and a model
-registry with hot swap. The JAX package stays the reference this port
-is held against; the port imports only torch and numpy.
+Poisson-weight ``partial_fit`` steps to a fitted one. ``save``/``load``
+(and ``save_model``/``load_model``) write and read the JAX package's
+checkpoint format. ``serving`` is the online plane: one CUDA graph a row
+bucket (``EnsembleExecutor``), a micro-batcher and a model registry
+with hot swap. ``telemetry.quality`` watches what is served against
+each fit's reference profile (drift gauges, a per-replica disagreement
+tap), ``telemetry.alerts`` turns the gauges into alerts, and
+``online.OnlineTrainer`` refits and republishes when one fires. The JAX
+package stays the reference this port is held against; the port
+imports only torch and numpy.
 
 Entry points run on the card (``device="cuda"``, the default) and raise
 where CUDA is absent; ``device="cpu"`` must be asked for.

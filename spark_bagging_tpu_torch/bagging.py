@@ -244,16 +244,23 @@ class _BaseBagging(ParamsMixin):
             raise ValueError(f"y must be 1-D, got shape {y.shape}")
         return y
 
-    def _start_fit(self, X) -> tuple[torch.Tensor, torch.device, float]:
+    def _start_fit(self, X) -> tuple[torch.Tensor, torch.device, float,
+                                     np.ndarray]:
         """Refuse the surfaces not ported yet; X on the device, with the
-        seconds the copy took."""
+        seconds the copy took, and X on the host (the caller's array
+        itself where it already is float32 numpy; pulled back only when
+        the caller handed a CUDA tensor) for the quality profile."""
         if self.mesh is not None:
             raise NotImplementedError(f"mesh fits ({_ROADMAP_SURFACES})")
         device = resolve_device(self.device)
+        if isinstance(X, torch.Tensor):
+            X_host = X.detach().cpu().numpy()
+        else:
+            X = X_host = np.asarray(X, np.float32)  # converted once
         t0 = time.perf_counter()
         X = self._validate_X(X, device)
         synchronize(device)
-        return X, device, time.perf_counter() - t0
+        return X, device, time.perf_counter() - t0, X_host
 
     # -- warm start ----------------------------------------------------
 
@@ -397,7 +404,8 @@ class _BaseBagging(ParamsMixin):
     # -- fit -----------------------------------------------------------
 
     def _fit_engine(self, X, y, n_outputs, device, h2d_seconds,
-                    sample_weight=None, aux=None, id_start: int = 0) -> None:
+                    sample_weight=None, aux=None, id_start: int = 0,
+                    host_xy=None) -> None:
         from spark_bagging_tpu_torch.streaming import learner_fingerprint
         from spark_bagging_tpu_torch.utils.memory import auto_chunk_size
 
@@ -486,6 +494,40 @@ class _BaseBagging(ParamsMixin):
             fit_seconds, h2d_seconds, losses, n_rows, n_features, n_subspace,
             learner.flops_per_fit(n_rows, n_subspace, n_outputs),
             chunk_size_resolved=chunk_size, n_replicas=n_new, **extra)
+        self._fit_quality_profile(host_xy, n_outputs)
+
+    def _fit_quality_profile(self, host_xy, n_outputs: int) -> None:
+        """The fit-time quality reference (``telemetry/quality.py``): the
+        drift comparand the serving monitors score live traffic against.
+        Fixed-size (per-feature decile histograms over a strided row
+        subsample + the label distribution), checkpointed with the
+        weights, and best-effort — a profiling failure must never fail
+        the fit it describes. ``host_xy`` is the fit's ``(X, y)`` as the
+        host arrays the fit copied to the device (``y`` encoded for a
+        classifier): nothing is read back from the card."""
+        self.quality_profile_ = None
+        try:
+            from spark_bagging_tpu_torch import telemetry
+            from spark_bagging_tpu_torch.telemetry.quality import (
+                ReferenceProfile,
+            )
+
+            Xh, yh = host_xy
+            with telemetry.span("quality_profile"):
+                self.quality_profile_ = ReferenceProfile.from_training(
+                    Xh, yh, task=self.task,
+                    n_classes=(n_outputs if self.task == "classification"
+                               else None),
+                )
+        except Exception as e:  # noqa: BLE001 — monitoring is optional
+            import warnings
+
+            warnings.warn(
+                f"quality reference profile not computed: {e!r} "
+                "(drift monitoring unavailable for this model)",
+                RuntimeWarning,
+                stacklevel=3,
+            )
 
     def _write_report(self, fit_seconds, h2d_seconds, losses, n_rows,
                       n_features, n_subspace, flops, flops_seconds=None,
@@ -576,6 +618,10 @@ class _BaseBagging(ParamsMixin):
             source = PrefetchChunks(source, prefetch)
         if self.n_estimators < 1:
             raise ValueError("n_estimators must be >= 1")
+        # a stream fit computes no quality reference (the data never
+        # sits in memory to profile); a stale profile from a previous
+        # in-memory fit must not describe THIS model's training data
+        self.quality_profile_ = None
         ratio = self._sample_ratio(int(source.n_rows))
         if self.oob_score and not self.bootstrap and ratio >= 1.0:
             raise ValueError(
@@ -939,7 +985,7 @@ class BaggingClassifier(_BaseBagging):
         ``warm_start=True`` a fitted ensemble grows to ``n_estimators``
         (the same X, y and ``sample_weight`` as its first fit); OOB is
         then scored over the whole grown ensemble."""
-        X, device, h2d_seconds = self._start_fit(X)
+        X, device, h2d_seconds, X_host = self._start_fit(X)
         classes, y_enc = np.unique(self._labels(y), return_inverse=True)
         if self.warm_start and hasattr(self, "ensemble_"):
             if not np.array_equal(classes, self.classes_):
@@ -956,7 +1002,8 @@ class BaggingClassifier(_BaseBagging):
         self.n_classes_ = int(len(classes))
         y_t = torch.as_tensor(y_enc.astype(np.int64), device=device)
         self._fit_engine(X, y_t, self.n_classes_, device, h2d_seconds,
-                         sample_weight, id_start=id_start)
+                         sample_weight, id_start=id_start,
+                         host_xy=(X_host, y_enc))
         if self.oob_score:
             counts, votes = self._oob_scores(X, self.n_classes_)
             self._finalize_oob(counts, votes, y_enc)
@@ -1040,6 +1087,14 @@ class BaggingClassifier(_BaseBagging):
         self.oob_decision_function_ = np.where(
             has_vote[:, None], counts / np.maximum(votes, 1)[:, None], np.nan,
         )
+        # OOB rows are the honest confidence reference for the quality
+        # plane: held-out per-row max probability, free at fit time
+        prof = getattr(self, "quality_profile_", None)
+        if prof is not None and has_vote.any():
+            prof.set_confidence_reference(
+                self.oob_decision_function_[has_vote].max(axis=1),
+                source="oob",
+            )
 
     def _forward_closure(self):
         return classifier_forward(
@@ -1154,7 +1209,7 @@ class BaggingRegressor(_BaseBagging):
                     f"aux was passed but {type(learner).__name__} does not "
                     "declare uses_aux (it would be silently ignored)"
                 )
-        X, device, h2d_seconds = self._start_fit(X)
+        X, device, h2d_seconds, X_host = self._start_fit(X)
         y = self._labels(y).astype(np.float32)
         y_t = torch.as_tensor(y, device=device)
         aux_t = None
@@ -1169,7 +1224,7 @@ class BaggingRegressor(_BaseBagging):
         if self._nothing_to_grow(id_start):
             return self
         self._fit_engine(X, y_t, 1, device, h2d_seconds, sample_weight,
-                         aux=aux_t, id_start=id_start)
+                         aux=aux_t, id_start=id_start, host_xy=(X_host, y))
         if self.oob_score:
             sums, votes = self._oob_scores(X, None)
             self._finalize_oob(sums, votes, y)

@@ -72,10 +72,13 @@ Contracts that matter under load:
   events carry the ids, and batch failures / overload rejections emit
   flight-recorder trigger events. All of it vanishes when telemetry
   is disabled (``future.trace is None``).
-- **The arrival stream is capturable.** While an open ``capture()``
-  window is listening, ``submit()`` also emits one ``serving_request``
-  event (rows, width, dtype, bucket, queue depth, monotonic arrival
-  stamp). No consumer, no event, no cost.
+- **The arrival stream is capturable.** While a workload recorder or
+  an open ``capture()`` window is listening, ``submit()`` also emits
+  one ``serving_request`` event (rows, width, dtype, bucket, queue
+  depth, monotonic arrival stamp) — the stream the workload recorder
+  serializes into replayable ``*.workload.jsonl`` files. No consumer,
+  no event, no cost — an armed flight recorder alone does not count
+  (it deliberately ignores arrival events).
 - **Replay can step it deterministically.** ``threaded=False`` starts
   no worker thread; the owner drives batching explicitly with
   :meth:`run_pending`, which drains the queue into batches by the
@@ -84,10 +87,9 @@ Contracts that matter under load:
   composition (and therefore bitwise-identical outputs) on every run.
 
 The port's copy of the JAX package's ``serving/batcher.py``, with only
-its seams swapped: the exposition server's ``/healthz`` registration,
-the performance-attribution probe and the workload recorder's arrival
-events are ROADMAP Queue A 15 (``health()`` and ``stats()`` report the
-same facts directly).
+its seams swapped: the exposition server's ``/healthz`` registration
+and the performance-attribution probe are ROADMAP Queue A 15, part 2
+(``health()`` and ``stats()`` report the same facts directly).
 """
 
 from __future__ import annotations
@@ -777,8 +779,8 @@ class MicroBatcher:
 
     def retire(self) -> None:
         """Close for good. The JAX package's ``retire`` also leaves the
-        exposition server's ``/healthz`` set, which is not ported, so
-        here it is :meth:`close`."""
+        exposition server's ``/healthz`` set, which is not ported yet
+        (ROADMAP Queue A 15, part 2), so here it is :meth:`close`."""
         self.close()
 
     def __enter__(self) -> "MicroBatcher":

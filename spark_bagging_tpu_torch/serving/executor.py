@@ -21,6 +21,16 @@ into a long-lived predictor:
   counts every build: on CUDA a build is one graph capture);
 - batches larger than the top bucket split into top-bucket slabs.
 
+The quality plane's disagreement tap (``telemetry/quality.py``) has
+programs of its own: the per-replica forward (``model.replica_forward()``)
+captured once per bucket in the same way, into the same graph pool,
+with its own static buffers, counted in
+``sbt_quality_disagreement_compiles_total`` and never in the serving
+counter. A sampled batch replays it on the host rows of the slab just
+served (never on the serving graph's static input, which the next
+batch overwrites); an unsampled batch feeds the monitor host arrays
+only and adds no device synchronization.
+
 On a CPU model (the parity tests) a bucket's program is the eager
 forward at the bucket's shape, built (and counted) once per bucket in
 the same way, so the counters' contract is the same on both devices.
@@ -35,8 +45,8 @@ may replay in any order. Programs are built under the executor's build
 lock (one build per bucket even when many threads race to first use).
 
 Not ported yet: mesh serving and the degraded-quorum surface (ROADMAP
-Queue A 12), the quality tap, the capacity and performance planes
-(Queue A 15). A CUDA graph cannot be serialized, so there is no
+Queue A 12), the capacity demand tap and the performance plane (Queue
+A 15, part 2). A CUDA graph cannot be serialized, so there is no
 persisted executable cache: :meth:`restore_executables` ignores one.
 """
 
@@ -62,7 +72,6 @@ from spark_bagging_tpu_torch.serving.buckets import (
 from spark_bagging_tpu_torch.telemetry import tracing
 
 _ROADMAP_MESH = "ROADMAP Queue A 12: parallel/"
-_ROADMAP_PLANES = "ROADMAP Queue A 15: the host-side planes"
 
 #: eager runs on a side stream before a capture (cuBLAS handles,
 #: workspaces and the allocator's blocks settle outside the graph)
@@ -71,12 +80,16 @@ CAPTURE_WARMUP_ITERS = 2
 
 class EagerProgram:
     """A CPU bucket program: the forward run eagerly at the bucket's
-    shape. Reentrant (every call allocates its own output)."""
+    shape. Reentrant (every call allocates its own output). ``row_axis``
+    is the output's row axis: 0 for the aggregated forward, 1 for the
+    per-replica ``(R, n, ...)`` one."""
 
     nbytes = None
 
-    def __init__(self, fn, params, subspaces, bucket: int, n_features: int):
+    def __init__(self, fn, params, subspaces, bucket: int, n_features: int,
+                 row_axis: int = 0):
         self._fn, self._params, self._subspaces = fn, params, subspaces
+        self.row_axis = row_axis
         # the build runs the forward once, as a capture's warm-up does
         fn(params, subspaces,
            torch.zeros((bucket, n_features), dtype=torch.float32))
@@ -84,7 +97,8 @@ class EagerProgram:
     def run(self, Xp: np.ndarray, fill: int) -> np.ndarray:
         X = (torch.from_numpy(Xp) if Xp.flags.writeable
              else torch.tensor(Xp))
-        return self._fn(self._params, self._subspaces, X).numpy()[:fill]
+        out = self._fn(self._params, self._subspaces, X).numpy()
+        return out[:fill] if self.row_axis == 0 else out[:, :fill]
 
 
 def pool_reserved_bytes(pool) -> int:
@@ -110,12 +124,18 @@ class GraphProgram:
     threads' allocations are not counted). The cuBLAS workspace of the
     capture stream, made at the first warm-up, is the stream's and not
     counted.
+
+    ``row_axis`` is the output's row axis: 0 for the aggregated forward
+    (only the real rows come back), 1 for the per-replica ``(R, n, ...)``
+    forward of the disagreement tap (the whole static output comes back
+    in one contiguous copy and the real rows are sliced on the host).
     """
 
     def __init__(self, fn, params, subspaces, bucket: int, n_features: int,
-                 pool, stream):
+                 pool, stream, row_axis: int = 0):
         device = subspaces.device
         self._fn, self._params, self._subspaces = fn, params, subspaces
+        self.row_axis = row_axis
         self.lock = threading.Lock()
         x = torch.zeros((bucket, n_features), dtype=torch.float32,
                         device=device)
@@ -158,10 +178,16 @@ class GraphProgram:
             self._x_np[...] = Xp
             self.x.copy_(self.x_host, non_blocking=True)
             self.graph.replay()
-            self.out_host[:fill].copy_(self.out[:fill], non_blocking=True)
+            if self.row_axis == 0:
+                self.out_host[:fill].copy_(self.out[:fill],
+                                           non_blocking=True)
+                out = self._out_np[:fill]
+            else:
+                self.out_host.copy_(self.out, non_blocking=True)
+                out = self._out_np[:, :fill]
             self.done.record()
             self.done.synchronize()
-            return self._out_np[:fill].copy()
+            return out.copy()
 
 
 # sbt-lint: shared-state
@@ -218,8 +244,18 @@ class EnsembleExecutor:
                 params, subspaces,
             )
         self._variant = _pc.forward_variant(model)
+        self._replica_variant = _pc.forward_variant(model, "replica")
         self._toolchain = _pc.toolchain_id(self.device)
         self._compiled: dict[int, Any] = {}
+        # the disagreement tap's per-replica programs, one a bucket,
+        # built on first need (warmup_replica, or a sampled batch)
+        self._replica_compiled: dict[int, Any] = {}
+        self._replica_fn = None
+        self._replica_unavailable = False
+        # the attached quality monitor (telemetry/quality.py), or None:
+        # the serving path's whole cost without one is this one read
+        self._quality = None
+        self._quality_warned = False
         self._build_lock = make_lock("serving.executor.build")
         # every bucket of this executor warms up and captures on one side
         # stream, into one graph pool: cuBLAS keeps a workspace for each
@@ -243,8 +279,19 @@ class EnsembleExecutor:
     @property
     def graph_pool_bytes(self) -> int:
         """Device bytes this executor's bucket programs reserved at
-        their builds (0 on the CPU)."""
-        return sum(p.nbytes or 0 for p in list(self._compiled.values()))
+        their builds, the disagreement tap's included (0 on the CPU)."""
+        progs = [*self._compiled.values(), *self._replica_compiled.values()]
+        return sum(p.nbytes or 0 for p in progs)
+
+    @property
+    def replica_buckets(self) -> tuple[int, ...]:
+        """Buckets with a live per-replica (disagreement-tap) program."""
+        return tuple(sorted(self._replica_compiled))
+
+    def replica_program(self, bucket: int):
+        """The live per-replica program of ``bucket`` (None before its
+        build) — tests compare its replay with the eager closure."""
+        return self._replica_compiled.get(int(bucket))
 
     def program(self, bucket: int):
         """The live program of ``bucket`` (None before its build) —
@@ -269,23 +316,26 @@ class EnsembleExecutor:
                 built.append(b)
         return tuple(built)
 
-    def _program_key(self, bucket: int) -> _pc.ProgramKey:
+    def _program_key(self, bucket: int,
+                     variant: str | None = None) -> _pc.ProgramKey:
         return _pc.ProgramKey(
-            self.fingerprint, self._variant, int(bucket), self.mesh_shape,
-            *self._toolchain,
+            self.fingerprint, variant or self._variant, int(bucket),
+            self.mesh_shape, *self._toolchain,
         )
 
-    def _new_program(self, bucket: int):
+    def _new_program(self, bucket: int, fn=None, row_axis: int = 0):
+        fn = self._fn if fn is None else fn
         if self.device.type != "cuda":
-            return EagerProgram(self._fn, self._params, self._subspaces,
-                                bucket, self.n_features)
+            return EagerProgram(fn, self._params, self._subspaces,
+                                bucket, self.n_features, row_axis)
         try:
-            return GraphProgram(self._fn, self._params, self._subspaces,
+            return GraphProgram(fn, self._params, self._subspaces,
                                 bucket, self.n_features, self._pool,
-                                self._stream)
+                                self._stream, row_axis)
         except Exception as e:
+            what = "forward" if row_axis == 0 else "per-replica forward"
             raise RuntimeError(
-                f"CUDA-graph capture of the forward at bucket {bucket} "
+                f"CUDA-graph capture of the {what} at bucket {bucket} "
                 f"failed ({e!r}); a CUDA model is never served eagerly — "
                 "the forward must not synchronize with the host or size "
                 "its allocations from values it reads on the card"
@@ -319,11 +369,14 @@ class EnsembleExecutor:
             prog = _pc.cache().put(key, prog)
             # sbt-lint: disable=shared-state-unlocked — under self._build_lock
             self._compiled[bucket] = prog
-            if self.device.type == "cuda" and self.model_name is not None:
-                telemetry.set_gauge("sbt_serving_graph_pool_bytes",
-                                    float(self.graph_pool_bytes),
-                                    labels={"model": str(self.model_name)})
+            self._export_pool_bytes()
             return prog
+
+    def _export_pool_bytes(self) -> None:
+        if self.device.type == "cuda" and self.model_name is not None:
+            telemetry.set_gauge("sbt_serving_graph_pool_bytes",
+                                float(self.graph_pool_bytes),
+                                labels={"model": str(self.model_name)})
 
     def restore_executables(self, path: str) -> tuple[int, ...]:
         """Ignore a persisted executable cache (the JAX package's
@@ -339,10 +392,12 @@ class EnsembleExecutor:
         so the captures (and their pool segments) free once no other
         executor holds them (the program cache keeps none alive). The
         executor stays serveable — the next request builds on demand.
-        Returns the buckets released."""
+        Returns the buckets released (the disagreement tap's programs
+        go with them)."""
         with self._build_lock:
             released = tuple(sorted(self._compiled))
             self._compiled.clear()
+            self._replica_compiled.clear()
         if released:
             telemetry.inc("sbt_serving_programs_released_total",
                           float(len(released)))
@@ -356,11 +411,131 @@ class EnsembleExecutor:
     def reset_degraded(self) -> bool:
         raise NotImplementedError(f"degraded-quorum serving ({_ROADMAP_MESH})")
 
+    # -- model-quality tap ---------------------------------------------
+
     def attach_quality(self, monitor) -> None:
-        raise NotImplementedError(f"the quality tap ({_ROADMAP_PLANES})")
+        """Install a quality monitor (see ``telemetry.quality.attach``,
+        which also registers it for ``debug_summary``). The forward
+        feeds it per packed batch; ``None`` detaches."""
+        # sbt-lint: disable=shared-state-unlocked — single-reference last-write-wins swap; the hot path reads it exactly once per batch
+        self._quality = monitor
+        # a FRESH monitor deserves a fresh failure warning: without
+        # the reset, monitor B dying after monitor A already warned
+        # would detach silently and the model would serve unmonitored
+        # with zero operator signal
+        # sbt-lint: disable=shared-state-unlocked — same benign last-write-wins as the monitor reference above
+        self._quality_warned = False
+
+    def detach_quality(self) -> None:
+        # sbt-lint: disable=shared-state-unlocked — see attach_quality
+        self._quality = None
+
+    @property
+    def quality(self):
+        """The attached quality monitor, or None."""
+        return self._quality
 
     def warmup_replica(self, buckets=None) -> tuple[int, ...]:
-        raise NotImplementedError(f"the quality tap ({_ROADMAP_PLANES})")
+        """Build the per-replica (disagreement-tap) program ahead of
+        traffic — default: every bucket the SERVING forward already
+        has. ``telemetry.quality.attach`` calls this when disagreement
+        sampling is on (so sticky swap re-attaches do too): without it,
+        the first sampled batch at each rung would absorb a capture
+        stall on the live serving thread. A capture that fails raises
+        here. Returns the buckets installed (built, or adopted from the
+        program cache); empty when the model exposes no per-replica
+        seam."""
+        if buckets is None:
+            buckets = self.compiled_buckets
+        built = []
+        for b in buckets:
+            b = bucket_for(int(b), self.min_bucket_rows,
+                           self.max_batch_rows)
+            if b not in self._replica_compiled:
+                if self._build_replica(b) is None:
+                    break  # seam unavailable: nothing else will build
+                built.append(b)
+        return tuple(built)
+
+    def _build_replica(self, bucket: int):
+        """Install the per-replica (aggregation-free) program for one
+        bucket — the disagreement tap's. Same double-checked build lock
+        as :meth:`_build`; a program-cache hit adopts another
+        executor's capture of the same model. Counts
+        ``sbt_quality_disagreement_compiles_total``, never the serving
+        counter. Returns None when the model exposes no per-replica
+        seam."""
+        if self._replica_unavailable:
+            return None
+        with self._build_lock:
+            prog = self._replica_compiled.get(bucket)
+            if prog is not None:
+                return prog
+            if self._replica_fn is None:
+                try:
+                    self._replica_fn, _, _ = self.model.replica_forward()
+                except (AttributeError, NotImplementedError) as e:
+                    # sbt-lint: disable=shared-state-unlocked — under self._build_lock
+                    self._replica_unavailable = True
+                    import warnings
+
+                    warnings.warn(
+                        "ensemble-disagreement tap disabled: the model "
+                        f"exposes no replica_forward() ({e!r})",
+                        RuntimeWarning,
+                        stacklevel=2,
+                    )
+                    return None
+            key = self._program_key(bucket, self._replica_variant)
+            prog = _pc.cache().get(key)
+            if prog is None:
+                with telemetry.span("quality_replica_compile",
+                                    bucket=bucket):
+                    prog = self._new_program(bucket, self._replica_fn,
+                                             row_axis=1)
+                telemetry.inc("sbt_quality_disagreement_compiles_total")
+                prog = _pc.cache().put(key, prog)
+            # sbt-lint: disable=shared-state-unlocked — under self._build_lock
+            self._replica_compiled[bucket] = prog
+            self._export_pool_bytes()
+            return prog
+
+    def _replica_piece(self, Xp: np.ndarray, fill: int):
+        """Per-replica output for one slab's real rows — ``(R, fill,
+        C)`` / ``(R, fill)`` — or None when the seam is unavailable.
+        ``Xp`` is the host slab the serving forward just ran."""
+        bucket = Xp.shape[0]
+        prog = self._replica_compiled.get(bucket)
+        if prog is None:
+            prog = self._build_replica(bucket)
+            if prog is None:
+                return None
+        return prog.run(Xp, fill)
+
+    def _feed_quality(self, mon, parts, outs, first_slab) -> None:
+        """Deliver one packed batch to the attached monitor (sketches
+        + sampled disagreement). Monitoring faults must never fail the
+        serving it observes: first failure warns and detaches."""
+        try:
+            mon.observe_parts(parts, outs)
+            if first_slab is not None and mon.wants_disagreement():
+                rep = self._replica_piece(*first_slab)
+                if rep is not None:
+                    mon.observe_disagreement(rep, task=self.task)
+        except Exception as e:  # noqa: BLE001 — the tap is optional
+            # sbt-lint: disable=shared-state-unlocked — last-write-wins detach on failure; racing feeders at worst both detach
+            self._quality = None
+            if not self._quality_warned:
+                # sbt-lint: disable=shared-state-unlocked — worst case under a race is a second warning, never a lost detach
+                self._quality_warned = True
+                import warnings
+
+                warnings.warn(
+                    f"quality monitor detached after a tap failure: "
+                    f"{e!r}",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
 
     # -- the forward ---------------------------------------------------
 
@@ -416,6 +591,7 @@ class EnsembleExecutor:
         # gather: walk the blocks once, filling each slab in order;
         # only the last slab is partial (pack_plan's fill rule)
         slab_outs: list[np.ndarray] = []
+        first_slab: tuple[np.ndarray, int] | None = None
         part_i = 0
         part_off = 0
         remaining = n
@@ -445,6 +621,11 @@ class EnsembleExecutor:
                     if part_off == part.shape[0]:
                         part_i += 1
                         part_off = 0
+            if first_slab is None:
+                # kept for the (sampled) disagreement tap: one slab per
+                # packed batch is the tap's unit of work, replayed on
+                # these host rows
+                first_slab = (Xp, fill)
             slab_outs.append(self._forward_piece(Xp, fill))
         # scatter back: slice each block's rows out of the slab outputs
         outs: list[np.ndarray] = []
@@ -464,6 +645,15 @@ class EnsembleExecutor:
                     slab_off = 0
             outs.append(pieces[0] if len(pieces) == 1
                         else np.concatenate(pieces))
+        # model-quality tap: one attribute read when no monitor is
+        # attached (the zero-overhead contract). This seam sits under
+        # BOTH dispatch paths — the coalescing worker's forward_parts
+        # and the direct-dispatch inline serve — and feeds real rows
+        # only (padding never reaches the sketches). Outputs are
+        # already finalized above: the tap cannot change what is served.
+        mon = self._quality
+        if mon is not None:
+            self._feed_quality(mon, parts, outs, first_slab)
         return outs
 
     # sbt-lint: hot-path

@@ -15,8 +15,10 @@ Key contract (why each component is in the key):
   estimator class, task, feature width and class set
   (:func:`fingerprint_params`): two models that would build different
   programs must never share an entry;
-- ``variant`` — which closure over those params the program runs
-  (voting mode, replica chunking, identity-subspace fast path);
+- ``variant`` — which closure over those params the program runs:
+  the aggregated serving forward or the per-replica twin of the
+  quality plane's disagreement tap, and the voting mode, replica
+  chunking and identity-subspace fast path;
 - ``bucket`` — the row count the program was built for;
 - ``mesh`` — always ``None`` here (mesh serving is ROADMAP Queue A 12);
 - ``torch_version`` / ``cuda_version`` / ``device_kind`` — a program is
@@ -31,7 +33,8 @@ and an adopted program can never outlive the tensors it reads. The
 index is bounded (LRU eviction at ``capacity`` entries, dead entries
 pruned as they are met) and thread-safe; lookups and inserts count
 ``sbt_program_cache_*`` telemetry. The JAX package's capacity-plane
-hooks (per-model attribution, pin policies) are ROADMAP Queue A 15.
+hooks (per-model attribution, pin policies) are ROADMAP Queue A 15,
+part 2.
 """
 
 from __future__ import annotations
@@ -126,12 +129,13 @@ def fingerprint_model(model: Any) -> str:
     return fp
 
 
-def forward_variant(model: Any) -> str:
+def forward_variant(model: Any, kind: str = "aggregated") -> str:
     """The static-closure component of a :class:`ProgramKey`: everything
-    besides the weights that changes what the aggregated forward
-    computes."""
+    besides the weights that changes what the forward computes.
+    ``kind`` tells the aggregated serving program from its per-replica
+    (disagreement-tap) twin."""
     return (
-        f"aggregated|voting={getattr(model, 'voting', None)}"
+        f"{kind}|voting={getattr(model, 'voting', None)}"
         f"|chunk={model._eff_chunk() if hasattr(model, '_eff_chunk') else None}"
         f"|ident={getattr(model, '_identity_subspace', None)}"
     )

@@ -31,8 +31,10 @@ The port's copy of the JAX package's ``serving/registry.py``. A CUDA
 graph cannot be serialized, so :meth:`ModelRegistry.save` writes no
 ``serving_aot/`` and :meth:`ModelRegistry.load` ignores one (counted in
 ``sbt_serving_aot_misses_total``), capturing the live buckets at warm
-instead. Mesh serving is ROADMAP Queue A 12; the quality monitor, the
-capacity ledger and the ``/healthz`` registration are Queue A 15.
+instead. Drift monitoring (:meth:`ModelRegistry.enable_quality`) is
+sticky across :meth:`~ModelRegistry.swap` and :meth:`~ModelRegistry.load`.
+Mesh serving is ROADMAP Queue A 12; the capacity ledger and the
+``/healthz`` registration are Queue A 15, part 2.
 """
 
 from __future__ import annotations
@@ -47,11 +49,9 @@ from spark_bagging_tpu_torch.analysis.locks import make_lock
 from spark_bagging_tpu_torch.serving import program_cache as _pc
 from spark_bagging_tpu_torch.serving.executor import EnsembleExecutor
 
-_ROADMAP_PLANES = "ROADMAP Queue A 15: the host-side planes"
-
 
 class _Entry:
-    __slots__ = ("name", "version", "executor", "opts")
+    __slots__ = ("name", "version", "executor", "opts", "quality_opts")
 
     def __init__(self, name: str, version: int,
                  executor: EnsembleExecutor, opts: dict):
@@ -59,6 +59,9 @@ class _Entry:
         self.version = version
         self.executor = executor
         self.opts = opts
+        # sticky quality-monitoring options (enable_quality); None
+        # when drift monitoring is off for this name
+        self.quality_opts: dict | None = None
 
 
 # sbt-lint: shared-state
@@ -248,6 +251,7 @@ class ModelRegistry:
                 "swap would change the served class set; register the "
                 "new label space under a new name instead",
             )
+        quality_gap: Exception | None = None
         try:
             if executable_cache is not None:
                 new.restore_executables(executable_cache)
@@ -267,6 +271,23 @@ class ModelRegistry:
                     new._build(bucket_for(
                         b, new.min_bucket_rows, new.max_batch_rows
                     ))
+            if entry.quality_opts is not None:
+                # sticky drift monitoring attaches to the replacement
+                # BEFORE commit (with its per-replica tap captured, when
+                # disagreement sampling is on): an attach failure rolls
+                # the swap back (prior executor + its monitor
+                # untouched), and the replacement is monitored from its
+                # very first batch. One carve-out: a replacement with no
+                # fit-time profile (stream fit, older checkpoint) can
+                # never be monitored, and blocking a model upgrade on an
+                # optional plane is wrong — that case swaps anyway and
+                # warns below.
+                q_opts = dict(entry.quality_opts)
+                q_opts.setdefault("labels", {"model": str(name)})
+                try:
+                    self._attach_quality(new, q_opts)
+                except ValueError as e:
+                    quality_gap = e
         # sbt-lint: disable=swallowed-fault — _fail_swap counts, flight-records, and re-raises (the rollback path)
         except Exception as e:  # noqa: BLE001 — rollback, not delivery
             # the replacement's captures free now, not when the raised
@@ -323,15 +344,73 @@ class ModelRegistry:
             telemetry.set_gauge("sbt_serving_graph_pool_bytes",
                                 float(new.graph_pool_bytes),
                                 labels={"model": name})
+        if quality_gap is not None:
+            # the one attach failure that does NOT roll back: a
+            # replacement with no fit-time quality_profile_ (stream
+            # fit, older checkpoint) can never be monitored — the
+            # model upgrade ships, loudly unmonitored
+            import warnings
+
+            warnings.warn(
+                f"swap of {name!r} succeeded but drift monitoring "
+                f"could not re-attach: {quality_gap} (version "
+                f"{version} serves UNMONITORED; fit the replacement "
+                "in memory or disable_quality first)",
+                RuntimeWarning,
+                stacklevel=2,
+            )
         return new
 
-    def enable_quality(self, name: str, **monitor_opts: Any):
-        """Drift monitoring is not ported yet; raises."""
-        raise NotImplementedError(f"the quality monitor ({_ROADMAP_PLANES})")
+    def enable_quality(self, name: str,
+                       **monitor_opts: Any):
+        """Attach a drift monitor (``telemetry.quality``) to ``name``'s
+        live executor and make it sticky: every future :meth:`swap` /
+        :meth:`load` re-attaches a fresh monitor to the replacement
+        executor (new model ⇒ new reference ⇒ fresh sketches).
+        ``monitor_opts`` are ``QualityMonitor`` options
+        (``refresh_every``, ``disagreement_every``, ...) plus an
+        optional ``profile=`` override — which applies to the CURRENT
+        executor only and is never sticky: a swapped-in model is
+        scored against its own fit-time ``quality_profile_``, not a
+        reference authored for its predecessor. Returns the monitor.
+        """
+        entry = self._entry(name)
+        with self._lock:
+            # sticky flag FIRST, executor snapshot under the same
+            # lock: a swap() interleaving after this block either saw
+            # the flag (and re-attaches to its new executor) or
+            # committed before our read (and we attach to the new
+            # executor) — either way the LIVE model ends up monitored.
+            # 'profile' and 'monitor' are per-attach, never sticky: a
+            # swapped-in model must be scored against its OWN
+            # reference with FRESH sketches, and replaying a caller's
+            # monitor= instance would re-install the predecessor's
+            # profile and accumulated counts verbatim.
+            entry.quality_opts = {
+                k: v for k, v in monitor_opts.items()
+                if k not in ("profile", "monitor")
+            }
+            ex = entry.executor
+        return self._attach_quality(ex, monitor_opts)
 
     def disable_quality(self, name: str) -> None:
-        """Drift monitoring is not ported yet; raises."""
-        raise NotImplementedError(f"the quality monitor ({_ROADMAP_PLANES})")
+        """Detach ``name``'s drift monitor and clear the sticky flag."""
+        entry = self._entry(name)
+        with self._lock:
+            # clear-then-snapshot under the lock (mirror of
+            # enable_quality): a racing swap either sees the cleared
+            # flag (no re-attach) or committed first (we detach its
+            # new executor) — a model can never stay monitored after
+            # disable_quality returns
+            entry.quality_opts = None
+            ex = entry.executor
+        ex.detach_quality()
+
+    @staticmethod
+    def _attach_quality(executor: EnsembleExecutor, opts: dict):
+        from spark_bagging_tpu_torch.telemetry import quality
+
+        return quality.attach(executor, **opts)
 
     #: the JAX package's subdirectory of persisted bucket executables:
     #: :meth:`load` ignores one (counted), :meth:`save` writes none
@@ -526,6 +605,7 @@ class ModelRegistry:
             ex = entry.executor
             version = entry.version
             donate_opt = entry.opts.get("donate_input")
+            quality_on = entry.quality_opts is not None
         save_model(ex.model, path, compress=compress)
         if faults.ACTIVE is not None:
             faults.fire("registry.save.checkpoint")
@@ -551,7 +631,7 @@ class ModelRegistry:
                 "mesh": None,
             },
             "warm_buckets": [int(b) for b in ex.compiled_buckets],
-            "quality": False,
+            "quality": quality_on,
         }
         tmp = os.path.join(path, f"{self.SERVE_CONFIG}.tmp")
         with open(tmp, "w") as f:

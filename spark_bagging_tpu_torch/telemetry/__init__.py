@@ -1,7 +1,9 @@
-"""Telemetry core: the metrics registry, phase spans and event sinks.
+"""Telemetry: the metrics registry, spans, event sinks and the
+model-quality plane.
 
 The port's copy of the JAX package's telemetry core, which the serving
-plane, the checkpoint writer and the fault injector emit through:
+plane, the checkpoint writer, the fault injector and the online trainer
+emit through:
 
 1. **Registry** (``registry.py``) — process-wide, thread-safe counters,
    gauges and log-scale histograms (``sbt_*`` metric names), with
@@ -17,10 +19,23 @@ plane, the checkpoint writer and the fault injector emit through:
 4. **Request tracing** (``tracing.py``) — per-request trace contexts
    threading the serving path (every served future exposes
    ``future.trace`` with a queue/batch/forward timing breakdown).
+5. **Recorders** (``recorder.py`` / ``workload.py``) — a ring-buffer
+   flight recorder that dumps ``flight_<ts>_<seq>.json`` on serving
+   faults, fired alerts and rejected refits, and a workload recorder
+   that turns the ``serving_request`` arrival stream into a
+   ``*.workload.jsonl`` file (the JAX package's format).
+6. **Model-quality plane** (``quality.py`` / ``alerts.py``) —
+   streaming drift detection against a fit-time reference profile
+   (``sbt_quality_*`` PSI/KS gauges, ensemble-disagreement sampling
+   through one CUDA graph a bucket) plus a declarative burn-rate alert
+   engine over live registry series (``sbt_alerts_*``; ``alert_fired``
+   events trigger the flight recorder and the online trainer).
 
-The JAX package's further planes (alerts, fleet, history, perf,
-quality, recorder, slo, workload and the exposition server) are not
-ported yet: ROADMAP Queue A 15.
+Not ported yet (ROADMAP Queue A 15, part 2): the capacity plane
+(``capacity.py``), the performance-attribution, SLO, history and fleet
+planes, the exposition server with ``/healthz`` and the ``__main__``
+CLI, and the registry-backed ``fit_report_`` view
+(``FitReportView``, ``record_fit_report``).
 
 Cost contract: **zero overhead when disabled** — every instrumentation
 site guards on :func:`enabled` (one attribute read) or goes through
@@ -52,6 +67,12 @@ from spark_bagging_tpu_torch.telemetry.sinks import (
 )
 from spark_bagging_tpu_torch.telemetry.spans import phase, span
 from spark_bagging_tpu_torch.telemetry.state import STATE as _state
+from spark_bagging_tpu_torch.telemetry import (
+    alerts,
+    quality,
+    recorder,
+    workload,
+)
 
 __all__ = [
     "SCHEMA_VERSION", "SERIES_HELP", "QUANTILES", "Run", "capture",
@@ -60,7 +81,8 @@ __all__ = [
     "set_gauge", "observe", "emit_event", "registry",
     "render_prometheus", "read_events", "last_metrics_snapshot", "runs",
     "Registry", "reset", "telemetry_dir", "default_log_path", "tracing",
-    "sinks_active", "arrival_events_wanted",
+    "recorder", "workload", "quality", "alerts", "sinks_active",
+    "arrival_events_wanted",
 ]
 
 
@@ -92,17 +114,21 @@ def device_sync_enabled() -> bool:
 
 
 def sinks_active() -> bool:
-    """True when at least one event sink is attached (an open
-    capture)."""
+    """True when at least one event sink is attached (an open capture,
+    the armed flight recorder, a workload recorder)."""
     return bool(_state._sinks)
 
 
 def arrival_events_wanted() -> bool:
-    """True when a sink that consumes ``serving_request`` arrival events
-    is attached: an open ``capture()`` window (the JAX package's
-    workload recorder is not ported). Runs per submit: one module-list
-    read."""
-    return _capture_open()
+    """True when a sink that actually CONSUMES ``serving_request``
+    arrival events is attached: a recording workload recorder or an
+    open ``capture()`` window. The batcher's submit path gates event
+    construction on this rather than on :func:`sinks_active` — a
+    serving deployment keeps the flight recorder armed for its whole
+    lifetime, and that sink deliberately ignores arrival events, so
+    gating on "any sink" would charge every request for a dict nothing
+    reads. Runs per submit: no imports, two module-int reads."""
+    return workload.capture_active() or _capture_open()
 
 
 def registry() -> Registry:
@@ -141,11 +167,13 @@ def observe(name: str, v: float, labels: dict | None = None,
 
 
 def emit_event(event: dict) -> None:
-    """Deliver one raw event to every active sink (open captures). The
-    serving fault events (``serving_batch_error``,
-    ``serving_overloaded``, ``swap_rejected``) go through here. No-op
-    (one attribute read + an empty-list check) when disabled or
-    nothing is listening."""
+    """Deliver one raw event to every active sink (open captures, the
+    armed flight recorder). The serving fault events
+    (``serving_batch_error``, ``serving_overloaded``,
+    ``swap_rejected``) and the trainer's ``refit_rejected`` go through
+    here — they are flight-recorder triggers, not metrics. No-op (one
+    attribute read + an empty-list check) when disabled or nothing is
+    listening."""
     if _state.enabled and _state._sinks:
         import time
 

@@ -3,8 +3,9 @@
 A copy of the JAX package's ``telemetry/registry.py``: one thread-safe
 registry holds every counter/gauge/histogram the port emits (the
 serving plane's ``sbt_serving_*`` series, the program cache's, the
-checkpoint's and the fault injector's), keyed by ``(name, sorted
-labels)``. Metric names follow
+checkpoint's, the fault injector's, the quality plane's, the alert
+engine's, the flight recorder's and the online trainer's), keyed by
+``(name, sorted labels)``. Metric names follow
 the Prometheus convention with the ``sbt_`` (spark-bagging-tpu) prefix;
 :func:`render_prometheus` emits the text exposition format so the
 registry can be scraped or diffed with standard tooling.
@@ -80,6 +81,35 @@ SERIES_HELP: dict[str, str] = {
     "sbt_online_examples_total": "Rows consumed by streaming online updates",
     "sbt_online_oob_rows_total": "Rows scored by the streaming out-of-bag quality tap (Poisson draw 0 replicas)",
     "sbt_online_oob_estimate": "Running streaming OOB quality estimate: accuracy or R2 over OOB-voted rows (gauge)",
+    "sbt_quality_rows_total": "Rows folded into the quality plane's live sketches",
+    "sbt_quality_psi_max": "Max per-feature PSI of live traffic vs the training reference (gauge)",
+    "sbt_quality_psi_mean": "Mean per-feature PSI vs the training reference (gauge)",
+    "sbt_quality_ks_max": "Max per-feature binned KS statistic vs the training reference (gauge)",
+    "sbt_quality_feature_psi": "Per-feature PSI vs the training reference (gauge, label feature)",
+    "sbt_quality_feature_ks": "Per-feature binned KS vs the training reference (gauge, label feature)",
+    "sbt_quality_prediction_psi": "PSI of served prediction distribution vs the training reference (gauge)",
+    "sbt_quality_confidence_psi": "PSI of served confidence vs the OOB reference (gauge)",
+    "sbt_quality_confidence_p50": "P2-sketched median served confidence (gauge)",
+    "sbt_quality_refresh_total": "Drift recomputations + gauge exports by quality monitors",
+    "sbt_quality_disagreement": "Ensemble disagreement per sampled batch (histogram)",
+    "sbt_quality_disagreement_mean": "Running mean ensemble disagreement across sampled batches (gauge)",
+    "sbt_quality_disagreement_samples_total": "Batches sampled through the per-replica disagreement tap",
+    "sbt_quality_disagreement_compiles_total": "Per-replica tap programs built (one CUDA-graph capture a bucket on the card; separate from serving compiles)",
+    "sbt_alerts_fired_total": "Alert rule activations (label rule)",
+    "sbt_alerts_resolved_total": "Alert rule resolutions (label rule)",
+    "sbt_alerts_suppressed_total": "Alert re-fires suppressed by per-rule cooldown (label rule)",
+    "sbt_alerts_evaluations_total": "Alert engine evaluation passes",
+    "sbt_alerts_active": "Alert rules currently active (gauge)",
+    "sbt_flight_dumps_total": "Flight-recorder dumps written",
+    "sbt_flight_dumps_suppressed_total": "Flight-recorder dumps suppressed by cooldown",
+    "sbt_online_refits_triggered_total": "Drift-alert refit triggers accepted by the online trainer (label model)",
+    "sbt_online_refits_published_total": "Refit candidates that passed validation and were published (swap + checkpoint; label model)",
+    "sbt_online_refits_rejected_total": "Refit candidates rejected by validation: scored worse than the incumbent (never published; label model)",
+    "sbt_online_refits_skipped_total": "Refit triggers skipped for lack of buffered labeled rows (below min_refit_rows; label model)",
+    "sbt_online_refit_errors_total": "Refits that died mid-flight and were absorbed by the trainer's supervision (label model)",
+    "sbt_online_refit_seconds": "Wall-clock of one drain->refit->validate->publish cycle (histogram, label model)",
+    "sbt_online_buffer_rows": "Labeled rows currently held by one online refit buffer (gauge; label model when attached)",
+    "sbt_online_refits_budget_denied_total": "Refit triggers dropped by the per-tenant refit budget hook (label model)",
 }
 
 

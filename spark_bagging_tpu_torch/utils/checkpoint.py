@@ -232,10 +232,11 @@ def _manifest(model: Any) -> dict:
         fitted["n_classes_"] = int(model.n_classes_)
     if hasattr(model, "oob_score_"):
         fitted["oob_score_"] = float(model.oob_score_)
-    if getattr(model, "_quality_profile", None) is not None:
-        # a JAX checkpoint's fit-time quality profile, carried through
-        # unread (the quality plane is not ported)
-        fitted["quality_profile_"] = model._quality_profile
+    # the quality plane's fit-time reference (telemetry/quality.py):
+    # JSON-friendly by construction, rides the manifest so a loaded
+    # model (ModelRegistry.load included) can be drift-monitored
+    if getattr(model, "quality_profile_", None) is not None:
+        fitted["quality_profile_"] = model.quality_profile_.to_dict()
     return {
         "format_version": _FORMAT_VERSION,
         "estimator": class_path(model),
@@ -386,7 +387,23 @@ def _load_model_impl(path: str, *, device: str) -> Any:
     if "oob_score_" in fitted:
         model.oob_score_ = fitted["oob_score_"]
     if fitted.get("quality_profile_") is not None:
-        model._quality_profile = fitted["quality_profile_"]
+        from spark_bagging_tpu_torch.telemetry.quality import (
+            ReferenceProfile,
+        )
+
+        try:
+            model.quality_profile_ = ReferenceProfile.from_dict(
+                fitted["quality_profile_"]
+            )
+        except Exception as e:  # noqa: BLE001 — an unknown schema, or
+            # a truncated/hand-edited dict (KeyError/TypeError): none of
+            # them may brick the weights they ride with — the model
+            # loads, monitoring degrades
+            warnings.warn(
+                f"quality profile in checkpoint not restored: {e} "
+                "(drift monitoring unavailable for the loaded model)",
+                stacklevel=2,
+            )
     if "oob_decision_function" in tree:
         model.oob_decision_function_ = np.array(tree["oob_decision_function"])
     if "oob_prediction" in tree:

@@ -544,3 +544,32 @@ def test_exports_are_the_jax_packages_less_the_unported():
     assert port_names - jax_names == set()
     for name in port_names:
         assert hasattr(T, name), name
+
+
+def test_online_exports_are_the_jax_packages():
+    jax_names = _all_names(os.path.join(REPO, "spark_bagging_tpu", "online",
+                                        "__init__.py"))
+    port_names = _all_names(os.path.join(PKG, "online", "__init__.py"))
+    assert port_names == jax_names == {"LabeledBuffer", "OnlineTrainer",
+                                       "OnlineUpdater"}
+    from spark_bagging_tpu_torch import online
+
+    for name in port_names:
+        assert hasattr(online, name), name
+
+
+def test_telemetry_exports_are_the_jax_packages_less_the_unported():
+    """The quality, alerts, recorder and workload planes are exported as
+    the JAX package exports them; the rest waits for ROADMAP Queue A
+    15, part 2."""
+    jax_names = _all_names(os.path.join(REPO, "spark_bagging_tpu",
+                                        "telemetry", "__init__.py"))
+    port_names = _all_names(os.path.join(PKG, "telemetry", "__init__.py"))
+    assert jax_names - port_names == {
+        "record_fit_report", "slo", "fleet", "perf", "history",
+        "start_server", "stop_server", "server_address"}
+    assert port_names - jax_names == set()
+    from spark_bagging_tpu_torch import telemetry
+
+    for name in port_names:
+        assert hasattr(telemetry, name), name

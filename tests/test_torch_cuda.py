@@ -1402,3 +1402,158 @@ def test_csv_stream_on_card_equals_the_array_stream(cuda, tmp_path):
                     ArrayChunks(X, y.astype(np.float32), 512))]
     for k in fits[0].ensemble_:
         assert torch.equal(fits[0].ensemble_[k], fits[1].ensemble_[k]), k
+
+
+# -- the quality plane's disagreement tap and the online trainer ----------
+
+@pytest.mark.parametrize("name", ["logistic", "logistic_chunked",
+                                  "tree_hard", "gbt_multiclass", "mlp",
+                                  "ridge"])
+def test_quality_replica_graphs_equal_the_eager_replica_forward(cuda, name):
+    """One CUDA graph a bucket for the per-replica forward, captured at
+    ``warmup_replica`` and counted apart from the serving captures: each
+    replay is bit for bit the same closure run eagerly at that bucket,
+    and its mean (soft vote, regression) or vote count (hard vote) is
+    the served output."""
+    from spark_bagging_tpu_torch import telemetry
+    from spark_bagging_tpu_torch.serving import EnsembleExecutor, program_cache
+    from spark_bagging_tpu_torch.serving.executor import pool_reserved_bytes
+
+    est, X = _serving_model(name)
+    # an earlier test's executor of the same weights, not yet collected,
+    # would lend its captures (and their bytes in its own pool)
+    program_cache.clear()
+    ex = EnsembleExecutor(est, min_bucket_rows=1, max_batch_rows=64)
+    ex.warmup()
+    reg = telemetry.registry()
+    serving0 = reg.counter("sbt_serving_compiles_total").value
+    tap0 = reg.counter("sbt_quality_disagreement_compiles_total").value
+    pool0 = ex.graph_pool_bytes
+    assert ex.warmup_replica() == ex.compiled_buckets
+    assert reg.counter("sbt_serving_compiles_total").value == serving0
+    assert reg.counter("sbt_quality_disagreement_compiles_total").value \
+        - tap0 == len(ex.compiled_buckets)
+    progs = [ex.replica_program(b) for b in ex.replica_buckets]
+    assert ex.graph_pool_bytes > pool0
+    static = sum(p.x.nbytes + p.out.nbytes for p in progs) + sum(
+        ex.program(b).x.nbytes + ex.program(b).out.nbytes
+        for b in ex.compiled_buckets)
+    assert ex.graph_pool_bytes == pool_reserved_bytes(ex._pool) + static
+    fn, params, subs = est.replica_forward()
+    for b in ex.replica_buckets:
+        Xb = np.ascontiguousarray(X[:b], np.float32)
+        eager = fn(params, subs, torch.from_numpy(Xb).to(cuda)).cpu().numpy()
+        rep = ex.replica_program(b).run(Xb, b)
+        np.testing.assert_array_equal(rep, eager)
+        served = ex.forward(Xb)
+        if getattr(est, "voting", None) == "hard":
+            np.testing.assert_array_equal(
+                rep.sum(0), np.rint(served * est.n_estimators_))
+        else:
+            np.testing.assert_allclose(rep.mean(0), served, rtol=1e-5,
+                                       atol=1e-6)
+
+
+def test_quality_tap_serves_bitwise_and_captures_only_at_warmup(cuda):
+    from spark_bagging_tpu_torch import telemetry
+    from spark_bagging_tpu_torch.serving import ModelRegistry
+
+    est, X = _serving_model("logistic")
+    reg = ModelRegistry(min_bucket_rows=1, max_batch_rows=64)
+    ex = reg.register("m", est, warmup=True)
+    sizes = [1, 3, 17, 64, 100]
+    base = [ex.forward(X[:n]) for n in sizes]
+    mon = reg.enable_quality("m", refresh_every=1, disagreement_every=1)
+    assert ex.replica_buckets == ex.compiled_buckets
+    r = telemetry.registry()
+    c0 = (r.counter("sbt_serving_compiles_total").value,
+          r.counter("sbt_quality_disagreement_compiles_total").value)
+    with reg.batcher("m", max_delay_ms=0.5) as b:
+        got = [b.submit(X[:n]).result(30) for n in sizes]
+    for g, w in zip(got, base):
+        np.testing.assert_array_equal(g, w)
+    assert (r.counter("sbt_serving_compiles_total").value,
+            r.counter("sbt_quality_disagreement_compiles_total").value) == c0
+    assert mon.summary()["rows_observed"] == sum(sizes)
+    assert mon.summary()["disagreement_samples"] == len(sizes)
+    # a swap pre-captures the replacement's tap before its commit
+    est2, _ = _serving_model("logistic", seed=1)
+    new = reg.swap("m", est2)
+    assert new.replica_buckets == new.compiled_buckets
+    assert new.quality is not None and new.quality is not mon
+
+
+def test_quality_failed_replica_capture_raises_at_warmup(cuda):
+    from spark_bagging_tpu_torch.serving import EnsembleExecutor
+
+    est, X = _serving_model("logistic")
+    rep_fn, params, subs = est.replica_forward()
+
+    def syncing(p, s, x):
+        out = rep_fn(p, s, x)
+        if float(out.sum().item()) < -1.0:  # host sync inside the forward
+            out = out * 2
+        return out
+
+    class Syncing:
+        task, n_features_in_, classes_ = est.task, est.n_features_in_, \
+            est.classes_
+        aggregated_forward = staticmethod(est.aggregated_forward)
+
+        def replica_forward(self):
+            return syncing, params, subs
+
+    ex = EnsembleExecutor(Syncing(), min_bucket_rows=4, max_batch_rows=4)
+    ex.warmup()
+    with pytest.raises(RuntimeError, match="per-replica forward"):
+        ex.warmup_replica()
+    assert ex.replica_buckets == ()
+    np.testing.assert_array_equal(ex.forward(X[:3]),
+                                  est.aggregated_forward()[0](
+                                      params, subs,
+                                      torch.from_numpy(X[:3]).to(cuda)
+                                  ).cpu().numpy())
+
+
+def test_trainer_refit_on_card_matches_cpu(cuda, tmp_path):
+    """One drift-triggered refit cycle of ``OnlineTrainer`` on the card
+    and on the CPU from the same incumbent (the CPU twin carries the
+    card's params) over the same labeled window: the refit's Newton
+    Hessians run the scaled-Gram kernel on the card, and the published
+    params are held within 1e-4 of max |W|, as the online steps are."""
+    from spark_bagging_tpu_torch import BaggingClassifier, LogisticRegression
+    from spark_bagging_tpu_torch.online import LabeledBuffer, OnlineTrainer
+    from spark_bagging_tpu_torch.ops.gram import scaled_grams
+    from spark_bagging_tpu_torch.serving import ModelRegistry
+    from spark_bagging_tpu_torch.utils.datasets import make_classification
+
+    # tests/test_torch_online.py's data (class_sep 0.5): a separable
+    # window sends Newton's iterates toward infinity in both packages,
+    # where last-bit differences grow without bound
+    X, y = make_classification(4000, 12, 4, seed=1, class_sep=0.5)
+    learner = LogisticRegression(max_iter=1, hessian_impl="pallas")
+    kw = dict(n_estimators=8, seed=0, chunk_size=8)
+    card = BaggingClassifier(learner, device="cuda", **kw).fit(X[:3000],
+                                                               y[:3000])
+    cpu = BaggingClassifier(learner, device="cpu", **kw).fit(X[:3000],
+                                                             y[:3000])
+    cpu.ensemble_ = {k: v.cpu() for k, v in card.ensemble_.items()}
+    W, records = {}, {}
+    for name, est in (("card", card), ("cpu", cpu)):
+        reg = ModelRegistry(min_bucket_rows=8, max_batch_rows=64)
+        reg.register("m", est, warmup=True)
+        buf = LabeledBuffer(capacity_rows=1000)
+        buf.add(X[3000:], y[3000:])
+        trainer = OnlineTrainer(reg, "m", buf, epochs=1, batch_rows=1000,
+                                margin=1.0, seed=0,
+                                publish_dir=str(tmp_path / name))
+        before = scaled_grams.launches
+        trainer.trigger(reason="drift")
+        (records[name],) = trainer.run_pending()
+        if name == "card":
+            # one warm Newton step over the window, one replica chunk
+            assert scaled_grams.launches - before == 1
+        W[name] = reg.model("m").ensemble_["W"].cpu()
+    assert records["card"]["action"] == records["cpu"]["action"] == \
+        "published"
+    assert _rel_err(W["card"], W["cpu"]) <= 1e-4

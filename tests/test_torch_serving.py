@@ -235,8 +235,13 @@ def test_executor_validates_input_and_raises_for_unported(executor, trees):
     assert executor.forward(np.zeros(8, np.float32)).shape == (1, 3)
     with pytest.raises(NotImplementedError, match="Queue A 12"):
         EnsembleExecutor(trees, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue A 15"):
-        executor.attach_quality(object())
+    with pytest.raises(NotImplementedError, match="Queue A 12"):
+        executor.degrade_shards([0])
+    # the quality tap is ported: a monitor attaches and detaches
+    executor.attach_quality(object())
+    assert executor.quality is not None
+    executor.detach_quality()
+    assert executor.quality is None
     with pytest.raises(ValueError, match="min_bucket_rows"):
         EnsembleExecutor(trees, min_bucket_rows=16, max_batch_rows=8)
     reg = T.BaggingRegressor(n_estimators=2, device="cpu").fit(
@@ -556,8 +561,13 @@ def test_registry_versions_and_swap_contract_rejections(trees, trees_b,
         reg.swap("m", trees, version=2)
     with pytest.raises(KeyError):
         reg.executor("nope")
-    with pytest.raises(NotImplementedError, match="Queue A 15"):
-        reg.enable_quality("m")
+    # drift monitoring is ported: enable then disable it
+    mon = reg.enable_quality("m")
+    assert reg.executor("m").quality is mon
+    reg.disable_quality("m")
+    assert reg.executor("m").quality is None
+    with pytest.raises(KeyError):
+        reg.enable_quality("nope")
     assert reg.health() == {"healthy": True, "models": {"m": 2}}
 
 
