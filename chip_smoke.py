@@ -202,6 +202,44 @@ printed with the card's name and power limit:
   the max feature PSI back under the threshold after the swap, the
   published directory served bitwise by a fresh registry, and one
   forced rejection writing one ``refit_rejected`` flight dump;
+- ``planes`` (after ``drift_loop``, on the headline bag; the 1..256
+  ladder, 4 clients of single rows through ``MicroBatcher(
+  max_delay_ms=0.5)``): 3,200 rows unarmed, then the same rows with the
+  capacity and performance planes armed and the exposition server
+  running, unscraped and then with ``/metrics`` and ``/healthz``
+  scraped every 50 ms — no capture on a
+  request, every ``/healthz`` 200, served bits unchanged (a fixed
+  request set through the executor, and every row both runs served in
+  a one-slab batch of the same bucket), the performance plane's stage
+  shares summing to 1 per path, the capacity ledger's compiled bytes
+  exactly the executor's ``graph_pool_bytes``, its params bytes the
+  parameter and subspace tensors', every bucket's counted FLOPs equal
+  to the CPU count and the analytic ``2·b·R·(d+1)·C``, serving MFU in
+  (0, 1), the process's device bytes in use at most its limit; rows/s
+  and p50/p99 of the three runs; a refit of the headline bag during paced
+  traffic under ``GET /debug/profile?seconds=3`` (its Gram launches,
+  the Chrome trace naming ``scaled_gram`` and ``cudaGraphLaunch``, its
+  ``sbt_fit_*`` gauges on ``/metrics`` equal to its ``fit_report_``);
+  that refit hot-swapped in under traffic (0 failed, the ledger holding
+  only the new version); ``/debug/tail``'s verdicts; ``/healthz`` 503
+  after ``close()`` and the source gone after ``retire()``;
+- ``fleet`` (after ``planes``): the registry ``save``d and loaded by a
+  second process, ``chip_smoke.py --fleet-peer <dir>``, with its own
+  exposition server; 1,600 rows served by each process inside a capture
+  log; a ``FleetAggregator`` over both ``/varz``: the merged request
+  counter the sum of the processes' own, the merged latency histogram
+  their bucket-wise sum, version skew 0; the peer killed: stale, quorum
+  degraded, no counter falls; ``python -m
+  spark_bagging_tpu_torch.telemetry dump --merge`` over the two logs
+  giving the live merge's counters; an ``SLOSpec`` (no capture on a
+  request, padding under half the FLOPs, p99 under 50 ms) on the
+  phase's report, appended twice to a scratch history store without a
+  digest flip;
+- ``planes_trees`` (after ``quality_tap_trees``): config 3's trees
+  served for 800 rows with both planes armed: no counted FLOPs
+  (``flops`` None at every bucket, the cost model on rows), votes
+  bitwise ``predict_proba``'s, the ledger reconciled with
+  ``graph_pool_bytes``;
 - ``readers``: 200,000 synthetic HIGGS rows written as libsvm, CSV and a
   hashed CSV (3 categorical columns), streamed through ``LibsvmChunks``,
   ``CSVChunks`` and ``HashedCSVChunks`` on the g++-built host loader
@@ -436,6 +474,16 @@ ONLINE_ACC_BAR = ACC_BAR - 0.01
 # rows and its disagreement sampling (every 8th packed batch, replay.py's
 # default)
 QUALITY = dict(refresh_every=64, disagreement_every=8)
+# the operator's planes on the headline bag: 3,200 single rows (4
+# clients) unarmed, then armed with the exposition server scraped every
+# 50 ms; a refit under a 3 s device profile; config 3's trees for 800
+# rows armed; the two-process fleet at 1,600 rows a process, its SLO
+# (p99 under 50 ms, padding under half the FLOPs, no capture on a
+# request)
+PLANES = dict(requests=3_200, clients=4, scrape_every_s=0.05,
+              profile_seconds=3, profile_pace_s=0.005, tree_rows=800,
+              fleet_rows=1_600,
+              slo_p99_ms=50.0, slo_padding_waste=0.5)
 # the closed loop on the headline bag: 3,200 fresh rows of the headline
 # mixture (row seed 71, not used before), then rows shifted as
 # benchmarks/replay.py:188-206 shifts them at its defaults (scale 1.0,
@@ -3821,6 +3869,695 @@ def phase_drift_loop(clf, X: np.ndarray) -> int:
     return launches["scaled_gram"]
 
 
+# -- the operator's planes: capacity, performance, exposition, fleet ----
+
+def http_get(port: int, path: str, timeout: float = 10.0):
+    """(status, body text) of one GET on this host; HTTP errors are
+    answers, not exceptions."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=timeout) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def prometheus_samples(text: str, kinds=("counter", "gauge")) -> dict:
+    """``{series with labels: value}`` of the samples of ``kinds`` in a
+    Prometheus text exposition (the ``# TYPE`` lines give the kind)."""
+    kind_of, out = {}, {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split()
+            kind_of[name] = kind
+        elif line and not line.startswith("#"):
+            series, value = line.rsplit(" ", 1)
+            if kind_of.get(series.split("{", 1)[0]) in kinds:
+                out[series] = float(value)
+    return out
+
+
+def planes_traffic(b, Xs: np.ndarray, idx: np.ndarray, clients: int):
+    """Closed-loop single-row traffic: ``clients`` threads submit the rows
+    ``Xs[idx]`` back to back, each its contiguous share. Returns the
+    outputs and served buckets by position, and rows/s, p50/p99 ms and
+    failures."""
+    import threading
+
+    n = len(idx)
+    outs, buckets, lat, errors = [None] * n, [None] * n, [0.0] * n, []
+    share = -(-n // clients)
+    gate = threading.Event()
+
+    def client(c):
+        gate.wait()
+        for k in range(c * share, min(n, (c + 1) * share)):
+            i = int(idx[k])
+            t0 = time.perf_counter()
+            try:
+                fut = b.submit(Xs[i:i + 1])
+                outs[k] = fut.result(60)
+            except Exception as e:  # noqa: BLE001 - counted below
+                errors.append(repr(e))
+                continue
+            lat[k] = time.perf_counter() - t0
+            buckets[k] = fut.trace.breakdown.get("bucket")
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    gate.set()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    done = sorted(v for v, o in zip(lat, outs) if o is not None)
+    return {"outs": outs, "buckets": buckets, "latencies": done,
+            "rows_per_sec": len(done) / wall,
+            "p50_ms": percentile(done, 0.5) * 1e3 if done else None,
+            "p99_ms": percentile(done, 0.99) * 1e3 if done else None,
+            "failed": len(errors), "errors": errors[:3]}
+
+
+def traffic_facts(t: dict) -> dict:
+    return {k: t[k] for k in ("rows_per_sec", "p50_ms", "p99_ms", "failed")}
+
+
+class Scraper:
+    """A thread that GETs ``paths`` on the exposition server every
+    ``every_s`` seconds, keeping each answer's status and milliseconds."""
+
+    def __init__(self, port: int, paths=("/metrics", "/healthz"),
+                 every_s: float = PLANES["scrape_every_s"]):
+        import threading
+
+        self.port, self.paths, self.every_s = port, paths, every_s
+        self.answers = {p: [] for p in paths}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            for p in self.paths:
+                t0 = time.perf_counter()
+                code, _ = http_get(self.port, p)
+                self.answers[p].append((code, 1e3 * (time.perf_counter()
+                                                     - t0)))
+            self._stop.wait(self.every_s)
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(30)
+
+    def facts(self) -> dict:
+        out = {}
+        for p, answers in self.answers.items():
+            ms = sorted(m for _, m in answers)
+            out[p] = {"scrapes": len(answers),
+                      "statuses": sorted({c for c, _ in answers}),
+                      "p50_ms": percentile(ms, 0.5) if ms else None,
+                      "p99_ms": percentile(ms, 0.99) if ms else None}
+        return out
+
+
+def tensor_bytes(tree) -> int:
+    """Bytes of every tensor of a tree of dicts, tuples and tensors."""
+    if isinstance(tree, dict):
+        return sum(tensor_bytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(tensor_bytes(v) for v in tree)
+    return int(tree.nbytes) if isinstance(tree, torch.Tensor) else 0
+
+
+def headline_learner():
+    from spark_bagging_tpu_torch import LogisticRegression
+
+    return LogisticRegression(max_iter=1, init="pooled",
+                              hessian_impl="pallas", precision="highest")
+
+
+def phase_planes(clf, X: np.ndarray, y: np.ndarray):
+    """The operator's planes on the headline bag (256 replicas, the 1..256
+    ladder, 4 clients of single rows through ``MicroBatcher(
+    max_delay_ms=0.5)``): 3,200 rows unarmed, then the same rows with the
+    capacity and performance planes armed and the exposition server
+    scraped (``/metrics``, ``/healthz``) every 50 ms; a refit during
+    traffic under ``GET /debug/profile?seconds=3``; the refit hot-swapped
+    in under traffic; ``/debug/tail``; ``/healthz`` after ``close()`` and
+    ``retire()``. Returns the refit's Gram launches, the registry (its
+    model at version 2) for the fleet phase and the digest of its
+    outputs on 64 rows."""
+    t_phase = time.perf_counter()
+    name = "planes"
+    # the device profile lands under the telemetry dir: a scratch one
+    tdir = tempfile.mkdtemp(prefix="sbt_planes_")
+    prev_tdir = os.environ.get("SBT_TELEMETRY_DIR")
+    os.environ["SBT_TELEMETRY_DIR"] = tdir
+    try:
+        return planes_run(clf, X, y, name, t_phase)
+    finally:
+        if prev_tdir is None:
+            os.environ.pop("SBT_TELEMETRY_DIR", None)
+        else:
+            os.environ["SBT_TELEMETRY_DIR"] = prev_tdir
+        import shutil
+
+        shutil.rmtree(tdir, ignore_errors=True)
+
+
+def planes_run(clf, X: np.ndarray, y: np.ndarray, name: str,
+               t_phase: float):
+    """The body of :func:`phase_planes`."""
+    import gc
+    import hashlib
+    import threading
+
+    from spark_bagging_tpu_torch import BaggingClassifier
+    from spark_bagging_tpu_torch.serving import ModelRegistry, program_cache
+    from spark_bagging_tpu_torch.serving.executor import counted_forward
+    from spark_bagging_tpu_torch.telemetry import capacity, perf, server
+    from spark_bagging_tpu_torch.utils import profiling
+
+    Xs = X[:N_SERVE_ROWS]
+    idx = np.random.default_rng(72).integers(0, len(Xs), PLANES["requests"])
+    # a fresh serving stack: no health source or cached program of an
+    # earlier phase (their batchers are closed, their captures in other
+    # executors' pools)
+    gc.collect()
+    server.clear_health_sources()
+    program_cache.clear()
+    # the plane records the commit; the unarmed run runs with none
+    cap = capacity.enable()
+    reg = ModelRegistry(**SERVE_LADDERS["bench"])
+    ex = reg.register(name, clf, warmup=True)
+    capacity.disable()
+    reqs = [Xs[np.random.default_rng(2).integers(0, len(Xs), n)]
+            for n in (1, 5, 64, 200, 256, 300)]
+    base = [ex.forward(r) for r in reqs]
+    c0 = serving_compiles()
+    b = reg.batcher(name, **SERVE_BATCHER)
+    unarmed = planes_traffic(b, Xs, idx, PLANES["clients"])
+    b.retire()
+    # armed: both planes and the exposition server, first unscraped (the
+    # probes' own cost), then scraped every 50 ms
+    capacity.install(cap)
+    perf.enable()
+    port = server.start_server(port=0)
+    b = reg.batcher(name, **SERVE_BATCHER)
+    unscraped = planes_traffic(b, Xs, idx, PLANES["clients"])
+    b.retire()
+    ap = perf.enable()  # a fresh window: the scraped run's breakdowns
+    b = reg.batcher(name, **SERVE_BATCHER)
+    with Scraper(port) as scraper:
+        armed = planes_traffic(b, Xs, idx, PLANES["clients"])
+    b.retire()
+    c1 = serving_compiles()
+    fixed_unequal = sum(int(not np.array_equal(ex.forward(r), w))
+                        for r, w in zip(reqs, base))
+    # a row's output is a function of the row and its bucket's program;
+    # a batch packed into several slabs reports a list of buckets, so
+    # the traffic is compared where both runs served the row in a
+    # one-slab batch of the same bucket
+    both = [k for k in range(len(idx))
+            if isinstance(unarmed["buckets"][k], int)
+            and unarmed["buckets"][k] == armed["buckets"][k]
+            and unarmed["outs"][k] is not None
+            and armed["outs"][k] is not None]
+    traffic_unequal = sum(int(not np.array_equal(unarmed["outs"][k],
+                                                 armed["outs"][k]))
+                          for k in both)
+    summary = ap.summary()
+    share_sums = {f"{e['path']}|{e['model']}":
+                  sum(s["share"] for s in e["stages"].values())
+                  for e in summary["by_key"]}
+    led = cap.ledger()
+    owner = led["owners"].get(name, {})
+    params_bytes = tensor_bytes(clf.ensemble_) + tensor_bytes(clf.subspaces_)
+    fn, params, subs = clf.aggregated_forward()
+    params_cpu = {k: v.cpu() for k, v in params.items()}
+    cpu_flops = {b_: counted_forward(
+        fn, params_cpu, subs.cpu(),
+        torch.zeros((b_, N_FEATURES), dtype=torch.float32))[1]["flops"]
+        for b_ in ex.compiled_buckets}
+    card_flops = {b_: c["flops"] for b_, c in ex.bucket_costs.items()}
+    d_sub = int(clf.subspaces_.shape[1])
+    analytic = {b_: 2 * b_ * N_REPLICAS * (d_sub + 1) * N_CLASSES
+                for b_ in ex.compiled_buckets}
+    ap.export()
+    code, metrics = http_get(port, "/metrics")
+    gauges = prometheus_samples(metrics, ("gauge",))
+    mfu = gauges.get("sbt_perf_mfu")
+    in_use = gauges.get('sbt_process_device_bytes_in_use{device="0"}')
+    limit = gauges.get('sbt_process_device_bytes_limit{device="0"}')
+    # a refit of the headline bag during traffic, under a device profile
+    stop, traffic_errors, served_during = threading.Event(), [], [0]
+    b = reg.batcher(name, **SERVE_BATCHER)
+
+    def background():
+        # paced (one request every ~5 ms) so that the trace stays small
+        rng = np.random.default_rng(73)
+        while not stop.wait(PLANES["profile_pace_s"]):
+            i = int(rng.integers(0, len(Xs)))
+            try:
+                b.submit(Xs[i:i + 1]).result(60)
+                served_during[0] += 1
+            except Exception as e:  # noqa: BLE001 - counted
+                traffic_errors.append(repr(e))
+
+    traffic = threading.Thread(target=background, daemon=True)
+    traffic.start()
+    code_p, body = http_get(port, f"/debug/profile?seconds="
+                                  f"{PLANES['profile_seconds']}")
+    prof = json.loads(body)
+    reset_launches()
+    refit = BaggingClassifier(headline_learner(), n_estimators=N_REPLICAS,
+                              seed=1).fit(X, y)
+    counts = read_launches()
+    rep = refit.fit_report_
+    chunk = rep["chunk_size_resolved"] or N_REPLICAS
+    lrn = headline_learner()
+    expected = (lrn.pooled_iter
+                + lrn.max_iter * len(range(0, N_REPLICAS, chunk)))
+    deadline = time.monotonic() + 120
+    while profiling.profile_active() is not None \
+            and time.monotonic() < deadline:
+        time.sleep(0.1)
+    stop.set()
+    traffic.join(60)
+    b.retire()
+    trace_path = os.path.join(prof.get("dir", ""), "trace.json")
+    trace = open(trace_path).read() if os.path.exists(trace_path) else ""
+    code, metrics = http_get(port, "/metrics")
+    gauges = prometheus_samples(metrics, ("gauge",))
+    fit_keys = {k: float(v) for k, v in rep.items()
+                if isinstance(v, (int, float)) and not isinstance(v, bool)}
+    fit_unequal = sorted(k for k, v in fit_keys.items()
+                         if gauges.get(f"sbt_fit_{k}") != v)
+    # the refit hot-swapped in under traffic
+    Xr = Xs[:2000]
+    swap, swap_ok, new_ex = swap_under_traffic(
+        reg, name, refit, Xr, clf.predict_proba(Xr), refit.predict_proba(Xr))
+    led_after = cap.ledger()
+    fps = {e["fingerprint"] for e in
+           program_cache.cache().snapshot()["entries"]}
+    code_t, body = http_get(port, "/debug/tail")
+    tail = json.loads(body)["tail"]
+    # /healthz: a closed batcher drains the node, a retired one leaves
+    gc.collect()
+    b = reg.batcher(name, **SERVE_BATCHER)
+    b.submit(Xs[:1]).result(60)
+    health_open = http_get(port, "/healthz")[0]
+    b.close()
+    health_closed = http_get(port, "/healthz")[0]
+    b.retire()
+    code_h, body = http_get(port, "/healthz")
+    sources = sorted(json.loads(body)["sources"])
+    digest = hashlib.sha256(new_ex.forward(Xs[:64]).tobytes()).hexdigest()
+    fields = dict(
+        replicas=N_REPLICAS, ladder=list(ex.compiled_buckets),
+        requests=PLANES["requests"], clients=PLANES["clients"],
+        unarmed=traffic_facts(unarmed),
+        armed_unscraped=traffic_facts(unscraped),
+        armed=traffic_facts(armed),
+        captures_on_requests=c1 - c0,
+        fixed_requests_unequal=fixed_unequal,
+        traffic_same_bucket_compared=len(both),
+        traffic_same_bucket_unequal=traffic_unequal,
+        scrapes=scraper.facts(), stage_share_sums=share_sums,
+        stages=summary["stages"],
+        ledger={"compiled_bytes": owner.get("bytes"),
+                "graph_pool_bytes": ex.graph_pool_bytes,
+                "entries": owner.get("entries"),
+                "unmeasured": owner.get("unmeasured"),
+                "params_bytes": led["committed"][f"{name}@1"][
+                    "params_bytes"],
+                "params_tensor_bytes": params_bytes,
+                "reconciled": led["reconciled"]},
+        bucket_flops={"card": card_flops, "cpu": cpu_flops,
+                      "analytic": analytic},
+        bucket_bytes={b_: c["bytes"] for b_, c in ex.bucket_costs.items()},
+        serving_mfu=mfu, cost_model=summary["cost_model"],
+        device_bytes_in_use=in_use, device_bytes_limit=limit,
+        profile={"status": code_p, "trace_bytes": len(trace),
+                 "names_scaled_gram": "scaled_gram" in trace,
+                 "names_graph_launch": "cudaGraphLaunch" in trace,
+                 "served_during": served_during[0],
+                 "failed_during": len(traffic_errors)},
+        refit={"fit_seconds": rep["fit_seconds"], "launches": counts,
+               "expected_scaled_gram_launches": expected,
+               "fit_gauges_unequal": fit_unequal,
+               "fit_gauges_compared": len(fit_keys)},
+        swap=swap,
+        ledger_after_swap={
+            "committed": {k: v["live"] for k, v in
+                          led_after["committed"].items()},
+            "compiled_bytes": led_after["owners"].get(name, {}).get(
+                "bytes"),
+            "graph_pool_bytes": new_ex.graph_pool_bytes,
+            "only_new_fingerprint": fps == {new_ex.fingerprint},
+            "reconciled": led_after["reconciled"]},
+        tail_verdicts=[t["verdict"] for t in tail],
+        healthz={"open": health_open, "closed": health_closed,
+                 "retired": code_h, "sources_after_retire": sources},
+        outputs_digest=digest, card=CARD,
+        seconds=time.perf_counter() - t_phase)
+    ok = (fields["captures_on_requests"] == 0 and fixed_unequal == 0
+          and len(both) > 0 and traffic_unequal == 0
+          and unarmed["failed"] == 0 and armed["failed"] == 0
+          and unscraped["failed"] == 0
+          and scraper.facts()["/healthz"]["statuses"] == [200]
+          and scraper.facts()["/metrics"]["statuses"] == [200]
+          and scraper.facts()["/healthz"]["scrapes"] > 0
+          and share_sums and all(abs(s - 1.0) <= 1e-9
+                                 for s in share_sums.values())
+          and led["reconciled"] and owner.get("unmeasured") == 0
+          and owner.get("bytes") == ex.graph_pool_bytes > 0
+          and fields["ledger"]["params_bytes"] == params_bytes > 0
+          and card_flops == cpu_flops == analytic
+          and mfu is not None and 0 < mfu < 1
+          and in_use is not None and limit is not None
+          and 0 < in_use <= limit
+          and code_p == 200 and trace and "scaled_gram" in trace
+          and "cudaGraphLaunch" in trace and not traffic_errors
+          and counts["scaled_gram"] == expected
+          and not fit_unequal and fit_keys
+          and swap_ok
+          and led_after["committed"][f"{name}@1"] is not None
+          and led_after["committed"][f"{name}@1"]["live"] is False
+          and led_after["committed"][f"{name}@2"]["live"] is True
+          and fps == {new_ex.fingerprint}
+          and led_after["owners"][name]["bytes"] == new_ex.graph_pool_bytes
+          and led_after["reconciled"]
+          and code_t == 200 and tail
+          and all(v in perf.VERDICTS for v in fields["tail_verdicts"])
+          and health_open == 200 and health_closed == 503
+          and code_h == 200
+          and not any(s.startswith("batcher") for s in sources))
+    emit("planes", ok=ok, **fields)
+    if not ok:
+        fail("planes", f"checks failed: {fields}")
+    return counts["scaled_gram"], reg, digest
+
+
+def phase_planes_trees(tree, X: np.ndarray) -> None:
+    """Config 3's hard-vote trees served for 800 single rows with the
+    capacity and performance planes armed: the trees' forward runs no
+    counted product, so every bucket's ``flops`` is None and the cost
+    model falls back to rows; the capacity bytes still reconcile."""
+    import gc
+
+    from spark_bagging_tpu_torch import telemetry
+    from spark_bagging_tpu_torch.serving import ModelRegistry
+    from spark_bagging_tpu_torch.telemetry import capacity, perf, server
+
+    name = "planes_trees"
+    Xs = X[:N_SERVE_ROWS]
+    idx = np.random.default_rng(74).integers(0, len(Xs),
+                                             PLANES["tree_rows"])
+    gc.collect()
+    cap = capacity.enable()
+    ap = perf.enable()
+    port = server.start_server(port=0)
+    try:
+        reg = ModelRegistry(**SERVE_LADDERS["bench"])
+        ex = reg.register(name, tree, warmup=True)
+        b = reg.batcher(name, **SERVE_BATCHER)
+        with Scraper(port) as scraper:
+            served = planes_traffic(b, Xs, idx, PLANES["clients"])
+        b.retire()
+        want = tree.predict_proba(Xs[idx])
+        unequal = sum(int(not np.array_equal(o, want[k:k + 1]))
+                      for k, o in enumerate(served["outs"]))
+        led = cap.ledger()
+        owner = led["owners"].get(name, {})
+        cm = ap.cost_model()
+        fields = dict(
+            ladder=list(ex.compiled_buckets), served=traffic_facts(served),
+            votes_unequal_to_predict_proba=unequal,
+            bucket_flops={b_: c["flops"] for b_, c in
+                          ex.bucket_costs.items()},
+            bucket_bytes={b_: c["bytes"] for b_, c in
+                          ex.bucket_costs.items()},
+            cost_model_achieved_flops={k: v["achieved_flops"]
+                                       for k, v in cm.items()},
+            seconds_per_row={k: v["seconds_per_row"] for k, v in cm.items()},
+            ledger={"compiled_bytes": owner.get("bytes"),
+                    "graph_pool_bytes": ex.graph_pool_bytes,
+                    "unmeasured": owner.get("unmeasured"),
+                    "reconciled": led["reconciled"]},
+            scrapes=scraper.facts(), card=CARD)
+        ok = (served["failed"] == 0 and unequal == 0
+              and all(c["flops"] is None for c in ex.bucket_costs.values())
+              and all(v["achieved_flops"] is None for v in cm.values())
+              and cm and led["reconciled"] and owner.get("unmeasured") == 0
+              and owner.get("bytes") == ex.graph_pool_bytes > 0
+              and scraper.facts()["/healthz"]["statuses"] == [200])
+        emit("planes_trees", ok=ok, **fields)
+        if not ok:
+            fail("planes_trees", f"checks failed: {fields}")
+    finally:
+        server.stop_server()
+        capacity.disable()
+        perf.disable()
+        telemetry.recorder.disarm()
+
+
+def fleet_peer(d: str) -> int:
+    """The fleet phase's second process: load the parent's registry
+    checkpoint, warm up, start the exposition server, write its port,
+    serve its share of rows inside a capture log, report, and wait to be
+    killed."""
+    from spark_bagging_tpu_torch import telemetry
+    from spark_bagging_tpu_torch.serving import ModelRegistry
+    from spark_bagging_tpu_torch.telemetry import server
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(d, "peer_args.json")) as f:
+        args = json.load(f)
+    Xs = np.load(os.path.join(d, "rows.npy"))
+    reg = ModelRegistry(**SERVE_LADDERS["bench"])
+    reg.load(args["name"], os.path.join(d, "ckpt"), warm=True)
+    port = server.start_server(port=0)
+    with open(os.path.join(d, "peer_port.tmp"), "w") as f:
+        f.write(str(port))
+    os.replace(os.path.join(d, "peer_port.tmp"),
+               os.path.join(d, "peer_port"))
+    c0 = serving_compiles()
+    with telemetry.capture(os.path.join(d, "peer.jsonl")):
+        b = reg.batcher(args["name"], **SERVE_BATCHER)
+        served = planes_traffic(b, Xs, np.arange(len(Xs)), args["clients"])
+        b.retire()
+    report = {**traffic_facts(served),
+              "captures_on_requests": serving_compiles() - c0,
+              "version": reg.version(args["name"])}
+    with open(os.path.join(d, "peer_served.tmp"), "w") as f:
+        json.dump(report, f)
+    os.replace(os.path.join(d, "peer_served.tmp"),
+               os.path.join(d, "peer_served.json"))
+    time.sleep(600)  # the parent kills this process
+    return 0
+
+
+def wait_for(path: str, proc, timeout_s: float) -> None:
+    """Wait for the fleet peer to write ``path``; fail the phase with its
+    log's tail when it exits or times out first."""
+    deadline = time.monotonic() + timeout_s
+    while not os.path.exists(path):
+        if proc.poll() is not None or time.monotonic() > deadline:
+            with open(os.path.join(os.path.dirname(path), "peer.log")) as f:
+                tail = f.read()[-3000:]
+            fail("fleet", f"the peer wrote no {os.path.basename(path)} "
+                          f"(exit {proc.poll()}): {tail}")
+        time.sleep(0.1)
+
+
+def phase_fleet(reg, X: np.ndarray, digest: str) -> None:
+    """Two serving processes on one card: the parent ``save``s its
+    registry and starts ``chip_smoke.py --fleet-peer``, which loads it;
+    each process serves 1,600 rows inside a capture log; a
+    ``FleetAggregator`` over both ``/varz`` merges them exactly; the peer
+    is killed and goes stale (quorum degraded, no counter falls);
+    ``python -m spark_bagging_tpu_torch.telemetry dump --merge`` over the
+    two logs gives the live merge's counters; an ``SLOSpec`` is
+    evaluated on the phase's report, which is appended to the history
+    store twice without a digest flip."""
+    import hashlib
+    import shutil
+
+    from spark_bagging_tpu_torch import telemetry
+    from spark_bagging_tpu_torch.telemetry import (
+        capacity,
+        fleet,
+        history,
+        perf,
+        server,
+        slo,
+    )
+
+    t_phase = time.perf_counter()
+    name = "planes"
+    d = tempfile.mkdtemp(prefix="sbt_fleet_")
+    peer = None
+    try:
+        rows = np.ascontiguousarray(
+            X[np.random.default_rng(75).integers(0, N_SERVE_ROWS,
+                                                 PLANES["fleet_rows"])])
+        np.save(os.path.join(d, "rows.npy"), rows)
+        with open(os.path.join(d, "peer_args.json"), "w") as f:
+            json.dump({"name": name, "clients": PLANES["clients"]}, f)
+        reg.save(name, os.path.join(d, "ckpt"))
+        with open(os.path.join(d, "peer.log"), "w") as log:
+            peer = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--fleet-peer",
+                 d], stdout=log, stderr=subprocess.STDOUT)
+        port = server.start_server(port=0)
+        wait_for(os.path.join(d, "peer_port"), peer, 300)
+        with open(os.path.join(d, "peer_port")) as f:
+            peer_port = int(f.read())
+        c0 = serving_compiles()
+        flops0 = telemetry.registry().counter("sbt_serving_flops_total").value
+        pad0 = telemetry.registry().counter(
+            "sbt_serving_padding_flops_total").value
+        with telemetry.capture(os.path.join(d, "parent.jsonl")):
+            b = reg.batcher(name, **SERVE_BATCHER)
+            served = planes_traffic(b, rows, np.arange(len(rows)),
+                                    PLANES["clients"])
+            b.retire()
+        captures = serving_compiles() - c0
+        flops = telemetry.registry().counter(
+            "sbt_serving_flops_total").value - flops0
+        pad = telemetry.registry().counter(
+            "sbt_serving_padding_flops_total").value - pad0
+        wait_for(os.path.join(d, "peer_served.json"), peer, 300)
+        with open(os.path.join(d, "peer_served.json")) as f:
+            peer_report = json.load(f)
+        own = {}
+        for proc, p in (("parent", port), ("peer", peer_port)):
+            varz = json.loads(http_get(p, "/varz")[1])
+            own[proc] = {(e["name"], json.dumps(e["labels"],
+                                                sort_keys=True)): e
+                         for e in varz["metrics"]}
+        agg = fleet.FleetAggregator(
+            [fleet.HTTPPeer("parent", f"http://127.0.0.1:{port}"),
+             fleet.HTTPPeer("peer", f"http://127.0.0.1:{peer_port}")],
+            interval_s=0.0, quorum=1)
+        agg.tick(force=True)
+        req_key = ("sbt_serving_requests_total", "{}")
+        lat_key = ("sbt_serving_latency_seconds", "{}")
+        requests_sum = sum(own[p][req_key]["value"] for p in own)
+        merged_requests = agg.peek("sbt_serving_requests_total").value
+        merged_lat = next(e for e in agg.merged_snapshot()
+                          if e["name"] == lat_key[0] and not e["labels"])
+        lat_sum = [sum(own[p][lat_key]["buckets"][i][1] for p in own)
+                   for i in range(len(merged_lat["buckets"]))]
+        skew = agg.peek("sbt_fleet_version_skew", {"model": name}).value
+        live = telemetry.render_prometheus(agg.merged_snapshot())
+        live_counters = {k: v for k, v in prometheus_samples(
+            live, ("counter",)).items() if not k.startswith("sbt_fleet_")}
+        before = prometheus_samples(live, ("counter",))
+        # the peer dies: it goes stale, its counters freeze
+        peer.kill()
+        peer.wait(60)
+        agg.tick(force=True)
+        health = agg.fleet_health()
+        after = prometheus_samples(
+            telemetry.render_prometheus(agg.merged_snapshot()),
+            ("counter",))
+        fallen = sorted(k for k, v in before.items()
+                        if after.get(k, 0.0) < v or (v and not after.get(k)))
+        dump = subprocess.run(
+            [sys.executable, "-m", "spark_bagging_tpu_torch.telemetry",
+             "dump", "--merge", "--no-quantiles",
+             os.path.join(d, "parent.jsonl"), os.path.join(d, "peer.jsonl")],
+            capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        dumped = {k: v for k, v in prometheus_samples(
+            dump.stdout, ("counter",)).items()
+            if not k.startswith("sbt_fleet_")}
+        dump_unequal = sorted(k for k in set(dumped) | set(live_counters)
+                              if dumped.get(k) != live_counters.get(k))
+        # the SLO gate on the phase's report, and the history store
+        report = {"latency_ms": {"p50": served["p50_ms"],
+                                 "p95": percentile(served["latencies"],
+                                                   0.95) * 1e3,
+                                 "p99": served["p99_ms"]},
+                  "rps": served["rows_per_sec"],
+                  "padding": {"waste_flops_frac": pad / flops
+                              if flops else None},
+                  "post_warmup_compiles": captures, "overloads": 0}
+        spec = slo.SLOSpec(p99_ms=PLANES["slo_p99_ms"],
+                           max_padding_waste=PLANES["slo_padding_waste"],
+                           max_post_warmup_compiles=0)
+        verdict = slo.evaluate(spec, report)
+        hist = os.path.join(d, "telemetry", "history", "history.jsonl")
+        for _ in range(2):
+            again = hashlib.sha256(reg.executor(name).forward(
+                X[:64]).tobytes()).hexdigest()
+            history.append_record(
+                "bench", "fleet", digests={"outputs": again},
+                numbers={"rps": served["rows_per_sec"],
+                         "p99_ms": served["p99_ms"]},
+                slo_ok=verdict.ok, path=hist)
+        trend = history.compare_trend(history.read_history(path=hist))
+        fields = dict(
+            rows_per_process=PLANES["fleet_rows"],
+            parent=traffic_facts(served), peer=peer_report,
+            captures_on_requests=captures,
+            requests={"parent": own["parent"][req_key]["value"],
+                      "peer": own["peer"][req_key]["value"],
+                      "sum": requests_sum, "merged": merged_requests},
+            latency_count={"merged": merged_lat["count"],
+                           "bucketwise_sum_equal":
+                           [c for _, c in merged_lat["buckets"]]
+                           == lat_sum},
+            version_skew=skew,
+            after_kill={"healthy": health["healthy"],
+                        "degraded": health["degraded"],
+                        "peer_fresh": health["peers"]["peer"]["fresh"],
+                        "stale": agg.peek("sbt_fleet_peers_stale").value,
+                        "counters_fallen": fallen[:5]},
+            dump_merge={"rc": dump.returncode,
+                        "counters": len(dumped),
+                        "unequal_to_live": dump_unequal[:5],
+                        "stderr": dump.stderr[-300:]},
+            slo=verdict.to_dict(),
+            history={"records": trend["runs"], "flips": trend["flips"],
+                     "digest_matches_planes": again == digest},
+            card=CARD, seconds=time.perf_counter() - t_phase)
+        ok = (served["failed"] == 0 and peer_report["failed"] == 0
+              and captures == 0 and peer_report["captures_on_requests"] == 0
+              and merged_requests == requests_sum > 0
+              and fields["latency_count"]["bucketwise_sum_equal"]
+              and merged_lat["count"] == sum(lat_sum) > 0
+              and skew == 0 and peer_report["version"] == reg.version(name)
+              and health["degraded"] and not health["peers"]["peer"]["fresh"]
+              and not fallen and dump.returncode == 0 and dumped
+              and not dump_unequal and verdict.ok
+              and trend["runs"] == 2 and not trend["flips"]
+              and again == digest)
+        emit("fleet", ok=ok, **fields)
+        if not ok:
+            fail("fleet", f"checks failed: {fields}")
+    finally:
+        if peer is not None and peer.poll() is None:
+            peer.kill()
+            peer.wait(60)
+        server.stop_server()
+        capacity.disable()
+        perf.disable()
+        telemetry.recorder.disarm()
+        shutil.rmtree(d, ignore_errors=True)
+
+
 # -- the data plane: file readers and config 8 -------------------------
 
 def write_reader_files(d: str, X: np.ndarray, y: np.ndarray,
@@ -4124,6 +4861,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "script needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--fleet-peer"]:
+        return fleet_peer(sys.argv[2])
     # the port itself, before any output: a copy of this script without
     # the repo fails here
     import spark_bagging_tpu_torch  # noqa: F401
@@ -4147,7 +4886,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_quality_tap(clf, X, "quality_tap")
     loop_launches = phase_drift_loop(clf, X)
-    del clf
+    planes_launches, planes_reg, planes_digest = phase_planes(clf, X, y)
+    phase_fleet(planes_reg, X, planes_digest)
+    del clf, planes_reg
     torch.cuda.empty_cache()
     anchor_launches = phase_online_anchor(X, y)
     torch.cuda.empty_cache()
@@ -4162,6 +4903,7 @@ def main() -> int:
     phase_tree_serve(tree, X)
     phase_serving_trees(tree, X)
     phase_quality_tap(tree, X, "quality_tap_trees")
+    phase_planes_trees(tree, X)
     wt_launches, wt_codes_launches = phase_warm_start_trees(tree, X, y)
     del tree
     torch.cuda.empty_cache()
@@ -4228,7 +4970,8 @@ def main() -> int:
     # paths count too: the logistic growth's Gram launches, the grown
     # trees' and the resumed tree stream's histogram and codes launches;
     # so do the online paths: the warm steps' and the anchor replay's
-    # Gram launches, and the drift loop's refit
+    # Gram launches, the drift loop's refit, and the planes phase's
+    # refit under the device profile
     f32 = rows[max(Rs)]["float32"]
     deepest = hist_rows[max(tree_Rs), 2 ** (TREE["max_depth"] - 1), "bfloat16"]
     print(json.dumps({"kernels": [{
@@ -4237,7 +4980,7 @@ def main() -> int:
         "source": "spark_bagging_tpu_torch/csrc/scaled_gram.cu",
         "replaces": "spark_bagging_tpu/ops/gram.py:53",
         "launches": launches + warm_launches + online_launches
-        + anchor_launches + loop_launches,
+        + anchor_launches + loop_launches + planes_launches,
         "max_abs_err": f32["max_abs_err"],
         "ms": f32["kernel_ms"],
         "plain_ms": f32["plain_ms"],

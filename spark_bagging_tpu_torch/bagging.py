@@ -47,6 +47,7 @@ from contextlib import closing
 import numpy as np
 import torch
 
+from spark_bagging_tpu_torch import telemetry
 from spark_bagging_tpu_torch.ensemble import (
     classifier_forward,
     classifier_replica_forward,
@@ -544,7 +545,9 @@ class _BaseBagging(ParamsMixin):
         achieved = (flops * n / flops_seconds / 1e12
                     if flops and flops_seconds > 0 else None)
         peak = device_peak_tflops(self._device)
-        self.fit_report_ = {
+        # a registry-backed view: its numeric entries are sbt_fit_<key>
+        # gauges (telemetry.record_fit_report)
+        self.fit_report_ = telemetry.record_fit_report({
             "n_replicas": n,
             "fit_seconds": fit_seconds,
             "fits_per_sec": n / fit_seconds if fit_seconds > 0 else float("inf"),
@@ -568,7 +571,7 @@ class _BaseBagging(ParamsMixin):
             "mfu": (achieved / peak if achieved is not None and peak
                     else None),
             **extra,
-        }
+        })
 
     # -- out-of-core fit -----------------------------------------------
 

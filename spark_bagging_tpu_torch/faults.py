@@ -471,3 +471,89 @@ def fire(site: str, **info: Any) -> bool:
     if plan is None:
         return False
     return plan.fire(site, **info)
+
+
+# -- builtin scenario library -------------------------------------------
+
+def builtin_plan_spec(name: str, seed: int = 0) -> dict[str, Any]:
+    """Named chaos scenarios as plan dicts — the JAX package's library,
+    with the same names, specs and seeds, so one named drill arms the
+    same schedule in either package. A fresh :class:`FaultPlan` is
+    constructed per run so repeats start from hit zero.
+
+    - ``blips``: transient forward failures the bounded retry absorbs;
+    - ``poison``: marked requests whose batches bisect down to the one
+      bad request;
+    - ``mixed``: blips + poison together (the default chaos drill);
+    - ``shard-loss``: one mesh shard fails mid-traffic and serving
+      degrades to the surviving-replica aggregate;
+    - ``worker-crash``: the batcher worker dies and the supervisor
+      restarts it;
+    - ``crash-loop``: enough worker crashes inside the window to trip
+      degraded reject mode;
+    - ``peer-loss``: one fleet peer's scrapes fail for a stretch and
+      recover — the aggregator marks it stale (excluded from merge and
+      quorum, never merged as zeros), fleet health degrades, then
+      heals. Tuned for a 3-peer fleet scraped in construction order
+      (``every=3`` lands on the last peer each tick; ``times=20``
+      bounds the outage);
+    - ``tenant-chaos``: a mixed plan aimed at one tenant (``t1``) of a
+      multi-tenant fleet — three consecutive dispatch failures trip its
+      quarantine, and its first post-recovery restore hits a corrupt
+      bucket read.
+
+    ``shard-loss`` and ``tenant-chaos`` are carried as definitions:
+    their sites (``executor.mesh_forward``, ``fleet.dispatch``,
+    ``aot.load``) have no probe in the port yet (mesh serving is
+    ROADMAP Queue A 12, tenancy Queue A 15 part 3), so armed here they
+    never fire. The worker drills need a THREADED batcher (a stepped
+    batcher has no worker, where ``batcher.worker`` can never fire).
+    """
+    plans: dict[str, list[dict[str, Any]]] = {
+        "blips": [
+            {"site": "batcher.batch_forward", "action": "transient",
+             "every": 7, "times": 4},
+        ],
+        "poison": [
+            {"site": "batcher.submit", "action": "poison",
+             "at": [5, 23]},
+        ],
+        "mixed": [
+            {"site": "batcher.batch_forward", "action": "transient",
+             "every": 11, "times": 3},
+            {"site": "batcher.submit", "action": "poison",
+             "at": [5, 23]},
+        ],
+        "shard-loss": [
+            {"site": "executor.mesh_forward", "action": "shard",
+             "at": [4], "shard": 1},
+        ],
+        "worker-crash": [
+            {"site": "batcher.worker", "action": "error", "at": [3]},
+        ],
+        "crash-loop": [
+            {"site": "batcher.worker", "action": "error",
+             "every": 1, "times": 10},
+        ],
+        "peer-loss": [
+            {"site": "fleet.scrape", "action": "error",
+             "every": 3, "times": 20},
+        ],
+        "tenant-chaos": [
+            {"site": "fleet.dispatch", "action": "error",
+             "tenant": "t1", "at": [2, 3, 4]},
+            {"site": "aot.load", "action": "error",
+             "tenant": "t1", "at": [1]},
+        ],
+    }
+    if name not in plans:
+        raise ValueError(
+            f"unknown builtin chaos plan {name!r}; known: "
+            f"{sorted(plans)} (or pass a plan JSON path)"
+        )
+    return {"schema": PLAN_SCHEMA_VERSION, "name": name, "seed": seed,
+            "faults": plans[name]}
+
+
+def builtin_plan(name: str, seed: int = 0) -> FaultPlan:
+    return FaultPlan.from_dict(builtin_plan_spec(name, seed))

@@ -86,10 +86,13 @@ Contracts that matter under load:
   timing dependence, so a replay harness gets identical batch
   composition (and therefore bitwise-identical outputs) on every run.
 
-The port's copy of the JAX package's ``serving/batcher.py``, with only
-its seams swapped: the exposition server's ``/healthz`` registration
-and the performance-attribution probe are ROADMAP Queue A 15, part 2
-(``health()`` and ``stats()`` report the same facts directly).
+The port's copy of the JAX package's ``serving/batcher.py``: every
+batcher registers its :meth:`MicroBatcher.health` with the exposition
+server's ``/healthz`` (``telemetry/server.py``), and every finished
+request breakdown feeds the performance plane (``telemetry/perf.py``)
+while one is installed. The tenancy journey's re-anchored breakdown
+(admission, fair-queue and restore stages before the batcher) waits for
+the tenancy plane (ROADMAP Queue A 15, part 3).
 """
 
 from __future__ import annotations
@@ -106,6 +109,7 @@ import numpy as np
 from spark_bagging_tpu_torch import faults, telemetry
 from spark_bagging_tpu_torch.analysis.locks import make_lock
 from spark_bagging_tpu_torch.serving.buckets import bucket_for, pack_plan
+from spark_bagging_tpu_torch.telemetry import perf as _perf
 from spark_bagging_tpu_torch.telemetry import tracing
 
 _SHUTDOWN = object()
@@ -340,6 +344,18 @@ class MicroBatcher:
                 name="serving-batcher"
             )
             self._worker.start()
+        # deferred import: the health registry lives in the exposition
+        # server module, whose http.server import chain (~100ms) only
+        # serving processes should pay. Register AFTER the worker
+        # exists — health() reads it, and a scrape can land the
+        # instant registration returns
+        from spark_bagging_tpu_torch.telemetry import (
+            server as telemetry_server,
+        )
+
+        self._health_handle = telemetry_server.register_health_source(
+            "batcher", self, MicroBatcher.health
+        )
 
     # -- client side ---------------------------------------------------
 
@@ -778,10 +794,17 @@ class MicroBatcher:
                 )
 
     def retire(self) -> None:
-        """Close for good. The JAX package's ``retire`` also leaves the
-        exposition server's ``/healthz`` set, which is not ported yet
-        (ROADMAP Queue A 15, part 2), so here it is :meth:`close`."""
+        """Close AND leave ``/healthz``. ``close()`` alone keeps this
+        batcher in the health set reporting unhealthy (the
+        load-balancer drain signal); retire() is for rolling over to a
+        new batcher in the same process, where the old one's 503 would
+        poison an otherwise healthy node."""
         self.close()
+        from spark_bagging_tpu_torch.telemetry import (
+            server as telemetry_server,
+        )
+
+        telemetry_server.remove_health_source(self._health_handle)
 
     def __enter__(self) -> "MicroBatcher":
         return self
@@ -1276,3 +1299,10 @@ class MicroBatcher:
         if error is not None:
             bd["error"] = error
         r.trace.breakdown.update(bd)
+        # performance-attribution probe (telemetry/perf.py): rides the
+        # breakdown that was just built — one module-attribute read
+        # when no plane is installed, and no probe at all on the bare
+        # hot path (trace None returned above)
+        ap = _perf.ACTIVE
+        if ap is not None:
+            ap.observe_breakdown(bd, trace_id=r.trace.trace_id)

@@ -31,6 +31,16 @@ served (never on the serving graph's static input, which the next
 batch overwrites); an unsampled batch feeds the monitor host arrays
 only and adds no device synchronization.
 
+Each bucket's build also counts its forward's cost (``bucket_costs``):
+the matrix-product FLOPs of one eager call at the bucket's shape,
+counted by ``torch.utils.flop_counter.FlopCounterMode`` before and
+outside the capture (``flops`` is None for a forward with no counted
+product, such as the trees', and attribution falls back to rows), and
+the bytes of every input read once (parameters, subspaces, the slab)
+plus the output written once. They feed ``sbt_serving_bucket_cost_*``,
+``sbt_serving_flops_total`` / ``sbt_serving_padding_flops_total`` and
+the performance plane's cost model.
+
 On a CPU model (the parity tests) a bucket's program is the eager
 forward at the bucket's shape, built (and counted) once per bucket in
 the same way, so the counters' contract is the same on both devices.
@@ -44,9 +54,12 @@ are allocated outside the graph pool, so buckets that share the pool
 may replay in any order. Programs are built under the executor's build
 lock (one build per bucket even when many threads race to first use).
 
+The capacity plane's demand tap (``telemetry/capacity.py``) and the
+performance plane's forward probe (``telemetry/perf.py``) cost one
+module-attribute read each while no plane is installed.
+
 Not ported yet: mesh serving and the degraded-quorum surface (ROADMAP
-Queue A 12), the capacity demand tap and the performance plane (Queue
-A 15, part 2). A CUDA graph cannot be serialized, so there is no
+Queue A 12). A CUDA graph cannot be serialized, so there is no
 persisted executable cache: :meth:`restore_executables` ignores one.
 """
 
@@ -69,6 +82,8 @@ from spark_bagging_tpu_torch.serving.buckets import (
     bucket_ladder,
     pack_plan,
 )
+from spark_bagging_tpu_torch.telemetry import capacity as _capacity
+from spark_bagging_tpu_torch.telemetry import perf as _perf
 from spark_bagging_tpu_torch.telemetry import tracing
 
 _ROADMAP_MESH = "ROADMAP Queue A 12: parallel/"
@@ -76,6 +91,22 @@ _ROADMAP_MESH = "ROADMAP Queue A 12: parallel/"
 #: eager runs on a side stream before a capture (cuBLAS handles,
 #: workspaces and the allocator's blocks settle outside the graph)
 CAPTURE_WARMUP_ITERS = 2
+
+
+def counted_forward(fn, params, subspaces, x):
+    """One eager call of the forward with its cost: ``(out, {"flops",
+    "bytes"})``. ``flops`` counts the call's matrix products
+    (``FlopCounterMode``: 2·m·n·k a product, elementwise work not
+    counted), None when there is none; ``bytes`` is every input read
+    once and the output written once. Never call it inside a capture."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        out = fn(params, subspaces, x)
+    flops = counter.get_total_flops()
+    nbytes = _pc.tree_nbytes((params, subspaces, x, out))
+    return out, {"flops": float(flops) if flops > 0 else None,
+                 "bytes": float(nbytes)}
 
 
 class EagerProgram:
@@ -90,9 +121,11 @@ class EagerProgram:
                  row_axis: int = 0):
         self._fn, self._params, self._subspaces = fn, params, subspaces
         self.row_axis = row_axis
-        # the build runs the forward once, as a capture's warm-up does
-        fn(params, subspaces,
-           torch.zeros((bucket, n_features), dtype=torch.float32))
+        # the build runs the forward once, as a capture's warm-up does,
+        # and counts its cost
+        _, self.cost = counted_forward(
+            fn, params, subspaces,
+            torch.zeros((bucket, n_features), dtype=torch.float32))
 
     def run(self, Xp: np.ndarray, fill: int) -> np.ndarray:
         X = (torch.from_numpy(Xp) if Xp.flags.writeable
@@ -129,6 +162,9 @@ class GraphProgram:
     (only the real rows come back), 1 for the per-replica ``(R, n, ...)``
     forward of the disagreement tap (the whole static output comes back
     in one contiguous copy and the real rows are sliced on the host).
+
+    ``cost`` is the forward's cost at this bucket (:func:`counted_forward`),
+    counted on the first warm-up call, before and outside the capture.
     """
 
     def __init__(self, fn, params, subspaces, bucket: int, n_features: int,
@@ -141,7 +177,8 @@ class GraphProgram:
                         device=device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
-            for _ in range(CAPTURE_WARMUP_ITERS):
+            warm, self.cost = counted_forward(fn, params, subspaces, x)
+            for _ in range(CAPTURE_WARMUP_ITERS - 1):
                 warm = fn(params, subspaces, x)
         torch.cuda.current_stream(device).wait_stream(stream)
         # the static output lives outside the pool: a replay of another
@@ -247,6 +284,11 @@ class EnsembleExecutor:
         self._replica_variant = _pc.forward_variant(model, "replica")
         self._toolchain = _pc.toolchain_id(self.device)
         self._compiled: dict[int, Any] = {}
+        # bucket -> {"flops", "bytes"} of one forward, counted at the
+        # bucket's build (flops None when the forward runs no counted
+        # product): the denominator that turns padding waste from rows
+        # into FLOPs, and the performance plane's cost model
+        self.bucket_costs: dict[int, dict[str, float | None]] = {}
         # the disagreement tap's per-replica programs, one a bucket,
         # built on first need (warmup_replica, or a sampled batch)
         self._replica_compiled: dict[int, Any] = {}
@@ -354,7 +396,7 @@ class EnsembleExecutor:
             key = self._program_key(bucket)
             prog = _pc.cache().get(key)
             if prog is not None:
-                self._compiled[bucket] = prog
+                self._install(bucket, prog)
                 return prog
             t0 = time.perf_counter()
             with telemetry.span("serving_compile", bucket=bucket):
@@ -367,10 +409,25 @@ class EnsembleExecutor:
             telemetry.observe("sbt_serving_compile_seconds",
                               time.perf_counter() - t0)
             prog = _pc.cache().put(key, prog)
-            # sbt-lint: disable=shared-state-unlocked — under self._build_lock
-            self._compiled[bucket] = prog
+            self._install(bucket, prog)
             self._export_pool_bytes()
             return prog
+
+    def _install(self, bucket: int, prog) -> None:
+        """Record one bucket program and its cost gauges (the caller
+        holds the build lock)."""
+        cost = prog.cost
+        # sbt-lint: disable=shared-state-unlocked — every caller holds self._build_lock (_build)
+        self.bucket_costs[bucket] = cost
+        if telemetry.enabled():
+            labels = {"bucket": str(bucket)}
+            if cost["flops"] is not None:
+                telemetry.set_gauge("sbt_serving_bucket_cost_flops",
+                                    cost["flops"], labels=labels)
+            telemetry.set_gauge("sbt_serving_bucket_cost_bytes",
+                                cost["bytes"], labels=labels)
+        # sbt-lint: disable=shared-state-unlocked — under self._build_lock (see docstring)
+        self._compiled[bucket] = prog
 
     def _export_pool_bytes(self) -> None:
         if self.device.type == "cuda" and self.model_name is not None:
@@ -398,6 +455,7 @@ class EnsembleExecutor:
             released = tuple(sorted(self._compiled))
             self._compiled.clear()
             self._replica_compiled.clear()
+            self.bucket_costs.clear()
         if released:
             telemetry.inc("sbt_serving_programs_released_total",
                           float(len(released)))
@@ -654,6 +712,15 @@ class EnsembleExecutor:
         mon = self._quality
         if mon is not None:
             self._feed_quality(mon, parts, outs, first_slab)
+        # capacity demand tap: the same one-attribute-read contract as
+        # the quality tap and faults.ACTIVE. Feeds per-model request/row
+        # demand under BOTH dispatch paths; anonymous executors
+        # (model_name unset — never registry-committed) stay out of the
+        # demand table by design.
+        cap = _capacity.ACTIVE
+        if cap is not None and self.model_name is not None:
+            cap.observe_demand(self.model_name, self.model_version,
+                               len(parts), n)
         return outs
 
     # sbt-lint: hot-path
@@ -668,23 +735,44 @@ class EnsembleExecutor:
         if prog is None:
             prog = self._build(bucket)
         if telemetry.enabled():
-            # one registry lock round-trip for the panel: this runs per
-            # slab on the request hot path
-            telemetry.inc_many((
+            counts = [
                 ("sbt_serving_rows_total", float(fill)),
                 ("sbt_serving_padding_rows_total", float(bucket - fill)),
-            ))
+            ]
+            flops = self.bucket_costs.get(bucket, {}).get("flops")
+            if flops:
+                # rows are interchangeable within a bucket's program, so
+                # padding's FLOP share is its row share — waste in
+                # compute terms, not just rows
+                counts.append(("sbt_serving_flops_total", flops))
+                counts.append(("sbt_serving_padding_flops_total",
+                               (bucket - fill) / bucket * flops))
+            # one registry lock round-trip for the panel: this runs per
+            # slab on the request hot path
+            telemetry.inc_many(counts)
             telemetry.observe("sbt_serving_batch_fill_ratio",
                               fill / bucket)
         # attach the bucket choice to whatever request/batch trace is
         # current (multi-slab packs annotate once per slab)
         tracing.annotate(bucket=bucket)
+        # performance-attribution probe (telemetry/perf.py): measured
+        # per-bucket forward seconds joined with the build-time cost.
+        # One module-attribute read when no plane is installed, no
+        # clock, no call
+        ap = _perf.ACTIVE
+        t_perf = time.perf_counter() if ap is not None else 0.0
         if telemetry.sinks_active():
             with telemetry.span("serving_forward", bucket=bucket,
                                 rows=fill):
-                return prog.run(Xp, fill)
-        # nobody is listening for span events: skip the span machinery
-        return prog.run(Xp, fill)
+                out = prog.run(Xp, fill)
+        else:
+            # nobody is listening for span events: skip the span
+            # machinery
+            out = prog.run(Xp, fill)
+        if ap is not None:
+            ap.observe_forward(bucket, fill, time.perf_counter() - t_perf,
+                               self.bucket_costs.get(bucket))
+        return out
 
     # -- sklearn-flavored conveniences ---------------------------------
 

@@ -32,9 +32,16 @@ back, or an executor dropped without a swap, leave nothing on the card,
 and an adopted program can never outlive the tensors it reads. The
 index is bounded (LRU eviction at ``capacity`` entries, dead entries
 pruned as they are met) and thread-safe; lookups and inserts count
-``sbt_program_cache_*`` telemetry. The JAX package's capacity-plane
-hooks (per-model attribution, pin policies) are ROADMAP Queue A 15,
-part 2.
+``sbt_program_cache_*`` telemetry.
+
+Each entry carries residency metadata for the capacity plane
+(``telemetry/capacity.py``): the program's device bytes and their
+source (``"graph_pool"``, or ``"unmeasured"`` for the CPU's eager
+program), hit counts and a monotonic insert sequence. With the plane
+armed, hit/miss/eviction counters gain ``model=`` owner labels (the
+unlabeled totals keep their meaning) and every eviction is charged to
+its owner. An entry whose program died leaves the index — and with it
+the plane's ledger, which reads the index — at the next prune.
 """
 
 from __future__ import annotations
@@ -43,13 +50,14 @@ import hashlib
 import time
 import weakref
 from collections import OrderedDict
-from typing import Any, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from spark_bagging_tpu_torch import faults, telemetry
 from spark_bagging_tpu_torch.analysis.locks import make_lock
+from spark_bagging_tpu_torch.telemetry import capacity as _capacity
 
 
 class ProgramKey(NamedTuple):
@@ -84,6 +92,12 @@ def _leaves(tree: Any, prefix: str = ""):
             yield from _leaves(v, f"{prefix}/{i}")
     else:
         yield prefix, tree
+
+
+def tree_nbytes(tree: Any) -> int:
+    """Bytes of every tensor (or array) of a tree of dicts, tuples and
+    tensors."""
+    return sum(int(getattr(leaf, "nbytes", 0)) for _p, leaf in _leaves(tree))
 
 
 def fingerprint_params(model_cls: type, task: str, n_features: int,
@@ -151,17 +165,21 @@ def mesh_shape(mesh: Any) -> tuple[int, int] | None:
 
 
 class _Entry:
-    """A weak reference to one program plus its residency facts: bytes
-    (where the program reports them), hit counts, and a monotonic
-    insert/hit sequence. ``compiled`` is None once the program died."""
+    """A weak reference to one program plus the residency facts the
+    capacity plane's explainer reads: bytes and their measurement
+    source, hit counts, a monotonic insert/hit sequence (a
+    workload-pure event clock), and wall-clock timestamps for live
+    last-hit-age reporting only. ``compiled`` is None once the program
+    died."""
 
-    __slots__ = ("_ref", "nbytes", "hits", "seq_inserted",
+    __slots__ = ("_ref", "nbytes", "source", "hits", "seq_inserted",
                  "seq_last_hit", "ts_inserted", "ts_last_hit")
 
-    def __init__(self, compiled: Any, seq: int):
+    def __init__(self, compiled: Any, nbytes: int | None, source: str,
+                 seq: int):
         self._ref = weakref.ref(compiled)
-        nbytes = getattr(compiled, "nbytes", None)
-        self.nbytes = int(nbytes) if nbytes is not None else None
+        self.nbytes = nbytes
+        self.source = source
         self.hits = 0
         self.seq_inserted = seq
         self.seq_last_hit = seq
@@ -175,12 +193,20 @@ class _Entry:
 
 # sbt-lint: shared-state
 class ProgramCache:
-    """Bounded, thread-safe LRU index ``ProgramKey -> live program``."""
+    """Bounded, thread-safe LRU index ``ProgramKey -> live program``.
 
-    def __init__(self, capacity: int = 256):
+    ``pin_policy`` is opt-in demand-aware victim selection: a
+    fingerprint predicate whose True entries are skipped in LRU
+    eviction order (the tenancy plane's residency manager supplies
+    one; ROADMAP Queue A 15, part 3). None (default) keeps strict LRU.
+    """
+
+    def __init__(self, capacity: int = 256,
+                 pin_policy: Callable[[str], bool] | None = None):
         if capacity < 1:
             raise ValueError(f"capacity must be >= 1, got {capacity}")
         self.capacity = int(capacity)
+        self._pin_policy = pin_policy
         self._lock = make_lock("serving.program_cache")
         self._entries: OrderedDict[ProgramKey, _Entry] = OrderedDict()
         self._seq = 0
@@ -199,8 +225,14 @@ class ProgramCache:
                 entry.ts_last_hit = time.time()
             elif entry is not None:
                 del self._entries[key]  # its last executor is gone
-        telemetry.inc("sbt_program_cache_hits_total" if prog is not None
-                      else "sbt_program_cache_misses_total")
+        name = ("sbt_program_cache_hits_total" if prog is not None
+                else "sbt_program_cache_misses_total")
+        telemetry.inc(name)
+        cap = _capacity.ACTIVE
+        if cap is not None:
+            owner = cap.owner_label(key.fingerprint)
+            if owner is not None:
+                telemetry.inc(name, labels={"model": owner})
         return prog
 
     def put(self, key: ProgramKey, compiled: Any) -> Any:
@@ -211,7 +243,10 @@ class ProgramCache:
             # caller (executor build, swap pre-capture) exactly where an
             # allocation failure would
             faults.fire("program_cache.put", bucket=key.bucket)
-        n_evicted = 0
+        # measured at the build (the program carries its bytes), read
+        # outside the lock
+        nbytes, source = _capacity.executable_bytes(compiled)
+        evicted: list[tuple[ProgramKey, _Entry]] = []
         with self._lock:
             existing = self._entries.get(key)
             prog = None if existing is None else existing.compiled
@@ -220,37 +255,98 @@ class ProgramCache:
                 return prog
             self._prune()
             self._seq += 1
-            self._entries[key] = _Entry(compiled, self._seq)
+            self._entries[key] = _Entry(compiled, nbytes, source,
+                                        self._seq)
+            pin_violations = 0
             while len(self._entries) > self.capacity:
-                self._entries.popitem(last=False)
-                n_evicted += 1
+                victim, violated = self._pick_victim_locked(key)
+                pin_violations += int(violated)
+                evicted.append((victim, self._entries.pop(victim)))
             size = len(self._entries)
-        if n_evicted:
-            telemetry.inc("sbt_program_cache_evictions_total",
-                          float(n_evicted))
+            total_bytes = self._bytes_locked()
+        if pin_violations:
+            # the pinned set alone overflows the cache: a pinned entry
+            # had to go — unlabeled total first, then the locating twin
+            telemetry.inc("sbt_tenancy_pin_violations_total",
+                          float(pin_violations))
+            telemetry.inc("sbt_tenancy_pin_violations_total",
+                          float(pin_violations),
+                          labels={"level": "cache"})
+        self._charge(evicted)
         telemetry.set_gauge("sbt_program_cache_entries", float(size))
+        telemetry.set_gauge("sbt_program_cache_bytes", float(total_bytes))
         return compiled
+
+    def _pick_victim_locked(
+            self, protect: ProgramKey) -> tuple[ProgramKey, bool]:
+        """The next eviction victim (never ``protect``, the entry just
+        inserted): the strict LRU head without a pin policy; with one,
+        the first UNPINNED key in LRU order, and when everything is
+        pinned the LRU head anyway, flagged (``True`` in the return)."""
+        if self._pin_policy is None:
+            return next(iter(self._entries)), False
+        fallback: ProgramKey | None = None
+        for k in self._entries:
+            if k == protect:
+                continue
+            if fallback is None:
+                fallback = k
+            if not self._pin_policy(k.fingerprint):
+                return k, False
+        if fallback is None:  # capacity 1 and only the fresh insert
+            return protect, False
+        return fallback, True
+
+    def _bytes_locked(self) -> int:
+        """Measured bytes of the resident entries (under the lock)."""
+        return sum(e.nbytes or 0 for e in self._entries.values())
+
+    def _charge(self, evicted: list[tuple[ProgramKey, _Entry]]) -> None:
+        """Count evicted (or dropped) entries: the unlabeled total, and
+        with the capacity plane armed each entry charged to its owner
+        through the plane's eviction seam plus the owner-labeled twin."""
+        if not evicted:
+            return
+        telemetry.inc("sbt_program_cache_evictions_total",
+                      float(len(evicted)))
+        cap = _capacity.ACTIVE
+        if cap is None:
+            return
+        for ekey, entry in evicted:
+            owner = cap.observe_eviction(
+                fingerprint=ekey.fingerprint, bucket=ekey.bucket,
+                variant=ekey.variant, nbytes=entry.nbytes,
+                seq=entry.seq_inserted,
+            )
+            if owner != _capacity.UNATTRIBUTED:
+                telemetry.inc("sbt_program_cache_evictions_total",
+                              labels={"model": owner})
 
     def drop_fingerprint(self, fingerprint: str) -> int:
         """Remove every entry built from ``fingerprint`` (a retired
-        model's programs: no later executor adopts them). Returns the
-        number dropped."""
+        model's programs: no later executor adopts them), charged
+        through the same counters and capacity-plane eviction seam as
+        pressure evictions, so the ledger's attribution stays
+        reconciled. Returns the number dropped."""
         with self._lock:
-            keys = [k for k in self._entries if k.fingerprint == fingerprint]
-            for k in keys:
-                del self._entries[k]
+            dropped = [(k, self._entries.pop(k)) for k in
+                       [k for k in self._entries
+                        if k.fingerprint == fingerprint]]
             size = len(self._entries)
-        if keys:
-            telemetry.inc("sbt_program_cache_evictions_total",
-                          float(len(keys)))
-            telemetry.set_gauge("sbt_program_cache_entries", float(size))
-        return len(keys)
+            total_bytes = self._bytes_locked()
+        if not dropped:
+            return 0
+        self._charge(dropped)
+        telemetry.set_gauge("sbt_program_cache_entries", float(size))
+        telemetry.set_gauge("sbt_program_cache_bytes", float(total_bytes))
+        return len(dropped)
 
     def clear(self) -> None:
         """Drop every entry (tests simulating a fresh process)."""
         with self._lock:
             self._entries.clear()
         telemetry.set_gauge("sbt_program_cache_entries", 0.0)
+        telemetry.set_gauge("sbt_program_cache_bytes", 0.0)
 
     def _prune(self) -> None:
         """Drop the entries whose program died (under ``self._lock``)."""
@@ -280,6 +376,7 @@ class ProgramCache:
                 "bucket": key.bucket,
                 "mesh": key.mesh,
                 "bytes": e.nbytes,
+                "source": e.source,
                 "hits": e.hits,
                 "seq_inserted": e.seq_inserted,
                 "seq_last_hit": e.seq_last_hit,

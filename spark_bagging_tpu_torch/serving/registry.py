@@ -33,8 +33,10 @@ graph cannot be serialized, so :meth:`ModelRegistry.save` writes no
 ``sbt_serving_aot_misses_total``), capturing the live buckets at warm
 instead. Drift monitoring (:meth:`ModelRegistry.enable_quality`) is
 sticky across :meth:`~ModelRegistry.swap` and :meth:`~ModelRegistry.load`.
-Mesh serving is ROADMAP Queue A 12; the capacity ledger and the
-``/healthz`` registration are Queue A 15, part 2.
+Every registry contributes its live version map to ``/healthz``, and
+feeds the capacity plane's ledger (``telemetry/capacity.py``) on
+register and on a swap's commit only, so a failed swap leaves no
+ledger entry. Mesh serving is ROADMAP Queue A 12.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from spark_bagging_tpu_torch import faults, telemetry
 from spark_bagging_tpu_torch.analysis.locks import make_lock
 from spark_bagging_tpu_torch.serving import program_cache as _pc
 from spark_bagging_tpu_torch.serving.executor import EnsembleExecutor
+from spark_bagging_tpu_torch.telemetry import capacity as _capacity
 
 
 class _Entry:
@@ -72,6 +75,16 @@ class ModelRegistry:
         self._lock = make_lock("serving.registry")
         self._entries: dict[str, _Entry] = {}
         self._default_opts = default_executor_opts
+        # deferred import: the health registry lives in the exposition
+        # server module, whose http.server import chain (~100ms) only
+        # serving processes should pay
+        from spark_bagging_tpu_torch.telemetry import (
+            server as telemetry_server,
+        )
+
+        self._health_handle = telemetry_server.register_health_source(
+            "model_registry", self, ModelRegistry.health
+        )
 
     def health(self) -> dict:
         """``/healthz`` contribution: the live model/version map. A
@@ -185,6 +198,12 @@ class ModelRegistry:
             telemetry.set_gauge("sbt_serving_graph_pool_bytes",
                                 float(ex.graph_pool_bytes),
                                 labels={"model": name})
+        # capacity ledger feed: ownership is established HERE, at
+        # commit — any builds the executor did before this point
+        # retroactively become attributed via its fingerprint
+        cap = _capacity.ACTIVE
+        if cap is not None:
+            cap.register_owner(ex)
         return ex
 
     def swap(self, name: str, model: Any, *, warm: bool = True,
@@ -335,6 +354,15 @@ class ModelRegistry:
             "kind": "model_swapped", "model": name,
             "version": int(version),
         })
+        # capacity ledger feed: runs ONLY on the commit path — a failed
+        # swap raised out of _fail_swap above, so the replacement's
+        # fingerprint never acquires an owner and its pre-capture cache
+        # entries stay unattributed. The outgoing executor is retired,
+        # not erased: its entries keep their owner, so the drop below
+        # is charged to it.
+        cap = _capacity.ACTIVE
+        if cap is not None:
+            cap.register_owner(new, retired_fingerprint=old.fingerprint)
         if old.fingerprint != new.fingerprint:
             # the retired model's programs leave the unified cache at
             # once: its graphs (and their pool) free once the last

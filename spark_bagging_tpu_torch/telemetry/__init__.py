@@ -1,5 +1,5 @@
-"""Telemetry: the metrics registry, spans, event sinks and the
-model-quality plane.
+"""Telemetry: the metrics registry, spans, event sinks, and the
+quality, capacity, performance, fleet and exposition planes.
 
 The port's copy of the JAX package's telemetry core, which the serving
 plane, the checkpoint writer, the fault injector and the online trainer
@@ -30,12 +30,24 @@ emit through:
    through one CUDA graph a bucket) plus a declarative burn-rate alert
    engine over live registry series (``sbt_alerts_*``; ``alert_fired``
    events trigger the flight recorder and the online trainer).
+7. **Operator's planes** — the capacity ledger (``capacity.py``: what
+   each resident model holds in device bytes, its CUDA-graph programs'
+   pool bytes and its parameters, and the demand that justifies them),
+   performance attribution (``perf.py``: per-stage request time, a
+   per-bucket cost model with FLOPs counted at each bucket's build,
+   serving MFU, the tail explainer), SLO gates (``slo.py``), the
+   longitudinal history (``history.py``), the fleet merge of several
+   processes' ``/varz`` (``fleet.py``), and the opt-in stdlib HTTP
+   exposition server (``server.py``: ``/metrics``, ``/healthz``,
+   ``/varz``, ``/debug/*``, ``/alerts``, ``/fleet/*``; start with
+   ``SBT_METRICS_PORT`` or :func:`start_server`) with its CLI
+   (``python -m spark_bagging_tpu_torch.telemetry dump|profile``).
+8. **The fit report** — ``fit_report_`` is a :class:`FitReportView`
+   built by :func:`record_fit_report`: a plain dict whose numeric
+   entries are ``sbt_fit_<key>`` gauges.
 
-Not ported yet (ROADMAP Queue A 15, part 2): the capacity plane
-(``capacity.py``), the performance-attribution, SLO, history and fleet
-planes, the exposition server with ``/healthz`` and the ``__main__``
-CLI, and the registry-backed ``fit_report_`` view
-(``FitReportView``, ``record_fit_report``).
+Not ported yet: the tenancy plane (ROADMAP Queue A 15, part 3), whose
+``/debug/tenancy`` answers as with no fleet installed.
 
 Cost contract: **zero overhead when disabled** — every instrumentation
 site guards on :func:`enabled` (one attribute read) or goes through
@@ -69,20 +81,33 @@ from spark_bagging_tpu_torch.telemetry.spans import phase, span
 from spark_bagging_tpu_torch.telemetry.state import STATE as _state
 from spark_bagging_tpu_torch.telemetry import (
     alerts,
+    fleet,
+    history,
+    perf,
     quality,
     recorder,
+    slo,
     workload,
 )
+
+# the exposition server's names resolve lazily (module __getattr__
+# below): its http.server import chain costs ~100ms of stdlib, which
+# `import spark_bagging_tpu_torch` consumers that never serve must not
+# pay
+_SERVER_ATTRS = ("start_server", "stop_server", "server_address")
 
 __all__ = [
     "SCHEMA_VERSION", "SERIES_HELP", "QUANTILES", "Run", "capture",
     "current_run", "enabled", "enable", "disable", "set_device_sync",
     "device_sync_enabled", "span", "phase", "inc", "inc_many",
-    "set_gauge", "observe", "emit_event", "registry",
-    "render_prometheus", "read_events", "last_metrics_snapshot", "runs",
-    "Registry", "reset", "telemetry_dir", "default_log_path", "tracing",
-    "recorder", "workload", "quality", "alerts", "sinks_active",
-    "arrival_events_wanted",
+    "set_gauge",
+    "observe", "emit_event", "registry", "render_prometheus",
+    "read_events", "last_metrics_snapshot", "runs",
+    "record_fit_report", "Registry", "reset", "telemetry_dir",
+    "default_log_path", "tracing", "recorder", "workload", "slo",
+    "quality", "alerts", "fleet", "perf", "history",
+    "sinks_active", "arrival_events_wanted", "start_server",
+    "stop_server", "server_address",
 ]
 
 
@@ -187,3 +212,75 @@ def render_prometheus(snapshot: list | None = None) -> str:
     if snapshot is None:
         snapshot = _state.registry.snapshot()
     return _render_snapshot(snapshot)
+
+
+# -- fit_report integration --------------------------------------------
+
+class FitReportView(dict):
+    """``fit_report_`` as a view over the run registry: a plain dict to
+    every consumer (its keys are the JAX package's report keys), whose
+    numeric entries were exported to the registry as ``sbt_fit_<key>``
+    gauges at construction. Mutations after construction flow back
+    through ``__setitem__`` so the registry view never goes stale."""
+
+    def __setitem__(self, key, value) -> None:
+        super().__setitem__(key, value)
+        if _state.enabled and isinstance(value, (int, float)) \
+                and not isinstance(value, bool):
+            _state.registry.set(f"sbt_fit_{key}", float(value))
+
+
+def record_fit_report(report: dict) -> FitReportView:
+    """Register a freshly assembled fit report with the telemetry
+    subsystem and return the registry-backed view of it.
+
+    Exports every numeric entry as an ``sbt_fit_<key>`` gauge, bumps
+    the headline counters (``sbt_replicas_fitted_total``), folds
+    compile/fit/h2d seconds into their log-scale histograms, and emits
+    one ``fit_report`` event into any open capture.
+    """
+    view = FitReportView()
+    if not _state.enabled:
+        view.update(report)
+        return view
+    for k, v in report.items():
+        view[k] = v  # __setitem__ exports numerics as gauges
+    reg = _state.registry
+    n = report.get("n_replicas") or 0
+    if n:
+        reg.inc("sbt_replicas_fitted_total", float(n))
+    for key, metric in (
+        ("compile_seconds", "sbt_compile_seconds"),
+        ("fit_seconds", "sbt_fit_seconds"),
+        ("h2d_seconds", "sbt_h2d_seconds"),
+    ):
+        val = report.get(key)
+        if val is not None:
+            reg.observe(metric, float(val))
+    _state.emit({"kind": "fit_report", "report": dict(report)})
+    return view
+
+
+def __getattr__(name: str):
+    if name in _SERVER_ATTRS:
+        from spark_bagging_tpu_torch.telemetry import server
+
+        return getattr(server, name)
+    raise AttributeError(
+        f"module {__name__!r} has no attribute {name!r}"
+    )
+
+
+# -- live observability plane (opt-in) ---------------------------------
+# `SBT_METRICS_PORT=9100 python your_serving_script.py` is the whole
+# enable story: the exposition server starts with the package and
+# `curl :9100/healthz` works with zero code changes. Without the env
+# var this is one dict lookup at import (server.py stays unimported).
+import os as _os  # noqa: E402
+
+if _os.environ.get("SBT_METRICS_PORT", ""):
+    from spark_bagging_tpu_torch.telemetry.server import (  # noqa: E402
+        maybe_start_from_env as _maybe_start_from_env,
+    )
+
+    _maybe_start_from_env()

@@ -47,10 +47,11 @@ last fire is suppressed (counted in
 once per flap.
 
 The port's copy of the JAX package's ``telemetry/alerts.py``.
-:func:`default_capacity_rules` carries the rule definitions only: the
-capacity and tenancy planes that export their series are not ported
-yet (ROADMAP Queue A 15, part 2), and a rule over an absent series
-never fires.
+:func:`default_capacity_rules` reads the capacity plane's gauges
+(``telemetry/capacity.py``, refreshed on every scrape); its tenancy
+rules are definitions only until the tenancy plane that exports their
+series is ported (ROADMAP Queue A 15, part 3) — a rule over an absent
+series never fires.
 """
 
 from __future__ import annotations

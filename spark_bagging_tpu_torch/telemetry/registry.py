@@ -4,8 +4,9 @@ A copy of the JAX package's ``telemetry/registry.py``: one thread-safe
 registry holds every counter/gauge/histogram the port emits (the
 serving plane's ``sbt_serving_*`` series, the program cache's, the
 checkpoint's, the fault injector's, the quality plane's, the alert
-engine's, the flight recorder's and the online trainer's), keyed by
-``(name, sorted labels)``. Metric names follow
+engine's, the flight recorder's, the online trainer's, the fit
+report's, and the capacity, performance, fleet, history and process
+planes'), keyed by ``(name, sorted labels)``. Metric names follow
 the Prometheus convention with the ``sbt_`` (spark-bagging-tpu) prefix;
 :func:`render_prometheus` emits the text exposition format so the
 registry can be scraped or diffed with standard tooling.
@@ -110,6 +111,64 @@ SERIES_HELP: dict[str, str] = {
     "sbt_online_refit_seconds": "Wall-clock of one drain->refit->validate->publish cycle (histogram, label model)",
     "sbt_online_buffer_rows": "Labeled rows currently held by one online refit buffer (gauge; label model when attached)",
     "sbt_online_refits_budget_denied_total": "Refit triggers dropped by the per-tenant refit budget hook (label model)",
+    # the fit report's headline series (telemetry.record_fit_report)
+    "sbt_replicas_fitted_total": "Base replicas fitted across all fit calls",
+    "sbt_compile_seconds": "XLA compile wall-clock per fit (histogram)",
+    "sbt_fit_seconds": "Device fit wall-clock per fit call (histogram)",
+    "sbt_h2d_seconds": "Host-to-device transfer seconds per fit (histogram)",
+    # per-bucket forward cost: FLOPs counted at the bucket's build, bytes
+    # as every input read once and the output written once
+    "sbt_serving_bucket_cost_flops": "Compiled FLOPs per forward at this bucket (gauge, label bucket)",
+    "sbt_serving_bucket_cost_bytes": "Compiled bytes accessed per forward at this bucket (gauge, label bucket)",
+    "sbt_serving_flops_total": "FLOPs dispatched by serving forwards (cost-analysis attributed)",
+    "sbt_serving_padding_flops_total": "FLOPs spent on padding rows (waste, cost-analysis attributed)",
+    # the exposition server's process gauges, sampled at scrape
+    "sbt_process_uptime_seconds": "Seconds since the exposition server started (gauge)",
+    "sbt_process_rss_bytes": "Resident set size of this process (gauge, sampled at scrape)",
+    "sbt_process_device_bytes_in_use": "Device memory currently allocated, where the backend reports it (gauge, label device)",
+    "sbt_process_device_bytes_limit": "Device memory capacity, where the backend reports it (gauge, label device)",
+    "sbt_process_device_peak_bytes": "Peak device memory allocated since process start, where reported (gauge, label device)",
+    # the fleet plane (telemetry/fleet.py)
+    "sbt_fleet_peers": "Peer processes configured on the fleet aggregator (gauge)",
+    "sbt_fleet_peers_fresh": "Peers whose latest scrape succeeded and is within the staleness bound (gauge)",
+    "sbt_fleet_peers_stale": "Peers excluded from the merge/quorum: failed or overdue last scrape (gauge)",
+    "sbt_fleet_quorum": "Fleet quorum health: 1 healthy, 0 lost (gauge; degraded still counts 1)",
+    "sbt_fleet_scrapes_total": "Peer scrape attempts by the fleet aggregator",
+    "sbt_fleet_scrape_failures_total": "Peer scrapes that failed (timeout/HTTP error; label process)",
+    "sbt_fleet_scrape_age_seconds": "Seconds since the last successful scrape of a peer (gauge, label process)",
+    "sbt_fleet_merged_series": "Peer-derived series in the latest merge, before the fleet-synthesized sbt_fleet_* series are appended (gauge)",
+    "sbt_fleet_merge_conflicts_total": "Series dropped from a merge because peers disagree on kind or histogram bounds",
+    "sbt_fleet_version": "Live model version reported by one peer (gauge, labels model+process)",
+    "sbt_fleet_version_skew": "Max minus min live model version across fresh peers (gauge, label model; 0 = converged)",
+    "sbt_fleet_convergence_seconds": "Rolling-swap convergence time: version skew rising above 0 until back to 0 (histogram, label model)",
+    # the performance-attribution plane (telemetry/perf.py)
+    "sbt_perf_stage_seconds": "Per-request wall-clock attributed to one pipeline stage (histogram, labels stage + path, or stage + tenant over the full journey: admission/wfq/restore/dispatch/queue/forward/scatter)",
+    "sbt_perf_stage_share": "Share of total request wall-clock spent in one stage (gauge, labels stage + path, or stage + tenant for the journey twin)",
+    "sbt_perf_bucket_seconds_per_row": "Measured forward seconds per served row at this bucket (gauge, label bucket — the live cost model)",
+    "sbt_perf_bucket_achieved_flops": "Achieved FLOP/s of this bucket's forward: compiled FLOPs over measured seconds (gauge, label bucket)",
+    "sbt_perf_mfu": "Serving model-FLOPs utilization: achieved FLOP/s over the device bf16 peak (gauge; absent on unknown device kinds)",
+    "sbt_perf_dropped_total": "Perf-attribution observations dropped by the fixed-memory key cap",
+    # the longitudinal history store (telemetry/history.py)
+    "sbt_history_appends_total": "Records appended to the longitudinal history store (telemetry_dir()/history/history.jsonl)",
+    "sbt_history_records": "Records seen by the latest history trend scan (gauge)",
+    "sbt_history_groups": "Distinct (kind, key) groups in the latest history trend scan (gauge)",
+    "sbt_history_digest_flips": "Digest/SLO flips found by the latest history trend scan (gauge; any nonzero is a regression finding)",
+    "sbt_history_numeric_drift": "Numeric fields outside the CI-noise band in the latest history trend scan (gauge, advisory)",
+    # the capacity plane (telemetry/capacity.py) and the program cache's bytes
+    "sbt_program_cache_bytes": "Measured executable bytes resident in the unified program cache (gauge; unmeasured entries excluded, see sbt_capacity_unmeasured_entries)",
+    "sbt_capacity_params_bytes": "Stacked-pytree parameter bytes held by one committed (model, version) (gauge, labels model+version)",
+    "sbt_capacity_compiled_bytes": "Measured program-cache executable bytes attributed to one committed model (gauge, label model)",
+    "sbt_capacity_resident_entries": "Program-cache entries attributed to one committed model (gauge, label model)",
+    "sbt_capacity_unmeasured_entries": "Resident entries whose executable bytes could not be measured - flagged, never counted as 0 (gauge, label model)",
+    "sbt_capacity_models": "Distinct models in the capacity ledger (gauge)",
+    "sbt_capacity_demand_requests_total": "Requests served per model, fed from the packed-forward demand tap (label model)",
+    "sbt_capacity_demand_rows_total": "Rows served per model, fed from the packed-forward demand tap (label model)",
+    "sbt_capacity_demand_rate_rps": "Per-model request rate over the last classification window (gauge, label model)",
+    "sbt_capacity_demand_rank": "Per-model popularity rank by cumulative requests, 1 = hottest (gauge, label model)",
+    "sbt_capacity_demand_class": "Per-model demand class with hysteresis: 2 hot / 1 warm / 0 cold (gauge, label model)",
+    "sbt_capacity_demand_dropped_total": "Demand observations dropped by the fixed-memory model cap (capacity plane max_models)",
+    "sbt_capacity_cache_headroom_ratio": "Free-slot ratio of the program cache: (capacity - entries) / capacity (gauge)",
+    "sbt_capacity_cold_resident_entries": "Program-cache entries owned by cold-demand-class models (gauge; the reclaim candidates)",
 }
 
 

@@ -16,6 +16,15 @@ profiler, and an optional ``max_seconds`` auto-stop (clamped to
 seconds of trace" is never left paying profiler overhead. Artifacts
 default under ``telemetry_dir()/profiles/``.
 
+A ``torch.profiler`` session belongs to the thread that started it, so
+each capture runs on a thread of its own that starts it, waits, and
+stops and exports it: the exposition server's handler thread can start
+a capture and the auto-stop timer end it. The session profiles every
+thread of the process where the installed torch can (its
+``profile_all_threads`` option); the card's kernels, copies and CUDA
+runtime calls, graph launches included, are recorded process-wide
+either way.
+
 :func:`device_peak_tflops` is the dense bf16 peak of the card the
 ``fit_report_``'s MFU is measured against.
 """
@@ -46,11 +55,11 @@ class ProfilerBusy(RuntimeError):
 PROFILE_MAX_SECONDS = 120.0
 
 _profile_lock = make_lock("utils.profiling")
-# guarded by _profile_lock; "timer" is the auto-stop handle, "prof" the
-# live torch.profiler.profile
+# guarded by _profile_lock; "timer" is the auto-stop handle, "capture"
+# the live _Capture
 _profile: dict[str, Any] = {"active": False, "dir": None,
                             "t_start": None, "stops_at": None,
-                            "timer": None, "seq": 0, "prof": None}
+                            "timer": None, "seq": 0, "capture": None}
 
 
 def default_profile_dir() -> str:
@@ -80,6 +89,47 @@ def _activities() -> list:
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     return acts
+
+
+def _new_profile():
+    """A ``torch.profiler.profile`` over the host and (where there is
+    one) the card, recording every thread's host ops where the
+    installed torch offers it."""
+    kwargs: dict[str, Any] = {"activities": _activities()}
+    try:
+        kwargs["experimental_config"] = \
+            torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except (AttributeError, TypeError):
+        pass  # an older torch: this thread's host ops, the card's all
+    return torch.profiler.profile(**kwargs)
+
+
+class _Capture(threading.Thread):
+    """One profiler session, started, stopped and exported on this
+    thread (a session belongs to the thread that started it)."""
+
+    def __init__(self, trace_path: str):
+        super().__init__(daemon=True, name="sbt-profile-capture")
+        self.trace_path = trace_path
+        self.started = threading.Event()
+        self.stop_requested = threading.Event()
+        self.error: BaseException | None = None
+
+    def run(self) -> None:
+        try:
+            prof = _new_profile()
+            prof.start()
+        except BaseException as e:  # noqa: BLE001 — re-raised by the starter
+            self.error = e
+            self.started.set()
+            return
+        self.started.set()
+        self.stop_requested.wait()
+        try:
+            prof.stop()
+            prof.export_chrome_trace(self.trace_path)
+        except BaseException as e:  # noqa: BLE001 — re-raised by the stopper
+            self.error = e
 
 
 def start_profile(log_dir: str | None = None, *,
@@ -124,13 +174,16 @@ def start_profile(log_dir: str | None = None, *,
         os.makedirs(log_dir, exist_ok=True)
         # a failed start leaves the guard released: state is only
         # updated after the profiler started
-        prof = torch.profiler.profile(activities=_activities())
-        prof.start()
+        capture = _Capture(os.path.join(log_dir, "trace.json"))
+        capture.start()
+        capture.started.wait()
+        if capture.error is not None:
+            raise capture.error
         now = time.time()
         stops_at = (now + max_seconds if max_seconds is not None
                     else None)
         _profile.update(active=True, dir=log_dir, t_start=now,
-                        stops_at=stops_at, prof=prof)
+                        stops_at=stops_at, capture=capture)
         if max_seconds is not None:
             # the timer carries its capture's generation: a stale
             # callback that lost the cancel race must not stop the
@@ -165,16 +218,16 @@ def stop_profile(_gen: int | None = None) -> dict[str, Any] | None:
             "dir": _profile["dir"],
             "seconds": time.time() - _profile["t_start"],
         }
-        prof = _profile["prof"]
-        try:
-            prof.stop()
-            prof.export_chrome_trace(os.path.join(out["dir"], "trace.json"))
-        finally:
-            # the capture is over even when the export failed: a torn
-            # artifact beats a wedged guard that rejects every capture
-            _profile.update(active=False, dir=None, t_start=None,
-                            stops_at=None, timer=None, prof=None)
-            telemetry.set_gauge("sbt_profile_active", 0.0)
+        capture = _profile["capture"]
+        capture.stop_requested.set()
+        capture.join()
+        # the capture is over even when the export failed: a torn
+        # artifact beats a wedged guard that rejects every capture
+        _profile.update(active=False, dir=None, t_start=None,
+                        stops_at=None, timer=None, capture=None)
+        telemetry.set_gauge("sbt_profile_active", 0.0)
+    if capture.error is not None:
+        raise capture.error
     return out
 
 

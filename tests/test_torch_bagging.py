@@ -559,16 +559,13 @@ def test_online_exports_are_the_jax_packages():
 
 
 def test_telemetry_exports_are_the_jax_packages_less_the_unported():
-    """The quality, alerts, recorder and workload planes are exported as
-    the JAX package exports them; the rest waits for ROADMAP Queue A
-    15, part 2."""
+    """Every telemetry plane is exported as the JAX package exports it:
+    nothing is left unported at the package's surface (the tenancy
+    plane is a package of its own, ROADMAP Queue A 15, part 3)."""
     jax_names = _all_names(os.path.join(REPO, "spark_bagging_tpu",
                                         "telemetry", "__init__.py"))
     port_names = _all_names(os.path.join(PKG, "telemetry", "__init__.py"))
-    assert jax_names - port_names == {
-        "record_fit_report", "slo", "fleet", "perf", "history",
-        "start_server", "stop_server", "server_address"}
-    assert port_names - jax_names == set()
+    assert port_names == jax_names
     from spark_bagging_tpu_torch import telemetry
 
     for name in port_names:

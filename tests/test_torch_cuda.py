@@ -1557,3 +1557,78 @@ def test_trainer_refit_on_card_matches_cpu(cuda, tmp_path):
     assert records["card"]["action"] == records["cpu"]["action"] == \
         "published"
     assert _rel_err(W["card"], W["cpu"]) <= 1e-4
+
+
+# -- the operator's planes on the card --------------------------------------
+
+def test_capacity_ledger_reconciles_with_graph_pool_bytes(cuda):
+    # the ledger's compiled bytes are the registry executors' captured
+    # programs' bytes, exactly; params_bytes the parameter and subspace
+    # tensors'
+    from spark_bagging_tpu_torch.serving import ModelRegistry, program_cache
+    from spark_bagging_tpu_torch.telemetry import capacity
+
+    program_cache.clear()
+    plane = capacity.enable()
+    try:
+        reg = ModelRegistry(min_bucket_rows=1, max_batch_rows=64)
+        exs = {}
+        for name in ("logistic", "tree_hard"):
+            est, X = _serving_model(name)
+            exs[name] = reg.register(name, est, warmup=True)
+            exs[name].forward(X[:5])
+        led = plane.ledger()
+        assert led["reconciled"] is True
+        for name, ex in exs.items():
+            assert led["owners"][name]["bytes"] == ex.graph_pool_bytes > 0
+            assert led["owners"][name]["unmeasured"] == 0
+            rec = led["committed"][f"{name}@1"]
+            assert rec["placement"] == "cuda"
+            assert rec["params_bytes"] == capacity.params_nbytes(ex)
+        rows = capacity.capacity_report()["residents"]
+        assert {r["bytes_source"] for r in rows} == {"graph_pool"}
+    finally:
+        capacity.disable()
+
+
+@pytest.mark.parametrize("name", ["logistic", "tree_hard"])
+def test_bucket_flops_on_the_card_equal_the_cpus(cuda, name):
+    from spark_bagging_tpu_torch.serving import EnsembleExecutor
+
+    ests = [_serving_model(name, device=d)[0] for d in ("cuda", "cpu")]
+    costs = []
+    for est in ests:
+        ex = EnsembleExecutor(est, min_bucket_rows=1, max_batch_rows=64)
+        ex.warmup()
+        costs.append(ex.bucket_costs)
+    assert costs[0] == costs[1]
+    flops = {c["flops"] for c in costs[0].values()}
+    assert (flops == {None}) == (name == "tree_hard")
+
+
+def test_a_scrape_never_initializes_cuda(cuda):
+    # a process that starts the server and scrapes every route that
+    # reads device state leaves torch.cuda uninitialized
+    import os
+    import subprocess
+    import sys
+
+    code = (
+        "import json, urllib.request, torch\n"
+        "from spark_bagging_tpu_torch import telemetry\n"
+        "from spark_bagging_tpu_torch.telemetry import capacity\n"
+        "capacity.enable()\n"
+        "port = telemetry.start_server(port=0)\n"
+        "for p in ('/metrics', '/varz', '/healthz', '/debug/capacity',\n"
+        "          '/debug/tail'):\n"
+        "    urllib.request.urlopen(f'http://127.0.0.1:{port}{p}',\n"
+        "                           timeout=10).read()\n"
+        "telemetry.stop_server()\n"
+        "print(json.dumps(torch.cuda.is_initialized()))\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=repo)
+    env.pop("SBT_METRICS_PORT", None)
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=repo,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "false"
