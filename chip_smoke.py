@@ -443,6 +443,10 @@ SERVE_LADDERS = {"bench": dict(min_bucket_rows=1, max_batch_rows=256),
 SERVE_TOL = 1e-5
 SERVE_LEVELS = (1, 4, 16)
 SERVE_REQUESTS = 3_200
+# the naive per-request yardstick runs half as many (its 300-400 rows/s
+# at concurrency 4 and 16 made it most of the phase's seconds); rows/s
+# and percentiles are per run, so the halves compare
+SERVE_NAIVE_REQUESTS = 1_600
 SERVE_REPEATS = 3
 SERVE_BATCHER = dict(max_delay_ms=0.5, max_batch_rows=256, max_queue=4096)
 SERVE_SWAP_WINDOW_S = 0.5
@@ -484,6 +488,38 @@ PLANES = dict(requests=3_200, clients=4, scrape_every_s=0.05,
               profile_seconds=3, profile_pace_s=0.005, tree_rows=800,
               fleet_rows=1_600,
               slo_p99_ms=50.0, slo_padding_waste=0.5)
+# the tenancy plane: the JAX drill's default policy
+# (benchmarks/replay.py:1998-2200, replay_tenants) at full width. Six
+# tenants t0..t5 on one registry with the 1..256 ladder: t0..t4 headline
+# bags (seeds 0..4), t5 config 3's trees; priorities cycle interactive /
+# standard / batch, weights 6..1, only t0 quota-bound (25 rps);
+# residency for 4 of the 6, Zipf s = 1.1 over the tenants; the capacity
+# plane's hot 50 / warm 20 rps; stepped batchers (2 ms window, 1 ms idle
+# flush, 256 rows); a refit budget of 4 a 0.25 s window; quarantine
+# window 0.25 s, backoff 0.05 s, seeded. The stepped drive: a seeded
+# Poisson schedule of 1-8 row requests (3,000 a second for 1.05 s of
+# virtual clock: 3,140 requests) of fresh covtype rows (row seed 80),
+# twice; the tenant-chaos drive on its first 1,500 requests; the
+# budgeted refits (t0 and t3 on rows shifted by + 4.0, as the drift
+# loop shifts them; cold, on 1,024 rows) during a drive of its first
+# 600; the threaded drive: 4 clients of single rows, 3,200 rows (row
+# seed 81). The private program cache holds (residency + 2) ladders:
+# every resident's entries, a restore's captures before its victim's
+# demotion, and a swap's pre-captures, so no pressure eviction drops a
+# resident's entry and the ledger equals the residents'
+# graph_pool_bytes exactly (the JAX drill's 4 x residency holds its
+# 3-rung ladder the same way)
+TENANCY = dict(tenants=6, residency=4, zipf_s=1.1, head_quota_rps=25.0,
+               hot_rps=50.0, warm_rps=20.0,
+               batcher=dict(max_delay_ms=2.0, idle_flush_ms=1.0,
+                            max_batch_rows=256, max_queue=1024),
+               refit_total=4, refit_window_s=0.25,
+               quarantine_window_s=0.25, quarantine_backoff_s=0.05,
+               seed=80, rate_rps=3_000.0, duration_s=1.05,
+               rows=tuple(range(1, 9)), pool_rows=4_096, snapshot_every=8,
+               min_requests=3_000, chaos_requests=1_500, refit_requests=600,
+               refit_rows=1_024, refit_shift=4.0, refit_margin=0.05,
+               threaded_requests=3_200, clients=4)
 # the closed loop on the headline bag: 3,200 fresh rows of the headline
 # mixture (row seed 71, not used before), then rows shifted as
 # benchmarks/replay.py:188-206 shifts them at its defaults (scale 1.0,
@@ -2934,7 +2970,7 @@ def phase_serving(clf, X: np.ndarray, y: np.ndarray) -> None:
     levels = []
     for conc in SERVE_LEVELS:
         naive = measure(lambda: run_clients(
-            Xs, conc, SERVE_REQUESTS, clf.predict_proba))
+            Xs, conc, SERVE_NAIVE_REQUESTS, clf.predict_proba))
         with MicroBatcher(ex, **SERVE_BATCHER) as b:
             served = measure(lambda: run_window(
                 Xs, conc, SERVE_REQUESTS, b.submit))
@@ -2946,6 +2982,7 @@ def phase_serving(clf, X: np.ndarray, y: np.ndarray) -> None:
                        / naive["rows_per_sec"]})
     captures = serving_compiles() - c0
     emit("serving_latency", ok=captures == 0, requests_per_run=SERVE_REQUESTS,
+         naive_requests_per_run=SERVE_NAIVE_REQUESTS,
          repeats=SERVE_REPEATS, warm_runs_discarded=1,
          batcher={k: v for k, v in SERVE_BATCHER.items() if k != "max_queue"},
          ladder=list(ex.compiled_buckets), levels=levels,
@@ -4558,6 +4595,766 @@ def phase_fleet(reg, X: np.ndarray, digest: str) -> None:
         shutil.rmtree(d, ignore_errors=True)
 
 
+# -- the tenancy plane: admission, fair queuing, residency, budgets -----
+
+def tenant_names() -> list[str]:
+    return [f"t{i}" for i in range(TENANCY["tenants"])]
+
+
+def tenant_specs():
+    """The JAX drill's specs: priorities cycle with rank, weights
+    descend with it, only the Zipf head is quota-bound."""
+    from spark_bagging_tpu_torch.tenancy import PRIORITY_CLASSES, TenantSpec
+
+    n = TENANCY["tenants"]
+    return [TenantSpec(name=f"t{i}",
+                       priority=PRIORITY_CLASSES[i % len(PRIORITY_CLASSES)],
+                       weight=float(n - i),
+                       quota_rps=TENANCY["head_quota_rps"] if i == 0
+                       else None)
+            for i in range(n)]
+
+
+def tenant_stack(models: list, threaded: bool = False):
+    """One fresh stack, as the JAX drill builds one a run: a private
+    capacity plane and a pin-policy program cache installed, one
+    registry on the 1..256 ladder, the fleet with every tenant
+    registered and warmed. Returns ``(fleet, plane, aot_root, undo)``."""
+    import shutil
+
+    from spark_bagging_tpu_torch.serving import ModelRegistry, program_cache
+    from spark_bagging_tpu_torch.serving.buckets import bucket_ladder
+    from spark_bagging_tpu_torch.telemetry import capacity
+    from spark_bagging_tpu_torch.tenancy import TenantFleet
+    from spark_bagging_tpu_torch.tenancy.residency import cache_pin_policy
+
+    ladder = SERVE_LADDERS["bench"]
+    rungs = len(bucket_ladder(ladder["min_bucket_rows"],
+                              ladder["max_batch_rows"]))
+    plane = capacity.CapacityPlane(hot_rps=TENANCY["hot_rps"],
+                                   warm_rps=TENANCY["warm_rps"])
+    prev_plane = capacity.install(plane)
+    prev_cache = program_cache.install(program_cache.ProgramCache(
+        capacity=(TENANCY["residency"] + 2) * rungs,
+        pin_policy=cache_pin_policy(plane)))
+    aot_root = tempfile.mkdtemp(prefix="tenancy_aot_")
+    fleet = TenantFleet(
+        tenant_specs(), registry=ModelRegistry(**ladder),
+        residency_capacity=TENANCY["residency"], aot_root=aot_root,
+        plane=plane, threaded=threaded,
+        refit_total_per_window=TENANCY["refit_total"],
+        refit_window_s=TENANCY["refit_window_s"],
+        quarantine_window_s=TENANCY["quarantine_window_s"],
+        quarantine_backoff_s=TENANCY["quarantine_backoff_s"],
+        quarantine_seed=TENANCY["seed"], batcher_opts=TENANCY["batcher"])
+    for name, model in zip(tenant_names(), models):
+        fleet.register(name, model, warmup=True, version=1)
+
+    def undo():
+        fleet.close()
+        program_cache.install(prev_cache)
+        capacity.install(prev_plane)
+        shutil.rmtree(aot_root, ignore_errors=True)
+
+    return fleet, plane, aot_root, undo
+
+
+def zipf_owners(n_requests: int, seed: int) -> np.ndarray:
+    """Each request's tenant index: one seeded Zipf draw, rank 1 (t0)
+    the head."""
+    n = TENANCY["tenants"]
+    p = np.arange(1, n + 1, dtype=np.float64) ** -TENANCY["zipf_s"]
+    return np.random.default_rng(seed).choice(n, size=n_requests,
+                                              p=p / p.sum())
+
+
+def tenancy_workload():
+    """The stepped drive's schedule (virtual arrival times and row
+    counts), each request's tenant and its rows: slices of one pool of
+    fresh covtype rows at an index-keyed offset, as the JAX drill slices
+    its payload pool."""
+    from spark_bagging_tpu_torch.telemetry import workload
+
+    reqs = workload.synthetic_workload(
+        "poisson", rate_rps=TENANCY["rate_rps"],
+        duration_s=TENANCY["duration_s"], seed=TENANCY["seed"],
+        rows=TENANCY["rows"], width=N_FEATURES).requests
+    pool, _ = fresh_covtype(TENANCY["pool_rows"], TENANCY["seed"])
+    rows_max = max(r.rows for r in reqs)
+
+    def payload(idx: int) -> np.ndarray:
+        start = (idx * 131) % (len(pool) - rows_max + 1)
+        return pool[start:start + reqs[idx].rows]
+
+    return reqs, zipf_owners(len(reqs), TENANCY["seed"]), payload
+
+
+def plan_windows(requests, max_delay_s: float,
+                 idle_flush_s: float) -> list[list[int]]:
+    """Coalescing windows on the virtual clock, as the JAX drill groups
+    them (benchmarks/replay.py:101): a window opens at its first
+    arrival, admits arrivals until open + max_delay_s, and closes early
+    at a gap above idle_flush_s."""
+    windows, i, n = [], 0, len(requests)
+    while i < n:
+        t_open = requests[i].t
+        window, last, j = [i], t_open, i + 1
+        while j < n:
+            t = requests[j].t
+            if t > t_open + max_delay_s or t - last > idle_flush_s:
+                break
+            window.append(j)
+            last = t
+            j += 1
+        windows.append(window)
+        i = j
+    return windows
+
+
+def compiles_of(name: str | None = None) -> float:
+    from spark_bagging_tpu_torch import telemetry
+
+    return telemetry.registry().counter(
+        "sbt_serving_compiles_total",
+        labels=None if name is None else {"model": name}).value
+
+
+def stepped_drive(models: list, workload, n_requests: int, *,
+                  plan=None, refit=None, inspect=None) -> dict:
+    """The stepped fleet drive on a virtual clock over the first
+    ``n_requests`` of ``workload``: each window's requests are submitted
+    (admission, WFQ) and dispatched (residency touched before each
+    tenant's own forwards), one fresh stack a run. After every restore
+    (and the demotion it caused) and after every window the capacity
+    ledger's bytes must equal the residents' ``graph_pool_bytes`` and a
+    demoted tenant's must read 0. ``plan`` is armed after warm-up;
+    ``refit(w_i, vt, fleet)`` runs after each window, and then the
+    snapshots' refit-budget asks are left out (the trainers' triggers
+    are the budget's only callers); ``inspect(fleet)`` runs before the
+    stack closes. Returns the deterministic transcript and
+    its digest, each served request's output and the (tenant, version,
+    request ids) each window served, and the captures: at restores, at
+    swaps, and on requests (everything else after warm-up)."""
+    import hashlib
+    from collections import deque
+
+    from spark_bagging_tpu_torch import faults
+    from spark_bagging_tpu_torch.tenancy import AdmissionShed
+
+    reqs, owner, payload = workload
+    names = tenant_names()
+    fleet, plane, aot_root, undo = tenant_stack(models)
+    res = fleet.residency
+    bad, checks, mem, caps = [], [0], {}, {"restore": 0.0, "swap": 0.0}
+
+    def check_ledger(where: str) -> None:
+        checks[0] += 1
+        led = plane.ledger()
+        residents = set(res.residents())
+        want = sum(fleet.registry.executor(t).graph_pool_bytes
+                   for t in residents)
+        demoted = {t: fleet.registry.executor(t).graph_pool_bytes
+                   for t in names if t not in residents}
+        if (led["cache"]["bytes"] != want or not led["reconciled"]
+                or any(demoted.values())):
+            bad.append(dict(where=where, ledger=led["cache"]["bytes"],
+                            residents=want, demoted=demoted))
+
+    real_touch = res.touch
+    # each tenant's restores: count and seconds (the touch that restored
+    # it, the demotion it caused included)
+    restore_s = {t: [0, 0.0] for t in names}
+
+    def touch(name: str) -> str:
+        c0 = compiles_of()
+        t_touch = time.perf_counter()
+        status = real_touch(name)
+        if status == "restored":
+            restore_s[name][0] += 1
+            restore_s[name][1] += time.perf_counter() - t_touch
+            caps["restore"] += compiles_of() - c0
+            check_ledger(f"restore {name}")
+        return status
+
+    res.touch = touch
+    windows = plan_windows(reqs[:n_requests],
+                           TENANCY["batcher"]["max_delay_ms"] / 1e3,
+                           TENANCY["batcher"]["idle_flush_ms"] / 1e3)
+    c_warm = compiles_of()
+    c_warm_t = {t: compiles_of(t) for t in names}
+    pool_bytes = {t: fleet.registry.executor(t).graph_pool_bytes
+                  for t in names}
+    mem["reserved_after_warmup"] = torch.cuda.memory_reserved()
+    pending = {t: deque() for t in names}
+    futs, comp, wfq_order, snapshots, budget_log = {}, [], [], [], []
+    # each tenant's captures after warm-up, at the end of every window
+    caps_by_window = []
+    shed_at_submit = []
+
+    def snap(w_i: int, vt: float) -> None:
+        plane.classify(now=vt)
+        snapshots.append({
+            "window": w_i, "residents": list(res.residents()),
+            "demand": plane.demand_summary(),
+            "evictions": plane.eviction_counts(),
+            "pressure_level": fleet.admission.pressure_level(vt),
+            "admitted": fleet.admission.admitted_counts(),
+            "wfq_served": fleet.wfq.service_totals(),
+        })
+        # the refit-budget transcript: the two hottest tenants by
+        # admitted requests ask for a refit slot at every snapshot
+        if refit is not None:
+            return
+        admitted = fleet.admission.admitted_counts()
+        for name in sorted(admitted, key=lambda t: (-admitted[t], t))[:2]:
+            budget_log.append({"window": w_i, "tenant": name,
+                               "allowed": fleet.refit_allowed(name, vt)})
+
+    if plan is not None:
+        faults.arm(plan)
+    t0 = time.perf_counter()
+    try:
+        for w_i, window in enumerate(windows):
+            vt = reqs[window[0]].t
+            for idx in window:
+                name = names[int(owner[idx])]
+                try:
+                    fleet.submit(name, payload(idx), now=vt)
+                    pending[name].append(idx)
+                except AdmissionShed as e:
+                    shed_at_submit.append((idx, name, e.reason))
+            drained = fleet.dispatch(now=vt)
+            served: dict[str, list] = {}
+            for rec in drained:
+                idx = pending[rec["tenant"]].popleft()
+                if rec["future"] is not None:
+                    futs[idx] = rec["future"]
+                    served.setdefault(rec["tenant"], []).append(idx)
+            comp.append([(t, fleet.registry.version(t), ids)
+                         for t, ids in sorted(served.items())])
+            caps_by_window.append({t: compiles_of(t) - c_warm_t[t]
+                                   for t in names})
+            wfq_order.append([rec["tenant"] for rec in drained])
+            check_ledger(f"window {w_i}")
+            if (w_i % TENANCY["snapshot_every"] == 0
+                    or w_i == len(windows) - 1):
+                snap(w_i, vt)
+            if refit is not None:
+                c0 = compiles_of()
+                refit(w_i, vt, fleet)
+                caps["swap"] += compiles_of() - c0
+        drive_s = time.perf_counter() - t0
+    finally:
+        if plan is not None:
+            faults.disarm()
+    post_warmup = compiles_of() - c_warm
+    events = res.events()
+    outputs, failed = {}, []
+    for idx, fut in futs.items():
+        try:
+            outputs[idx] = fut.result(0)
+        except Exception as e:  # noqa: BLE001 - counted
+            failed.append((idx, repr(e)))
+    transcript = {
+        "specs": [fleet.specs[t].to_dict() for t in sorted(fleet.specs)],
+        "snapshots": snapshots, "wfq_order": wfq_order,
+        "residency_events": events,
+        "residents_final": list(res.residents()),
+        "admitted": fleet.admission.admitted_counts(),
+        "sheds": fleet.admission.shed_counts(),
+        "downstream_sheds": fleet.shed_counts(),
+        "served_rows": fleet.served_rows(),
+        "wfq_served": fleet.wfq.service_totals(),
+        "budget_log": budget_log, "budget_counts": fleet.budget.counts(),
+        "quarantine": {
+            "events": [{k: v for k, v in e.items() if k != "trace_id"}
+                       for e in fleet.quarantine.events()],
+            "counts": fleet.quarantine.counts()},
+        "demand_final": plane.demand_summary(),
+        "evictions_by_owner": plane.eviction_counts(),
+    }
+    if inspect is not None:
+        inspect(fleet)
+    mem["reserved_at_end"] = torch.cuda.memory_reserved()
+    aot_written = os.listdir(aot_root)
+    undo()
+    del fleet
+    torch.cuda.empty_cache()
+    mem["reserved_after_close_and_empty_cache"] = torch.cuda.memory_reserved()
+    restore_buckets = sum(e.get("buckets", 0) for e in events
+                          if e["kind"] == "restore")
+    return dict(
+        transcript=transcript,
+        digest=hashlib.sha256(json.dumps(
+            transcript, sort_keys=True).encode()).hexdigest(),
+        outputs=outputs, failed=failed, comp=comp, windows=len(windows),
+        caps_by_window=caps_by_window,
+        requests=sum(len(w) for w in windows),
+        shed_at_submit=shed_at_submit, drive_seconds=drive_s,
+        post_warmup_captures=post_warmup,
+        post_warmup_by_tenant={t: compiles_of(t) - c_warm_t[t]
+                               for t in names},
+        restore_captures=caps["restore"], swap_captures=caps["swap"],
+        request_captures=post_warmup - caps["restore"] - caps["swap"],
+        restore_buckets=restore_buckets,
+        demotions=sum(1 for e in events if e["kind"] == "demote"),
+        restores=sum(1 for e in events if e["kind"] == "restore"),
+        ledger_checks=checks[0], ledger_unequal=bad[:3],
+        ledger_unequal_count=len(bad), memory=mem, pool_bytes=pool_bytes,
+        restore_ms={t: 1e3 * s / n for t, (n, s) in restore_s.items()
+                    if n},
+        aot_root_written=aot_written)
+
+
+def release_memory(models: list) -> dict:
+    """``torch.cuda.memory_reserved()`` around one release of a warmed
+    executor's programs (the headline bag's and the trees'): after the
+    release, then after ``torch.cuda.empty_cache()`` (which residency
+    calls after each demotion), then after the ladder is captured
+    again — what a demotion gives back to the card, and when."""
+    from spark_bagging_tpu_torch.serving import ModelRegistry, program_cache
+
+    out = {}
+    prev = program_cache.install(program_cache.ProgramCache())
+    try:
+        for i in (0, TENANCY["tenants"] - 1):
+            ex = ModelRegistry(**SERVE_LADDERS["bench"]).register(
+                f"t{i}", models[i], warmup=True)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            r0 = torch.cuda.memory_reserved()
+            pool = ex.graph_pool_bytes
+            buckets = ex.release_programs()
+            r1 = torch.cuda.memory_reserved()
+            torch.cuda.empty_cache()
+            r2 = torch.cuda.memory_reserved()
+            ex.warmup(buckets)
+            out[f"t{i}"] = dict(
+                graph_pool_bytes=pool, reserved_warm=r0,
+                after_release=r1, after_empty_cache=r2,
+                after_recapture=torch.cuda.memory_reserved(),
+                graph_pool_bytes_recaptured=ex.graph_pool_bytes)
+    finally:
+        program_cache.install(prev)
+    return out
+
+
+def solo_outputs(model_of: dict, comp: list, payload) -> dict:
+    """Each served request again, through its tenant's model (at the
+    version that served it) behind a registry of its own that never
+    demotes, in the same batches: per window, the tenant's requests
+    through a stepped batcher with the fleet's options. Keyed by
+    request id."""
+    from spark_bagging_tpu_torch.serving import ModelRegistry
+
+    batchers, out = {}, {}
+    for window in comp:
+        for tenant, version, ids in window:
+            b = batchers.get((tenant, version))
+            if b is None:
+                reg = ModelRegistry(**SERVE_LADDERS["bench"])
+                reg.register("solo", model_of[tenant, version])
+                b = batchers[tenant, version] = reg.batcher(
+                    "solo", threaded=False, **TENANCY["batcher"])
+            futs = [b.submit(payload(i)) for i in ids]
+            b.run_pending()
+            for i, f in zip(ids, futs):
+                out[i] = f.result(0)
+    for b in batchers.values():
+        b.close()
+    return out
+
+
+def unequal_outputs(got: dict, want: dict, ids) -> list:
+    return [i for i in ids
+            if i not in want or not np.array_equal(got[i], want[i])]
+
+
+def tenant_fits(X: np.ndarray, y: np.ndarray, tree) -> tuple[list, int]:
+    """t0..t4: the headline bag with seeds 0..4 (each fit's Gram launches
+    checked against pooled_iter + max_iter x chunks); t5: config 3's
+    trees, already fitted. Returns the models and the fits' launches."""
+    from spark_bagging_tpu_torch import BaggingClassifier
+
+    models, launches, expected, seconds = [], 0, 0, []
+    for seed in range(TENANCY["tenants"] - 1):
+        learner = headline_learner()
+        reset_launches()
+        t0 = time.perf_counter()
+        clf = BaggingClassifier(learner, n_estimators=N_REPLICAS,
+                                seed=seed).fit(X, y)
+        seconds.append(time.perf_counter() - t0)
+        launches += read_launches()["scaled_gram"]
+        chunk = clf.fit_report_["chunk_size_resolved"] or N_REPLICAS
+        expected += learner.pooled_iter + learner.max_iter * len(
+            range(0, N_REPLICAS, chunk))
+        models.append(clf)
+    if launches != expected:
+        fail("tenancy", f"tenant fits launched the scaled-Gram kernel "
+             f"{launches} times, expected {expected}")
+    return models + [tree], launches, seconds
+
+
+def refit_hook(at_window: int):
+    """The budgeted refits, run after window ``at_window`` of a stepped
+    drive: t0 and t3 each get an ``OnlineTrainer`` over a buffer of
+    TENANCY["refit_rows"] shifted labelled rows with the fleet
+    budgeter's hook. Each tenant is triggered until the window's budget
+    is spent (its quota, then one more): every allowed trigger is
+    refitted cold (8 Gram launches at n = 1,024) and published (swapped
+    in) on the drive's thread between windows; the last is denied and
+    counted. Returns the hook and its record."""
+    from spark_bagging_tpu_torch.online import LabeledBuffer, OnlineTrainer
+
+    n = TENANCY["refit_rows"]
+    Xr, yr = fresh_covtype(4 * n, TENANCY["seed"] + 2)
+    Xr = Xr + np.float32(TENANCY["refit_shift"])
+    record = {"tenants": {}, "models": {}, "windows": []}
+
+    def hook(w_i: int, vt: float, fleet) -> None:
+        if w_i != at_window:
+            return
+        k = 0
+        for name in ("t0", "t3"):
+            quota = fleet.budget.quota(name)
+            buf = LabeledBuffer(capacity_rows=n, labels={"model": name})
+            tr = OnlineTrainer(
+                fleet.registry, name, buf, epochs=1, batch_rows=n,
+                min_refit_rows=n // 2, margin=TENANCY["refit_margin"],
+                seed=TENANCY["seed"],
+                refit_budget=fleet.budget.for_tenant(name),
+                updater_opts={"warm": False})
+            actions, t0 = [], time.perf_counter()
+            for _ in range(quota + 1):
+                buf.add(Xr[k * n:(k + 1) * n], yr[k * n:(k + 1) * n])
+                tr.trigger(reason="drift", now=vt)
+                if tr.pending:
+                    k += 1
+                    actions += [r.get("action") for r in tr.run_pending()]
+                    version = fleet.registry.version(name)
+                    record["models"][name, version] = (
+                        fleet.registry.model(name))
+            record["tenants"][name] = dict(
+                quota=quota, actions=actions,
+                budget_denied=tr.budget_denied,
+                version=fleet.registry.version(name),
+                seconds=time.perf_counter() - t0)
+        record["windows"].append(w_i)
+        record["window_rows"] = Xr[:n]
+
+    return hook, record
+
+
+def threaded_drive(models: list) -> dict:
+    """The threaded fleet: TENANCY["clients"] clients send single rows
+    (Zipf-routed, row seed 81); each submits and dispatches under one
+    lock on the wall clock (the WFQ is driven at window boundaries, not
+    free-running) and waits for its answer outside it, while the
+    tenants' batcher threads forward concurrently. Numbers, not gates:
+    rows/s, each tenant's p50/p99, the tail tenants' p99, sheds, and the
+    captures on the request path (a restore on the dispatch thread can
+    demote a tenant whose requests wait in its batcher: they capture on
+    demand on its thread)."""
+    import threading
+
+    from spark_bagging_tpu_torch.tenancy import AdmissionShed
+
+    n = TENANCY["threaded_requests"]
+    names = tenant_names()
+    Xs, _ = fresh_covtype(n, TENANCY["seed"] + 1)
+    owner = zipf_owners(n, TENANCY["seed"] + 1)
+    fleet, plane, _root, undo = tenant_stack(models, threaded=True)
+    lock, fleet_lock = threading.Lock(), threading.Lock()
+    state = {"next": 0}
+    lat = {t: [] for t in names}
+    sheds, failed = {}, []
+    c0, ev0 = compiles_of(), len(fleet.residency.events())
+
+    def client() -> None:
+        while True:
+            with lock:
+                i = state["next"]
+                state["next"] += 1
+            if i >= n:
+                return
+            name = names[int(owner[i])]
+            t_req = time.perf_counter()
+            rec = {"future": None, "shed": None}
+            with fleet_lock:
+                now = time.perf_counter() - t_start
+                try:
+                    fleet.submit(name, Xs[i:i + 1], now=now)
+                except AdmissionShed as e:
+                    rec["shed"] = e.reason
+                else:
+                    (rec,) = fleet.dispatch(now=now)
+            if rec["future"] is None:
+                with lock:
+                    key = f"{name}:{rec['shed']}"
+                    sheds[key] = sheds.get(key, 0) + 1
+                continue
+            try:
+                rec["future"].result(120)
+            except Exception as e:  # noqa: BLE001 - counted
+                failed.append(repr(e))
+                continue
+            ms = (time.perf_counter() - t_req) * 1e3
+            with lock:
+                lat[name].append(ms)
+            fleet.note_latency(name, ms, trace_id=rec.get("trace_id"))
+
+    threads = [threading.Thread(target=client)
+               for _ in range(TENANCY["clients"])]
+    t_start = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    wall = time.perf_counter() - t_start
+    fleet.export_gauges()
+    from spark_bagging_tpu_torch import telemetry
+
+    events = fleet.residency.events()[ev0:]
+    restored = sum(e.get("buckets", 0) for e in events
+                   if e["kind"] == "restore")
+    captures = compiles_of() - c0
+    served = sum(len(v) for v in lat.values())
+    per = {t: {"served": len(v),
+               "p50_ms": percentile(sorted(v), 0.5) if v else None,
+               "p99_ms": percentile(sorted(v), 0.99) if v else None}
+           for t, v in lat.items()}
+    out = dict(requests=n, clients=TENANCY["clients"], seconds=wall,
+               served_rows=served, rows_per_s=served / wall,
+               per_tenant=per,
+               tail_p99_ms=telemetry.registry().gauge(
+                   "sbt_tenancy_tail_p99_ms").value,
+               sheds=dict(sorted(sheds.items())), failed=len(failed),
+               errors=failed[:3],
+               demotions=sum(1 for e in events if e["kind"] == "demote"),
+               restores=sum(1 for e in events if e["kind"] == "restore"),
+               captures=captures, restore_captures=restored,
+               captures_on_requests=captures - restored,
+               alive_threads=sum(t.is_alive() for t in threads))
+    undo()
+    return out
+
+
+def phase_tenancy(X: np.ndarray, y: np.ndarray, tree):
+    """The tenancy plane on the card (module docstring of
+    ``spark_bagging_tpu_torch/tenancy``) under the JAX drill's default
+    policy at full width: the stepped drive twice (its transcript
+    byte-identical, every served output bitwise that of a solo
+    registry, no capture on a request, captures after warm-up = the
+    restored ladders, the ledger = the residents' graph_pool_bytes after
+    every transition, a demotion and a restore, only t0 quota-shed), the
+    budgeted refits under the stepped drive, and the threaded drive's
+    numbers. Returns the models, the first run, the workload and the
+    path's scaled-Gram launches."""
+    t_phase = time.perf_counter()
+    models, fit_launches, fit_s = tenant_fits(X, y, tree)
+    workload = tenancy_workload()
+    reqs, owner, payload = workload
+    names = tenant_names()
+    if len(reqs) < TENANCY["min_requests"]:
+        fail("tenancy", f"{len(reqs)} requests, fewer than "
+             f"{TENANCY['min_requests']}")
+    memory = release_memory(models)
+    runs = [stepped_drive(models, workload, len(reqs)) for _ in range(2)]
+    first = runs[0]
+    model_of = {(t, 1): m for t, m in zip(names, models)}
+    t0 = time.perf_counter()
+    solo = solo_outputs(model_of, first["comp"], payload)
+    solo_s = time.perf_counter() - t0
+    unequal = [unequal_outputs(r["outputs"], solo, r["outputs"])
+               for r in runs]
+    sheds = first["transcript"]["sheds"]
+    # the budgeted refits under a stepped drive of the first requests
+    shapes, undo_shapes = record_gram_shapes()
+    n_refit = TENANCY["refit_requests"]
+    at = len(plan_windows(reqs[:n_refit],
+                          TENANCY["batcher"]["max_delay_ms"] / 1e3,
+                          TENANCY["batcher"]["idle_flush_ms"] / 1e3)) // 3
+    hook, rec = refit_hook(at)
+    from spark_bagging_tpu_torch import telemetry
+
+    def denied_counts() -> dict:
+        return {t: telemetry.registry().counter(
+            "sbt_tenancy_refit_denied_total", labels={"tenant": t}).value
+            for t in ("t0", "t3")}
+
+    denied0 = denied_counts()
+    reset_launches()
+    try:
+        refit_run = stepped_drive(models, workload, n_refit, refit=hook)
+    finally:
+        undo_shapes()
+    refit_launches = read_launches()["scaled_gram"]
+    refits = sum(1 for t in rec["tenants"].values() for a in t["actions"])
+    refit_solo = solo_outputs({**model_of, **rec["models"]},
+                              refit_run["comp"], payload)
+    refit_unequal = unequal_outputs(refit_run["outputs"], refit_solo,
+                                    refit_run["outputs"])
+    denied_counter = {t: v - denied0[t]
+                      for t, v in denied_counts().items()}
+    kernel_rows = gram_at_shapes(rec.get("window_rows", X[:1024]),
+                                 sorted({r for r, _ in shapes}))
+    threaded = threaded_drive(models)
+    run_fields = [dict(
+        requests=r["requests"], windows=r["windows"],
+        drive_seconds=r["drive_seconds"], digest=r["digest"],
+        served=len(r["outputs"]), failed=len(r["failed"]),
+        demotions=r["demotions"], restores=r["restores"],
+        post_warmup_captures=r["post_warmup_captures"],
+        restore_captures=r["restore_captures"],
+        restore_buckets=r["restore_buckets"],
+        request_captures=r["request_captures"],
+        post_warmup_by_tenant=r["post_warmup_by_tenant"],
+        ledger_checks=r["ledger_checks"],
+        ledger_unequal=r["ledger_unequal_count"],
+        ledger_unequal_first=r["ledger_unequal"],
+        outputs_unequal_to_solo=len(u), memory=r["memory"],
+        restore_ms=r["restore_ms"],
+        aot_root_written=r["aot_root_written"])
+        for r, u in zip(runs, unequal)]
+    fields = dict(
+        tenants=names, replicas=N_REPLICAS, fit_seconds=fit_s,
+        fit_gram_launches=fit_launches,
+        graph_pool_bytes_at_warmup=first["pool_bytes"],
+        reserved_around_a_release=memory,
+        stepped=run_fields,
+        transcripts_identical=runs[0]["digest"] == runs[1]["digest"],
+        sheds=sheds, downstream_sheds=first["transcript"]["downstream_sheds"],
+        admitted=first["transcript"]["admitted"],
+        residency=first["transcript"]["residency_events"][:6],
+        budget=first["transcript"]["budget_counts"],
+        solo_seconds=solo_s,
+        refit=dict(requests=refit_run["requests"], at_window=at,
+                   tenants=rec["tenants"], refits=refits,
+                   gram_launches=refit_launches,
+                   gram_launch_shapes=sorted(set(shapes)),
+                   gram_at_refit_shapes=kernel_rows,
+                   refit_denied_counter=denied_counter,
+                   failed=len(refit_run["failed"]),
+                   outputs_unequal_to_solo=len(refit_unequal),
+                   swap_captures=refit_run["swap_captures"],
+                   restore_captures=refit_run["restore_captures"],
+                   restore_buckets=refit_run["restore_buckets"],
+                   request_captures=refit_run["request_captures"],
+                   ledger_unequal=refit_run["ledger_unequal_count"]),
+        threaded=threaded,
+        phase_seconds=time.perf_counter() - t_phase, card=CARD)
+    ok = (fields["transcripts_identical"]
+          and all(not r["failed"] and r["request_captures"] == 0
+                  and r["restore_captures"] == r["restore_buckets"]
+                  == r["post_warmup_captures"]
+                  and r["ledger_unequal_count"] == 0
+                  and r["demotions"] >= 1 and r["restores"] >= 1
+                  and not r["aot_root_written"] for r in runs)
+          and not any(unequal)
+          and set(sheds) == {"t0"} and set(sheds["t0"]) == {"quota"}
+          and not first["transcript"]["downstream_sheds"]
+          and refit_launches == 8 * refits > 0
+          and all(t["budget_denied"] == 1 and t["actions"]
+                  and set(t["actions"]) == {"published"}
+                  and t["version"] == 1 + len(t["actions"])
+                  for t in rec["tenants"].values())
+          and all(v == 1.0 for v in denied_counter.values())
+          and not refit_run["failed"] and not refit_unequal
+          and refit_run["request_captures"] == 0
+          and refit_run["ledger_unequal_count"] == 0
+          and all(r["max_entry_err"] <= GRAM_TOL for r in kernel_rows)
+          and threaded["failed"] == 0 and threaded["alive_threads"] == 0)
+    emit("tenancy", ok=ok, **fields)
+    if not ok:
+        fail("tenancy", "checks failed (the line above)")
+    return models, first, workload, fit_launches + refit_launches
+
+
+def phase_tenant_chaos(models: list, first: dict, workload) -> None:
+    """The builtin ``tenant-chaos`` plan armed after warm-up over the
+    stepped drive's first TENANCY["chaos_requests"]: t1's dispatches 2-4
+    fail, it trips into quarantine, is shed with ``TenantQuarantined``,
+    probes and recovers inside the run; every other tenant's outputs are
+    bitwise those of the run without the plan, none of them captures on
+    a request, and ``/debug/tenancy`` over the exposition server returns
+    the fleet's report with t1's quarantine state in it. The plan's
+    ``aot.load`` spec never fires (no persisted executable cache)."""
+    from spark_bagging_tpu_torch import faults, tenancy
+    from spark_bagging_tpu_torch.telemetry import server
+
+    t_phase = time.perf_counter()
+    seen = {}
+
+    def inspect(fleet) -> None:
+        tenancy.install(fleet)
+        port = server.start_server(0)
+        try:
+            code, body = http_get(port, "/debug/tenancy")
+            seen["code"] = code
+            seen["body"] = json.loads(body) if code == 200 else body
+        finally:
+            server.stop_server()
+            tenancy.uninstall()
+
+    plan = faults.builtin_plan("tenant-chaos", seed=TENANCY["seed"])
+    run = stepped_drive(models, workload, TENANCY["chaos_requests"],
+                        plan=plan, inspect=inspect)
+    names = tenant_names()
+    snap = plan.snapshot()
+    by_tenant = {t: [i for w in run["comp"] for (u, _v, ids) in w
+                     if u == t for i in ids] for t in names}
+    bystanders = [t for t in names if t != "t1"]
+    unequal = {t: len(unequal_outputs(run["outputs"], first["outputs"],
+                                      by_tenant[t])) for t in bystanders}
+    # the same requests without the plan: per-tenant served counts
+    base = {t: sum(1 for w in first["comp"] for (u, _v, ids) in w
+                   if u == t for i in ids
+                   if i < run["requests"]) for t in names}
+    body = seen.get("body") or {}
+    q = body.get("quarantine", {}) if isinstance(body, dict) else {}
+    counts = run["transcript"]["quarantine"]["counts"]
+    quarantine_sheds = [s for s in run["shed_at_submit"]
+                        if s[2] == "quarantine"]
+    fields = dict(
+        plan=plan.name, fired_total=snap["fired_total"],
+        tenant_hits=snap.get("tenant_hits"),
+        quarantine=counts,
+        quarantine_events=run["transcript"]["quarantine"]["events"],
+        quarantine_sheds=len(quarantine_sheds),
+        downstream_sheds=run["transcript"]["downstream_sheds"],
+        served_by_tenant={t: len(v) for t, v in by_tenant.items()},
+        served_by_tenant_without_plan=base,
+        bystander_outputs_unequal=unequal,
+        post_warmup_by_tenant=run["post_warmup_by_tenant"],
+        # the run without the plan over the same windows (the chaos
+        # drive's last window may be a cut one)
+        post_warmup_by_tenant_without_plan=first["caps_by_window"][
+            run["windows"] - 1],
+        request_captures=run["request_captures"],
+        restore_captures=run["restore_captures"],
+        restore_buckets=run["restore_buckets"],
+        ledger_unequal=run["ledger_unequal_count"],
+        failed=len(run["failed"]), debug_tenancy_code=seen.get("code"),
+        debug_tenancy_t1=q.get("tenants", {}).get("t1"),
+        phase_seconds=time.perf_counter() - t_phase, card=CARD)
+    ok = (counts["trips"] == {"t1": 1} and counts["recoveries"] == {"t1": 1}
+          and len(quarantine_sheds) >= 1
+          and all(s[1] == "t1" for s in quarantine_sheds)
+          and set(run["transcript"]["downstream_sheds"]) == {"t1"}
+          and not any(unequal.values())
+          and all(fields["served_by_tenant"][t] == base[t]
+                  for t in bystanders)
+          and run["request_captures"] == 0
+          and run["restore_captures"] == run["restore_buckets"]
+          and run["ledger_unequal_count"] == 0 and not run["failed"]
+          and seen.get("code") == 200 and body.get("enabled") is True
+          and q.get("tenants", {}).get("t1", {}).get("trips") == 1)
+    emit("tenant_chaos", ok=ok, **fields)
+    if not ok:
+        fail("tenant_chaos", "checks failed (the line above)")
+
+
+
 # -- the data plane: file readers and config 8 -------------------------
 
 def write_reader_files(d: str, X: np.ndarray, y: np.ndarray,
@@ -4904,6 +5701,11 @@ def main() -> int:
     phase_serving_trees(tree, X)
     phase_quality_tap(tree, X, "quality_tap_trees")
     phase_planes_trees(tree, X)
+    tenants, tenancy_run, tenancy_wl, tenancy_launches = phase_tenancy(
+        X, y, tree)
+    phase_tenant_chaos(tenants, tenancy_run, tenancy_wl)
+    del tenants, tenancy_run, tenancy_wl
+    torch.cuda.empty_cache()
     wt_launches, wt_codes_launches = phase_warm_start_trees(tree, X, y)
     del tree
     torch.cuda.empty_cache()
@@ -4970,8 +5772,9 @@ def main() -> int:
     # paths count too: the logistic growth's Gram launches, the grown
     # trees' and the resumed tree stream's histogram and codes launches;
     # so do the online paths: the warm steps' and the anchor replay's
-    # Gram launches, the drift loop's refit, and the planes phase's
-    # refit under the device profile
+    # Gram launches, the drift loop's refit, the planes phase's refit
+    # under the device profile, and the tenancy phase's five tenant fits
+    # and its budgeted refits
     f32 = rows[max(Rs)]["float32"]
     deepest = hist_rows[max(tree_Rs), 2 ** (TREE["max_depth"] - 1), "bfloat16"]
     print(json.dumps({"kernels": [{
@@ -4980,7 +5783,8 @@ def main() -> int:
         "source": "spark_bagging_tpu_torch/csrc/scaled_gram.cu",
         "replaces": "spark_bagging_tpu/ops/gram.py:53",
         "launches": launches + warm_launches + online_launches
-        + anchor_launches + loop_launches + planes_launches,
+        + anchor_launches + loop_launches + planes_launches
+        + tenancy_launches,
         "max_abs_err": f32["max_abs_err"],
         "ms": f32["kernel_ms"],
         "plain_ms": f32["plain_ms"],

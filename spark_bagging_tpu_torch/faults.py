@@ -502,12 +502,15 @@ def builtin_plan_spec(name: str, seed: int = 0) -> dict[str, Any]:
       quarantine, and its first post-recovery restore hits a corrupt
       bucket read.
 
-    ``shard-loss`` and ``tenant-chaos`` are carried as definitions:
-    their sites (``executor.mesh_forward``, ``fleet.dispatch``,
-    ``aot.load``) have no probe in the port yet (mesh serving is
-    ROADMAP Queue A 12, tenancy Queue A 15 part 3), so armed here they
-    never fire. The worker drills need a THREADED batcher (a stepped
-    batcher has no worker, where ``batcher.worker`` can never fire).
+    ``shard-loss`` is carried as a definition: its site
+    (``executor.mesh_forward``) has no probe in the port yet (mesh
+    serving is ROADMAP Queue A 12), so armed here it never fires. In
+    ``tenant-chaos`` the ``fleet.dispatch`` spec fires
+    (``tenancy/fleet.py``); its ``aot.load`` spec stays a definition that
+    never fires — the port has no persisted executable cache to read (a
+    CUDA graph cannot be serialized; a restore re-captures). The worker
+    drills need a THREADED batcher (a stepped batcher has no worker,
+    where ``batcher.worker`` can never fire).
     """
     plans: dict[str, list[dict[str, Any]]] = {
         "blips": [

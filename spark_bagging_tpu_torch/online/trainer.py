@@ -215,8 +215,8 @@ class OnlineTrainer:
         self._labels = {"model": self.model_name}
         self.trigger_rules = (tuple(trigger_rules)
                               if trigger_rules is not None else None)
-        # per-tenant refit budgeting: a ``now -> bool`` hook (the JAX
-        # package's ``tenancy.RefitBudgeter.for_tenant``) consulted at
+        # per-tenant refit budgeting: a ``now -> bool`` hook
+        # (``tenancy.RefitBudgeter.for_tenant``) consulted at
         # TRIGGER time — a denied trigger is dropped (counted), never
         # queued, so one drifting hot tenant cannot monopolize the
         # fleet's refit compute while the tail's alerts rot in a queue

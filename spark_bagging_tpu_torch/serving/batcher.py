@@ -90,9 +90,10 @@ The port's copy of the JAX package's ``serving/batcher.py``: every
 batcher registers its :meth:`MicroBatcher.health` with the exposition
 server's ``/healthz`` (``telemetry/server.py``), and every finished
 request breakdown feeds the performance plane (``telemetry/perf.py``)
-while one is installed. The tenancy journey's re-anchored breakdown
-(admission, fair-queue and restore stages before the batcher) waits for
-the tenancy plane (ROADMAP Queue A 15, part 3).
+while one is installed. A request the tenancy fleet
+(``tenancy/fleet.py``) minted carries its journey: its breakdown is
+re-anchored at the fleet's submit, with the admission, fair-queue,
+dispatch and restore stages before the batcher.
 """
 
 from __future__ import annotations
@@ -1298,6 +1299,30 @@ class MicroBatcher:
         }
         if error is not None:
             bd["error"] = error
+        j = r.trace.journey
+        if j is not None:
+            # tenancy journey: the fleet minted this trace before
+            # admission, so re-anchor the decomposition at the fleet
+            # boundary. A restore the request absorbed (its tenant's
+            # ladder re-captured) is carved OUT of its host interval —
+            # queue wait for a stepped restore (touch runs between
+            # submit and run_pending), dispatch for a threaded one
+            # (touch runs before submit) — and surfaced as its own
+            # stage, keeping the tiling exact: admission + wfq +
+            # dispatch + restore + queue + batch == total (re-based to
+            # the fleet submit instant).
+            pre = float(j.get("restore_pre_ms", 0.0))
+            post = float(j.get("restore_post_ms", 0.0))
+            bd["queue_ms"] = bd["queue_ms"] - post
+            bd["tenant"] = j.get("tenant")
+            bd["admission_ms"] = j.get("admission_ms", 0.0)
+            bd["wfq_ms"] = j.get("wfq_ms", 0.0)
+            bd["restore_ms"] = pre + post
+            bd["dispatch_ms"] = (
+                (r.t_submit - j["t_pop"]) * 1e3 - pre
+                if "t_pop" in j else 0.0)
+            if "t0" in j:
+                bd["total_ms"] = (t_done - j["t0"]) * 1e3
         r.trace.breakdown.update(bd)
         # performance-attribution probe (telemetry/perf.py): rides the
         # breakdown that was just built — one module-attribute read

@@ -37,7 +37,10 @@ counted by ``torch.utils.flop_counter.FlopCounterMode`` before and
 outside the capture (``flops`` is None for a forward with no counted
 product, such as the trees', and attribution falls back to rows), and
 the bytes of every input read once (parameters, subspaces, the slab)
-plus the output written once. They feed ``sbt_serving_bucket_cost_*``,
+plus the output written once — once per executor and bucket: a
+re-capture after :meth:`EnsembleExecutor.release_programs` (a tenant's
+restore) reuses the counted cost, since neither the weights nor the
+shape changed. They feed ``sbt_serving_bucket_cost_*``,
 ``sbt_serving_flops_total`` / ``sbt_serving_padding_flops_total`` and
 the performance plane's cost model.
 
@@ -89,7 +92,9 @@ from spark_bagging_tpu_torch.telemetry import tracing
 _ROADMAP_MESH = "ROADMAP Queue A 12: parallel/"
 
 #: eager runs on a side stream before a capture (cuBLAS handles,
-#: workspaces and the allocator's blocks settle outside the graph)
+#: workspaces and the allocator's blocks settle outside the graph); a
+#: re-capture of a bucket this executor already captured (a tenant's
+#: restore) runs one, which sizes the static output
 CAPTURE_WARMUP_ITERS = 2
 
 
@@ -118,14 +123,17 @@ class EagerProgram:
     nbytes = None
 
     def __init__(self, fn, params, subspaces, bucket: int, n_features: int,
-                 row_axis: int = 0):
+                 row_axis: int = 0, cost: dict | None = None):
         self._fn, self._params, self._subspaces = fn, params, subspaces
         self.row_axis = row_axis
         # the build runs the forward once, as a capture's warm-up does,
-        # and counts its cost
-        _, self.cost = counted_forward(
-            fn, params, subspaces,
-            torch.zeros((bucket, n_features), dtype=torch.float32))
+        # and counts its cost unless it is already known
+        x = torch.zeros((bucket, n_features), dtype=torch.float32)
+        if cost is None:
+            _, cost = counted_forward(fn, params, subspaces, x)
+        else:
+            fn(params, subspaces, x)
+        self.cost = cost
 
     def run(self, Xp: np.ndarray, fill: int) -> np.ndarray:
         X = (torch.from_numpy(Xp) if Xp.flags.writeable
@@ -164,11 +172,12 @@ class GraphProgram:
     in one contiguous copy and the real rows are sliced on the host).
 
     ``cost`` is the forward's cost at this bucket (:func:`counted_forward`),
-    counted on the first warm-up call, before and outside the capture.
+    counted on the first warm-up call, before and outside the capture —
+    or passed in when the executor already counted it.
     """
 
     def __init__(self, fn, params, subspaces, bucket: int, n_features: int,
-                 pool, stream, row_axis: int = 0):
+                 pool, stream, row_axis: int = 0, cost: dict | None = None):
         device = subspaces.device
         self._fn, self._params, self._subspaces = fn, params, subspaces
         self.row_axis = row_axis
@@ -177,9 +186,13 @@ class GraphProgram:
                         device=device)
         stream.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(stream):
-            warm, self.cost = counted_forward(fn, params, subspaces, x)
-            for _ in range(CAPTURE_WARMUP_ITERS - 1):
+            if cost is None:
+                warm, cost = counted_forward(fn, params, subspaces, x)
+                for _ in range(CAPTURE_WARMUP_ITERS - 1):
+                    warm = fn(params, subspaces, x)
+            else:
                 warm = fn(params, subspaces, x)
+        self.cost = cost
         torch.cuda.current_stream(device).wait_stream(stream)
         # the static output lives outside the pool: a replay of another
         # bucket's graph that reuses this graph's pool blocks can never
@@ -192,10 +205,18 @@ class GraphProgram:
         # other threads replay the live graphs and copy requests in; only
         # this thread's host syncs may invalidate the capture (the
         # capture stream is non-blocking, so their default-stream work
-        # never joins it)
-        with torch.cuda.graph(graph, pool=pool, stream=stream,
-                              capture_error_mode="thread_local"):
-            out.copy_(fn(params, subspaces, x))
+        # never joins it). The capture is begun and ended directly, not
+        # through ``torch.cuda.graph``, whose entry synchronizes the
+        # device and empties the device and pinned-host caches before
+        # every capture: a restore re-captures a whole ladder, and each
+        # of those frees came back as fresh allocations for the next
+        # capture (and a device-wide wait on the other threads' replays)
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                out.copy_(fn(params, subspaces, x))
+            finally:
+                graph.capture_end()
         torch.cuda.synchronize(device)
         # a live graph's pool segments are never released, so the growth
         # is the capture's own and not negative
@@ -289,6 +310,9 @@ class EnsembleExecutor:
         # product): the denominator that turns padding waste from rows
         # into FLOPs, and the performance plane's cost model
         self.bucket_costs: dict[int, dict[str, float | None]] = {}
+        # (row axis, bucket) -> that cost, kept across release_programs:
+        # a re-capture reuses it instead of counting again
+        self._counted: dict[tuple[int, int], dict] = {}
         # the disagreement tap's per-replica programs, one a bucket,
         # built on first need (warmup_replica, or a sampled batch)
         self._replica_compiled: dict[int, Any] = {}
@@ -366,22 +390,31 @@ class EnsembleExecutor:
         )
 
     def _new_program(self, bucket: int, fn=None, row_axis: int = 0):
+        """Build one program (the caller holds the build lock)."""
         fn = self._fn if fn is None else fn
+        key = (row_axis, bucket)
         if self.device.type != "cuda":
-            return EagerProgram(fn, self._params, self._subspaces,
-                                bucket, self.n_features, row_axis)
-        try:
-            return GraphProgram(fn, self._params, self._subspaces,
-                                bucket, self.n_features, self._pool,
-                                self._stream, row_axis)
-        except Exception as e:
-            what = "forward" if row_axis == 0 else "per-replica forward"
-            raise RuntimeError(
-                f"CUDA-graph capture of the {what} at bucket {bucket} "
-                f"failed ({e!r}); a CUDA model is never served eagerly — "
-                "the forward must not synchronize with the host or size "
-                "its allocations from values it reads on the card"
-            ) from e
+            prog = EagerProgram(fn, self._params, self._subspaces, bucket,
+                                self.n_features, row_axis,
+                                self._counted.get(key))
+        else:
+            try:
+                prog = GraphProgram(fn, self._params, self._subspaces,
+                                    bucket, self.n_features, self._pool,
+                                    self._stream, row_axis,
+                                    self._counted.get(key))
+            except Exception as e:
+                what = "forward" if row_axis == 0 else "per-replica forward"
+                raise RuntimeError(
+                    f"CUDA-graph capture of the {what} at bucket {bucket} "
+                    f"failed ({e!r}); a CUDA model is never served "
+                    "eagerly — the forward must not synchronize with the "
+                    "host or size its allocations from values it reads on "
+                    "the card"
+                ) from e
+        # sbt-lint: disable=shared-state-unlocked — every caller holds self._build_lock
+        self._counted[key] = prog.cost
+        return prog
 
     def _build(self, bucket: int):
         """Install the program for one bucket: a unified-cache hit adopts
@@ -445,20 +478,32 @@ class EnsembleExecutor:
         return ()
 
     def release_programs(self) -> tuple[int, ...]:
-        """Drop every bucket program: the in-instance ladder is cleared,
-        so the captures (and their pool segments) free once no other
-        executor holds them (the program cache keeps none alive). The
-        executor stays serveable — the next request builds on demand.
-        Returns the buckets released (the disagreement tap's programs
-        go with them)."""
+        """Drop every bucket program — the tenant-demotion seam
+        (``tenancy/residency.py``). The unified cache drops this
+        fingerprint's entries (charged through the capacity plane's
+        eviction seam) while the executor still holds the programs, so
+        the weak entries are alive to be counted; then the in-instance
+        ladder and the disagreement tap's programs are cleared, and the
+        captures (and their pool segments) free once no other executor
+        holds them. The pool's segments go back to the caching
+        allocator; the device's reserved bytes fall only at
+        ``torch.cuda.empty_cache()``. Later captures go to a fresh graph
+        pool (the allocator refuses a capture into a private pool whose
+        last graph died). The executor stays serveable — the next
+        request, or :meth:`warmup`, builds on demand. Returns the
+        buckets released."""
         with self._build_lock:
             released = tuple(sorted(self._compiled))
+            _pc.cache().drop_fingerprint(self.fingerprint)
             self._compiled.clear()
             self._replica_compiled.clear()
             self.bucket_costs.clear()
+            if self._pool is not None:
+                self._pool = torch.cuda.graph_pool_handle()
         if released:
             telemetry.inc("sbt_serving_programs_released_total",
                           float(len(released)))
+        self._export_pool_bytes()
         return released
 
     # -- surfaces not ported yet ---------------------------------------

@@ -197,8 +197,8 @@ class ProgramCache:
 
     ``pin_policy`` is opt-in demand-aware victim selection: a
     fingerprint predicate whose True entries are skipped in LRU
-    eviction order (the tenancy plane's residency manager supplies
-    one; ROADMAP Queue A 15, part 3). None (default) keeps strict LRU.
+    eviction order (``tenancy/residency.cache_pin_policy`` supplies
+    one). None (default) keeps strict LRU.
     """
 
     def __init__(self, capacity: int = 256,

@@ -46,8 +46,10 @@ emit through:
    built by :func:`record_fit_report`: a plain dict whose numeric
    entries are ``sbt_fit_<key>`` gauges.
 
-Not ported yet: the tenancy plane (ROADMAP Queue A 15, part 3), whose
-``/debug/tenancy`` answers as with no fleet installed.
+The tenancy plane (``tenancy/``: admission, fair queuing, residency,
+refit budgets, quarantine) is a package of its own; it exports the
+``sbt_tenancy_*`` / ``sbt_tenant_*`` series, and ``/debug/tenancy``
+serves its installed fleet's report.
 
 Cost contract: **zero overhead when disabled** — every instrumentation
 site guards on :func:`enabled` (one attribute read) or goes through

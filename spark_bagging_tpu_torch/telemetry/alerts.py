@@ -49,9 +49,9 @@ once per flap.
 The port's copy of the JAX package's ``telemetry/alerts.py``.
 :func:`default_capacity_rules` reads the capacity plane's gauges
 (``telemetry/capacity.py``, refreshed on every scrape); its tenancy
-rules are definitions only until the tenancy plane that exports their
-series is ported (ROADMAP Queue A 15, part 3) — a rule over an absent
-series never fires.
+rules read the series the tenancy plane exports (``tenancy/fleet.py``,
+``tenancy/admission.py``, ``tenancy/residency.py``) — without a fleet
+those series are absent and the rules never fire.
 """
 
 from __future__ import annotations

@@ -40,9 +40,9 @@ layers, all fed from seams that already exist:
    clock.
 
 The port's copy of the JAX package's ``telemetry/perf.py``. The
-tenancy journey's stages and verdicts are carried for the tenancy
-plane (ROADMAP Queue A 15, part 3); without it no breakdown carries a
-tenant and they never fire.
+tenancy journey's stages and verdicts read the breakdowns of requests
+the tenancy fleet (``tenancy/fleet.py``) minted; without a fleet no
+breakdown carries a tenant and they never fire.
 
 Cost contract: the plane is **opt-in** (:func:`enable`). The probes
 compiled into the hot paths are the ``faults.ACTIVE`` pattern — one

@@ -110,6 +110,25 @@ SERIES_HELP: dict[str, str] = {
     "sbt_online_refit_errors_total": "Refits that died mid-flight and were absorbed by the trainer's supervision (label model)",
     "sbt_online_refit_seconds": "Wall-clock of one drain->refit->validate->publish cycle (histogram, label model)",
     "sbt_online_buffer_rows": "Labeled rows currently held by one online refit buffer (gauge; label model when attached)",
+    "sbt_tenancy_tenants": "Tenants configured in the installed TenantFleet (gauge)",
+    "sbt_tenancy_admitted_total": "Requests admitted by the tenancy admission controller (label tenant)",
+    "sbt_tenancy_shed_total": "Requests shed by admission policy (labels tenant + reason: quota, priority, or quarantine)",
+    "sbt_tenancy_overloads_total": "Downstream Overloaded sheds fed into the admission pressure window",
+    "sbt_tenancy_pressure_level": "Admission pressure state: 0 normal / 1 shed batch class / 2 shed standard too (gauge)",
+    "sbt_tenancy_demotions_total": "Tenants demoted from residency (programs released, AOT-persisted; label tenant)",
+    "sbt_tenancy_restores_total": "Demoted tenants restored from their AOT cache on first hit (label tenant)",
+    "sbt_tenancy_resident_tenants": "Tenants currently resident (compiled) under the residency budget (gauge)",
+    "sbt_tenancy_pin_violations_total": "Evictions/demotions that had to sacrifice a hot-pinned entry (label tenant, or level=cache)",
+    "sbt_tenancy_refit_denied_total": "Online-refit triggers denied by the per-tenant refit budget (label tenant)",
+    "sbt_tenancy_latency_p99_ms": "Per-tenant served-request p99 latency in ms (gauge, label tenant; host-band, never digested)",
+    "sbt_tenancy_latency_seconds": "Per-tenant served-request wall latency (log-scale histogram, label tenant, exemplar trace ids; bucket counts merge exactly across the fleet)",
+    "sbt_tenancy_tail_p99_ms": "p99 latency in ms over the tail tenants - everyone but the Zipf head (gauge; the fleet SLO burn signal)",
+    "sbt_tenant_quarantine_trips_total": "Tenants tripped into quarantine by the failure window (unlabeled total + label tenant)",
+    "sbt_tenant_quarantine_shed_total": "Requests shed because their tenant is quarantined (unlabeled total + label tenant)",
+    "sbt_tenant_quarantine_probes_total": "Single recovery probes admitted for quarantined tenants (label tenant)",
+    "sbt_tenant_quarantine_recoveries_total": "Quarantined tenants recovered by a successful probe (label tenant)",
+    "sbt_tenant_quarantine_failures_total": "Tenant-attributed failures fed into the quarantine window (labels tenant + kind)",
+    "sbt_tenant_quarantine_active": "Tenants currently quarantined or probing (gauge)",
     "sbt_online_refits_budget_denied_total": "Refit triggers dropped by the per-tenant refit budget hook (label model)",
     # the fit report's headline series (telemetry.record_fit_report)
     "sbt_replicas_fitted_total": "Base replicas fitted across all fit calls",

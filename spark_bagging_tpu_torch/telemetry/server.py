@@ -44,9 +44,9 @@ half — a zero-dependency stdlib ``http.server`` endpoint an operator
   the program cache, the per-resident eviction-decision explainer
   (LRU position, demand rank/class, bytes reclaimable, last-hit age),
   demand table, recent owner-attributed evictions, device memory;
-- ``GET /debug/tenancy`` — the tenant fleet's report; the tenancy
-  plane is not ported yet (ROADMAP Queue A 15, part 3), so this answers
-  as the JAX package does with no fleet installed;
+- ``GET /debug/tenancy`` — the installed tenant fleet's report
+  (``tenancy/fleet.py``: admission, WFQ, residency, refit budget,
+  quarantine), or ``{"enabled": false}`` with no fleet installed;
 - ``GET /debug/profile?seconds=N`` — on-demand live device profiling:
   starts a single-flight ``torch.profiler`` capture (the host's ops and
   the card's kernels and graph launches, every thread of the process)
@@ -321,11 +321,19 @@ def _debug_capacity(query: dict[str, list[str]]) -> dict[str, Any]:
 
 
 def _debug_tenancy() -> dict[str, Any]:
-    """The tenant fleet's policy report. The tenancy plane is not
-    ported yet (ROADMAP Queue A 15, part 3): this is the JAX package's
-    answer with no fleet installed."""
-    return {"enabled": False,
-            "note": "no TenantFleet installed (tenancy.install)"}
+    """The installed :class:`~spark_bagging_tpu_torch.tenancy.fleet.
+    TenantFleet`'s full policy report — admission state machine, WFQ
+    audit, residency transcript counts, refit budget, quarantine
+    machine state. An honest explicit shape when no fleet is installed
+    (a single-model process is the common case, not an error)."""
+    from spark_bagging_tpu_torch import tenancy
+
+    fleet = tenancy.get()
+    if fleet is None:
+        return {"enabled": False,
+                "note": "no TenantFleet installed (tenancy.install)"}
+    fleet.export_gauges()
+    return {"enabled": True, **fleet.report()}
 
 
 def _debug_profile(query: dict[str, list[str]]) -> tuple[int, dict]:

@@ -570,3 +570,14 @@ def test_telemetry_exports_are_the_jax_packages_less_the_unported():
 
     for name in port_names:
         assert hasattr(telemetry, name), name
+
+
+def test_tenancy_exports_are_the_jax_packages():
+    jax_names = _all_names(os.path.join(REPO, "spark_bagging_tpu",
+                                        "tenancy", "__init__.py"))
+    port_names = _all_names(os.path.join(PKG, "tenancy", "__init__.py"))
+    assert port_names == jax_names
+    from spark_bagging_tpu_torch import tenancy
+
+    for name in port_names:
+        assert hasattr(tenancy, name), name

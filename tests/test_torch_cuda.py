@@ -1632,3 +1632,147 @@ def test_a_scrape_never_initializes_cuda(cuda):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.split()[-1] == "false"
+
+
+# -- the tenancy plane on the card ------------------------------------------
+
+class _PinnedPlane:
+    """A demand plane that holds one tenant hot (pinned resident)."""
+
+    def __init__(self, hot):
+        self.hot = hot
+
+    def owner_label(self, fingerprint):
+        return None
+
+    def demand_class(self, owner):
+        return "hot" if owner == self.hot else "cold"
+
+
+def _solo_forward(est, X, ladder):
+    # a never-demoted executor of its own, built into a cache of its own
+    from spark_bagging_tpu_torch.serving import ModelRegistry, program_cache
+
+    prev = program_cache.install(program_cache.ProgramCache())
+    try:
+        reg = ModelRegistry(**ladder)
+        reg.register("solo", est, warmup=True)
+        return reg.executor("solo").forward(X)
+    finally:
+        program_cache.install(prev)
+
+
+def test_tenancy_demote_restore_round_trip_on_the_card(cuda):
+    # capacity 1 over two tenants: each touch demotes the other. A
+    # restore re-captures exactly the recorded ladder (counted), a
+    # demoted tenant's graphs die and its graph_pool_bytes read 0, the
+    # ledger equals the resident's graph_pool_bytes, and the answers are
+    # bitwise a never-demoted solo executor's
+    import gc
+    import tempfile
+    import weakref
+
+    from spark_bagging_tpu_torch import telemetry
+    from spark_bagging_tpu_torch.serving import ModelRegistry, program_cache
+    from spark_bagging_tpu_torch.telemetry import capacity
+    from spark_bagging_tpu_torch.tenancy import TenantFleet, TenantSpec
+
+    ladder = dict(min_bucket_rows=1, max_batch_rows=64)
+    models = {"a": _serving_model("logistic")[0],
+              "b": _serving_model("tree_hard")[0]}
+    X = _serving_model("logistic")[1][:37]
+    solo = {t: _solo_forward(m, X, ladder) for t, m in models.items()}
+    prev_cache = program_cache.install(program_cache.ProgramCache())
+    plane = capacity.enable()
+    try:
+        reg = ModelRegistry(**ladder)
+        fleet = TenantFleet([TenantSpec(name=t) for t in models],
+                            registry=reg, residency_capacity=1,
+                            aot_root=tempfile.mkdtemp(), plane=plane)
+        for t, m in models.items():
+            fleet.register(t, m, warmup=True)
+        n_rungs = len(reg.executor("b").compiled_buckets)
+        assert n_rungs == 7 and reg.executor("a").graph_pool_bytes == 0
+        c = telemetry.registry().counter("sbt_serving_compiles_total")
+        for t, other in (("a", "b"), ("b", "a"), ("a", "b")):
+            graphs = [weakref.ref(reg.executor(other).program(b).graph)
+                      for b in reg.executor(other).compiled_buckets]
+            c0 = c.value
+            assert fleet.residency.touch(t) == "restored"
+            assert c.value - c0 == n_rungs
+            gc.collect()
+            torch.cuda.synchronize()
+            assert all(g() is None for g in graphs)
+            assert reg.executor(other).graph_pool_bytes == 0
+            ex = reg.executor(t)
+            led = plane.ledger()
+            assert led["reconciled"]
+            assert led["cache"]["bytes"] == ex.graph_pool_bytes > 0
+            assert np.array_equal(ex.forward(X), solo[t])
+        assert c.value - c0 == n_rungs  # the forwards captured nothing
+        fleet.close()
+    finally:
+        capacity.disable()
+        program_cache.install(prev_cache)
+
+
+def test_tenancy_threaded_restore_while_another_tenant_replays(cuda):
+    # one thread replays tenant "a" (held hot, so never the victim) while
+    # the main thread restores "b" and "c" in turn, each restore
+    # capturing on the main thread and demoting the other: no request
+    # fails and every answer is bitwise
+    import tempfile
+    import threading
+
+    from spark_bagging_tpu_torch.serving import ModelRegistry, program_cache
+    from spark_bagging_tpu_torch.tenancy import TenantFleet, TenantSpec
+
+    ladder = dict(min_bucket_rows=1, max_batch_rows=64)
+    models = {"a": _serving_model("logistic", seed=0)[0],
+              "b": _serving_model("logistic", seed=1)[0],
+              "c": _serving_model("tree_hard", seed=2)[0]}
+    X = _serving_model("logistic")[1][:64]
+    solo = {t: _solo_forward(m, X, ladder) for t, m in models.items()}
+    # the hammer's requests of n rows run at n's own bucket
+    solo_a = [_solo_forward(models["a"], X[:n], ladder)
+              for n in range(1, 65)]
+    prev_cache = program_cache.install(program_cache.ProgramCache())
+    try:
+        reg = ModelRegistry(**ladder)
+        fleet = TenantFleet([TenantSpec(name=t) for t in models],
+                            registry=reg, residency_capacity=2,
+                            aot_root=tempfile.mkdtemp(),
+                            plane=_PinnedPlane("a"), threaded=True,
+                            batcher_opts=dict(max_delay_ms=0.5))
+        for t, m in models.items():
+            fleet.register(t, m, warmup=True)
+        errors, served, stop = [], [0], threading.Event()
+        b = fleet.batcher("a")
+
+        def hammer():
+            try:
+                while not stop.is_set():
+                    n = 1 + served[0] % 64
+                    got = b.submit(X[:n]).result(60)
+                    if not np.array_equal(got, solo_a[n - 1]):
+                        errors.append(n)
+                    served[0] += 1
+            except Exception as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+        th = threading.Thread(target=hammer)
+        th.start()
+        try:
+            for k in range(8):
+                t = "b" if k % 2 == 0 else "c"
+                assert fleet.residency.touch(t) == "restored"
+                assert "a" in fleet.residency.residents()
+                assert np.array_equal(reg.executor(t).forward(X), solo[t])
+        finally:
+            stop.set()
+            th.join(120)
+        assert not errors and not th.is_alive() and served[0] > 0
+        assert fleet.residency.counts()["restores"] == {"b": 4, "c": 4}
+        fleet.close()
+    finally:
+        program_cache.install(prev_cache)
