@@ -544,9 +544,10 @@ DRIFT = dict(fresh=3_200, shifted=3_200, post_swap=1_024, seed=71,
 READERS = dict(n_rows=200_000, chunk_rows=65_536, n_estimators=64,
                n_categorical=3, n_hash=64)
 # BASELINE config 8 (benchmarks/run_configs.py:551-664) at full width,
-# its rows cut from 40,000,000 to the config's own pre-flight floor
-# (run_configs.py:603, floor_rows=5_000_000): 25 chunks of 200,000 x 1024
-CRITEO = dict(n_rows=5_000_000, n_features=1024, chunk_rows=200_000,
+# its rows cut from 40,000,000 to half the config's own pre-flight floor
+# (run_configs.py:603, floor_rows=5_000_000) to fit the script's time
+# limit: 13 chunks of up to 200,000 x 1024
+CRITEO = dict(n_rows=2_500_000, n_features=1024, chunk_rows=200_000,
               n_estimators=128, n_epochs=1, steps_per_chunk=2, lr=0.05,
               l2=1e-4, n_test=100_000)
 # sklearn LogisticRegression(max_iter=100, C=1 / (1e-4 * 50,000)) on
@@ -555,6 +556,20 @@ CRITEO = dict(n_rows=5_000_000, n_features=1024, chunk_rows=200_000,
 CRITEO_PROXY_AUC = 1.0
 # chunks of config 8's stream timed for the host's and the device's pace
 CRITEO_PACE_CHUNKS = 2
+# the in-process mesh (parallel/) over repeated cuda:0 entries, at the
+# headline's full width: a replica mesh and a data mesh of the logistic
+# headline, config 3's trees on a 2 x 2 mesh, and replica-sharded
+# serving on the 1..256 ladder
+MESH = dict(replica=(1, 4), data=(4, 1), trees=(2, 2), clients=4,
+            requests=1_600, loss_requests=48)
+# a replica shard's Gram launch holds fewer replicas than the
+# single-device fit's, so its Hessians sum in another order (ROADMAP
+# Queue C, checked, not faults)
+MESH_PROBA_TOL = 1e-4
+# bootstrap=False, max_samples=1.0: the data-parallel fit is the
+# single-device fit (tests/test_sharded.py:85-101)
+MESH_EXACT_TOL = 1e-5
+MESH_TREE_ACC_TOL = 0.01
 # the card's `nvidia-smi` name and power limit, printed with every time
 # of the online and data-plane phases
 CARD = ""
@@ -578,6 +593,24 @@ def reset_launches() -> None:
     binned_left_stats.launches = 0
     binned_left_stats.float_launches = 0
     bin_codes.launches = 0
+    for fn in (scaled_grams, binned_left_stats, bin_codes):
+        fn.__dict__.pop("shard_launches", None)
+
+
+def shard_launches() -> dict:
+    """Each kernel's launches by mesh shard (``"data,replica"``) since
+    ``reset_launches``: what the threads of a mesh run launched."""
+    from spark_bagging_tpu_torch.ops.gram import scaled_grams
+    from spark_bagging_tpu_torch.ops.hist import bin_codes, binned_left_stats
+
+    out = {}
+    for name, fn in (("scaled_gram", scaled_grams),
+                     ("binned_left_stats", binned_left_stats),
+                     ("bin_codes", bin_codes)):
+        per = fn.__dict__.get("shard_launches", {})
+        out[name] = {f"{s[0]},{s[1]}": v for (attr, s), v in
+                     sorted(per.items()) if attr == "launches"}
+    return out
 
 
 def read_launches() -> dict:
@@ -775,10 +808,13 @@ def library_ms(Xb, S, op_t) -> float:
     return sum(a.elapsed_time(b) for a, b in spans)
 
 
-def phase_kernels(X: np.ndarray, Rs: list[int]) -> dict:
+def phase_kernels(X: np.ndarray, Rs: list[int],
+                  modes=("float32", "bfloat16"),
+                  phase: str = "kernels") -> dict:
     """The kernel against its plain version at every replica count the
-    fit launched it with, in both operand modes, every replica compared,
-    with times, bound and library yardstick at each shape."""
+    fit launched it with, in both operand modes (or ``modes``), every
+    replica compared, with times, bound and library yardstick at each
+    shape."""
     from spark_bagging_tpu_torch.ops.gram import (
         kernel_geometry,
         scaled_grams,
@@ -806,7 +842,7 @@ def phase_kernels(X: np.ndarray, Rs: list[int]) -> dict:
         t_simt, t_3xtf32 = 1e3 * flops / PEAK_FP32, 3e3 * flops / PEAK_TF32
         t_ops_mode = {"float32": min(t_simt, t_3xtf32),
                       "bfloat16": 1e3 * flops / PEAK_BF16}
-        for mode in ("float32", "bfloat16"):
+        for mode in modes:
             out = scaled_grams(Xb, S, op_dtype=mode)
             again = scaled_grams(Xb, S, op_dtype=mode)
             torch.cuda.synchronize()
@@ -837,12 +873,12 @@ def phase_kernels(X: np.ndarray, Rs: list[int]) -> dict:
                 bound_ms=max(t_ops, t_bytes),
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
             )
-            emit("kernels", kernel="scaled_gram", op_dtype=mode,
+            emit(phase, kernel="scaled_gram", op_dtype=mode,
                  shape=dict(n=n, d=d, P=P, R=R),
                  splits=geo["splits"], rows_per_split=geo["rows_per_split"],
-                 **row, **extra)
+                 **row, **extra, card=CARD)
             if not (err <= GRAM_TOL and bitwise):
-                fail("kernels", f"scaled_gram {mode} R={R}: entry error "
+                fail(phase, f"scaled_gram {mode} R={R}: entry error "
                      f"{err:.3g} (tol {GRAM_TOL}), bitwise repeat {bitwise}")
         del Xb, S, scale
         torch.cuda.empty_cache()
@@ -2019,7 +2055,7 @@ def phase_tree_stream_fit(X: np.ndarray, y: np.ndarray, acc_in_memory: float):
          chunk_rows=TREE_STREAM_CHUNK, n_chunks=rep["n_chunks"],
          n_passes=rep["n_passes"], fit_seconds=rep["fit_seconds"],
          fits_per_sec=rep["fits_per_sec"],
-         first_step_seconds=rep["first_step_seconds"],
+         first_step_seconds=rep["compile_seconds"],
          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
          launches=counts, expected_launches_each=expected,
          accuracy_100k=acc, accuracy_in_memory=acc_in_memory,
@@ -2333,7 +2369,7 @@ def phase_mlp_stream_fit() -> None:
          n_test=len(yte),
          warmup_fit_seconds=warmup_seconds, stream_seconds=stream_seconds,
          fit_seconds=rep["fit_seconds"],
-         first_step_seconds=rep["first_step_seconds"],
+         first_step_seconds=rep["compile_seconds"],
          row_replica_per_sec=cfg["n_rows"] * cfg["n_epochs"]
          * cfg["n_estimators"] / stream_seconds,
          fits_per_sec=rep["fits_per_sec"], n_chunks=rep["n_chunks"],
@@ -5535,7 +5571,7 @@ def criteo_bagger(n_estimators: int = CRITEO["n_estimators"]):
 
 def phase_criteo_stream() -> None:
     """BASELINE config 8 at full width, its rows cut to CRITEO["n_rows"]
-    (run_configs.py's own pre-flight floor): 128 bagged logistic
+    (half run_configs.py's own pre-flight floor): 128 bagged logistic
     regressions streamed by Adam over Criteo-shaped synthetic chunks of
     200,000 x 1024; test AUC on 100,000 fresh rows against sklearn's
     proxy minus 0.02; the stream's seconds, row-replicas/s, peak memory
@@ -5571,10 +5607,10 @@ def phase_criteo_stream() -> None:
     data_gib = cfg["n_rows"] * cfg["n_features"] * 4 / 2**30
     emit("criteo_stream", ok=True, **cfg, rows_cut_from=40_000_000,
          data_gib=data_gib,
-         exceeds="nothing: 5,000,000 x 1024 float32 would fit the 80 GB card"
+         exceeds="nothing: 2,500,000 x 1024 float32 would fit the 80 GB card"
                  "; streamed chunk by chunk all the same",
          warmup_fit_seconds=warmup_seconds, stream_seconds=stream_seconds,
-         first_step_seconds=rep["first_step_seconds"],
+         first_step_seconds=rep["compile_seconds"],
          row_replica_per_sec=cfg["n_rows"] * cfg["n_epochs"]
          * cfg["n_estimators"] / stream_seconds,
          n_chunks=rep["n_chunks"], opt_steps=rep["opt_steps"],
@@ -5596,6 +5632,381 @@ def phase_criteo_stream() -> None:
         fail("criteo_stream", f"bad probabilities, shape {proba.shape}")
     if not auc >= bar:
         fail("criteo_stream", f"test AUC {auc:.5f} below the bar {bar:.5f}")
+
+
+def mesh_of(data: int, replica: int):
+    """A (data, replica) mesh over repeated cuda:0 entries: each shard a
+    thread of its own on the one card."""
+    from spark_bagging_tpu_torch import make_mesh
+
+    return make_mesh(data, replica,
+                     devices=[torch.device("cuda", 0)] * (data * replica))
+
+
+def mesh_logistic_fit(phase: str, X, y, shape, single, **kw):
+    """The headline on a mesh: fit, per-shard launches against the
+    expected, accuracy and the probabilities against ``single``'s."""
+    from spark_bagging_tpu_torch import BaggingClassifier
+
+    learner = headline_learner()
+    clf = BaggingClassifier(learner, n_estimators=N_REPLICAS, seed=0,
+                            mesh=mesh_of(*shape), **kw)
+    reset_launches()
+    t0 = time.perf_counter()
+    clf.fit(X, y)
+    fit_seconds = time.perf_counter() - t0
+    counts, per_shard = read_launches(), shard_launches()
+    rep = clf.fit_report_
+    data, replica = shape
+    r_shard = N_REPLICAS // replica
+    chunk = rep["chunk_size_resolved"] or r_shard
+    n_chunks = -(-r_shard // chunk)
+    expected = learner.max_iter * n_chunks + (
+        learner.pooled_iter if learner.uses_pooled_init
+        and learner.pooled_amortizes(N_REPLICAS) else 0)
+    Xs = X[:N_SERVE_ROWS]
+    proba = clf.predict_proba(Xs)
+    acc = float((clf.classes_[proba.argmax(1)] == y[:N_SERVE_ROWS]).mean())
+    diff = float(np.abs(proba - single.predict_proba(Xs)).max())
+    shards = per_shard["scaled_gram"]
+    fields = dict(mesh=list(shape), rows_a_shard=N_ROWS // data,
+                  replicas_a_shard=r_shard, chunk_size=chunk,
+                  fit_seconds=fit_seconds, launches=counts,
+                  launches_by_shard=per_shard,
+                  expected_scaled_gram_launches_a_shard=expected,
+                  accuracy_100k=acc, acc_bar=ACC_BAR,
+                  max_abs_diff_vs_single=diff, card=CARD)
+    return clf, counts["scaled_gram"], fields, (
+        len(shards) == data * replica
+        and all(v == expected for v in shards.values())
+        and counts["scaled_gram"] == expected * data * replica
+        and acc >= ACC_BAR and np.isfinite(proba).all()), diff
+
+
+def record_shard_level(shard=(0, 0), level: int | None = None):
+    """Wrap the tree module's histogram calls to keep one shard's inputs
+    of one level (default the deepest), leaving the kernel wrappers and
+    their counts alone. Returns (record, restore)."""
+    import types
+
+    from spark_bagging_tpu_torch.models import tree as tree_mod
+    from spark_bagging_tpu_torch.ops import hist as hist_ops
+    from spark_bagging_tpu_torch.parallel import compat
+
+    want_n = 2 ** ((TREE["max_depth"] - 1) if level is None else level)
+    rec = {}
+
+    def lvl(codes, edges, node, S, *, n_nodes, hist_dtype, cols, integral):
+        # the shard's first chunk, its largest
+        if (compat.current_shard() == shard and n_nodes == want_n
+                and not rec):
+            rec.update(codes=codes, edges=edges, node=node.clone(), S=S,
+                       N=n_nodes, hist_dtype=hist_dtype, cols=cols,
+                       integral=integral)
+        return hist_ops.coded_left_stats(codes, edges, node, S,
+                                         n_nodes=n_nodes,
+                                         hist_dtype=hist_dtype, cols=cols,
+                                         integral=integral)
+
+    tree_mod.hist_ops = types.SimpleNamespace(
+        **{**vars(hist_ops), "coded_left_stats": lvl})
+    return rec, lambda: setattr(tree_mod, "hist_ops", hist_ops)
+
+
+def mesh_hist_check(c: dict) -> dict:
+    """The histogram kernel on a mesh shard's own level inputs: every
+    replica bit for bit against its plain version (integral statistics),
+    with times, bound and the library yardstick at the shard's shape."""
+    from spark_bagging_tpu_torch.ops.hist import (
+        coded_left_stats,
+        coded_left_stats_plain,
+    )
+
+    codes, cols, E, node, S, N, mode = (c[k] for k in (
+        "codes", "cols", "edges", "node", "S", "N", "hist_dtype"))
+    R, n, K = S.shape
+    F_all, (F, B) = codes.shape[1], E.shape[1:]
+
+    def run():
+        return coded_left_stats(codes, E, node, S, n_nodes=N,
+                                hist_dtype=mode, cols=cols, integral=True)
+
+    out = run()
+    unequal, max_abs, spans = 0, 0.0, []
+    for r in range(R):
+        box = []
+        spans.append(span(lambda: box.append(coded_left_stats_plain(
+            codes, E[r:r + 1], node[r:r + 1], S[r:r + 1], n_nodes=N,
+            hist_dtype=mode, cols=cols[r:r + 1]))))
+        unequal += not torch.equal(out[r], box[0][0])
+        max_abs = max(max_abs, float((out[r] - box[0][0]).abs().max()))
+    plain_ms = timed_spans(spans)
+    kernel_ms = cuda_ms(run, 3)
+    lib = hist_library_ms(codes, cols, E, node, S, N, mode)
+    out_bytes = 4.0 * R * F * B * N * K
+    shared_bytes = (4.0 * (node.numel() + S.numel() + R * F * B) + out_bytes
+                    + 4.0 * (n * F_all + R * F))
+    t_ops = 1e3 * float(R) * n * F * K / PEAK_FP32
+    t_bytes = 1e3 * shared_bytes / PEAK_BYTES
+    del out
+    torch.cuda.empty_cache()
+    return dict(shape=dict(R=R, n=n, F=F, F_all=F_all, B=B, N=N, K=K),
+                hist_dtype=mode, replicas_unequal=unequal,
+                max_abs_err=max_abs, kernel_ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=lib["index_add"], library_matmul_ms=lib["matmul"],
+                bound_ms=max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def mesh_trees(X, y, tree_acc: float) -> tuple[dict, dict]:
+    """Config 3's trees on a 2 x 2 mesh. With ``bootstrap=False`` the
+    mesh's edges are the shards' quantiles averaged in shard order, and
+    its trees equal, bit for bit, the single-device trees grown under
+    those edges (every level's integer table and the leaf counts sum
+    exactly over the shards). With the bootstrap, the accuracy is within
+    MESH_TREE_ACC_TOL of the single-device fit's."""
+    from spark_bagging_tpu_torch.ensemble import fit_ensemble
+    from spark_bagging_tpu_torch.ops import prng
+
+    shape = MESH["trees"]
+    edges = {}
+    exact = tree_bagger(N_REPLICAS, split_impl="fused")
+    exact.set_params(bootstrap=False, max_samples=1.0, mesh=mesh_of(*shape))
+    learner = exact._learner()
+    orig = type(learner).prepare
+
+    def record(self, Xs, *, row_mask=None, axis_name=None):
+        out = orig(self, Xs, row_mask=row_mask, axis_name=axis_name)
+        edges["E"] = out["edges"]
+        return out
+
+    type(learner).prepare = record
+    try:
+        exact.fit(X, y)
+    finally:
+        type(learner).prepare = orig
+    dev = torch.device("cuda")
+    grow = exact._fitted_learner
+    grow.prepare = lambda Xs, *, row_mask=None: grow._binned(Xs, edges["E"])
+    try:
+        params, _, _ = fit_ensemble(
+            grow, torch.as_tensor(X, device=dev),
+            torch.as_tensor(y.astype(np.int64), device=dev), prng.key(0, dev),
+            torch.arange(N_REPLICAS, device=dev), N_CLASSES,
+            bootstrap=False, n_subspace=exact.subspaces_.shape[1],
+            chunk_size=exact._chunk_resolved)
+    finally:
+        del grow.prepare
+    unequal = [k for k in ("feature", "threshold", "gain", "leaf_logp")
+               if not torch.equal(exact.ensemble_[k], params[k])]
+    del params, exact
+    torch.cuda.empty_cache()
+    boot = tree_bagger(N_REPLICAS, split_impl="fused")
+    boot.set_params(mesh=mesh_of(*shape))
+    reset_launches()
+    rec, restore = record_shard_level()
+    t0 = time.perf_counter()
+    try:
+        boot.fit(X, y)
+    finally:
+        restore()
+    fit_seconds = time.perf_counter() - t0
+    counts, per_shard = read_launches(), shard_launches()
+    rep = boot.fit_report_
+    r_shard = N_REPLICAS // shape[1]
+    chunk = rep["chunk_size_resolved"] or r_shard
+    expected = TREE["max_depth"] * -(-r_shard // chunk)
+    acc = boot.score(X[:N_SERVE_ROWS], y[:N_SERVE_ROWS])
+    hist = mesh_hist_check(rec)
+    del rec
+    fields = dict(mesh=list(shape), rows_a_shard=N_ROWS // shape[0],
+                  replicas_a_shard=r_shard, chunk_size=chunk,
+                  fit_seconds=fit_seconds, launches=counts,
+                  launches_by_shard=per_shard,
+                  expected_hist_launches_a_shard=expected,
+                  bootstrap_false_unequal_leaves=unequal,
+                  accuracy_100k=acc, single_device_accuracy_100k=tree_acc,
+                  acc_tol=MESH_TREE_ACC_TOL, hist_shard_0_0=hist, card=CARD)
+    hs, cs = per_shard["binned_left_stats"], per_shard["bin_codes"]
+    ok = (not unequal and not hist["replicas_unequal"]
+          and abs(acc - tree_acc) <= MESH_TREE_ACC_TOL
+          and len(hs) == 4 and all(v == expected for v in hs.values())
+          and len(cs) == 4 and all(v == 1 for v in cs.values()))
+    emit("mesh_trees", ok=ok, **fields)
+    if not ok:
+        fail("mesh_trees", f"checks failed: {fields}")
+    return counts, hist
+
+
+def mesh_serving(single, X: np.ndarray) -> None:
+    """``EnsembleExecutor(mesh=(1, 4))`` on the 1..256 ladder: one graph a
+    (bucket, shard) captured at warm-up only, every bucket bitwise the
+    single-device executor's, requests of 1-300 rows bitwise, rows/s at
+    concurrency 4 beside the single-device executor's, then the
+    ``shard-loss`` plan: shard 1 lost mid-traffic, every later output
+    bitwise the surviving subset's aggregate recomputed at its bucket,
+    and no request failing."""
+    import warnings
+
+    from spark_bagging_tpu_torch import faults, telemetry
+    from spark_bagging_tpu_torch.parallel.sharded import (
+        replica_subset_serving,
+    )
+    from spark_bagging_tpu_torch.serving import (
+        EnsembleExecutor,
+        program_cache,
+    )
+
+    opts = SERVE_LADDERS["bench"]
+    program_cache.clear()
+    ex1 = EnsembleExecutor(single, **opts)
+    ex1.warmup()
+    c0 = serving_compiles()
+    t0 = time.perf_counter()
+    exm = EnsembleExecutor(single, mesh=mesh_of(*MESH["replica"]), **opts)
+    exm.warmup()
+    warm_s = time.perf_counter() - t0
+    captures = serving_compiles() - c0
+    buckets, pool_bytes = list(exm.compiled_buckets), exm.graph_pool_bytes
+    rng = np.random.default_rng(5)
+    bucket_unequal = []
+    for b in buckets:
+        Xb = X[rng.integers(0, len(X), b)]
+        if not np.array_equal(exm.forward(Xb), ex1.forward(Xb)):
+            bucket_unequal.append(b)
+    req_unequal = 0
+    for n in [1, 2, 3, 7, 31, 100, 255, 257, 300,
+              *rng.integers(1, 301, 16).tolist()]:
+        i = int(rng.integers(0, len(X) - n))
+        req_unequal += not np.array_equal(exm.forward(X[i:i + n]),
+                                          ex1.forward(X[i:i + n]))
+    rates = {}
+    for name, ex in (("single", ex1), ("mesh", exm)):
+        lat, rps = run_clients(X, MESH["clients"], MESH["requests"],
+                               ex.forward)
+        lat.sort()
+        rates[name] = dict(rows_per_sec=rps, p50_ms=percentile(lat, 0.5) * 1e3,
+                           p99_ms=percentile(lat, 0.99) * 1e3)
+    post = serving_compiles() - c0 - captures
+    # the shard-loss drill: single-row requests, one slab each; the plan
+    # fires on the 4th mesh slab
+    fn, _rf, p, s = replica_subset_serving(
+        single, [i for i in range(N_REPLICAS)
+                 if i // (N_REPLICAS // MESH["replica"][1]) != 1])
+    outs, failed, first_error = [], 0, None
+    plan = faults.arm(faults.builtin_plan("shard-loss"))
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            for k in range(MESH["loss_requests"]):
+                try:
+                    outs.append(exm.forward(X[k:k + 1]))
+                except Exception as e:  # noqa: BLE001 - counted, gated below
+                    failed += 1
+                    first_error = first_error or repr(e)
+                    outs.append(None)
+    finally:
+        faults.disarm()
+    degraded_unequal = 0
+    for k in range(3, MESH["loss_requests"]):
+        want = fn(p, s, torch.as_tensor(X[k:k + 1], device="cuda"))
+        degraded_unequal += (outs[k] is None or not np.array_equal(
+            outs[k], want.cpu().numpy()))
+    reg = telemetry.registry()
+    fields = dict(mesh=list(MESH["replica"]), buckets=buckets,
+                  captures_at_warmup=captures,
+                  graphs_at_warmup=captures * MESH["replica"][1],
+                  warmup_seconds=warm_s, graph_pool_bytes=pool_bytes,
+                  buckets_unequal_to_single=bucket_unequal,
+                  requests_unequal_to_single=req_unequal,
+                  captures_on_requests=post, concurrency=MESH["clients"],
+                  requests=MESH["requests"], **{
+                      f"{k}_{m}": v for k, r in rates.items()
+                      for m, v in r.items()},
+                  shard_loss_fired=plan.snapshot()["fired_total"],
+                  failed_shards=list(exm.failed_shards),
+                  surviving_replicas=exm.surviving_replicas,
+                  degraded_outputs_unequal=degraded_unequal,
+                  failed_requests=failed, first_error=first_error,
+                  degraded_compiles=reg.counter(
+                      "sbt_serving_degraded_compiles_total").value,
+                  card=CARD)
+    ok = (captures == len(buckets) and pool_bytes > 0 and not bucket_unequal
+          and not req_unequal and post == 0 and failed == 0
+          and not degraded_unequal and exm.failed_shards == (1,)
+          and fields["shard_loss_fired"] == 1)
+    emit("mesh_serving", ok=ok, **fields)
+    if not ok:
+        fail("mesh_serving", f"checks failed: {fields}")
+
+
+def phase_mesh(X: np.ndarray, y: np.ndarray, tree_acc: float) -> dict:
+    """The in-process mesh (parallel/) on the one card, every shard a
+    thread over cuda:0: the headline on a replica mesh and on a data
+    mesh (accuracy, launches per shard, bootstrap=False exactness, the
+    Gram at the data shard's shapes), config 3's trees on a 2 x 2 mesh,
+    and replica-sharded serving with a shard loss. Returns each kernel's
+    launches in the mesh fits and the kernel rows."""
+    from spark_bagging_tpu_torch import BaggingClassifier
+    from spark_bagging_tpu_torch.ops.bootstrap import fit_key
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    single = BaggingClassifier(headline_learner(), n_estimators=N_REPLICAS,
+                               seed=0).fit(X, y)
+    single_launches = read_launches()["scaled_gram"]
+    rep_clf, rep_launches, fields, ok, _ = mesh_logistic_fit(
+        "mesh_replica", X, y, MESH["replica"], single)
+    fields.update(single_device_scaled_gram_launches=single_launches,
+                  single_device_fit_seconds=single.fit_report_[
+                      "fit_seconds"])
+    ids = torch.arange(N_REPLICAS, device="cuda")
+    fields["subspaces_bitwise"] = bool(torch.equal(rep_clf.subspaces_,
+                                                   single.subspaces_))
+    fields["weights_bitwise"] = all(
+        np.array_equal(rep_clf.replica_weights(i), single.replica_weights(i))
+        for i in (0, 63, 64, 255))
+    fields["keys_bitwise"] = bool(torch.equal(
+        fit_key(rep_clf._fit_key, ids), fit_key(single._fit_key, ids)))
+    ok = (ok and fields["max_abs_diff_vs_single"] <= MESH_PROBA_TOL
+          and fields["subspaces_bitwise"] and fields["weights_bitwise"]
+          and fields["keys_bitwise"])
+    emit("mesh_replica", ok=ok, proba_tol=MESH_PROBA_TOL, **fields)
+    if not ok:
+        fail("mesh_replica", f"checks failed: {fields}")
+    del rep_clf
+    data_clf, data_launches, fields, ok, _ = mesh_logistic_fit(
+        "mesh_data", X, y, MESH["data"], single)
+    data_chunk = fields["chunk_size"]
+    del data_clf
+    exact_kw = dict(bootstrap=False, max_samples=1.0)
+    ex_single = BaggingClassifier(headline_learner(), n_estimators=N_REPLICAS,
+                                  seed=0, **exact_kw).fit(X, y)
+    ex_clf, ex_launches, _f, _ok, exact_diff = mesh_logistic_fit(
+        "mesh_data", X, y, MESH["data"], ex_single, **exact_kw)
+    del ex_clf, ex_single
+    torch.cuda.empty_cache()
+    fields.update(bootstrap_false_max_abs_diff=exact_diff,
+                  exact_tol=MESH_EXACT_TOL)
+    ok = ok and exact_diff <= MESH_EXACT_TOL
+    emit("mesh_data", ok=ok, **fields)
+    if not ok:
+        fail("mesh_data", f"checks failed: {fields}")
+    n_shard = N_ROWS // MESH["data"][0]
+    gram_rows = phase_kernels(X[:n_shard], [data_chunk], modes=("float32",),
+                              phase="mesh_kernels")
+    torch.cuda.empty_cache()
+    tree_counts, hist_row = mesh_trees(X, y, tree_acc)
+    mesh_serving(single, X)
+    del single
+    torch.cuda.empty_cache()
+    emit("mesh", ok=True, phase_seconds=time.perf_counter() - t_phase,
+         card=CARD)
+    return dict(scaled_gram=(single_launches + rep_launches + data_launches
+                             + ex_launches),
+                binned_left_stats=tree_counts["binned_left_stats"],
+                bin_codes=tree_counts["bin_codes"],
+                gram_row=gram_rows[data_chunk]["float32"], hist_row=hist_row)
 
 
 def sklearn_proxies() -> dict:
@@ -5753,6 +6164,8 @@ def main() -> int:
     phase_zoo_classifiers(X, y)
     phase_zoo_regressors(split)
     phase_zoo_streams(X, y, split)
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(X, y, tree_acc)
     del X, y
     torch.cuda.empty_cache()
     phase_readers()
@@ -5774,7 +6187,8 @@ def main() -> int:
     # so do the online paths: the warm steps' and the anchor replay's
     # Gram launches, the drift loop's refit, the planes phase's refit
     # under the device profile, and the tenancy phase's five tenant fits
-    # and its budgeted refits
+    # and its budgeted refits; so do the mesh phase's fits, launched in
+    # the shards' threads (its tables and Grams are held too)
     f32 = rows[max(Rs)]["float32"]
     deepest = hist_rows[max(tree_Rs), 2 ** (TREE["max_depth"] - 1), "bfloat16"]
     print(json.dumps({"kernels": [{
@@ -5784,8 +6198,9 @@ def main() -> int:
         "replaces": "spark_bagging_tpu/ops/gram.py:53",
         "launches": launches + warm_launches + online_launches
         + anchor_launches + loop_launches + planes_launches
-        + tenancy_launches,
-        "max_abs_err": f32["max_abs_err"],
+        + tenancy_launches + mesh["scaled_gram"],
+        "max_abs_err": max(f32["max_abs_err"],
+                           mesh["gram_row"]["max_abs_err"]),
         "ms": f32["kernel_ms"],
         "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"],
@@ -5798,8 +6213,10 @@ def main() -> int:
         "replaces": "spark_bagging_tpu/ops/hist.py:66",
         "launches": (tree_launches + rf_launches + gbt_launches
                      + mc_launches + gr_launches + ts_launches
-                     + rs_launches + wt_launches + tr_launches),
-        "max_abs_err": max(stream_err, *(r["max_abs_err"] for r in (
+                     + rs_launches + wt_launches + tr_launches
+                     + mesh["binned_left_stats"]),
+        "max_abs_err": max(stream_err, mesh["hist_row"]["max_abs_err"],
+                           *(r["max_abs_err"] for r in (
             *hist_rows.values(), *reg_rows.values(), *rs_rows.values(),
             *gbt_rows.values()))),
         "ms": deepest["kernel_ms"],
@@ -5815,7 +6232,8 @@ def main() -> int:
         "launches": (codes_launches + rf_codes_launches + gbt_codes_launches
                      + mc_codes_launches + gr_codes_launches
                      + ts_codes_launches + rs_codes_launches
-                     + wt_codes_launches + tr_codes_launches),
+                     + wt_codes_launches + tr_codes_launches
+                     + mesh["bin_codes"]),
         "max_abs_err": 0.0 if not codes_row["unequal"] else None,
         "ms": codes_row["kernel_ms"],
         "plain_ms": codes_row["plain_ms"],

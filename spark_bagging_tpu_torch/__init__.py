@@ -25,14 +25,20 @@ each fit's reference profile (drift gauges, a per-replica disagreement
 tap), ``telemetry.alerts`` turns the gauges into alerts, and
 ``online.OnlineTrainer`` refits and republishes when one fires. The JAX
 package stays the reference this port is held against; the port
-imports only torch and numpy.
+imports only torch and numpy. ``parallel`` shards fits, predicts, OOB
+and serving over a ``(data, replica)`` mesh in one process
+(``make_mesh``).
 
 Entry points run on the card (``device="cuda"``, the default) and raise
 where CUDA is absent; ``device="cpu"`` must be asked for.
 """
 
 from spark_bagging_tpu_torch import serving, telemetry
-from spark_bagging_tpu_torch.bagging import BaggingClassifier, BaggingRegressor
+from spark_bagging_tpu_torch.bagging import (
+    BaggingClassifier,
+    BaggingRegressor,
+    clear_compiled_caches,
+)
 from spark_bagging_tpu_torch.forest import (
     RandomForestClassifier,
     RandomForestRegressor,
@@ -57,6 +63,7 @@ from spark_bagging_tpu_torch.models import (
     MLPRegressor,
     MultinomialNB,
 )
+from spark_bagging_tpu_torch.parallel import make_mesh
 from spark_bagging_tpu_torch.utils.arrow import ArrowChunks
 from spark_bagging_tpu_torch.utils.checkpoint import load_model, save_model
 from spark_bagging_tpu_torch.utils.hashing import (
@@ -104,7 +111,9 @@ __all__ = [
     "RandomForestClassifier",
     "RandomForestRegressor",
     "SyntheticChunks",
+    "clear_compiled_caches",
     "load_model",
+    "make_mesh",
     "save_model",
     "serving",
     "telemetry",

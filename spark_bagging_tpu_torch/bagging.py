@@ -34,8 +34,14 @@ resumes (``checkpoint_dir``, ``checkpoint_every``, ``resume_from``) in
 the JAX package's snapshot format.
 
 ``device`` defaults to ``"cuda"`` and raises where CUDA is absent;
-``device="cpu"`` must be asked for. The mesh surfaces are not ported
-yet and raise ``NotImplementedError`` naming their ROADMAP item.
+``device="cpu"`` must be asked for. ``mesh`` (``parallel.make_mesh``)
+shards the fit, predicts and OOB over a ``(data, replica)`` mesh
+(``parallel/sharded.py``); the mesh's devices then replace ``device``.
+A mesh-fitted estimator's serving handles refuse, as in the JAX package
+(serve it through ``EnsembleExecutor(model, mesh=...)`` after loading
+it without a mesh). Mesh stream fits, and data meshes over the families
+whose data axis is not threaded yet, raise ``NotImplementedError``
+naming ROADMAP Queue A 12 part 1b.
 """
 
 from __future__ import annotations
@@ -65,8 +71,18 @@ from spark_bagging_tpu_torch.utils.device import resolve_device, synchronize
 from spark_bagging_tpu_torch.utils.metrics import accuracy, r2_score
 from spark_bagging_tpu_torch.utils.params import ParamsMixin
 
-_ROADMAP_SURFACES = "ROADMAP Queue A: bagging surfaces still to port"
-_ROADMAP_MESH = "ROADMAP Queue A 12: parallel/"
+_ROADMAP_MESH = "ROADMAP Queue A 12 part 1b"
+
+
+def clear_compiled_caches() -> int:
+    """Drop every batch-predict program from the process's program cache
+    (``serving/program_cache.py``); serving programs stay. The port runs
+    its batch forwards eagerly, so a batch program holds no compiled
+    code, only its place in the cache: the next predict at a row count
+    simply misses and records a new one. Returns the number dropped."""
+    from spark_bagging_tpu_torch.serving import program_cache as _pc
+
+    return _pc.cache().drop_batch_programs()
 
 
 class _EncodedChunks:
@@ -135,7 +151,8 @@ class _BaseBagging(ParamsMixin):
         self.mesh = mesh
         self.warm_start = warm_start
         self.device = device
-        resolve_device(device)
+        if mesh is None:
+            resolve_device(device)
 
     # -- sklearn interop -----------------------------------------------
 
@@ -198,6 +215,21 @@ class _BaseBagging(ParamsMixin):
                               round(self.max_features * n_features)))
         return max(1, min(n_features, int(self.max_features)))
 
+    def _mesh_layout(self):
+        """The mesh-shape signature that keys per-shard weight streams
+        (None unmeshed); snapshotted at fit time and required unchanged
+        by warm_start."""
+        if self.mesh is None:
+            return None
+        return tuple(sorted(self.mesh.shape.items()))
+
+    def _home_device(self) -> torch.device:
+        """Where the fitted state lives: the mesh's first device on a
+        mesh, else ``device``."""
+        if self.mesh is not None:
+            return self.mesh.first_device
+        return resolve_device(self.device)
+
     def _eff_chunk(self) -> int | None:
         """The replica chunk of predict and OOB: the caller's
         ``chunk_size``, else the one the fit resolved."""
@@ -247,13 +279,24 @@ class _BaseBagging(ParamsMixin):
 
     def _start_fit(self, X) -> tuple[torch.Tensor, torch.device, float,
                                      np.ndarray]:
-        """Refuse the surfaces not ported yet; X on the device, with the
-        seconds the copy took, and X on the host (the caller's array
-        itself where it already is float32 numpy; pulled back only when
-        the caller handed a CUDA tensor) for the quality profile."""
+        """X on the device, with the seconds the copy took, and X on the
+        host (the caller's array itself where it already is float32
+        numpy; pulled back only when the caller handed a CUDA tensor) for
+        the quality profile. On a mesh whose shards share one device X
+        goes there once (each shard's rows are then a view); over
+        distinct devices it stays on the host and each shard copies its
+        rows to its device."""
         if self.mesh is not None:
-            raise NotImplementedError(f"mesh fits ({_ROADMAP_SURFACES})")
-        device = resolve_device(self.device)
+            from spark_bagging_tpu_torch.parallel.mesh import Mesh
+
+            if not isinstance(self.mesh, Mesh):
+                raise TypeError(
+                    f"mesh must be a parallel.make_mesh() Mesh, got "
+                    f"{type(self.mesh).__name__}")
+        device = self._home_device()
+        if self.mesh is not None and len(
+                set(self.mesh.devices.ravel().tolist())) > 1:
+            device = torch.device("cpu")
         if isinstance(X, torch.Tensor):
             X_host = X.detach().cpu().numpy()
         else:
@@ -358,8 +401,7 @@ class _BaseBagging(ParamsMixin):
                 "warm_start requires unchanged max_features/"
                 "bootstrap_features"
             )
-        # no mesh fits on this port yet: the layout is None on both sides
-        if getattr(self, "_fit_mesh_layout", None) is not None:
+        if self._mesh_layout() != getattr(self, "_fit_mesh_layout", None):
             raise ValueError(
                 "warm_start requires the original mesh layout: "
                 "data-sharded replicas draw per-shard weight streams "
@@ -447,23 +489,28 @@ class _BaseBagging(ParamsMixin):
         )
         chunk_size = self.chunk_size
         if chunk_size is None:
-            chunk_size = auto_chunk_size(
-                learner, n_rows, n_subspace, n_outputs, n_new,
-                device, n_features=n_features,
-                bootstrap_features=self.bootstrap_features,
-            )
+            chunk_size = self._auto_chunk(
+                learner, n_rows, n_subspace, n_outputs, n_new, device,
+                n_features)
         self._chunk_resolved = chunk_size
+        self._batch_programs = {}  # the last fit's, keyed to its weights
+        common = dict(sample_ratio=ratio, bootstrap=bool(self.bootstrap),
+                      n_subspace=n_subspace,
+                      bootstrap_features=bool(self.bootstrap_features),
+                      chunk_size=chunk_size, use_pooled_init=use_pooled)
         t0 = time.perf_counter()
-        params, subspaces, fit_aux = fit_ensemble(
-            learner, X, y, key, ids, n_outputs,
-            sample_ratio=ratio, bootstrap=bool(self.bootstrap),
-            n_subspace=n_subspace,
-            bootstrap_features=bool(self.bootstrap_features),
-            chunk_size=chunk_size, row_mask=row_mask,
-            use_pooled_init=use_pooled, aux=aux,
-        )
+        if self.mesh is not None:
+            params, subspaces, fit_aux = self._mesh_fit(
+                learner, X, y, key, n_new, n_outputs, id_start, row_mask,
+                aux, common)
+        else:
+            params, subspaces, fit_aux = fit_ensemble(
+                learner, X, y, key, ids, n_outputs, row_mask=row_mask,
+                aux=aux, **common)
         losses = fit_aux["loss"].cpu().numpy()  # completion barrier
         fit_seconds = time.perf_counter() - t0
+        device = self._home_device()
+        key = key.to(device)
         if id_start > 0:
             # warm start: the new replicas after the old, on the device
             params = {k: torch.cat([self.ensemble_[k], v])
@@ -480,7 +527,11 @@ class _BaseBagging(ParamsMixin):
         self._fitted_learner_fp = learner_fingerprint(learner)
         self._fit_sampling = (ratio, bool(self.bootstrap))
         self._fit_subspace_cfg = (n_subspace, bool(self.bootstrap_features))
-        self._fit_mesh_layout = None
+        self._fit_mesh_layout = self._mesh_layout()
+        # a data-sharded fit folds the shard into each weight draw, so
+        # no global weight vector replays (replica_weights refuses)
+        self._fit_weights_replayable = not (
+            self.mesh is not None and self.mesh.shape["data"] > 1)
         self._fit_sw_digest = self._row_vector_digest(sample_weight)
         self._fit_aux_digest = self._row_vector_digest(aux)
         self._fit_pooled_gate = use_pooled
@@ -491,11 +542,60 @@ class _BaseBagging(ParamsMixin):
         self._stream_aux_col = None
         self._device = device
         extra = {"warm_started_from": id_start} if id_start > 0 else {}
+        if self.mesh is not None:
+            extra["n_devices"] = int(self.mesh.size)
         self._write_report(
             fit_seconds, h2d_seconds, losses, n_rows, n_features, n_subspace,
             learner.flops_per_fit(n_rows, n_subspace, n_outputs),
             chunk_size_resolved=chunk_size, n_replicas=n_new, **extra)
         self._fit_quality_profile(host_xy, n_outputs)
+
+    def _auto_chunk(self, learner, n_rows, n_subspace, n_outputs, n_new,
+                    device, n_features):
+        """The fit's replica chunk when ``chunk_size`` is None. On a mesh
+        a shard fits ``n_rows / data`` rows and ``n_new / replica``
+        replicas, and shards that share a device share its memory."""
+        from spark_bagging_tpu_torch.utils.memory import (
+            auto_chunk_size,
+            device_memory_budget,
+        )
+
+        budget = None
+        if self.mesh is not None:
+            data, replica = self.mesh.shape["data"], self.mesh.shape["replica"]
+            devs = self.mesh.devices.ravel().tolist()
+            device = self.mesh.first_device
+            budget = device_memory_budget(device) / max(
+                devs.count(d) for d in devs)
+            n_rows = -(-n_rows // data)
+            n_new = max(1, n_new // replica)
+        return auto_chunk_size(
+            learner, n_rows, n_subspace, n_outputs, n_new, device,
+            budget_bytes=budget, n_features=n_features,
+            bootstrap_features=self.bootstrap_features,
+        )
+
+    def _mesh_fit(self, learner, X, y, key, n_new, n_outputs, id_start,
+                  row_mask, aux, common):
+        """The fit over ``self.mesh``: rows padded to the data axis
+        (padding carries zero weight; ``sample_weight`` rides the mask),
+        then ``parallel.sharded_fit``."""
+        from spark_bagging_tpu_torch.parallel.sharded import (
+            pad_rows,
+            sharded_fit,
+        )
+
+        Xp, yp, mask = pad_rows(X, y, self.mesh.shape["data"])
+        pad = Xp.shape[0] - X.shape[0]
+        if row_mask is not None:
+            mask = mask * torch.cat([row_mask.to(mask.device),
+                                     torch.zeros(pad, device=mask.device)])
+        if aux is not None and pad:
+            aux = torch.cat([aux, torch.zeros(pad, dtype=aux.dtype,
+                                              device=aux.device)])
+        return sharded_fit(
+            learner, self.mesh, Xp, yp, mask, key, n_new, n_outputs,
+            id_offset=id_start, aux=aux, **common)
 
     def _fit_quality_profile(self, host_xy, n_outputs: int) -> None:
         """The fit-time quality reference (``telemetry/quality.py``): the
@@ -532,29 +632,27 @@ class _BaseBagging(ParamsMixin):
 
     def _write_report(self, fit_seconds, h2d_seconds, losses, n_rows,
                       n_features, n_subspace, flops, flops_seconds=None,
-                      n_replicas=None, **extra) -> None:
-        """``fit_report_``: throughput, losses and shapes of the fit;
-        ``flops_seconds`` (default ``fit_seconds``) is the time the
-        achieved TFLOP/s divides by; ``n_replicas`` (default the whole
-        ensemble) the replicas this call fitted."""
+                      n_replicas=None, compile_seconds=0.0,
+                      **extra) -> None:
+        """``fit_report_``: throughput, losses and shapes of the fit, with
+        the JAX package's keys; ``flops_seconds`` (default
+        ``fit_seconds``) is the time the achieved TFLOP/s divides by;
+        ``n_replicas`` (default the whole ensemble) the replicas this call
+        fitted. As in the JAX package, a fit with no host-to-device copy
+        (``h2d_seconds`` None: a stream) has no end-to-end rate, and a
+        stream fit (``flops`` None: no cost model, or a resumed tree
+        stream) no FLOP figures. ``compile_seconds``: an in-memory fit
+        compiles nothing (eager execution); a stream passes its first
+        step's seconds, where the JAX package compiles."""
         from spark_bagging_tpu_torch.utils.profiling import device_peak_tflops
 
         n = self.n_estimators_ if n_replicas is None else n_replicas
-        e2e = fit_seconds + h2d_seconds
-        flops_seconds = flops_seconds or fit_seconds
-        achieved = (flops * n / flops_seconds / 1e12
-                    if flops and flops_seconds > 0 else None)
-        peak = device_peak_tflops(self._device)
-        # a registry-backed view: its numeric entries are sbt_fit_<key>
-        # gauges (telemetry.record_fit_report)
-        self.fit_report_ = telemetry.record_fit_report({
+        report = {
             "n_replicas": n,
             "fit_seconds": fit_seconds,
             "fits_per_sec": n / fit_seconds if fit_seconds > 0 else float("inf"),
-            # eager execution: nothing is compiled ahead of the fit
-            "compile_seconds": 0.0,
+            "compile_seconds": compile_seconds,
             "h2d_seconds": h2d_seconds,
-            "fits_per_sec_e2e": n / e2e if e2e > 0 else float("inf"),
             "loss_mean": float(losses.mean()),
             "loss_std": float(losses.std()),
             "n_rows": n_rows,
@@ -562,16 +660,28 @@ class _BaseBagging(ParamsMixin):
             "n_subspace": n_subspace,
             "backend": self._device.type,
             "n_devices": 1,
-            "model_flops_per_fit": flops,
-            "achieved_tflops": achieved,
-            # against the peak of the fit's one device (the JAX package
-            # divides by the summed peak of its devices); None without a
-            # known peak, as on the CPU
-            "peak_tflops_bf16": peak,
-            "mfu": (achieved / peak if achieved is not None and peak
-                    else None),
-            **extra,
-        })
+        }
+        if h2d_seconds is not None:
+            e2e = fit_seconds + h2d_seconds
+            report["fits_per_sec_e2e"] = n / e2e if e2e > 0 else float("inf")
+        if flops is not None or h2d_seconds is not None:
+            flops_seconds = flops_seconds or fit_seconds
+            achieved = (flops * n / flops_seconds / 1e12
+                        if flops and flops_seconds > 0 else None)
+            peak = device_peak_tflops(self._device)
+            report.update({
+                "model_flops_per_fit": flops,
+                "achieved_tflops": achieved,
+                # against the peak of the fit's one device (the JAX
+                # package divides by the summed peak of its devices);
+                # None without a known peak, as on the CPU
+                "peak_tflops_bf16": peak,
+                "mfu": (achieved / peak if achieved is not None and peak
+                        else None),
+            })
+        # a registry-backed view: its numeric entries are sbt_fit_<key>
+        # gauges (telemetry.record_fit_report)
+        self.fit_report_ = telemetry.record_fit_report({**report, **extra})
 
     # -- out-of-core fit -----------------------------------------------
 
@@ -683,8 +793,10 @@ class _BaseBagging(ParamsMixin):
         self._fit_pooled_gate = False  # streams run no pooled pre-pass
         self._fit_sw_digest = None
         self._fit_aux_digest = None
-        # an earlier in-memory fit's chunk must not size this fit's maps
+        # an earlier in-memory fit's chunk must not size this fit's maps,
+        # nor its batch programs outlive its weights
         self._chunk_resolved = None
+        self._batch_programs = {}
         self._identity_subspace = (
             n_subspace == n_feat_data and not self.bootstrap_features
         )
@@ -706,11 +818,10 @@ class _BaseBagging(ParamsMixin):
             extra = {"opt_steps": aux["opt_steps"]}
         first = aux["first_step_seconds"] or 0.0
         self._write_report(
-            fit_seconds, 0.0, losses, int(source.n_rows), int(n_feat_data),
+            fit_seconds, None, losses, int(source.n_rows), int(n_feat_data),
             n_subspace, flops, flops_seconds=max(fit_seconds - first, 1e-9),
-            chunk_size_resolved=None, n_chunks=aux["n_chunks"],
-            n_epochs=aux["n_epochs"], stream_seconds=aux["stream_seconds"],
-            first_step_seconds=aux["first_step_seconds"], **extra)
+            compile_seconds=aux["first_step_seconds"],
+            n_chunks=aux["n_chunks"], n_epochs=aux["n_epochs"], **extra)
 
     def _stream_chunks(self, source, chunk_rows=None,
                        prefetch: int | None = None,
@@ -791,6 +902,23 @@ class _BaseBagging(ParamsMixin):
         """OOB aggregate and per-row vote counts, as numpy (rows with no
         vote are the caller's to exclude)."""
         ratio, replacement = self._fit_sampling
+        if self.mesh is not None:
+            from spark_bagging_tpu_torch.parallel.sharded import (
+                pad_rows_X,
+                sharded_oob_scores,
+            )
+
+            # padded as at fit time, so each shard replays its draws
+            n = X.shape[0]
+            agg, votes = sharded_oob_scores(
+                self._fitted_learner, self.mesh, self.ensemble_,
+                self.subspaces_, pad_rows_X(X, self.mesh.shape["data"]),
+                self._fit_key, self.n_estimators_, sample_ratio=ratio,
+                bootstrap=replacement, n_classes=n_classes,
+                chunk_size=self._eff_chunk(),
+                identity_subspace=self._identity_subspace,
+            )
+            return agg[:n].cpu().numpy(), votes[:n].cpu().numpy()
         agg, votes = oob_predict_scores(
             self._fitted_learner, self.ensemble_, self.subspaces_, X,
             self._fit_key,
@@ -840,6 +968,13 @@ class _BaseBagging(ParamsMixin):
                 "(a stream fit draws per-chunk weights; weights carried "
                 "across from the JAX package have no fit key)"
             )
+        if not getattr(self, "_fit_weights_replayable", True):
+            raise ValueError(
+                "replica_weights requires a fit whose weight draws are "
+                "globally replayable: a data-sharded mesh fit folds the "
+                "shard index into each draw (layout-dependent), so no "
+                "global weight vector regenerates"
+            )
         ratio, replacement = self._fit_sampling
         w = bootstrap_weights(
             self._fit_key, torch.tensor([i], device=self._fit_key.device),
@@ -881,17 +1016,67 @@ class _BaseBagging(ParamsMixin):
         probabilities (classifier) or ``(n,)`` predictions (regressor)
         with every static choice (learner, vote, replica chunk, identity
         subspace) bound in, and is the closure ``predict_proba`` /
-        ``predict`` runs on the device."""
+        ``predict`` runs on the device. The single-device handle: a
+        mesh-fitted estimator refuses (save it and load it without a
+        mesh, then serve it through ``EnsembleExecutor(mesh=...)``)."""
         self._check_fitted()
+        self._refuse_mesh_handle("aggregated_forward")
         return self._forward_closure(), self.ensemble_, self.subspaces_
 
     def replica_forward(self):
         """The per-replica forward ``(fn, params, subspaces)``:
         :meth:`aggregated_forward` without the aggregation, ``(R, n, C)``
         for a classifier and ``(R, n)`` for a regressor; its mean over
-        replicas is the aggregated output."""
+        replicas is the aggregated output. Single-device, as
+        :meth:`aggregated_forward`."""
         self._check_fitted()
+        self._refuse_mesh_handle("replica_forward")
         return self._replica_closure(), self.ensemble_, self.subspaces_
+
+    def _refuse_mesh_handle(self, name: str) -> None:
+        if self.mesh is not None:
+            raise ValueError(
+                f"{name} is the single-device serving handle; save() the "
+                "mesh-fitted ensemble and load() it without a mesh to "
+                "serve it"
+            )
+
+    def _mesh_predict(self, X, run) -> np.ndarray:
+        """``run`` over X padded to the data axis, padding sliced off."""
+        from spark_bagging_tpu_torch.parallel.sharded import pad_rows_X
+
+        X = self._validate_X(X, self._device, fitted=True)
+        n = X.shape[0]
+        out = run(pad_rows_X(X, self.mesh.shape["data"]))
+        return out[:n].cpu().numpy()
+
+    def _cached_batch_forward(self, X: torch.Tensor) -> np.ndarray:
+        """The batch forward through the unified program cache
+        (``serving/program_cache.py``), under the key a serving
+        executor's program at bucket ``n`` has: a batch predict at a row
+        count serving already built replays that program, and a miss
+        records an eager batch program (``EagerBatchProgram``: 0 program
+        bytes, source "eager") that this estimator holds, since the cache
+        keeps weak references. No CUDA graph is captured for a batch; the
+        outputs are the eager forward's bits either way."""
+        from spark_bagging_tpu_torch.serving import program_cache as _pc
+
+        n = int(X.shape[0])
+        fn = self._forward_closure()
+        if n == 0:
+            return fn(self.ensemble_, self.subspaces_, X).cpu().numpy()
+        key = _pc.ProgramKey(
+            _pc.fingerprint_model(self), _pc.forward_variant(self), n,
+            None, *_pc.toolchain_id(self._device),
+        )
+        prog, _hit = _pc.cache().get_or_build(
+            key, lambda: _pc.EagerBatchProgram(
+                fn, self.ensemble_, self.subspaces_, n, X.shape[1]))
+        if isinstance(prog, _pc.EagerBatchProgram):
+            self.__dict__.setdefault("_batch_programs", {})[key] = prog
+            return prog(X).cpu().numpy()
+        # a serving executor's program for this bucket
+        return prog.run(X.cpu().numpy(), n)
 
     def save(self, path: str, *, compress: bool | str = "auto") -> None:
         """Persist the fitted ensemble in the JAX package's checkpoint
@@ -903,12 +1088,14 @@ class _BaseBagging(ParamsMixin):
         save_model(self, path, compress=compress)
 
     @classmethod
-    def load(cls, path: str, *, device: str = "cuda"):
+    def load(cls, path: str, *, device: str = "cuda", mesh=None):
         """Load a fitted ensemble saved by :meth:`save` or by the JAX
-        package's ``save``, onto ``device``."""
+        package's ``save``, onto ``device`` (with ``mesh``: onto the
+        mesh, whose first device holds the weights and whose shards
+        predict)."""
         from spark_bagging_tpu_torch.utils.checkpoint import load_model
 
-        model = load_model(path, device=device)
+        model = load_model(path, device=device, mesh=mesh)
         if not isinstance(model, cls):
             raise TypeError(
                 f"checkpoint at {path} holds {type(model).__name__}, "
@@ -1114,11 +1301,24 @@ class BaggingClassifier(_BaseBagging):
         )
 
     def predict_proba(self, X) -> np.ndarray:
-        """Aggregated class probabilities ``(n, C)``."""
+        """Aggregated class probabilities ``(n, C)``: on a mesh, each
+        shard's rows voted on by its replicas; else through the program
+        cache (``_cached_batch_forward``)."""
         self._check_fitted()
+        if self.mesh is not None:
+            from spark_bagging_tpu_torch.parallel.sharded import (
+                sharded_predict_classifier,
+            )
+
+            return self._mesh_predict(
+                X, lambda Xp: sharded_predict_classifier(
+                    self._fitted_learner, self.mesh, self.ensemble_,
+                    self.subspaces_, Xp, self.n_classes_,
+                    self.n_estimators_, voting=self.voting,
+                    chunk_size=self._eff_chunk(),
+                    identity_subspace=self._identity_subspace))
         X = self._validate_X(X, self._device, fitted=True)
-        return self._forward_closure()(
-            self.ensemble_, self.subspaces_, X).cpu().numpy()
+        return self._cached_batch_forward(X)
 
     def predict(self, X) -> np.ndarray:
         return self.classes_[self.predict_proba(X).argmax(axis=1)]
@@ -1333,9 +1533,19 @@ class BaggingRegressor(_BaseBagging):
                     f"{self.n_features_in_} features"
                 )
             return np.asarray(Xh @ beta[:-1] + beta[-1], np.float32)
+        if self.mesh is not None:
+            from spark_bagging_tpu_torch.parallel.sharded import (
+                sharded_predict_regressor,
+            )
+
+            return self._mesh_predict(
+                X, lambda Xp: sharded_predict_regressor(
+                    self._fitted_learner, self.mesh, self.ensemble_,
+                    self.subspaces_, Xp, self.n_estimators_,
+                    chunk_size=self._eff_chunk(),
+                    identity_subspace=self._identity_subspace))
         X = self._validate_X(X, self._device, fitted=True)
-        return self._forward_closure()(
-            self.ensemble_, self.subspaces_, X).cpu().numpy()
+        return self._cached_batch_forward(X)
 
     def predict_quantiles(self, X, probs=(0.1, 0.5, 0.9)) -> np.ndarray:
         """Per-row quantiles ``(n, len(probs))`` averaged over replicas,
@@ -1352,6 +1562,11 @@ class BaggingRegressor(_BaseBagging):
             raise AttributeError(
                 f"{type(learner).__name__} has no predict_quantiles "
                 "(only survival learners expose quantiles)"
+            )
+        if self.mesh is not None:
+            raise ValueError(
+                "predict_quantiles is single-device; gather the model "
+                "(load without mesh) first"
             )
         X = self._validate_X(X, self._device, fitted=True)
         return predict_quantiles_ensemble(

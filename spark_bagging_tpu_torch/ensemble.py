@@ -13,6 +13,13 @@ replica copies; so it does, in the fit and in prediction, for a learner
 that reads its subspace through the column index
 (``reads_subspace_index``, the trees). Any other learner takes each
 chunk's gathered columns.
+
+Sharding hooks, as in the JAX package: ``data_axis`` names the mesh
+axis rows are sharded over (each shard draws its rows' weights from
+``fold_in(key, shard)`` and the learners' row reductions sum over it),
+``replica_axis`` the axis replicas are sharded over (the vote and mean
+reductions sum over it). Both default to None for one device;
+``parallel/sharded.py`` sets them inside ``shard_map`` bodies.
 """
 
 from __future__ import annotations
@@ -57,6 +64,7 @@ def fit_ensemble(
     row_mask: torch.Tensor | None = None,
     use_pooled_init: bool | None = None,
     aux: torch.Tensor | None = None,
+    data_axis: str | None = None,
 ) -> tuple[dict[str, torch.Tensor], torch.Tensor, dict[str, torch.Tensor]]:
     """Fit all replicas in ``replica_ids``.
 
@@ -70,6 +78,13 @@ def fit_ensemble(
     ``use_pooled_init`` overrides the learner's ``uses_pooled_init``
     (the estimator passes its amortization decision, keyed to the total
     ensemble size).
+
+    With ``data_axis`` set (inside a data-sharded ``shard_map`` body),
+    each shard draws its rows' weights from ``fold_in(key, shard)``
+    while subspaces and fit keys stay shard-invariant, and the learner
+    sums its row statistics over the axis: every replica's fit is the
+    fit on all shards' rows. The realized bootstrap then depends on the
+    mesh layout, as in the JAX package.
     """
     n_rows, n_features = X.shape
     if n_subspace is None:
@@ -77,16 +92,21 @@ def fit_ensemble(
     identity_subspace = n_subspace == n_features and not bootstrap_features
     if use_pooled_init is None:
         use_pooled_init = learner.uses_pooled_init
+    row_key = _row_key(key, data_axis)
+    # the axis reaches the learner only when set: a learner whose data
+    # axis is not threaded is refused before any shard runs
+    # (parallel/sharded.py)
+    axis_kw = {} if data_axis is None else {"axis_name": data_axis}
     # replica-invariant work runs once, outside the replica chunks
-    prepared = learner.prepare(X, row_mask=row_mask)
+    prepared = learner.prepare(X, row_mask=row_mask, **axis_kw)
     if use_pooled_init:
         prepared = learner.pooled_init(
-            key, prepared, X, y, n_outputs, row_mask=row_mask
+            key, prepared, X, y, n_outputs, row_mask=row_mask, **axis_kw
         )
 
     def fit_chunk(rids):
         w = bootstrap_weights(
-            key, rids, n_rows, ratio=sample_ratio, replacement=bootstrap
+            row_key, rids, n_rows, ratio=sample_ratio, replacement=bootstrap
         )
         check_bootstrap_weights(w)  # no-op unless debug_mode()
         if row_mask is not None:
@@ -101,12 +121,24 @@ def fit_ensemble(
             Xs = (X if learner.reads_subspace_index
                   else _gather_columns(X, idx))
         params, fit_aux = learner.fit_from_init(
-            fit_key(key, rids), Xs, y, w, n_outputs, prepared=prep, aux=aux
+            fit_key(key, rids), Xs, y, w, n_outputs, prepared=prep, aux=aux,
+            **axis_kw,
         )
         return params, idx, fit_aux["loss"]
 
     params, subspaces, losses = map_replicas(fit_chunk, replica_ids, chunk_size)
     return params, subspaces, {"loss": losses}
+
+
+def _row_key(key: torch.Tensor, data_axis: str | None) -> torch.Tensor:
+    """The key of the row draws: ``fold_in(key, shard)`` on a data
+    shard, ``key`` itself otherwise."""
+    if data_axis is None:
+        return key
+    from spark_bagging_tpu_torch.ops import prng
+    from spark_bagging_tpu_torch.parallel.compat import axis_index
+
+    return prng.fold_in(key, axis_index(data_axis))
 
 
 def _score_chunk(learner, params, idx, X, identity_subspace):
@@ -170,6 +202,7 @@ def predict_ensemble_classifier(
     n_total: int,
     *,
     voting: str = "soft",
+    replica_axis: str | None = None,
     chunk_size: int | None = None,
     identity_subspace: bool = False,
 ) -> torch.Tensor:
@@ -177,7 +210,8 @@ def predict_ensemble_classifier(
     probability (``voting="soft"``) or the vote frequencies
     (``"hard"``). Each chunk is reduced over its replicas as it is
     scored, so the ``(R, n, C)`` scores of the whole ensemble never
-    exist at once; the chunk sums are then averaged over all replicas."""
+    exist at once; the chunk sums are then averaged over all replicas
+    (summed over ``replica_axis``'s shards first, where it is set)."""
     if voting not in ("soft", "hard"):
         raise ValueError(f"unknown voting {voting!r}")
 
@@ -192,8 +226,10 @@ def predict_ensemble_classifier(
         _chunks_apply(one, (stacked_params, subspaces), chunk_size)
     )
     if voting == "soft":
-        return soft_vote_proba(chunk_sums, n_total=n_total)
-    return mean_aggregate(chunk_sums, n_total=n_total)
+        return soft_vote_proba(chunk_sums, n_total=n_total,
+                               axis_name=replica_axis)
+    return mean_aggregate(chunk_sums, n_total=n_total,
+                          axis_name=replica_axis)
 
 
 def predict_ensemble_regressor(
@@ -203,6 +239,7 @@ def predict_ensemble_regressor(
     X: torch.Tensor,
     n_total: int,
     *,
+    replica_axis: str | None = None,
     chunk_size: int | None = None,
     identity_subspace: bool = False,
 ) -> torch.Tensor:
@@ -217,7 +254,8 @@ def predict_ensemble_regressor(
     chunk_sums = torch.stack(
         _chunks_apply(one, (stacked_params, subspaces), chunk_size)
     )
-    return mean_aggregate(chunk_sums, n_total=n_total)
+    return mean_aggregate(chunk_sums, n_total=n_total,
+                          axis_name=replica_axis)
 
 
 def classifier_forward(
@@ -323,17 +361,20 @@ def oob_predict_scores(
     n_classes: int | None = None,
     chunk_size: int | None = None,
     identity_subspace: bool = False,
+    data_axis: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Out-of-bag aggregation: each replica votes only on the rows its
     regenerated bootstrap weights leave at zero. Returns ``(agg,
     n_votes)``: OOB vote counts ``(n, C)`` for classification (the
     masked prediction sum ``(n,)`` for regression) and the per-row
-    count of OOB replicas."""
+    count of OOB replicas. ``data_axis``: the fit was data-sharded, and
+    this shard replays its ``fold_in(key, shard)`` draws."""
+    row_key = _row_key(key, data_axis)
 
     def one(chunk):
         params, idx, rids = chunk
         contrib, votes = oob_replica_contrib(
-            learner, params, idx, rids, X, key,
+            learner, params, idx, rids, X, row_key,
             sample_ratio=sample_ratio, bootstrap=bootstrap,
             n_classes=n_classes, identity_subspace=identity_subspace,
         )

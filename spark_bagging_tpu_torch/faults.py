@@ -502,10 +502,8 @@ def builtin_plan_spec(name: str, seed: int = 0) -> dict[str, Any]:
       quarantine, and its first post-recovery restore hits a corrupt
       bucket read.
 
-    ``shard-loss`` is carried as a definition: its site
-    (``executor.mesh_forward``) has no probe in the port yet (mesh
-    serving is ROADMAP Queue A 12), so armed here it never fires. In
-    ``tenant-chaos`` the ``fleet.dispatch`` spec fires
+    ``shard-loss`` fires at ``executor.mesh_forward``, the probe of a
+    mesh executor's slab forward. In ``tenant-chaos`` the ``fleet.dispatch`` spec fires
     (``tenancy/fleet.py``); its ``aot.load`` spec stays a definition that
     never fires — the port has no persisted executable cache to read (a
     CUDA graph cannot be serialized; a restore re-captures). The worker

@@ -19,6 +19,14 @@ out-of-core engine (streaming.py) can fit it by Adam over data chunks.
 
 Params are dicts of tensors. ``sample_weight`` carries the Poisson
 bootstrap counts, which a learner treats as exact row multiplicities.
+
+Row reductions go through ``ops/reduce.maybe_psum(_, axis_name)``, so a
+learner whose ``data_axis_ready`` is True fits data-parallel: ``prepare``,
+``pooled_init``, ``fit`` and ``fit_from_init`` take ``axis_name``, the
+mesh axis rows are sharded over, and every shard's fit is the fit on all
+shards' rows. The engines pass ``axis_name`` only when it is set, so a
+learner whose data axis is not threaded yet keeps its plain signature
+(``parallel/sharded.py`` refuses it on a data mesh).
 """
 
 from __future__ import annotations
@@ -57,6 +65,9 @@ class BaseLearner(ParamsMixin):
     # True: ``row_loss``/``penalty`` are implemented and ``fit_stream``
     # fits the learner by Adam over data chunks (streaming.py)
     streamable: ClassVar[bool] = False
+    # True: ``prepare``/``pooled_init``/``fit`` sum their row statistics
+    # over ``axis_name``, so the learner fits on a data mesh
+    data_axis_ready: ClassVar[bool] = False
 
     def pooled_amortizes(self, n_replicas: int) -> bool:
         """Is the pooled pre-pass worth running for an ensemble of this
@@ -70,7 +81,8 @@ class BaseLearner(ParamsMixin):
 
     def pooled_init(self, key: torch.Tensor, prepared: Any, X: torch.Tensor,
                     y: torch.Tensor, n_outputs: int, *,
-                    row_mask: torch.Tensor | None = None) -> Any:
+                    row_mask: torch.Tensor | None = None,
+                    axis_name: str | None = None) -> Any:
         """Shared warm-start state, computed once per ensemble; the
         returned value replaces ``prepared`` for this fit."""
         raise NotImplementedError
@@ -84,7 +96,8 @@ class BaseLearner(ParamsMixin):
 
     def fit(self, params: Params, X: torch.Tensor, y: torch.Tensor,
             sample_weight: torch.Tensor, keys: torch.Tensor, *,
-            prepared: Any | None = None) -> tuple[Params, Aux]:
+            prepared: Any | None = None,
+            axis_name: str | None = None) -> tuple[Params, Aux]:
         raise NotImplementedError
 
     def predict_scores(self, params: Params, X: torch.Tensor) -> torch.Tensor:
@@ -112,9 +125,10 @@ class BaseLearner(ParamsMixin):
         return None
 
     def prepare(self, X: torch.Tensor, *,
-                row_mask: torch.Tensor | None = None) -> Any | None:
+                row_mask: torch.Tensor | None = None,
+                axis_name: str | None = None) -> Any | None:
         """Replica-invariant precomputation; None means nothing."""
-        del X, row_mask
+        del X, row_mask, axis_name
         return None
 
     def gather_subspace(self, prepared: Any, idx: torch.Tensor) -> Any:
@@ -156,9 +170,11 @@ class BaseLearner(ParamsMixin):
     def fit_from_init(self, keys: torch.Tensor, X: torch.Tensor,
                       y: torch.Tensor, sample_weight: torch.Tensor,
                       n_outputs: int, *, prepared: Any | None = None,
-                      aux: torch.Tensor | None = None) -> tuple[Params, Aux]:
+                      aux: torch.Tensor | None = None,
+                      axis_name: str | None = None) -> tuple[Params, Aux]:
         """Init-then-fit with split keys; a replica chunk's whole
-        training. ``aux`` reaches a ``uses_aux`` learner's fit only."""
+        training. ``aux`` reaches a ``uses_aux`` learner's fit only, and
+        ``axis_name`` the fit only where it is set."""
         from spark_bagging_tpu_torch.ops.bootstrap import split_init_fit
 
         init_keys, fit_keys = split_init_fit(keys)
@@ -168,6 +184,8 @@ class BaseLearner(ParamsMixin):
         kwargs = {} if prepared is None else {"prepared": prepared}
         if self.uses_aux:
             kwargs["aux"] = aux
+        if axis_name is not None:
+            kwargs["axis_name"] = axis_name
         return self.fit(params, X, y, sample_weight, fit_keys, **kwargs)
 
 
@@ -198,7 +216,8 @@ class PooledStartMixin:
         saves about two per replica: it pays once ``2·R >= pooled_iter``."""
         return 2 * n_replicas >= self.pooled_iter
 
-    def pooled_init(self, key, prepared, X, y, n_outputs, *, row_mask=None):
+    def pooled_init(self, key, prepared, X, y, n_outputs, *, row_mask=None,
+                    axis_name=None):
         del prepared  # these learners have no other prepared state
         n = X.shape[0]
         w = (torch.ones((1, n), dtype=torch.float32, device=X.device)
@@ -209,7 +228,8 @@ class PooledStartMixin:
         })
         keys = key[None]
         params0 = solver.init_params(keys, X.shape[1], n_outputs)
-        params, _ = solver.fit(params0, X, y, w, keys)
+        kw = {} if axis_name is None else {"axis_name": axis_name}
+        params, _ = solver.fit(params0, X, y, w, keys, **kw)
         return params[self._pooled_leaf][0]
 
     def gather_subspace(self, prepared, idx):

@@ -55,6 +55,9 @@ class _GBTBase(DecisionTreeRegressor):
     # a fit is rounds of trees over margins of the whole dataset, not the
     # one tree the streamed tree engine grows (tree_stream.py)
     tree_streamable = False
+    # the boosting rounds do not sum over a data mesh yet (ROADMAP Queue
+    # A 12 part 1b)
+    data_axis_ready = False
 
     def __init__(
         self,

@@ -11,7 +11,9 @@ jitter) with one batched Gram product and one batched LU solve with
 partial pivoting. The products run in float32 with TF32 off
 (ops/precision.py) whatever ``precision`` says; the name is kept for
 parity with the JAX signature. The Gram is a plain batched product, as
-in the JAX package, where no Pallas kernel computes it.
+in the JAX package, where no Pallas kernel computes it. On a data mesh
+the Gram, the right-hand side and the weight total sum over the row
+shards (``axis_name``), so every shard solves the global system.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from spark_bagging_tpu_torch.models.base import BaseLearner, augment_bias
 from spark_bagging_tpu_torch.ops.precision import fp32_matmul, gram_op_dtype
+from spark_bagging_tpu_torch.ops.reduce import maybe_psum
 
 _BIAS_JITTER = 1e-8
 # floor on a replica's weight total, and the total at or below which its
@@ -43,6 +46,7 @@ class LinearRegression(BaseLearner):
 
     task = "regression"
     streamable = True
+    data_axis_ready = True
 
     def __init__(self, l2: float = 1e-6, precision: str = "highest"):
         self.l2 = l2
@@ -87,7 +91,8 @@ class LinearRegression(BaseLearner):
         """``0.5 l2 |beta[:-1]|^2`` per replica, ``(R,)``."""
         return 0.5 * self.l2 * (params["beta"][:, :-1] ** 2).sum(dim=-1)
 
-    def fit(self, params, X, y, sample_weight, keys, *, prepared=None):
+    def fit(self, params, X, y, sample_weight, keys, *, prepared=None,
+            axis_name=None):
         del params, keys, prepared  # closed form; nothing precomputed
         gram_op_dtype(self.precision)  # reject an unknown name up front
         Xb = augment_bias(X.to(torch.float32))   # (n, d) or (R, n, d)
@@ -96,12 +101,15 @@ class LinearRegression(BaseLearner):
         d = Xb.shape[-1]
         # an all-zero draw would solve a 0-matrix: with w = 0 the
         # right-hand side is 0 too, and the floor keeps it finite
-        w_sum = torch.clamp_min(w.sum(dim=-1), _W_SUM_FLOOR)
+        # summed over the data shards (axis_name), so every shard solves
+        # the same system and takes the same empty-draw branch
+        w_sum = torch.clamp_min(maybe_psum(w.sum(dim=-1), axis_name),
+                                _W_SUM_FLOOR)
         with fp32_matmul():
             Xw = Xb * w[..., None]                           # (R, n, d)
             XwT = Xw.transpose(-1, -2)
-            A = XwT @ Xb                                     # (R, d, d)
-            b = (XwT @ y[:, None])[..., 0]                   # (R, d)
+            A = maybe_psum(XwT @ Xb, axis_name)               # (R, d, d)
+            b = maybe_psum((XwT @ y[:, None])[..., 0], axis_name)  # (R, d)
             pen = torch.full((d,), self.l2, dtype=torch.float32,
                              device=w.device)
             pen[-1] = _BIAS_JITTER
@@ -117,7 +125,7 @@ class LinearRegression(BaseLearner):
             beta = torch.where(w_sum[:, None] > _EMPTY_W_SUM, beta,
                                torch.zeros_like(beta))
             resid = _linear(X, beta) - y
-            mse = (w * resid**2).sum(dim=-1) / w_sum
+            mse = maybe_psum((w * resid**2).sum(dim=-1), axis_name) / w_sum
         return ({"beta": beta},
                 {"loss": mse, "loss_curve": mse[:, None]})
 

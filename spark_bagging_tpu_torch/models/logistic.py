@@ -58,6 +58,7 @@ class LogisticRegression(PooledStartMixin, BaseLearner):
 
     task = "classification"
     streamable = True
+    data_axis_ready = True
 
     def __init__(
         self,
@@ -173,33 +174,39 @@ class LogisticRegression(PooledStartMixin, BaseLearner):
         idx = y.view(1, -1, 1).expand(*logp.shape[:-1], 1)
         return -logp.gather(-1, idx)[..., 0], logp
 
-    def _global_loss(self, W, Xb, y, w, w_sum, tiles):
+    def _global_loss(self, W, Xb, y, w, w_sum, tiles, axis_name=None):
         """Weighted mean NLL + penalty, ``(R,)``."""
         local = 0.0
         for sl in tiles:
             nll, _ = self._nll_from_scores(Xb[..., sl, :] @ W, y[sl])
             local = local + (w[:, sl] * nll).sum(dim=-1)
-        return maybe_psum(local) / w_sum + self._penalty(W)
+        return maybe_psum(local, axis_name) / w_sum + self._penalty(W)
 
-    def fit(self, params, X, y, sample_weight, keys, *, prepared=None):
+    def fit(self, params, X, y, sample_weight, keys, *, prepared=None,
+            axis_name=None):
         del keys, prepared  # deterministic solvers; no precomputation
         if self.solver not in ("newton", "adam"):
             raise ValueError(f"unknown solver {self.solver!r}")
         Xb = augment_bias(X.to(torch.float32))
         w = sample_weight.to(torch.float32)
         # floor: all-zero bootstrap draws must stay finite
-        w_sum = torch.clamp_min(maybe_psum(w.sum(dim=-1)), 1e-12)
+        w_sum = torch.clamp_min(maybe_psum(w.sum(dim=-1), axis_name), 1e-12)
         with fp32_matmul():
             if self.solver == "adam":
-                return self._fit_adam(params, Xb, y.long(), w, w_sum)
-            return self._fit_newton(params, Xb, y.long(), w, w_sum)
+                return self._fit_adam(params, Xb, y.long(), w, w_sum,
+                                      axis_name)
+            return self._fit_newton(params, Xb, y.long(), w, w_sum,
+                                    axis_name)
 
     # -- Adam ------------------------------------------------------------
 
-    def _fit_adam(self, params, Xb, y, w, w_sum) -> tuple[Params, Aux]:
+    def _fit_adam(self, params, Xb, y, w, w_sum,
+                  axis_name=None) -> tuple[Params, Aux]:
         """``max_iter`` full-batch Adam steps on each replica's weighted
         mean NLL, the penalty's gradient added to the data's, as the JAX
-        learner forms it; the curve holds each step's loss before it."""
+        learner forms it; the curve holds each step's loss before it. On
+        a data shard the local loss is over the global weight total and
+        its gradient sums over the shards."""
         p = {"W": params["W"].clone()}
         opt = Adam(p, self.lr)
         losses = []
@@ -210,11 +217,13 @@ class LogisticRegression(PooledStartMixin, BaseLearner):
                 local = (w * nll).sum(dim=-1) / w_sum            # (R,)
                 (g,) = torch.autograd.grad(local.sum(), [Wg])
             W = p["W"]
-            losses.append(local.detach() + self._penalty(W))
+            g = maybe_psum(g, axis_name)
+            losses.append(maybe_psum(local.detach(), axis_name)
+                          + self._penalty(W))
             opt.step(p, {"W": g + self._penalty_grad(W)})
         W = p["W"]
         final = self._global_loss(W, Xb, y, w, w_sum,
-                                  self._row_tiles(Xb.shape[-2]))
+                                  self._row_tiles(Xb.shape[-2]), axis_name)
         curve = (torch.stack(losses, dim=1) if losses
                  else torch.zeros((W.shape[0], 0), device=W.device))
         return {"W": W}, {"loss": final, "loss_curve": curve}
@@ -273,7 +282,8 @@ class LogisticRegression(PooledStartMixin, BaseLearner):
             return [slice(0, n)]
         return [slice(s, min(s + tile, n)) for s in range(0, n, tile)]
 
-    def _fit_newton(self, params, Xb, y, w, w_sum) -> tuple[Params, Aux]:
+    def _fit_newton(self, params, Xb, y, w, w_sum,
+                    axis_name=None) -> tuple[Params, Aux]:
         W = params["W"]
         R, d, C = W.shape
         impl = self._resolved_hessian(C)
@@ -297,9 +307,10 @@ class LogisticRegression(PooledStartMixin, BaseLearner):
                 )
                 loss_sum, G, H = loss_sum + dl, G + dG, H + dH
             ws = w_sum[:, None, None]
-            losses.append(maybe_psum(loss_sum) / w_sum + self._penalty(W))
-            G = maybe_psum(G) / ws + self._penalty_grad(W)
-            H = maybe_psum(H) / ws + damp
+            losses.append(maybe_psum(loss_sum, axis_name) / w_sum
+                          + self._penalty(W))
+            G = maybe_psum(G, axis_name) / ws + self._penalty_grad(W)
+            H = maybe_psum(H, axis_name) / ws + damp
             L, info = torch.linalg.cholesky_ex(H)
             not_pd |= info != 0
             g = G.transpose(-1, -2).reshape(R, C * d, 1)
@@ -310,7 +321,7 @@ class LogisticRegression(PooledStartMixin, BaseLearner):
                 "damped Newton Hessian is not positive definite for "
                 f"replicas {not_pd.nonzero().flatten().tolist()[:8]}"
             )
-        final = self._global_loss(W, Xb, y, w, w_sum, tiles)
+        final = self._global_loss(W, Xb, y, w, w_sum, tiles, axis_name)
         curve = (torch.stack(losses, dim=1) if losses
                  else torch.zeros((R, 0), device=W.device))
         return {"W": W}, {"loss": final, "loss_curve": curve}

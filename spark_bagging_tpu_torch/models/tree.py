@@ -50,6 +50,7 @@ from spark_bagging_tpu_torch.models.base import BaseLearner
 from spark_bagging_tpu_torch.ops import hist as hist_ops
 from spark_bagging_tpu_torch.ops import prng
 from spark_bagging_tpu_torch.ops.precision import fp32_matmul
+from spark_bagging_tpu_torch.ops.reduce import maybe_psum
 
 _EPS = 1e-12
 _HIST_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -97,6 +98,24 @@ def _quantile_edges(X: torch.Tensor, row_mask, n_bins: int):
     return Xs[:, pos.long()], n_valid
 
 
+def _psum_average_edges(interior: torch.Tensor, n_valid: torch.Tensor,
+                        axis_name: str | None) -> torch.Tensor:
+    """Masked cross-shard average of quantile edges, as the JAX package
+    forms it: shards holding at least one valid row contribute;
+    padding-only shards (whose edges are +inf) are left out."""
+    if axis_name is None:
+        return interior
+    has = (n_valid > 0).to(interior.dtype)
+    num = maybe_psum(
+        torch.where(torch.isfinite(interior), interior,
+                    torch.zeros((), dtype=interior.dtype,
+                                device=interior.device)) * has,
+        axis_name,
+    )
+    den = torch.clamp_min(maybe_psum(has, axis_name), 1.0)
+    return num / den
+
+
 def _take_feature(X: torch.Tensor, f_row: torch.Tensor,
                   cols: torch.Tensor | None = None) -> torch.Tensor:
     """``X[i, f_row[r, i]]`` per replica: ``(R, n)`` from a shared
@@ -120,6 +139,8 @@ class _TreeBase(BaseLearner):
     # one tree a replica: fit_stream grows it with the multi-pass
     # level-synchronous engine (tree_stream.py)
     tree_streamable: ClassVar[bool] = True
+    # the edges, level tables and leaf statistics sum over a data mesh
+    data_axis_ready: ClassVar[bool] = True
 
     def __init__(
         self,
@@ -208,13 +229,16 @@ class _TreeBase(BaseLearner):
 
     # -- prepare hook ---------------------------------------------------
 
-    def prepare(self, X, *, row_mask=None):
+    def prepare(self, X, *, row_mask=None, axis_name=None):
         """Bin edges ``(F, B)`` (last edge +inf) and, for the kernel
         path, the bin codes of X ``(n, F)`` (ops/hist.bin_codes: one
         kernel launch a fit on the card); for the dense path the
         threshold indicator, kept transposed as ``(F, B, n)`` int8 so a
-        subspace gathers whole ``(B, n)`` slices."""
-        interior, _ = _quantile_edges(X, row_mask, self.n_bins)
+        subspace gathers whole ``(B, n)`` slices. On a data mesh
+        (``axis_name``) each shard's quantiles are averaged into one
+        binning every shard shares, as in the JAX package."""
+        interior, n_valid = _quantile_edges(X, row_mask, self.n_bins)
+        interior = _psum_average_edges(interior, n_valid, axis_name)
         F = X.shape[1]
         edges = torch.cat([interior, torch.full(
             (F, 1), math.inf, dtype=X.dtype, device=X.device)], dim=1)
@@ -371,7 +395,8 @@ class _TreeBase(BaseLearner):
                     out[r] = torch.mm(a, stats[r], out_dtype=torch.float32)
         return out
 
-    def _grow(self, X, S, prepared, keys=None, integral=False):
+    def _grow(self, X, S, prepared, keys=None, integral=False,
+              axis_name=None):
         """Level-synchronous growth of R trees; returns (feature,
         threshold, per-node gain, leaf index per row, per-level impurity
         curve), each with a leading replica axis.
@@ -382,7 +407,9 @@ class _TreeBase(BaseLearner):
         impurity (``integral``: they are integers, which the kernel then
         sums exactly in int32); ``keys`` ``(R, 2)``, the replicas' fit
         keys, seed the per-split feature masks when ``feature_subset``
-        is set.
+        is set. On a data mesh each level's table sums over the row
+        shards (``axis_name``) before the split search, so every shard
+        picks the same splits.
         """
         R, n, K = S.shape
         cols = prepared.get("cols")
@@ -413,7 +440,7 @@ class _TreeBase(BaseLearner):
                     hist_dtype=hdt, cols=cols, integral=integral)
             else:
                 hist = self._dense_left_stats(Tf, Sh, node, N)
-            hist = hist.reshape(R, F, B, N, K)
+            hist = maybe_psum(hist, axis_name).reshape(R, F, B, N, K)
             mask = (self._level_feat_mask(keys, level, N, F, k_split)
                     if k_split is not None else None)
             bf, thr, score_sum, gain = self._select_splits(hist, edges, mask)
@@ -452,12 +479,14 @@ class _TreeBase(BaseLearner):
         hist = self._dense_left_stats(Tf, S.to(_HIST_DTYPES[hdt]), node, N)
         return hist.reshape(S.shape[0], F, B, N, S.shape[-1])
 
-    def _leaf_stats(self, node, S):
-        """Per-leaf statistic sums ``(R, 2^d, K)`` in full float32."""
+    def _leaf_stats(self, node, S, axis_name=None):
+        """Per-leaf statistic sums ``(R, 2^d, K)`` in full float32,
+        summed over the row shards on a data mesh."""
         L = 2**self.max_depth
         onehot = (node[..., None] == torch.arange(L, device=node.device))
         with fp32_matmul():
-            return onehot.to(torch.float32).transpose(1, 2) @ S
+            return maybe_psum(onehot.to(torch.float32).transpose(1, 2) @ S,
+                              axis_name)
 
     # -- the debug dump -------------------------------------------------
 
@@ -626,22 +655,26 @@ class DecisionTreeClassifier(_TreeBase):
         return new, {"loss": leaf_gini / w_tot,
                      "loss_curve": curve / w_tot[:, None]}
 
-    def fit(self, params, X, y, sample_weight, keys, *, prepared=None):
+    def fit(self, params, X, y, sample_weight, keys, *, prepared=None,
+            axis_name=None):
         if prepared is None:
-            prepared = self.prepare(X)
+            prepared = self.prepare(X, axis_name=axis_name)
         C = params["leaf_logp"].shape[-1]
         w = sample_weight.to(torch.float32)
         S = self._row_stats(y, w, C)
         # bootstrap counts (or 0/1, or unit weights) times one-hot
         # classes are integers, which the kernel sums exactly in int32
         # while a replica's total weight, the bound of every sum, stays
-        # well inside it; a fractional sample_weight makes them floats
-        integral = bool(torch.equal(w, torch.floor(w))
-                        and w.sum(-1).max() < 2.0**30)
+        # well inside it; a fractional sample_weight makes them floats.
+        # On a data mesh the shards decide together (their tables sum)
+        fractional = torch.ne(w, torch.floor(w)).any().to(torch.float32)
+        w_max = maybe_psum(w.sum(-1), axis_name).max()
+        integral = bool(maybe_psum(fractional, axis_name) == 0
+                        and w_max < 2.0**30)
         feature, threshold, gain, node, curve = self._grow(
-            X, S, prepared, keys, integral=integral
+            X, S, prepared, keys, integral=integral, axis_name=axis_name
         )
-        counts = self._leaf_stats(node, S)  # (R, L, C)
+        counts = self._leaf_stats(node, S, axis_name)  # (R, L, C)
         return self._finalize_leaves(feature, threshold, gain, counts, curve)
 
     def predict_scores(self, params, X, cols=None):
@@ -701,15 +734,16 @@ class DecisionTreeRegressor(_TreeBase):
                "leaf_value": value.to(torch.float32)}
         return new, {"loss": sse / w_tot, "loss_curve": curve / w_tot[:, None]}
 
-    def fit(self, params, X, y, sample_weight, keys, *, prepared=None):
+    def fit(self, params, X, y, sample_weight, keys, *, prepared=None,
+            axis_name=None):
         del params
         if prepared is None:
-            prepared = self.prepare(X)
+            prepared = self.prepare(X, axis_name=axis_name)
         S = self._row_stats(y, sample_weight.to(torch.float32), 1)
         feature, threshold, gain, node, curve = self._grow(
-            X, S, prepared, keys
+            X, S, prepared, keys, axis_name=axis_name
         )
-        m = self._leaf_stats(node, S)  # (R, L, 3)
+        m = self._leaf_stats(node, S, axis_name)  # (R, L, 3)
         return self._finalize_leaves(feature, threshold, gain, m, curve)
 
     def predict_scores(self, params, X, cols=None):

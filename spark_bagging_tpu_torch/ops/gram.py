@@ -172,6 +172,7 @@ def _stream(dev):
 
 
 def _launch(X, S, op_dtype):
+    from spark_bagging_tpu_torch.parallel.compat import count_launch
     from spark_bagging_tpu_torch.utils import native
 
     X3, S3, squeeze = _as_batched(X, S)
@@ -200,7 +201,7 @@ def _launch(X, S, op_dtype):
             g["rows_per_split"], int(op_dtype == "bfloat16"), _stream(dev),
         )
     native.check(lib, err, "scaled_gram")
-    scaled_grams.launches += 1
+    count_launch(scaled_grams)
     return out[0] if squeeze else out
 
 

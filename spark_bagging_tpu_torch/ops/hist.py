@@ -536,6 +536,7 @@ def _stream(dev):
 
 
 def _launch_codes(X, edges):
+    from spark_bagging_tpu_torch.parallel.compat import count_launch
     from spark_bagging_tpu_torch.utils import native
 
     X3 = X[None] if X.dim() == 2 else X
@@ -559,7 +560,7 @@ def _launch_codes(X, edges):
                 out.data_ptr(), n, F, B, R, out.element_size(), blocks,
                 _stream(dev))
         native.check(lib, err, "bin_codes")
-        bin_codes.launches += 1
+        count_launch(bin_codes)
     return out[0] if X.dim() == 2 and edges.dim() == 2 else out
 
 
@@ -590,6 +591,7 @@ def _launch_one(C3, cols, E3, node, S3, out, b0, n_nodes, hist_dtype,
     ``(B, K)`` slice fits one block. ``scales``: None for the int32
     accumulator, else :func:`fixed_scales` of the whole statistics (a
     class slice keeps the whole table's scales)."""
+    from spark_bagging_tpu_torch.parallel.compat import count_launch
     from spark_bagging_tpu_torch.utils import native
 
     R, n, K = S3.shape
@@ -626,8 +628,9 @@ def _launch_one(C3, cols, E3, node, S3, out, b0, n_nodes, hist_dtype,
             None if integral else scales[1].data_ptr(), _stream(dev),
         )
     native.check(lib, err, "binned_left_stats")
-    binned_left_stats.launches += 1
-    binned_left_stats.float_launches += not integral
+    count_launch(binned_left_stats)
+    if not integral:
+        count_launch(binned_left_stats, "float_launches")
 
 
 def _launch(codes, edges, node, S, cols, n_nodes, hist_dtype, integral):

@@ -61,9 +61,22 @@ The capacity plane's demand tap (``telemetry/capacity.py``) and the
 performance plane's forward probe (``telemetry/perf.py``) cost one
 module-attribute read each while no plane is installed.
 
-Not ported yet: mesh serving and the degraded-quorum surface (ROADMAP
-Queue A 12). A CUDA graph cannot be serialized, so there is no
-persisted executable cache: :meth:`restore_executables` ignores one.
+``mesh`` (a replica mesh, ``parallel.make_mesh(replica=k)``) serves
+the ensemble's replicas sharded over the mesh (``parallel/sharded.
+replica_sharded_serving``): a bucket's program (:class:`MeshProgram`)
+is one program a shard — a CUDA graph a (bucket, shard) on the card —
+run in shard order from the dispatching thread (a capture must not race
+another on one device, and a replica-only forward has no collective
+mid-body), then the per-replica outputs are gathered on the first
+shard's device and reduced by the single-device forward's own
+operations, so every bucket serves the single-device executor's bits.
+A shard that fails (``faults.ShardFault``, or :meth:`degrade_shards`)
+leaves the quorum: the executor then serves the surviving replicas'
+aggregate (``replica_subset_serving``), bitwise the subset aggregate
+recomputed offline, until :meth:`reset_degraded`.
+
+A CUDA graph cannot be serialized, so there is no persisted executable
+cache: :meth:`restore_executables` ignores one.
 """
 
 from __future__ import annotations
@@ -88,8 +101,6 @@ from spark_bagging_tpu_torch.serving.buckets import (
 from spark_bagging_tpu_torch.telemetry import capacity as _capacity
 from spark_bagging_tpu_torch.telemetry import perf as _perf
 from spark_bagging_tpu_torch.telemetry import tracing
-
-_ROADMAP_MESH = "ROADMAP Queue A 12: parallel/"
 
 #: eager runs on a side stream before a capture (cuBLAS handles,
 #: workspaces and the allocator's blocks settle outside the graph); a
@@ -248,6 +259,72 @@ class GraphProgram:
             return out.copy()
 
 
+class MeshProgram:
+    """A replica-sharded bucket program over ``fwd`` (a
+    ``parallel.sharded.ShardedForward``): one program a shard on its
+    device — a captured graph on the card (:class:`GraphProgram`), the
+    eager per-replica forward on the CPU — run in shard order, the
+    shards' outputs gathered on the first shard's device in replica
+    order and reduced by ``fwd.reduce`` (``row_axis`` 0), or returned
+    per replica (``row_axis`` 1: the disagreement tap's program).
+
+    ``nbytes`` sums the shards' graph bytes (None on the CPU); ``cost``
+    is the whole forward's, counted once at the build on the first
+    shard's device, before and outside any capture."""
+
+    def __init__(self, fwd, shard_params, shard_subs, bucket: int,
+                 n_features: int, pool_for, row_axis: int = 0,
+                 cost: dict | None = None):
+        self._fwd = fwd
+        self._params, self._subs = shard_params, shard_subs
+        self.row_axis = row_axis
+        self.lock = threading.Lock()
+        first = fwd.devices[0]
+        if cost is None:
+            x = torch.zeros((bucket, n_features), dtype=torch.float32,
+                            device=first)
+            _, cost = counted_forward(fwd, shard_params, shard_subs, x)
+        self.cost = cost
+        self._cuda = first.type == "cuda"
+        self.nbytes = None
+        if not self._cuda:
+            return
+        self._shards = []
+        for p, sub, dev in zip(shard_params, shard_subs, fwd.devices):
+            pool, stream = pool_for(dev)
+            with torch.cuda.device(dev):
+                self._shards.append(GraphProgram(
+                    fwd.rep_fn, p, sub, bucket, n_features, pool, stream,
+                    row_axis=1, cost=cost))
+        self.nbytes = sum(g.nbytes for g in self._shards)
+        self.x_host = torch.empty((bucket, n_features), dtype=torch.float32,
+                                  pin_memory=True)
+        self._x_np = self.x_host.numpy()
+        self.done = torch.cuda.Event()
+
+    def run(self, Xp: np.ndarray, fill: int) -> np.ndarray:
+        if not self._cuda:
+            X = (torch.from_numpy(Xp) if Xp.flags.writeable
+                 else torch.tensor(Xp))
+            out = self._fwd(self._params, self._subs, X).numpy()
+            return out[:fill] if self.row_axis == 0 else out[:, :fill]
+        with self.lock:
+            self._x_np[...] = Xp
+            for g, dev in zip(self._shards, self._fwd.devices):
+                with torch.cuda.device(dev):
+                    g.x.copy_(self.x_host, non_blocking=True)
+                    g.graph.replay()
+            full = self._fwd.gather([g.out for g in self._shards])
+            if self.row_axis == 0:
+                out = self._fwd.reduce(full)[:fill]
+            else:
+                out = full[:, :fill]
+            host = out.to("cpu", non_blocking=True)
+            self.done.record()
+            self.done.synchronize()
+            return host.numpy().copy()
+
+
 # sbt-lint: shared-state
 class EnsembleExecutor:
     """Serve one fitted bagging estimator with one program a bucket.
@@ -261,7 +338,11 @@ class EnsembleExecutor:
     ``serve_config.json`` (which carries it, as the JAX package's does)
     reads back; a torch program has no buffer donation, so it changes
     nothing and is not part of the program key.
-    ``mesh`` is mesh serving, not ported yet (raises).
+    ``mesh`` switches the executor to the replica-sharded serving
+    program (module docstring): a data-axis size of 1 and a replica
+    axis that divides ``n_estimators``; everything else — the bucket
+    ladder, ragged packing, the batcher seam, the quality tap — is
+    unchanged.
     """
 
     def __init__(
@@ -273,21 +354,40 @@ class EnsembleExecutor:
         donate_input: bool | None = None,
         mesh: Any = None,
     ):
-        # the key's mesh component: None, or NotImplementedError for a mesh
-        self.mesh_shape = _pc.mesh_shape(mesh)
         if min_bucket_rows < 1 or max_batch_rows < min_bucket_rows:
             raise ValueError(
                 f"need 1 <= min_bucket_rows <= max_batch_rows, got "
                 f"{min_bucket_rows}, {max_batch_rows}"
             )
-        fn, params, subspaces = model.aggregated_forward()
+        self.mesh = mesh
+        self.mesh_shape = _pc.mesh_shape(mesh)
+        self._n_shards: int | None = None
+        rep_fwd = None
+        if mesh is None:
+            fn, params, subspaces = model.aggregated_forward()
+            device = subspaces.device
+        else:
+            from spark_bagging_tpu_torch.parallel.sharded import (
+                replica_sharded_serving,
+            )
+
+            (fn, rep_fwd, params, subspaces, device,
+             n_shards) = replica_sharded_serving(model, mesh)
+            self._n_shards = int(n_shards)
+            telemetry.set_gauge("sbt_serving_shard_devices",
+                                float(n_shards))
+        # degraded-quorum state (mesh executors only): shards marked
+        # failed, and the surviving replica indices the degraded
+        # aggregate averages over (None while healthy)
+        self._failed_shards: set[int] = set()
+        self._survivors: tuple[int, ...] | None = None
         self.model = model
         self.task: str = model.task
         self.n_features: int = int(model.n_features_in_)
         self.classes_ = getattr(model, "classes_", None)
         self.min_bucket_rows = int(min_bucket_rows)
         self.max_batch_rows = int(max_batch_rows)
-        self.device: torch.device = subspaces.device
+        self.device: torch.device = device
         self._fn = fn
         self._params = params
         self._subspaces = subspaces
@@ -316,7 +416,7 @@ class EnsembleExecutor:
         # the disagreement tap's per-replica programs, one a bucket,
         # built on first need (warmup_replica, or a sampled batch)
         self._replica_compiled: dict[int, Any] = {}
-        self._replica_fn = None
+        self._replica_fn = rep_fwd
         self._replica_unavailable = False
         # the attached quality monitor (telemetry/quality.py), or None:
         # the serving path's whole cost without one is this one read
@@ -327,6 +427,8 @@ class EnsembleExecutor:
         # stream, into one graph pool: cuBLAS keeps a workspace for each
         # stream it runs on, so a stream a capture would cost one each
         self._pool = self._stream = None
+        # a mesh shard on another card captures into that card's pool
+        self._shard_pools: dict[torch.device, tuple] = {}
         if self.device.type == "cuda":
             self._pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream(self.device)
@@ -389,11 +491,29 @@ class EnsembleExecutor:
             self.mesh_shape, *self._toolchain,
         )
 
+    def _pool_for(self, dev: torch.device) -> tuple:
+        """The graph pool and capture stream of ``dev`` (the caller holds
+        the build lock)."""
+        if dev == self.device:
+            return self._pool, self._stream
+        if dev not in self._shard_pools:
+            with torch.cuda.device(dev):
+                # sbt-lint: disable=shared-state-unlocked — every caller holds self._build_lock
+                self._shard_pools[dev] = (torch.cuda.graph_pool_handle(),
+                                          torch.cuda.Stream(dev))
+        return self._shard_pools[dev]
+
     def _new_program(self, bucket: int, fn=None, row_axis: int = 0):
         """Build one program (the caller holds the build lock)."""
+        from spark_bagging_tpu_torch.parallel.sharded import ShardedForward
+
         fn = self._fn if fn is None else fn
         key = (row_axis, bucket)
-        if self.device.type != "cuda":
+        if isinstance(fn, ShardedForward):
+            prog = MeshProgram(fn, self._params, self._subspaces, bucket,
+                               self.n_features, self._pool_for, row_axis,
+                               self._counted.get(key))
+        elif self._subspaces.device.type != "cuda":
             prog = EagerProgram(fn, self._params, self._subspaces, bucket,
                                 self.n_features, row_axis,
                                 self._counted.get(key))
@@ -428,20 +548,36 @@ class EnsembleExecutor:
                 return prog
             key = self._program_key(bucket)
             prog = _pc.cache().get(key)
-            if prog is not None:
+            # a card executor never serves a batch predict's eager
+            # program: it captures its graph in that entry's place
+            eager_batch = (isinstance(prog, _pc.EagerBatchProgram)
+                           and self.device.type == "cuda")
+            if prog is not None and not eager_batch:
                 self._install(bucket, prog)
                 return prog
             t0 = time.perf_counter()
             with telemetry.span("serving_compile", bucket=bucket):
                 prog = self._new_program(bucket)
-            telemetry.inc("sbt_serving_compiles_total")
-            if self.model_name is not None:
-                # labeled twin: per-model build attribution
-                telemetry.inc("sbt_serving_compiles_total",
-                              labels={"model": str(self.model_name)})
+            if self._failed_shards:
+                # a degraded program's build is the fault's cost, not a
+                # serving build: the zero-post-warmup gate stays whole
+                telemetry.inc("sbt_serving_degraded_compiles_total")
+            else:
+                telemetry.inc("sbt_serving_compiles_total")
+                if self.model_name is not None:
+                    # labeled twin: per-model build attribution
+                    telemetry.inc("sbt_serving_compiles_total",
+                                  labels={"model": str(self.model_name)})
+            if self.mesh is not None and not self._failed_shards:
+                telemetry.inc(
+                    "sbt_shardmap_traces_total",
+                    labels={"kind": "serving",
+                            "mesh": "x".join(map(str, self.mesh_shape))},
+                )
             telemetry.observe("sbt_serving_compile_seconds",
                               time.perf_counter() - t0)
-            prog = _pc.cache().put(key, prog)
+            prog = (_pc.cache().put(key, prog, replace=True) if eager_batch
+                    else _pc.cache().put(key, prog))
             self._install(bucket, prog)
             self._export_pool_bytes()
             return prog
@@ -500,19 +636,141 @@ class EnsembleExecutor:
             self.bucket_costs.clear()
             if self._pool is not None:
                 self._pool = torch.cuda.graph_pool_handle()
+            self._shard_pools.clear()
         if released:
             telemetry.inc("sbt_serving_programs_released_total",
                           float(len(released)))
         self._export_pool_bytes()
         return released
 
-    # -- surfaces not ported yet ---------------------------------------
+    # -- degraded-quorum serving (mesh executors) ----------------------
+
+    @property
+    def degraded(self) -> bool:
+        """True when this executor serves the surviving-replica
+        aggregate after one or more mesh shards failed."""
+        return bool(self._failed_shards)
+
+    @property
+    def failed_shards(self) -> tuple[int, ...]:
+        return tuple(sorted(self._failed_shards))
+
+    @property
+    def surviving_replicas(self) -> int | None:
+        """How many replicas the (degraded) aggregate averages over —
+        None while healthy (every replica serves)."""
+        return len(self._survivors) if self._survivors is not None else None
 
     def degrade_shards(self, shards) -> None:
-        raise NotImplementedError(f"degraded-quorum serving ({_ROADMAP_MESH})")
+        """Drop mesh shards from the serving quorum by hand (what a
+        ``faults.ShardFault`` does on its own). Mesh executors only."""
+        if self.mesh is None:
+            raise ValueError(
+                "degrade_shards is mesh-serving only; a single-device "
+                "executor has no shards to lose"
+            )
+        for s in shards:
+            self._degrade_shard(int(s))
+
+    def _degrade_shard(self, shard: int) -> bool:
+        """Drop ``shard`` from the quorum and swap the serving program to
+        the surviving replicas' aggregate (``parallel/sharded.
+        replica_subset_serving``; single-device, bitwise the subset
+        aggregate recomputed offline). Returns whether this call newly
+        degraded (False: the shard had already failed)."""
+        from spark_bagging_tpu_torch.parallel.sharded import (
+            replica_subset_serving,
+        )
+
+        with self._build_lock:
+            if self._n_shards is None or shard in self._failed_shards:
+                return False
+            if not 0 <= shard < self._n_shards:
+                raise ValueError(
+                    f"shard must be in [0, {self._n_shards}), got {shard}"
+                )
+            n_rep = int(self.model.n_estimators_)
+            per = n_rep // self._n_shards
+            failed = self._failed_shards | {shard}
+            survivors = [i for i in range(n_rep) if i // per not in failed]
+            if not survivors:
+                raise RuntimeError(
+                    "every serving shard has failed; no surviving "
+                    "replicas left to aggregate"
+                )
+            fn, rep_fn, params, subspaces = replica_subset_serving(
+                self.model, survivors)
+            self._failed_shards.add(shard)
+            self._survivors = tuple(survivors)
+            tag = ",".join(map(str, sorted(self._failed_shards)))
+            self._swap_forward(
+                fn, rep_fn, params, subspaces,
+                f"|degraded-shards=[{tag}]")
+        import warnings
+
+        telemetry.inc("sbt_serving_shard_failures_total")
+        telemetry.set_gauge("sbt_serving_degraded", 1.0)
+        telemetry.set_gauge("sbt_serving_degraded_replicas",
+                            float(len(survivors)))
+        telemetry.emit_event({
+            "kind": "serving_shard_failed",
+            "shard": shard,
+            "failed_shards": sorted(self._failed_shards),
+            "survivors": len(survivors),
+            "model": self.model_name,
+            "version": self.model_version,
+        })
+        warnings.warn(
+            f"serving shard {shard} dropped from the quorum; serving "
+            f"the {len(survivors)}-replica surviving aggregate "
+            "(degraded=true) until reset_degraded()",
+            RuntimeWarning,
+            stacklevel=3,
+        )
+        return True
+
+    def _swap_forward(self, fn, rep_fn, params, subspaces,
+                      tag: str) -> None:
+        """Serve another forward from the next build on (the caller
+        holds the build lock): every program of the old one is dropped,
+        with the costs counted for it."""
+        self._fn = fn
+        self._replica_fn = rep_fn
+        self._replica_unavailable = False
+        self._params = params
+        self._subspaces = subspaces
+        self._variant = _pc.forward_variant(self.model) + tag
+        self._replica_variant = (
+            _pc.forward_variant(self.model, "replica") + tag)
+        self._compiled.clear()
+        self._replica_compiled.clear()
+        self.bucket_costs.clear()
+        self._counted.clear()
+        if self._pool is not None:
+            # the allocator refuses a capture into a private pool whose
+            # last graph died, as the old forward's may have
+            self._pool = torch.cuda.graph_pool_handle()
+        self._shard_pools.clear()
 
     def reset_degraded(self) -> bool:
-        raise NotImplementedError(f"degraded-quorum serving ({_ROADMAP_MESH})")
+        """Heal back to the full-quorum mesh program (the shard's device
+        recovered, or a chaos run ended). Returns whether anything was
+        reset."""
+        from spark_bagging_tpu_torch.parallel.sharded import (
+            replica_sharded_serving,
+        )
+
+        with self._build_lock:
+            if not self._failed_shards:
+                return False
+            fn, rep_fn, params, subspaces, _dev, _n = \
+                replica_sharded_serving(self.model, self.mesh)
+            self._failed_shards.clear()
+            self._survivors = None
+            self._swap_forward(fn, rep_fn, params, subspaces, "")
+        telemetry.set_gauge("sbt_serving_degraded", 0.0)
+        telemetry.set_gauge("sbt_serving_degraded_replicas", 0.0)
+        return True
 
     # -- model-quality tap ---------------------------------------------
 
@@ -729,7 +987,19 @@ class EnsembleExecutor:
                 # packed batch is the tap's unit of work, replayed on
                 # these host rows
                 first_slab = (Xp, fill)
-            slab_outs.append(self._forward_piece(Xp, fill))
+            while True:
+                try:
+                    slab_outs.append(self._forward_piece(Xp, fill))
+                    break
+                except faults.ShardFault as e:
+                    # a mesh shard failed mid-forward: drop it from the
+                    # quorum and serve this slab again through the
+                    # survivors' aggregate. Each turn fails a new shard
+                    # (bounded by the shard count); a fault naming a
+                    # shard already failed is an ordinary error
+                    if self.mesh is None or not self._degrade_shard(
+                            e.shard):
+                        raise
         # scatter back: slice each block's rows out of the slab outputs
         outs: list[np.ndarray] = []
         slab_i = 0
@@ -774,8 +1044,13 @@ class EnsembleExecutor:
         padding) through its program; returns the real rows' output."""
         bucket = Xp.shape[0]
         if faults.ACTIVE is not None:
-            # chaos probe (one module-attribute read when unarmed)
+            # chaos probes (one module-attribute read when unarmed):
+            # generic slab faults, and the mesh-forward seam that
+            # stands for losing a shard's device mid-traffic
             faults.fire("executor.forward_piece", bucket=bucket)
+            if self.mesh is not None and not self._failed_shards:
+                faults.fire("executor.mesh_forward", bucket=bucket)
+        degraded = bool(self._failed_shards)
         prog = self._compiled.get(bucket)
         if prog is None:
             prog = self._build(bucket)
@@ -784,6 +1059,10 @@ class EnsembleExecutor:
                 ("sbt_serving_rows_total", float(fill)),
                 ("sbt_serving_padding_rows_total", float(bucket - fill)),
             ]
+            if self.mesh is not None and not degraded:
+                counts.append(("sbt_serving_shard_forwards_total", 1.0))
+            if degraded:
+                counts.append(("sbt_serving_degraded_forwards_total", 1.0))
             flops = self.bucket_costs.get(bucket, {}).get("flops")
             if flops:
                 # rows are interchangeable within a bucket's program, so

@@ -20,7 +20,8 @@ Key contract (why each component is in the key):
   quality plane's disagreement tap, and the voting mode, replica
   chunking and identity-subspace fast path;
 - ``bucket`` — the row count the program was built for;
-- ``mesh`` — always ``None`` here (mesh serving is ROADMAP Queue A 12);
+- ``mesh`` — the serving mesh's ``(data, replica)`` shape, ``None`` on
+  one device: a mesh program and a single-device one never share;
 - ``torch_version`` / ``cuda_version`` / ``device_kind`` — a program is
   only meaningful on the toolchain and card that built it.
 
@@ -33,6 +34,13 @@ and an adopted program can never outlive the tensors it reads. The
 index is bounded (LRU eviction at ``capacity`` entries, dead entries
 pruned as they are met) and thread-safe; lookups and inserts count
 ``sbt_program_cache_*`` telemetry.
+
+A batch predict (``BaggingClassifier.predict_proba`` &c.) looks its
+program up under the same key, bucket = its row count: it replays a
+serving program where one exists, and a miss records an
+:class:`EagerBatchProgram` (the eager forward: 0 program bytes, source
+``"eager"``), which the estimator holds. A serving executor on the card never adopts an
+eager batch program: it captures its graph and replaces the entry.
 
 Each entry carries residency metadata for the capacity plane
 (``telemetry/capacity.py``): the program's device bytes and their
@@ -156,12 +164,55 @@ def forward_variant(model: Any, kind: str = "aggregated") -> str:
 
 
 def mesh_shape(mesh: Any) -> tuple[int, int] | None:
-    """The key's mesh component: ``None`` for the single-device
-    executors the port builds; a mesh raises (not ported yet)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh serving (ROADMAP Queue A 12: parallel/)")
-    return None
+    """The key's mesh component: ``None`` for a single-device program,
+    the mesh's ``(data, replica)`` sizes otherwise."""
+    if mesh is None:
+        return None
+    from spark_bagging_tpu_torch.parallel.mesh import DATA_AXIS, REPLICA_AXIS
+
+    return (int(mesh.shape.get(DATA_AXIS, 1)),
+            int(mesh.shape.get(REPLICA_AXIS, 1)))
+
+
+class EagerBatchProgram:
+    """A batch predict's program: the aggregated forward run eagerly on
+    whatever rows it is given (``prog(X)``), or, as a serving program,
+    on one host slab (``run``). It captures nothing and holds no device
+    memory beyond the model's own parameters (which the capacity plane
+    counts as the model's), so its program bytes are 0, measured, with
+    the source ``"eager"``; its cost is counted on first read."""
+
+    nbytes = 0
+    bytes_source = "eager"
+    row_axis = 0
+
+    def __init__(self, fn, params, subspaces, bucket: int,
+                 n_features: int):
+        self._fn, self._params, self._subspaces = fn, params, subspaces
+        self._shape = (int(bucket), int(n_features))
+        self._cost = None
+
+    def __call__(self, X: torch.Tensor) -> torch.Tensor:
+        return self._fn(self._params, self._subspaces, X)
+
+    def run(self, Xp: np.ndarray, fill: int) -> np.ndarray:
+        X = torch.as_tensor(Xp, device=self._subspaces.device)
+        return self(X)[:fill].cpu().numpy()
+
+    @property
+    def cost(self) -> dict:
+        """The forward's cost at its row count (``counted_forward``),
+        counted once, when a serving executor first reads it."""
+        if self._cost is None:
+            from spark_bagging_tpu_torch.serving.executor import (
+                counted_forward,
+            )
+
+            x = torch.zeros(self._shape, dtype=torch.float32,
+                            device=self._subspaces.device)
+            _, self._cost = counted_forward(self._fn, self._params,
+                                            self._subspaces, x)
+        return self._cost
 
 
 class _Entry:
@@ -235,9 +286,21 @@ class ProgramCache:
                 telemetry.inc(name, labels={"model": owner})
         return prog
 
-    def put(self, key: ProgramKey, compiled: Any) -> Any:
+    def get_or_build(self, key: ProgramKey,
+                     build: Callable[[], Any]) -> tuple[Any, bool]:
+        """``(program, was_hit)``. The build runs outside the cache lock;
+        racing same-key builds both run and the first ``put`` wins."""
+        prog = self.get(key)
+        if prog is not None:
+            return prog, True
+        return self.put(key, build()), False
+
+    def put(self, key: ProgramKey, compiled: Any,
+            replace: bool = False) -> Any:
         """Insert-if-absent; returns the winning program (the first
-        insert wins, so racing builders converge on one program)."""
+        insert wins, so racing builds converge on one program).
+        ``replace=True`` overwrites a live entry (a serving capture
+        taking the place of an eager batch program)."""
         if faults.ACTIVE is not None:
             # chaos probe: a failed insert surfaces to the building
             # caller (executor build, swap pre-capture) exactly where an
@@ -250,9 +313,10 @@ class ProgramCache:
         with self._lock:
             existing = self._entries.get(key)
             prog = None if existing is None else existing.compiled
-            if prog is not None:
+            if prog is not None and not replace:
                 self._entries.move_to_end(key)
                 return prog
+            self._entries.pop(key, None)
             self._prune()
             self._seq += 1
             self._entries[key] = _Entry(compiled, nbytes, source,
@@ -340,6 +404,21 @@ class ProgramCache:
         telemetry.set_gauge("sbt_program_cache_entries", float(size))
         telemetry.set_gauge("sbt_program_cache_bytes", float(total_bytes))
         return len(dropped)
+
+    def drop_batch_programs(self) -> int:
+        """Remove every :class:`EagerBatchProgram` entry (not counted as
+        evictions: the estimators that built them still hold them).
+        Returns the number removed."""
+        with self._lock:
+            keys = [k for k, e in self._entries.items()
+                    if isinstance(e.compiled, EagerBatchProgram)]
+            for k in keys:
+                del self._entries[k]
+            size = len(self._entries)
+            total_bytes = self._bytes_locked()
+        telemetry.set_gauge("sbt_program_cache_entries", float(size))
+        telemetry.set_gauge("sbt_program_cache_bytes", float(total_bytes))
+        return len(keys)
 
     def clear(self) -> None:
         """Drop every entry (tests simulating a fresh process)."""

@@ -36,7 +36,10 @@ sticky across :meth:`~ModelRegistry.swap` and :meth:`~ModelRegistry.load`.
 Every registry contributes its live version map to ``/healthz``, and
 feeds the capacity plane's ledger (``telemetry/capacity.py``) on
 register and on a swap's commit only, so a failed swap leaves no
-ledger entry. Mesh serving is ROADMAP Queue A 12.
+ledger entry. A serve_config's serving mesh (a replica mesh) is rebuilt
+when the process has the devices for it (:func:`host_devices`), over a
+prefix of them where it has more; otherwise it serves single-device
+with a warning.
 """
 
 from __future__ import annotations
@@ -68,6 +71,20 @@ class _Entry:
 
 
 # sbt-lint: shared-state
+
+def host_devices(device: str = "cuda") -> list:
+    """The devices a serving mesh of this process may be built over: every
+    CUDA device for a ``"cuda"`` load, the one CPU device for ``"cpu"``."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            return []
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [torch.device("cpu")]
+
 class ModelRegistry:
     """Named, versioned serving models. All methods are thread-safe."""
 
@@ -472,12 +489,13 @@ class ModelRegistry:
             return None
         return cfg if isinstance(cfg, dict) else None
 
-    def _opts_from_config(self, cfg: dict,
-                          executor_opts: dict) -> dict:
+    def _opts_from_config(self, cfg: dict, executor_opts: dict,
+                          device: str = "cuda") -> dict:
         """Merge a serve_config's executor section UNDER the caller's
-        explicit options. A persisted serving-mesh shape (a JAX peer's)
-        cannot be rebuilt here (mesh serving is ROADMAP Queue A 12): the
-        process serves single-device, with a warning."""
+        explicit options. The persisted mesh shape is rebuilt into a live
+        mesh when this process has the devices for it (over a prefix of
+        them where it has more); otherwise the process serves
+        single-device with a warning."""
         merged: dict[str, Any] = {}
         section = cfg.get("executor")
         if not isinstance(section, dict):
@@ -485,15 +503,34 @@ class ModelRegistry:
         for k in ("min_bucket_rows", "max_batch_rows", "donate_input"):
             if section.get(k) is not None:
                 merged[k] = section[k]
-        if section.get("mesh"):
-            import warnings
+        shape = section.get("mesh")
+        if (
+            shape
+            and "mesh" not in executor_opts
+            and "mesh" not in self._default_opts
+        ):
+            from spark_bagging_tpu_torch.parallel.mesh import make_mesh
 
-            warnings.warn(
-                f"serve_config names a {section['mesh']} serving mesh; "
-                "mesh serving is not ported (ROADMAP Queue A 12), so "
-                "this process serves single-device",
-                stacklevel=3,
-            )
+            try:
+                data, replica = int(shape[0]), int(shape[1])
+                devices = host_devices(device)
+                need = data * replica
+                # a host with more devices than the recorded mesh builds
+                # the recorded shape over a prefix of them
+                kwargs = ({"devices": devices[:need]}
+                          if len(devices) >= need else {"devices": devices})
+                merged["mesh"] = make_mesh(data=data, replica=replica,
+                                           **kwargs)
+            except (ValueError, TypeError, IndexError, RuntimeError) as e:
+                # IndexError: a truncated or hand-edited "mesh" entry —
+                # a corrupt manifest degrades, it never crashes a load
+                import warnings
+
+                warnings.warn(
+                    f"serve_config names a {shape} serving mesh this "
+                    f"process cannot build ({e}); serving single-device",
+                    stacklevel=3,
+                )
         return {**merged, **executor_opts}
 
     def load(self, name: str, path: str, *, warm: bool = True,
@@ -541,7 +578,8 @@ class ModelRegistry:
             v = cfg.get("version")
             if isinstance(v, int) and v >= 1:
                 version = v
-            executor_opts = self._opts_from_config(cfg, executor_opts)
+            executor_opts = self._opts_from_config(cfg, executor_opts,
+                                                   device)
         with self._lock:
             entry = self._entries.get(name)
             live_version = entry.version if entry is not None else None
@@ -656,7 +694,8 @@ class ModelRegistry:
                 "min_bucket_rows": ex.min_bucket_rows,
                 "max_batch_rows": ex.max_batch_rows,
                 "donate_input": donate_opt,
-                "mesh": None,
+                "mesh": (list(ex.mesh_shape)
+                         if ex.mesh_shape is not None else None),
             },
             "warm_buckets": [int(b) for b in ex.compiled_buckets],
             "quality": quality_on,

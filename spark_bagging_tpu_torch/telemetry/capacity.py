@@ -68,12 +68,14 @@ def executable_bytes(program: Any) -> tuple[int | None, str]:
     """Device bytes held by one bucket program, with the source of
     truth: ``(n, "graph_pool")`` for a captured CUDA graph (its share of
     the executor's graph pool plus its static buffers, measured at the
-    capture), ``(None, "unmeasured")`` for anything that reports none —
-    the CPU's eager program. Honest None, never a made-up 0."""
+    capture), ``(0, "eager")`` for a batch predict's eager program (it
+    captures nothing), ``(None, "unmeasured")`` for anything that
+    reports none — the CPU's serving program. Honest None, never a
+    made-up 0."""
     nbytes = getattr(program, "nbytes", None)
     if nbytes is None:
         return None, "unmeasured"
-    return int(nbytes), "graph_pool"
+    return int(nbytes), getattr(program, "bytes_source", "graph_pool")
 
 
 def params_nbytes(executor: Any) -> int:

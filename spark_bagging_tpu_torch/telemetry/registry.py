@@ -53,6 +53,14 @@ SERIES_HELP: dict[str, str] = {
     "sbt_serving_latency_seconds": "Request latency submit-to-result (histogram; optional path label: direct/coalesced)",
     "sbt_serving_direct_dispatch_total": "Requests served inline by adaptive direct dispatch (idle fast path)",
     "sbt_serving_coalesced_total": "Requests served via the coalescing worker path",
+    "sbt_shardmap_traces_total": "shard_map traced executions",
+    "sbt_serving_shard_forwards_total": "Slab forwards executed by the replica-sharded (mesh) serving program",
+    "sbt_serving_shard_devices": "Replica-axis size of the serving mesh (gauge, set at sharded-executor construction)",
+    "sbt_serving_shard_failures_total": "Mesh serving shards marked failed and dropped from the quorum",
+    "sbt_serving_degraded": "Executor serves a degraded surviving-replica aggregate (gauge, 0/1)",
+    "sbt_serving_degraded_replicas": "Replicas the degraded aggregate averages over (gauge; 0 when healthy)",
+    "sbt_serving_degraded_forwards_total": "Slab forwards served by a degraded surviving-subset program",
+    "sbt_serving_degraded_compiles_total": "Degraded-program bucket compiles (fault response, not serving compiles)",
     "sbt_program_cache_hits_total": "Unified program cache hits (a build someone already paid, reused)",
     "sbt_program_cache_misses_total": "Unified program cache lookups that found nothing",
     "sbt_program_cache_evictions_total": "Programs evicted from (or dropped by fingerprint from) the unified program cache",

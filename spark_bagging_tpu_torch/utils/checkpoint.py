@@ -216,7 +216,9 @@ def _manifest(model: Any) -> dict:
         "fit_sampling": list(getattr(model, "_fit_sampling",
                                      (1.0, bool(model.bootstrap)))),
         "fit_n_rows": n_rows,
-        "weights_replayable": n_rows is not None and key is not None,
+        "weights_replayable": (n_rows is not None and key is not None
+                               and getattr(model, "_fit_weights_replayable",
+                                           True)),
         "rng_schema": RNG_SCHEMA,
         "identity_subspace": bool(model._identity_subspace),
         "chunk_resolved": getattr(model, "_chunk_resolved", None),
@@ -316,15 +318,15 @@ def _save_model_impl(model: Any, path: str, *, compress: bool | str) -> None:
     install(tmp, path)
 
 
-def load_model(path: str, *, device: str = "cuda") -> Any:
+def load_model(path: str, *, device: str = "cuda", mesh=None) -> Any:
     """Load a fitted estimator from directory ``path`` (written by
     either package) onto ``device``. Checkpoints are trusted input —
     see :func:`_import_class`."""
     with telemetry.span("checkpoint_load", metric="sbt_checkpoint_seconds"):
-        return _load_model_impl(path, device=device)
+        return _load_model_impl(path, device=device, mesh=mesh)
 
 
-def _load_model_impl(path: str, *, device: str) -> Any:
+def _load_model_impl(path: str, *, device: str, mesh=None) -> Any:
     from spark_bagging_tpu_torch.convert import params_from_jax
     from spark_bagging_tpu_torch.utils.device import resolve_device
 
@@ -342,11 +344,13 @@ def _load_model_impl(path: str, *, device: str) -> Any:
             f"checkpoint format {manifest['format_version']} is newer "
             f"than supported ({_FORMAT_VERSION})")
     tree = msgpack.restore(_read_arrays(path))
-    dev = resolve_device(device)
+    # a mesh is a runtime resource, never persisted: with one, the
+    # weights go to its first device and its shards predict
+    dev = mesh.first_device if mesh is not None else resolve_device(device)
 
     cls = _import_class(manifest["estimator"])
     params = {k: _deserialize_value(v) for k, v in manifest["params"].items()}
-    model = cls(**params, device=device)
+    model = cls(**params, device=device, mesh=mesh)
     learner_cls = _import_class(manifest["learner"])
     model._fitted_learner = learner_cls(**{
         k: _deserialize_value(v)
@@ -372,6 +376,7 @@ def _load_model_impl(path: str, *, device: str) -> Any:
             stacklevel=3)
         replayable = False
     model._fit_n_rows = fitted.get("fit_n_rows") if replayable else None
+    model._fit_weights_replayable = replayable
     model._identity_subspace = bool(fitted["identity_subspace"])
     model._chunk_resolved = fitted.get("chunk_resolved")
     model._stream_aux_col = fitted.get("stream_aux_col")

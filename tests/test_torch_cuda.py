@@ -1776,3 +1776,118 @@ def test_tenancy_threaded_restore_while_another_tenant_replays(cuda):
         fleet.close()
     finally:
         program_cache.install(prev_cache)
+
+
+# -- the in-process mesh on the card ------------------------------------
+
+@pytest.mark.parametrize("kind", ["logistic", "gini_tree"])
+def test_threaded_data_mesh_fit_on_the_card(cuda, kind):
+    """A (2, 2) mesh over repeated ``cuda:0`` entries: four shard threads
+    launch the kernels (the Gram for logistic, the histogram and the bin
+    codes for trees), each counted under its shard; with ``bootstrap=
+    False`` the logistic fit is the single-device fit within 1e-5 and
+    the trees, grown under the mesh's averaged edges, are the
+    single-device trees grown under those edges, bit for bit."""
+    import spark_bagging_tpu_torch as T
+    from spark_bagging_tpu_torch.ops.gram import scaled_grams
+    from spark_bagging_tpu_torch.ops.hist import binned_left_stats, bin_codes
+    from spark_bagging_tpu_torch.utils.datasets import make_classification
+
+    X, y = make_classification(4000, 12, 3, seed=0)
+    mesh = T.make_mesh(2, devices=[cuda] * 4)
+    kw = dict(n_estimators=8, bootstrap=False, max_samples=1.0, seed=0,
+              device="cuda")
+    if kind == "logistic":
+        learner = T.LogisticRegression(max_iter=4, hessian_impl="pallas")
+        fns = (scaled_grams,)
+    else:
+        learner = T.DecisionTreeClassifier(max_depth=4, n_bins=32,
+                                           split_impl="fused")
+        fns = (binned_left_stats, bin_codes)
+    for fn in fns:
+        fn.__dict__.pop("shard_launches", None)
+    a = T.BaggingClassifier(learner, mesh=mesh, **kw).fit(X, y)
+    for fn in fns:
+        shards = {s for (attr, s) in fn.shard_launches if attr == "launches"}
+        assert shards == {(0, 0), (0, 1), (1, 0), (1, 1)}, fn.__name__
+    if kind == "logistic":
+        b = T.BaggingClassifier(learner, **kw).fit(X, y)
+        np.testing.assert_allclose(a.predict_proba(X), b.predict_proba(X),
+                                   atol=1e-5)
+        return
+    # the mesh's edges, then a single-device growth under them
+    from spark_bagging_tpu_torch.ensemble import fit_ensemble
+    from spark_bagging_tpu_torch.ops import prng
+
+    edges = {}
+    orig = type(learner).prepare
+
+    def record(self, Xs, *, row_mask=None, axis_name=None):
+        out = orig(self, Xs, row_mask=row_mask, axis_name=axis_name)
+        edges["E"] = out["edges"]
+        return out
+
+    type(learner).prepare = record
+    try:
+        T.BaggingClassifier(learner, mesh=mesh, **kw).fit(X, y)
+    finally:
+        type(learner).prepare = orig
+    Xt = torch.as_tensor(X, device=cuda)
+    learner.prepare = lambda Xs, *, row_mask=None: learner._binned(
+        Xs, edges["E"])
+    try:
+        params, _, _ = fit_ensemble(
+            learner, Xt, torch.as_tensor(y, device=cuda), prng.key(0, cuda),
+            torch.arange(8, device=cuda), 3, bootstrap=False)
+    finally:
+        del learner.prepare
+    for k in ("feature", "threshold", "gain", "leaf_logp"):
+        assert torch.equal(a.ensemble_[k], params[k]), k
+
+
+def test_mesh_serving_on_the_card_with_a_shard_loss(cuda):
+    """``EnsembleExecutor(mesh=(1, 4))`` on ``cuda:0`` x 4: one graph per
+    (bucket, shard) captured at warm-up and none on requests, every
+    bucket bitwise the single-device executor's, and the ``shard-loss``
+    plan degrading to the surviving subset's aggregate, bitwise, with no
+    request failing."""
+    import warnings
+
+    import spark_bagging_tpu_torch as T
+    from spark_bagging_tpu_torch import faults, telemetry
+    from spark_bagging_tpu_torch.parallel.sharded import (
+        replica_subset_serving,
+    )
+    from spark_bagging_tpu_torch.serving import EnsembleExecutor
+    from spark_bagging_tpu_torch.utils.datasets import make_classification
+
+    X, y = make_classification(2000, 16, 4, seed=1)
+    clf = T.BaggingClassifier(T.LogisticRegression(max_iter=4),
+                              n_estimators=16, device="cuda").fit(X, y)
+    telemetry.enable()
+    c = telemetry.registry().counter("sbt_serving_compiles_total")
+    single = EnsembleExecutor(clf, min_bucket_rows=1, max_batch_rows=64)
+    sharded = EnsembleExecutor(clf, min_bucket_rows=1, max_batch_rows=64,
+                               mesh=T.make_mesh(replica=4,
+                                                devices=[cuda] * 4))
+    single.warmup()
+    sharded.warmup()
+    c0 = c.value
+    for b in (1, 2, 4, 8, 16, 32, 64):
+        np.testing.assert_array_equal(sharded.forward(X[:b]),
+                                      single.forward(X[:b]))
+    assert c.value == c0
+    fn, _rf, p, s = replica_subset_serving(
+        clf, [i for i in range(16) if i // 4 != 1])
+    faults.arm(faults.builtin_plan("shard-loss"))
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", RuntimeWarning)
+            outs = [sharded.forward(X[k * 8:k * 8 + 8]) for k in range(6)]
+    finally:
+        faults.disarm()
+    assert sharded.failed_shards == (1,)
+    for k in range(3, 6):
+        want = fn(p, s, torch.as_tensor(X[k * 8:k * 8 + 8],
+                                        device=cuda)).cpu().numpy()
+        np.testing.assert_array_equal(outs[k], want)

@@ -408,6 +408,34 @@ def test_fit_report_keys_match_jax():
     assert tc.fit_report_["achieved_tflops"] > 0
 
 
+@pytest.mark.parametrize("engine", ["sgd", "tree"])
+def test_stream_fit_report_keys_match_jax(engine):
+    """The stream twin: an SGD stream and a tree stream report the JAX
+    package's key set, with the first step's seconds in
+    ``compile_seconds`` where JAX puts its first step's compile."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(256, 8)).astype(np.float32)
+    y = (X[:, 0] > 0).astype(np.int64)
+    if engine == "sgd":
+        tl, jl = T.LogisticRegression(max_iter=3), J.LogisticRegression(
+            max_iter=3)
+    else:
+        tl, jl = (T.DecisionTreeClassifier(max_depth=2),
+                  J.DecisionTreeClassifier(max_depth=2))
+    tc = T.BaggingClassifier(tl, n_estimators=4, seed=0, device="cpu")
+    jc = J.BaggingClassifier(jl, n_estimators=4, seed=0)
+    tc.fit_stream(T.ArrayChunks(X, y, chunk_rows=64), prefetch=0)
+    jc.fit_stream(J.ArrayChunks(X, y, chunk_rows=64), prefetch=0)
+    assert set(tc.fit_report_) == set(jc.fit_report_)
+    assert tc.fit_report_["compile_seconds"] > 0
+    assert tc.fit_report_["h2d_seconds"] is None
+    from spark_bagging_tpu_torch import telemetry
+
+    names = {s["name"] for s in telemetry.registry().snapshot()}
+    assert not names & {"sbt_fit_first_step_seconds",
+                        "sbt_fit_stream_seconds"}
+
+
 @pytest.mark.parametrize("name,peak", [
     ("NVIDIA H100 80GB HBM3", 989.4), ("NVIDIA H100 NVL", 835.5),
     ("NVIDIA H100 PCIe", 756.5), ("NVIDIA H100 SXM5 80GB", 989.4),

@@ -303,8 +303,10 @@ def test_regressor_surface_rules(data):
         tr.fit_stream((X, y), resume_from="no-such-snapshot")
     np.testing.assert_array_equal(tr.predict_stream((X, y)), tr.predict(X))
     assert tr.score_stream((X, y)) == pytest.approx(tr.score(X, y))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        T.BaggingRegressor(device="cpu", mesh=object()).fit(X, y)
+    with pytest.raises(NotImplementedError, match="Queue A 12 part 1b"):
+        T.BaggingRegressor(T.MLPRegressor(hidden=4), device="cpu",
+                           mesh=T.make_mesh(
+                               2, devices=[torch.device("cpu")] * 2)).fit(X, y)
     # warm_start grows: the grown bag draws the cold fit's weights bit
     # for bit; its ridge solves, batched over 1 replica instead of 3,
     # round alike to within an ulp or two

@@ -127,8 +127,9 @@ def test_resumed_stream_equals_the_uninterrupted_fit(tmp_path, kind,
                                   full.predict_proba(X))
     if kind == "tree":
         # a resumed tree stream reports no FLOPs figure (it skipped
-        # passes); the uninterrupted one does
-        assert resumed.fit_report_["achieved_tflops"] is None
+        # passes: JAX's report then has no FLOP keys); the
+        # uninterrupted one does
+        assert "achieved_tflops" not in resumed.fit_report_
         assert full.fit_report_["model_flops_per_fit"]
     else:
         # the resumed call counts only its own steps

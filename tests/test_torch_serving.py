@@ -233,10 +233,15 @@ def test_executor_validates_input_and_raises_for_unported(executor, trees):
         executor.forward(np.zeros((1, 2, 8), np.float32))
     # a single feature vector is one row
     assert executor.forward(np.zeros(8, np.float32)).shape == (1, 3)
-    with pytest.raises(NotImplementedError, match="Queue A 12"):
-        EnsembleExecutor(trees, mesh=object())
-    with pytest.raises(NotImplementedError, match="Queue A 12"):
+    # mesh serving is ported (tests/test_torch_serving_sharded.py); a
+    # single-device executor has no shards to lose, and a serving mesh
+    # shards replicas only
+    with pytest.raises(ValueError, match="mesh-serving only"):
         executor.degrade_shards([0])
+    assert not executor.degraded and executor.surviving_replicas is None
+    with pytest.raises(ValueError, match="data-axis size 1"):
+        EnsembleExecutor(trees, mesh=T.make_mesh(
+            2, devices=[torch.device("cpu")] * 2))
     # the quality tap is ported: a monitor attaches and detaches
     executor.attach_quality(object())
     assert executor.quality is not None
@@ -319,6 +324,65 @@ def trees_for_swap(X, y):
 
 
 # -- the micro-batcher ---------------------------------------------------
+
+def test_batch_predicts_count_in_the_program_cache_as_jax():
+    """ROADMAP Queue C 5: ``predict_proba`` twice and ``predict`` at 16
+    rows look their program up in the unified cache under the serving
+    key (bucket = rows): one miss, two hits, one entry in both packages.
+    JAX's entry is a compiled executable with measured bytes; the port's
+    is the eager forward, held by the estimator, which captures nothing:
+    0 program bytes, source "eager"."""
+    from spark_bagging_tpu import telemetry as jtelemetry
+    from spark_bagging_tpu.serving import program_cache as jpc
+    from spark_bagging_tpu_torch.serving import program_cache as tpc
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(96, 8)).astype(np.float32)
+    y = X[:, 0] > 0
+    names = ("sbt_program_cache_misses_total", "sbt_program_cache_hits_total",
+             "sbt_program_cache_entries", "sbt_program_cache_bytes")
+    reads = {}
+    for pkg, tel, pc, kw in ((T, telemetry, tpc, {"device": "cpu"}),
+                             (J, jtelemetry, jpc, {})):
+        tel.reset()
+        tel.enable()
+        prev = pc.install(pc.ProgramCache())
+        try:
+            clf = pkg.BaggingClassifier(pkg.LogisticRegression(max_iter=5),
+                                        n_estimators=2, seed=0,
+                                        **kw).fit(X, y)
+            p1 = clf.predict_proba(X[:16])
+            np.testing.assert_array_equal(clf.predict_proba(X[:16]), p1)
+            clf.predict(X[:16])
+            reads[pkg] = {s["name"]: s["value"]
+                          for s in tel.registry().snapshot()
+                          if s["name"] in names and not s["labels"]}
+            if pkg is T:
+                stats, snap = pc.cache().stats(), pc.cache().snapshot()
+        finally:
+            pc.install(prev)
+    t, j = reads[T], reads[J]
+    for name in names[:3]:
+        assert t[name] == j[name], name
+    assert (t["sbt_program_cache_misses_total"],
+            t["sbt_program_cache_hits_total"],
+            t["sbt_program_cache_entries"]) == (1.0, 2.0, 1.0)
+    assert j["sbt_program_cache_bytes"] > 0
+    assert t["sbt_program_cache_bytes"] == 0.0 and stats["unmeasured"] == 0
+    assert [e["source"] for e in snap["entries"]] == ["eager"]
+    # the port's batch program drops with clear_compiled_caches; the
+    # next predict records it again
+    prev = tpc.install(tpc.ProgramCache())
+    try:
+        clf = T.BaggingClassifier(T.LogisticRegression(max_iter=5),
+                                  n_estimators=2, device="cpu").fit(X, y)
+        clf.predict_proba(X[:16])
+        assert T.clear_compiled_caches() == 1 and len(tpc.cache()) == 0
+        clf.predict_proba(X[:16])
+        assert len(tpc.cache()) == 1
+    finally:
+        tpc.install(prev)
+
 
 def test_micro_batch_coalesces_waiting_requests(trees, executor, data):
     X, _ = data

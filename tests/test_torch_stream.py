@@ -270,7 +270,7 @@ def test_stream_guards_raise_by_name(tmp_path):
     again = T.BaggingClassifier(n_estimators=2, device="cpu").fit_stream(
         (X, y), resume_from=ckpt, prefetch=0)
     assert torch.equal(again.ensemble_["W"], snap.ensemble_["W"])
-    with pytest.raises(NotImplementedError, match="Queue A 12"):
+    with pytest.raises(NotImplementedError, match="Queue A 12 part 1b"):
         T.BaggingClassifier(mesh=object(), device="cpu").fit_stream((X, y))
     clf = T.BaggingClassifier(n_estimators=2, device="cpu").fit_stream(
         (X, y), prefetch=0)

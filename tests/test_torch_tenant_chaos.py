@@ -51,10 +51,10 @@ from spark_bagging_tpu_torch.tenancy import (  # noqa: E402
 PKG = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "spark_bagging_tpu_torch")
 
-#: registered sites the port has no seam for: mesh serving is not
-#: ported (ROADMAP Queue A 12), and a CUDA graph cannot be serialized,
-#: so there is no persisted executable cache to write or read
-NO_SEAM = {"executor.mesh_forward", "aot.save", "aot.load"}
+#: registered sites the port has no seam for: a CUDA graph cannot be
+#: serialized, so there is no persisted executable cache to write or
+#: read (``executor.mesh_forward`` fires on a mesh executor's slabs)
+NO_SEAM = {"aot.save", "aot.load"}
 TENANCY_SITES = ("residency.restore", "residency.demote_persist",
                  "fleet.dispatch", "wfq.pop", "budget.refit")
 
