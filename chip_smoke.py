@@ -249,10 +249,40 @@ printed with the card's name and power limit:
   stream over the arrays; each reader's MB/s;
 - ``criteo_stream``: BASELINE config 8 at full width (128 logistic
   replicas, 1024 features, 200,000-row chunks, 2 Adam steps a chunk),
-  its rows cut from 40M to the config's 5M pre-flight floor: test AUC
+  its rows cut from 40M to 1M (a fifth of the config's 5M pre-flight
+  floor; 2.5M until PR 17): test AUC
   on 100,000 fresh rows at or above sklearn's proxy minus 0.02, the
   stream's seconds, row-replicas/s, peak memory and the host's chunk
   making against the device's chunk visits.
+
+The in-process mesh (``parallel/``), every shard a thread over repeated
+``cuda:0`` entries (the machine has one card), each fit's launches
+counted by shard:
+
+- ``mesh_replica``, ``mesh_data``, ``mesh_kernels``, ``mesh_trees``,
+  ``mesh_serving`` (``phase_mesh``, after the zoo): the headline on
+  (1, 4) and (4, 1) meshes, config 3's trees on (2, 2), replica-sharded
+  serving with a lost shard;
+- ``mesh_gbt`` (after ``gbt_cross_check``): config 7 on (2, 2), the AUC
+  bar with the bootstrap, 120 float histogram launches and one bin
+  codes a shard (a replica chunk), every shard's deepest level of round
+  0 bitwise ``coded_left_stats_fixed`` at its own scales
+  (``mesh_gbt_hist``: shard (0, 0)'s times); with ``bootstrap=False``
+  round 0's split features and the AUC against the single-device fit
+  under the mesh's edges;
+- ``mesh_gbt_multiclass`` and ``mesh_gbt_reg`` (after ``gbt_reg_fit``):
+  the small GBT phases on a (2, 1) data mesh, the multiclass one on the
+  first 200,000 rows;
+- ``mesh_stream_trees`` (after ``tree_stream_cross_check``): config 3
+  streamed on (2, 2) over the first 300,000 rows, levels x chunks launches a shard, every shard's
+  deepest level bitwise, a mesh snapshot resumed on the mesh bitwise,
+  ``bootstrap=False`` bitwise the single-device stream;
+- ``mesh_stream_mlp`` (after ``mlp_device_check``): config 4's learner
+  at full width on (2, 2) over the first 500,000 rows against the
+  single-device stream over them;
+- ``mesh_zoo`` (after ``zoo_streams``): SVC, the naive Bayes learners,
+  FM, MLP, GLM, isotonic and AFT on (4, 1) with ``bootstrap=False``
+  against their single-device fits.
 
 The sklearn proxies are constants, made on a CPU host that has sklearn
 by ``python3 chip_smoke.py --sklearn-proxies``.
@@ -544,10 +574,11 @@ DRIFT = dict(fresh=3_200, shifted=3_200, post_swap=1_024, seed=71,
 READERS = dict(n_rows=200_000, chunk_rows=65_536, n_estimators=64,
                n_categorical=3, n_hash=64)
 # BASELINE config 8 (benchmarks/run_configs.py:551-664) at full width,
-# its rows cut from 40,000,000 to half the config's own pre-flight floor
-# (run_configs.py:603, floor_rows=5_000_000) to fit the script's time
-# limit: 13 chunks of up to 200,000 x 1024
-CRITEO = dict(n_rows=2_500_000, n_features=1024, chunk_rows=200_000,
+# its rows cut from 40,000,000 to a fifth of the config's own pre-flight
+# floor (run_configs.py:603, floor_rows=5_000_000) to fit the script's
+# time limit (2.5M until the mesh phases of PR 17): 5 chunks of 200,000
+# x 1024
+CRITEO = dict(n_rows=1_000_000, n_features=1024, chunk_rows=200_000,
               n_estimators=128, n_epochs=1, steps_per_chunk=2, lr=0.05,
               l2=1e-4, n_test=100_000)
 # sklearn LogisticRegression(max_iter=100, C=1 / (1e-4 * 50,000)) on
@@ -570,6 +601,58 @@ MESH_PROBA_TOL = 1e-4
 # single-device fit (tests/test_sharded.py:85-101)
 MESH_EXACT_TOL = 1e-5
 MESH_TREE_ACC_TOL = 0.01
+# the data axis of the other families and the mesh streams (PR 17), every
+# shard a thread over cuda:0: config 7 on (2, 2); the multiclass and
+# regressor GBTs on a (2, 1) data mesh, the multiclass one on the first
+# MESH_MC_ROWS covtype rows (the single-device phase takes all 581,012);
+# config 3 streamed on (2, 2); config 4's learner streamed on (2, 2) over
+# the first MESH_MLP_ROWS of its 11M rows; the zoo on (4, 1) with
+# bootstrap=False, 16 replicas on 20,000 rows (the California split's
+# 16,512)
+MESH_1B = dict(gbt=(2, 2), gbt_small=(2, 1), stream_trees=(2, 2),
+               stream_mlp=(2, 2), zoo=(4, 1), zoo_replicas=16,
+               zoo_rows=20_000)
+MESH_MC_ROWS = 200_000
+# mesh_stream_trees streams the first MESH_STREAM_ROWS covtype rows (5
+# chunks, the last padded; cut from 581,012 for the script's time), its
+# bootstrap=False check the first 3 chunks; its resume starts from the
+# snapshot written after 4 of the 5 levels
+MESH_STREAM_ROWS = 300_000
+MESH_EXACT_CHUNKS = 3
+MESH_RESUME_PASS = 5
+# mesh_gbt's bootstrap=False pair fits the first MESH_GBT_EXACT_ROWS
+# training rows (the bootstrap fit all 800,000)
+MESH_GBT_EXACT_ROWS = 400_000
+# a GBT pair's split choices differ only at ties: different splits whose
+# gains agree within this share of the replica's largest gain
+# (tests/test_torch_gbt.py's TOL)
+GBT_TIE_TOL = 1e-5
+MESH_MLP_ROWS = 500_000
+# the mesh stream against the single-device stream over the same rows:
+# the two data shards' gradient sums meet in another order, and 50 Adam
+# steps carry last-bit differences of near-zero gradient elements into
+# steps of up to lr (tests/test_torch_mlp.py: parameters within 2e-4
+# after 32 steps on the CPU); the 512-replica mean probability averages
+# them, so 1e-3 leaves an order of magnitude over the 1e-4 expected
+MESH_MLP_PROBA_TOL = 1e-3
+MESH_MLP_AUC_TOL = 0.002
+# mesh_zoo: each learner's (parameter, prediction) tolerance against its
+# single-device fit, ZOO_TOL's except where a 4-shard sum's last bits
+# carry further (`--mesh-witness` reads both, PERF.md, PR 17): naive
+# Bayes probabilities, whose 54-feature log-likelihoods turn parameter
+# differences of 3.3e-6 into probability differences of up to 2.0e-5
+# (so 1e-4 for them, the parameters kept at 1e-5), and the MLP's 50
+# full-batch Adam steps, held as the mesh MLP stream is (probabilities
+# within MESH_MLP_PROBA_TOL; parameters within 5e-3): its gap is 8e-8
+# after one step and grows to 1.3e-3 at 50 as Adam's normalized steps
+# carry the reordered sums of near-zero gradient elements, where a
+# gradient left unsummed over the shards is 2e-2 apart after one step
+MESH_ZOO_TOL = {**ZOO_TOL, "nb": (ZOO_TOL["nb"][0], 1e-4),
+                "mlp": (5e-3, MESH_MLP_PROBA_TOL)}
+# the MLP's CPU parity tolerance (tests/test_torch_mlp.py: LONG_PARAM_TOL,
+# MLP_TOL), and the Adam steps `--mesh-witness` reads the mesh gap after
+MLP_FAMILY_TOL = (2e-4, 1e-5)
+WITNESS_MLP_STEPS = (1, 5, 10, 25, 50)
 # the card's `nvidia-smi` name and power limit, printed with every time
 # of the online and data-plane phases
 CARD = ""
@@ -5607,7 +5690,7 @@ def phase_criteo_stream() -> None:
     data_gib = cfg["n_rows"] * cfg["n_features"] * 4 / 2**30
     emit("criteo_stream", ok=True, **cfg, rows_cut_from=40_000_000,
          data_gib=data_gib,
-         exceeds="nothing: 2,500,000 x 1024 float32 would fit the 80 GB card"
+         exceeds="nothing: 1,000,000 x 1024 float32 would fit the 80 GB card"
                  "; streamed chunk by chunk all the same",
          warmup_fit_seconds=warmup_seconds, stream_seconds=stream_seconds,
          first_step_seconds=rep["compile_seconds"],
@@ -5634,13 +5717,13 @@ def phase_criteo_stream() -> None:
         fail("criteo_stream", f"test AUC {auc:.5f} below the bar {bar:.5f}")
 
 
-def mesh_of(data: int, replica: int):
-    """A (data, replica) mesh over repeated cuda:0 entries: each shard a
-    thread of its own on the one card."""
+def mesh_of(data: int, replica: int, device: str = "cuda"):
+    """A (data, replica) mesh over repeated cuda:0 entries (or the CPU's):
+    each shard a thread of its own on the one card."""
     from spark_bagging_tpu_torch import make_mesh
 
-    return make_mesh(data, replica,
-                     devices=[torch.device("cuda", 0)] * (data * replica))
+    dev = torch.device("cpu") if device == "cpu" else torch.device("cuda", 0)
+    return make_mesh(data, replica, devices=[dev] * (data * replica))
 
 
 def mesh_logistic_fit(phase: str, X, y, shape, single, **kw):
@@ -5683,34 +5766,38 @@ def mesh_logistic_fit(phase: str, X, y, shape, single, **kw):
         and acc >= ACC_BAR and np.isfinite(proba).all()), diff
 
 
-def record_shard_level(shard=(0, 0), level: int | None = None):
-    """Wrap the tree module's histogram calls to keep one shard's inputs
-    of one level (default the deepest), leaving the kernel wrappers and
-    their counts alone. Returns (record, restore)."""
+def record_shard_levels(n_nodes: int, shards=None):
+    """Wrap the tree module's histogram calls to keep each mesh shard's
+    first call at ``n_nodes`` nodes (its deepest level of the first
+    chunk, or of the first round): the inputs and the table the fit got
+    from them. ``shards``: the shards to keep (None: every one). The
+    kernel wrappers and their counts are left alone. Returns (records by
+    shard, restore)."""
     import types
 
     from spark_bagging_tpu_torch.models import tree as tree_mod
     from spark_bagging_tpu_torch.ops import hist as hist_ops
     from spark_bagging_tpu_torch.parallel import compat
 
-    want_n = 2 ** ((TREE["max_depth"] - 1) if level is None else level)
-    rec = {}
+    recs = {}
 
     def lvl(codes, edges, node, S, *, n_nodes, hist_dtype, cols, integral):
-        # the shard's first chunk, its largest
-        if (compat.current_shard() == shard and n_nodes == want_n
-                and not rec):
-            rec.update(codes=codes, edges=edges, node=node.clone(), S=S,
-                       N=n_nodes, hist_dtype=hist_dtype, cols=cols,
-                       integral=integral)
-        return hist_ops.coded_left_stats(codes, edges, node, S,
-                                         n_nodes=n_nodes,
-                                         hist_dtype=hist_dtype, cols=cols,
-                                         integral=integral)
+        out = hist_ops.coded_left_stats(codes, edges, node, S,
+                                        n_nodes=n_nodes,
+                                        hist_dtype=hist_dtype, cols=cols,
+                                        integral=integral)
+        shard = compat.current_shard()
+        if (n_nodes == want and shard not in recs
+                and (shards is None or shard in shards)):
+            recs[shard] = dict(codes=codes, edges=edges, node=node.clone(),
+                               S=S, N=n_nodes, hist_dtype=hist_dtype,
+                               cols=cols, integral=integral, out=out.clone())
+        return out
 
+    want = n_nodes
     tree_mod.hist_ops = types.SimpleNamespace(
         **{**vars(hist_ops), "coded_left_stats": lvl})
-    return rec, lambda: setattr(tree_mod, "hist_ops", hist_ops)
+    return recs, lambda: setattr(tree_mod, "hist_ops", hist_ops)
 
 
 def mesh_hist_check(c: dict) -> dict:
@@ -5804,12 +5891,14 @@ def mesh_trees(X, y, tree_acc: float) -> tuple[dict, dict]:
     boot = tree_bagger(N_REPLICAS, split_impl="fused")
     boot.set_params(mesh=mesh_of(*shape))
     reset_launches()
-    rec, restore = record_shard_level()
+    recs, restore = record_shard_levels(2 ** (TREE["max_depth"] - 1),
+                                        shards={(0, 0)})
     t0 = time.perf_counter()
     try:
         boot.fit(X, y)
     finally:
         restore()
+    rec = recs[(0, 0)]
     fit_seconds = time.perf_counter() - t0
     counts, per_shard = read_launches(), shard_launches()
     rep = boot.fit_report_
@@ -5818,7 +5907,7 @@ def mesh_trees(X, y, tree_acc: float) -> tuple[dict, dict]:
     expected = TREE["max_depth"] * -(-r_shard // chunk)
     acc = boot.score(X[:N_SERVE_ROWS], y[:N_SERVE_ROWS])
     hist = mesh_hist_check(rec)
-    del rec
+    del rec, recs
     fields = dict(mesh=list(shape), rows_a_shard=N_ROWS // shape[0],
                   replicas_a_shard=r_shard, chunk_size=chunk,
                   fit_seconds=fit_seconds, launches=counts,
@@ -6009,6 +6098,722 @@ def phase_mesh(X: np.ndarray, y: np.ndarray, tree_acc: float) -> dict:
                 gram_row=gram_rows[data_chunk]["float32"], hist_row=hist_row)
 
 
+def mesh_exact_pair(make_est, X, y, shape, fit_kw=None,
+                    device: str = "cuda"):
+    """``bootstrap=False`` fits of ``make_est()`` on a mesh and on one
+    device, ``(mesh fit, single-device fit)``. A learner that bins its
+    rows (trees, GBTs, isotonic) bins them on the mesh with the shards'
+    quantiles averaged, as the JAX package does: its single-device fit
+    is made under the mesh's prepared state (shard (0, 0)'s, which every
+    shard shares)."""
+    from spark_bagging_tpu_torch.models.base import BaseLearner
+    from spark_bagging_tpu_torch.parallel import compat
+
+    fit_kw = fit_kw or {}
+    exact = dict(bootstrap=False, max_samples=1.0, device=device)
+    on_mesh, single = make_est(), make_est()
+    on_mesh.set_params(mesh=mesh_of(*shape, device=device), **exact)
+    single.set_params(**exact)
+    cls = type(on_mesh._learner())
+    own, orig, seen = "prepare" in cls.__dict__, cls.prepare, {}
+
+    def restore():
+        if own:
+            cls.prepare = orig
+        else:
+            del cls.prepare
+
+    def record(self, Xs, **kw):
+        out = orig(self, Xs, **kw)
+        if compat.current_shard() == (0, 0):
+            seen.setdefault("prepared", out)
+        return out
+
+    cls.prepare = record
+    try:
+        on_mesh.fit(X, y, **fit_kw)
+    finally:
+        restore()
+    if orig is not BaseLearner.prepare:
+        prep = seen["prepared"]
+        cls.prepare = ((lambda self, Xs, **kw: self._binned(
+            Xs, prep["edges"])) if hasattr(cls, "_binned")
+            else (lambda self, Xs, **kw: prep))
+    try:
+        single.fit(X, y, **fit_kw)
+    finally:
+        if orig is not BaseLearner.prepare:
+            restore()
+    return on_mesh, single
+
+
+def split_feature_shares(a, b, per_round: int) -> tuple[float, float]:
+    """(round 0's, every round's) share of equal split features of two
+    fitted GBT bags; ``per_round`` nodes a round (classes x nodes)."""
+    fa, fb = a.ensemble_["feature"], b.ensemble_["feature"]
+    return (float((fa[:, :per_round] == fb[:, :per_round]).float().mean()),
+            float((fa == fb).float().mean()))
+
+
+def gbt_first_divergence(a, b, per_round: int) -> dict:
+    """Where two fitted GBT bags (``a`` on a mesh, ``b`` on one device
+    under its edges) first choose different splits, replica by replica,
+    in growth order (round, then node within the round): the gains
+    there and their gap over the replica's largest gain ``max(|b's
+    gains|, 1)``; ``all_ties`` when every such gap is within
+    GBT_TIE_TOL, a tie as tests/test_torch_gbt.py's ``_untied`` reads
+    one: the float psum of the shards' tables met two splits of equal
+    gain, and the trees below and after it follow their own choice. Also
+    the largest gap of the gains at the equal splits before them, and
+    where: a gain is a difference of impurities ``sum h z^2 - (sum h
+    z)^2 / sum h``, so its float32 rounding scales with the node's
+    ``sum h z^2``, not with the gain (PERF.md, PR 17)."""
+    ea = {k: a.ensemble_[k].cpu().numpy() for k in ("feature", "threshold",
+                                                    "gain")}
+    eb = {k: b.ensemble_[k].cpu().numpy() for k in ("feature", "threshold",
+                                                    "gain")}
+    scale = np.maximum(np.abs(eb["gain"]).max(axis=1), 1.0)
+    differ = ((ea["feature"] != eb["feature"])
+              | (ea["threshold"] != eb["threshold"]))
+    gap = (np.where(ea["gain"] == eb["gain"], 0.0,
+                    np.abs(ea["gain"].astype(np.float64) - eb["gain"]))
+           / scale[:, None])
+    firsts, before, at = [], None, 0.0
+    for r in range(differ.shape[0]):
+        idx = np.flatnonzero(differ[r])
+        first = int(idx[0]) if idx.size else differ.shape[1]
+        if first:
+            i = int(gap[r, :first].argmax())
+            if before is None or gap[r, i] > before["rel_gap"]:
+                before = dict(replica=r, round=i // per_round,
+                              node=i % per_round,
+                              gain=[float(ea["gain"][r, i]),
+                                    float(eb["gain"][r, i])],
+                              rel_gap=float(gap[r, i]))
+        if idx.size:
+            at = max(at, float(gap[r, first]))
+            firsts.append(dict(replica=r, round=first // per_round,
+                               node=first % per_round,
+                               feature=[int(ea["feature"][r, first]),
+                                        int(eb["feature"][r, first])],
+                               gain=[float(ea["gain"][r, first]),
+                                     float(eb["gain"][r, first])],
+                               rel_gap=float(gap[r, first])))
+    return dict(replicas_diverged=len(firsts),
+                earliest_round=min((f["round"] for f in firsts),
+                                   default=None),
+                max_rel_gap_at_first=at, tie_tol=GBT_TIE_TOL,
+                all_ties=at <= GBT_TIE_TOL,
+                first=sorted(firsts, key=lambda f: (f["round"],
+                                                    f["node"]))[:4],
+                largest_gap_before=before)
+
+
+def mesh_fit_launches(counts: dict, per_shard: dict, n_shards: int,
+                      hist: int, codes: int, float_stats: bool) -> bool:
+    """Every shard launched ``hist`` histograms and ``codes`` bin codes
+    (all float or all int32), nothing else, and the totals add up."""
+    hs, cs = per_shard["binned_left_stats"], per_shard["bin_codes"]
+    return (len(hs) == n_shards and all(v == hist for v in hs.values())
+            and len(cs) == n_shards and all(v == codes for v in cs.values())
+            and counts["binned_left_stats"] == hist * n_shards
+            and counts["bin_codes"] == codes * n_shards
+            and counts["binned_left_stats_float"]
+            == (counts["binned_left_stats"] if float_stats else 0)
+            and counts["scaled_gram"] == 0)
+
+
+def fixed_shard_check(c: dict) -> dict:
+    """A float-statistics level of one shard: the kernel's table and the
+    fit's own bitwise ``coded_left_stats_fixed`` at the shard's own
+    fixed-point scales."""
+    from spark_bagging_tpu_torch.ops.hist import (
+        coded_left_stats,
+        coded_left_stats_fixed,
+    )
+
+    kw = dict(n_nodes=c["N"], hist_dtype=c["hist_dtype"], cols=c["cols"])
+    out = coded_left_stats(c["codes"], c["edges"], c["node"], c["S"],
+                           integral=False, **kw)
+    fixed = coded_left_stats_fixed(c["codes"], c["edges"], c["node"],
+                                   c["S"], **kw)
+    return dict(replicas_unequal_to_fixed_plain=int(
+        (out != fixed).any(dim=(1, 2, 3, 4)).sum()),
+        fit_table_bitwise=bool(torch.equal(c["out"], fixed)),
+        max_abs_err=float((out - fixed).abs().max()))
+
+
+def phase_mesh_gbt(split) -> tuple[int, int, dict]:
+    """BASELINE config 7 at full width on a (2, 2) mesh: 400,000 rows and
+    16 GBTs a shard, each shard's histogram on its rows in the float
+    accumulator, the tables summed over ``data``. With the bootstrap:
+    the test AUC against the sklearn proxy, as ``gbt_fit``; launches by
+    shard; at every shard's deepest level of round 0 the kernel bitwise
+    its plain version at the shard's own fixed-point scales, shard (0,
+    0)'s with times, bound and library (``float_hist_row``). With
+    ``bootstrap=False`` on the first MESH_GBT_EXACT_ROWS rows: against
+    the single-device fit under the mesh's edges, round 0's split features equal in at least
+    GBT_CROSS_FEATURE_SHARE, every replica's first different split a
+    tie (``gbt_first_divergence``) and the AUC within GBT_CROSS_AUC_TOL.
+    Returns the histogram and bin-codes launches and shard (0, 0)'s
+    row."""
+    from spark_bagging_tpu_torch.utils.metrics import roc_auc
+
+    Xtr, ytr, Xte, yte = split
+    shape, depth = MESH_1B["gbt"], GBT["max_depth"]
+    n_shards = shape[0] * shape[1]
+    est = gbt_bagger()
+    est.set_params(mesh=mesh_of(*shape))
+    reset_launches()
+    recs, restore = record_shard_levels(2 ** (depth - 1))
+    t0 = time.perf_counter()
+    try:
+        est.fit(Xtr, ytr)
+    finally:
+        restore()
+    fit_seconds = time.perf_counter() - t0
+    counts, per_shard = read_launches(), shard_launches()
+    rep = est.fit_report_
+    r_shard = GBT_REPLICAS // shape[1]
+    chunk = rep["chunk_size_resolved"] or r_shard
+    expected = depth * GBT["n_rounds"] * -(-r_shard // chunk)
+    auc = roc_auc(yte, est.predict_proba(Xte)[:, 1])
+    del est
+    torch.cuda.empty_cache()
+    shards = {f"{k[0]},{k[1]}": fixed_shard_check(c)
+              for k, c in sorted(recs.items())}
+    c00 = recs.pop((0, 0))
+    del recs
+    row = float_hist_row("mesh_gbt_hist", c00, c00["S"].shape[0],
+                         c00["hist_dtype"], fit_out=c00["out"],
+                         mesh=list(shape), shard="0,0", round=0)
+    del c00
+    torch.cuda.empty_cache()
+    launches_ok = mesh_fit_launches(counts, per_shard, n_shards, expected, 1,
+                                    float_stats=True)
+    total = dict(counts)
+    reset_launches()
+    on_mesh, single = mesh_exact_pair(gbt_bagger, Xtr[:MESH_GBT_EXACT_ROWS],
+                                      ytr[:MESH_GBT_EXACT_ROWS], shape)
+    exact_counts = read_launches()
+    auc_mesh = roc_auc(yte, on_mesh.predict_proba(Xte)[:, 1])
+    auc_single = roc_auc(yte, single.predict_proba(Xte)[:, 1])
+    round0, every = split_feature_shares(on_mesh, single, 2**depth - 1)
+    divergence = gbt_first_divergence(on_mesh, single, 2**depth - 1)
+    del on_mesh, single
+    torch.cuda.empty_cache()
+    bar = GBT_PROXY_AUC - PARITY_TOL
+    d_auc = abs(auc_mesh - auc_single)
+    fields = dict(mesh=list(shape), rows_a_shard=len(ytr) // shape[0],
+                  replicas_a_shard=r_shard, chunk_size=chunk, **GBT,
+                  fit_seconds=fit_seconds, launches=counts,
+                  launches_by_shard=per_shard,
+                  expected_hist_launches_a_shard=expected,
+                  test_auc=auc, proxy_auc=GBT_PROXY_AUC, auc_bar=bar,
+                  deepest_level_by_shard=shards,
+                  bootstrap_false_rows=MESH_GBT_EXACT_ROWS,
+                  bootstrap_false_round0_equal_split_feature_share=round0,
+                  bootstrap_false_equal_split_feature_share=every,
+                  bootstrap_false_first_divergence=divergence,
+                  bootstrap_false_test_auc_mesh=auc_mesh,
+                  bootstrap_false_test_auc_single=auc_single,
+                  bootstrap_false_auc_diff=d_auc,
+                  feature_share_bar=GBT_CROSS_FEATURE_SHARE,
+                  auc_tol=GBT_CROSS_AUC_TOL,
+                  bootstrap_false_launches=exact_counts, card=CARD)
+    ok = (launches_ok and auc >= bar
+          and all(not v["replicas_unequal_to_fixed_plain"]
+                  and v["fit_table_bitwise"] for v in shards.values())
+          and len(shards) == n_shards
+          and round0 >= GBT_CROSS_FEATURE_SHARE
+          and divergence["all_ties"]
+          and d_auc <= GBT_CROSS_AUC_TOL)
+    emit("mesh_gbt", ok=ok, **fields)
+    if not ok:
+        fail("mesh_gbt", f"checks failed: {fields}")
+    for k in ("binned_left_stats", "bin_codes"):
+        total[k] += exact_counts[k]
+    row["max_abs_err"] = max(row["max_abs_err"],
+                             *(v["max_abs_err"] for v in shards.values()))
+    return total["binned_left_stats"], total["bin_codes"], row
+
+
+def gbt_small_cases(X: np.ndarray, y: np.ndarray, split) -> dict:
+    """``mesh_gbt_small``'s two cases by phase: ``(make, X, y, config,
+    quality(est), proxy, classes)``."""
+    from spark_bagging_tpu_torch import (
+        BaggingClassifier,
+        BaggingRegressor,
+        GBTClassifier,
+        GBTRegressor,
+    )
+    from spark_bagging_tpu_torch.utils.metrics import accuracy, r2_score
+
+    Xtr, ytr, Xte, yte = split
+    Xm, ym = X[:MESH_MC_ROWS], y[:MESH_MC_ROWS]
+    Xe, ye = X[:N_SERVE_ROWS], y[:N_SERVE_ROWS]
+    return {
+        "mesh_gbt_multiclass": (
+            lambda: BaggingClassifier(GBTClassifier(
+                n_rounds=GBT_MC["n_rounds"], max_depth=GBT_MC["max_depth"]),
+                n_estimators=GBT_MC["n_estimators"], seed=0),
+            Xm, ym, GBT_MC, lambda est: accuracy(ye, est.predict(Xe)),
+            GBT_MC_PROXY_ACC, N_CLASSES),
+        "mesh_gbt_reg": (
+            lambda: BaggingRegressor(GBTRegressor(
+                n_rounds=GBT_REG["n_rounds"],
+                max_depth=GBT_REG["max_depth"]),
+                n_estimators=GBT_REG["n_estimators"], seed=0),
+            Xtr, ytr, GBT_REG, lambda est: r2_score(yte, est.predict(Xte)),
+            GBT_REG_PROXY_R2, 1),
+    }
+
+
+def phase_mesh_gbt_small(X: np.ndarray, y: np.ndarray, split) -> tuple:
+    """The multiclass GBTs (GBT_MC, on the first MESH_MC_ROWS covtype
+    rows) and the GBT regressors (GBT_REG, on the California split) on a
+    (2, 1) data mesh: with the bootstrap, the single-device phases'
+    quality bars (accuracy and R^2 against the sklearn proxies minus
+    PARITY_TOL) and every shard's launches (levels x rounds a replica
+    chunk, one bin-codes launch, all float); with ``bootstrap=False``,
+    against the single-device fit under the mesh's edges: round 0's
+    split features equal in at least GBT_CROSS_FEATURE_SHARE, every
+    replica's first different split a tie (``gbt_first_divergence``), the
+    quality figure within GBT_CROSS_AUC_TOL. Returns the histogram and
+    bin-codes launches."""
+    shape = MESH_1B["gbt_small"]
+    cases = gbt_small_cases(X, y, split)
+    hist_total = codes_total = 0
+    for phase, (make, Xf, yf, cfg, quality, proxy, C) in cases.items():
+        R, depth = cfg["n_estimators"], cfg["max_depth"]
+        est = make()
+        est.set_params(mesh=mesh_of(*shape))
+        reset_launches()
+        t0 = time.perf_counter()
+        est.fit(Xf, yf)
+        fit_seconds = time.perf_counter() - t0
+        counts, per_shard = read_launches(), shard_launches()
+        chunk = est.fit_report_["chunk_size_resolved"] or R
+        expected = depth * cfg["n_rounds"] * -(-R // chunk)
+        q = quality(est)
+        del est
+        reset_launches()
+        on_mesh, single = mesh_exact_pair(make, Xf, yf, shape)
+        exact_counts = read_launches()
+        q_mesh, q_single = quality(on_mesh), quality(single)
+        round0, every = split_feature_shares(on_mesh, single,
+                                             C * (2**depth - 1))
+        divergence = gbt_first_divergence(on_mesh, single,
+                                          C * (2**depth - 1))
+        del on_mesh, single
+        torch.cuda.empty_cache()
+        bar = proxy - PARITY_TOL
+        fields = dict(mesh=list(shape), rows=len(yf),
+                      rows_a_shard=len(yf) // shape[0], **cfg,
+                      chunk_size=chunk, fit_seconds=fit_seconds,
+                      launches=counts, launches_by_shard=per_shard,
+                      expected_hist_launches_a_shard=expected,
+                      quality=q, proxy=proxy, bar=bar,
+                      bootstrap_false_round0_equal_split_feature_share=round0,
+                      bootstrap_false_equal_split_feature_share=every,
+                      bootstrap_false_first_divergence=divergence,
+                      bootstrap_false_quality_mesh=q_mesh,
+                      bootstrap_false_quality_single=q_single,
+                      feature_share_bar=GBT_CROSS_FEATURE_SHARE,
+                      quality_tol=GBT_CROSS_AUC_TOL,
+                      bootstrap_false_launches=exact_counts, card=CARD)
+        if phase == "mesh_gbt_multiclass":
+            fields["rows_cut_from"] = N_ROWS
+        ok = (mesh_fit_launches(counts, per_shard, shape[0], expected, 1,
+                                float_stats=True)
+              and q >= bar and round0 >= GBT_CROSS_FEATURE_SHARE
+              and divergence["all_ties"]
+              and abs(q_mesh - q_single) <= GBT_CROSS_AUC_TOL)
+        emit(phase, ok=ok, **fields)
+        if not ok:
+            fail(phase, f"checks failed: {fields}")
+        hist_total += (counts["binned_left_stats"]
+                       + exact_counts["binned_left_stats"])
+        codes_total += counts["bin_codes"] + exact_counts["bin_codes"]
+    return hist_total, codes_total
+
+
+def phase_mesh_stream_trees(X: np.ndarray, y: np.ndarray,
+                            tree_acc: float) -> tuple[int, int, dict]:
+    """Config 3's learner streamed on a (2, 2) mesh over the first
+    MESH_STREAM_ROWS rows: 65,536-row chunks (the last padded), each
+    shard its 32,768 rows of a chunk and 128 replicas, drawing its
+    rows' weights from the chunk key folded with its data index; each
+    level's table summed over ``data``. With the bootstrap: accuracy on
+    the first 100k rows within TREE_STREAM_ACC_TOL of the in-memory
+    fit's; every shard's launches levels x chunks (int32), the histogram
+    at every shard's deepest level of chunk 0 bitwise its plain version
+    (shard (0, 0)'s with times, bound and library); the snapshot the
+    stream wrote on the mesh after MESH_RESUME_PASS - 1 levels, resumed
+    on the same mesh: bitwise the uninterrupted mesh stream, the kernels
+    launched only for the levels left. With ``bootstrap=False``, on the
+    first MESH_EXACT_CHUNKS chunks' rows: every split and leaf bitwise
+    the single-device stream's (a global edge pass, integer tables).
+    Returns the histogram and bin-codes launches and shard (0, 0)'s
+    row."""
+    import shutil
+
+    from spark_bagging_tpu_torch import tree_stream as tree_stream_mod
+    from spark_bagging_tpu_torch.ops.hist import (
+        coded_left_stats,
+        coded_left_stats_plain,
+    )
+
+    shape = MESH_1B["stream_trees"]
+    n_shards = shape[0] * shape[1]
+    classes = np.unique(y)
+    n_rows = MESH_STREAM_ROWS
+    n_chunks = -(-n_rows // TREE_STREAM_CHUNK)
+    depth = TREE["max_depth"]
+
+    def bagger(**kw):
+        est = tree_bagger(N_REPLICAS)
+        est.set_params(**kw)
+        return est
+
+    def source():
+        return tree_stream_source(X[:n_rows], y[:n_rows], TREE_STREAM_CHUNK)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, mid = f"{tmp}/mesh_trees", f"{tmp}/mesh_trees_mid"
+        reset_launches()
+        recs, restore = record_shard_levels(2 ** (depth - 1))
+        # the stream snapshots at every pass boundary; the one written
+        # after MESH_RESUME_PASS - 1 levels is kept aside for the resume
+        save = tree_stream_mod.save_snapshot
+
+        def keep_mid(path, tree, meta):
+            save(path, tree, meta)
+            if meta["next_pass"] == MESH_RESUME_PASS:
+                shutil.copytree(path, mid)
+
+        tree_stream_mod.save_snapshot = keep_mid
+        t0 = time.perf_counter()
+        try:
+            full = bagger(mesh=mesh_of(*shape)).fit_stream(
+                source(), classes=classes, checkpoint_dir=ckpt)
+        finally:
+            restore()
+            tree_stream_mod.save_snapshot = save
+        stream_seconds = time.perf_counter() - t0
+        counts, per_shard = read_launches(), shard_launches()
+        acc = full.score(X[:N_SERVE_ROWS], y[:N_SERVE_ROWS])
+        expected = depth * n_chunks
+        shards = {}
+        for k, c in sorted(recs.items()):
+            kw = dict(n_nodes=c["N"], hist_dtype=c["hist_dtype"],
+                      cols=c["cols"])
+            out = coded_left_stats(c["codes"], c["edges"], c["node"], c["S"],
+                                   integral=True, **kw)
+            unequal = 0
+            for r in range(c["S"].shape[0]):
+                plain = coded_left_stats_plain(
+                    c["codes"], c["edges"][r:r + 1], c["node"][r:r + 1],
+                    c["S"][r:r + 1], n_nodes=c["N"],
+                    hist_dtype=c["hist_dtype"], cols=c["cols"][r:r + 1])
+                unequal += not (torch.equal(out[r], plain[0])
+                                and torch.equal(c["out"][r], plain[0]))
+            shards[f"{k[0]},{k[1]}"] = dict(
+                rows=c["codes"].shape[0], replicas=c["S"].shape[0],
+                replicas_unequal=unequal)
+            del out
+        row = mesh_hist_check(recs.pop((0, 0)))
+        del recs
+        torch.cuda.empty_cache()
+        with open(f"{mid}/meta.json") as f:
+            meta = json.load(f)
+        reset_launches()
+        t0 = time.perf_counter()
+        resumed = bagger(mesh=mesh_of(*shape)).fit_stream(
+            source(), classes=classes, resume_from=mid)
+        resume_seconds = time.perf_counter() - t0
+        resume_counts = read_launches()
+    resume_unequal = [k for k in full.ensemble_ if not torch.equal(
+        resumed.ensemble_[k], full.ensemble_[k])]
+    del full, resumed
+    torch.cuda.empty_cache()
+    # bootstrap=False on the first MESH_EXACT_CHUNKS chunks' rows
+    n_exact = MESH_EXACT_CHUNKS * TREE_STREAM_CHUNK
+    reset_launches()
+    exact = {}
+    for name, mesh in (("mesh", mesh_of(*shape)), ("single", None)):
+        exact[name] = bagger(bootstrap=False, max_samples=1.0,
+                             mesh=mesh).fit_stream(
+            tree_stream_source(X[:n_exact], y[:n_exact], TREE_STREAM_CHUNK),
+            classes=classes)
+    exact_counts = read_launches()
+    exact_unequal = [k for k in exact["mesh"].ensemble_ if not torch.equal(
+        exact["mesh"].ensemble_[k], exact["single"].ensemble_[k])]
+    del exact
+    torch.cuda.empty_cache()
+    levels_left = depth - (meta["next_pass"] - 1)
+    fields = dict(mesh=list(shape), rows=n_rows, rows_cut_from=N_ROWS,
+                  n_chunks=n_chunks, chunk_rows=TREE_STREAM_CHUNK,
+                  rows_a_shard_a_chunk=TREE_STREAM_CHUNK // shape[0],
+                  replicas_a_shard=N_REPLICAS // shape[1],
+                  stream_seconds=stream_seconds, launches=counts,
+                  launches_by_shard=per_shard,
+                  expected_launches_each_a_shard=expected,
+                  accuracy_100k=acc, in_memory_accuracy_100k=tree_acc,
+                  acc_tol=TREE_STREAM_ACC_TOL,
+                  snapshot_data_size=meta["config"]["data_size"],
+                  resumed_levels=levels_left, resume_seconds=resume_seconds,
+                  resume_launches=resume_counts,
+                  resumed_leaves_unequal=resume_unequal,
+                  bootstrap_false_rows=n_exact,
+                  bootstrap_false_leaves_unequal_to_single=exact_unequal,
+                  bootstrap_false_launches=exact_counts,
+                  deepest_level_by_shard=shards, hist_shard_0_0=row,
+                  card=CARD)
+    ok = (mesh_fit_launches(counts, per_shard, n_shards, expected, expected,
+                            float_stats=False)
+          and abs(acc - tree_acc) <= TREE_STREAM_ACC_TOL
+          and len(shards) == n_shards
+          and not any(v["replicas_unequal"] for v in shards.values())
+          and not row["replicas_unequal"]
+          and meta["config"]["data_size"] == shape[0]
+          and levels_left == depth - (MESH_RESUME_PASS - 1)
+          and resume_counts["binned_left_stats"]
+          == levels_left * n_chunks * n_shards
+          and not resume_unequal and not exact_unequal)
+    emit("mesh_stream_trees", ok=ok, **fields)
+    if not ok:
+        fail("mesh_stream_trees", f"checks failed: {fields}")
+    hist = (counts["binned_left_stats"] + resume_counts["binned_left_stats"]
+            + exact_counts["binned_left_stats"])
+    codes = (counts["bin_codes"] + resume_counts["bin_codes"]
+             + exact_counts["bin_codes"])
+    return hist, codes, row
+
+
+def phase_mesh_stream_mlp() -> None:
+    """BASELINE config 4's learner at full width (512 MLPs, hidden 32,
+    20,000-row chunks, 2 Adam steps a chunk) streamed on a (2, 2) mesh:
+    each shard steps 256 replicas on 10,000 rows of a chunk, the weights
+    drawn over the whole chunk and sliced, the gradients summed over
+    ``data`` before each step. The stream is cut to the first
+    MESH_MLP_ROWS rows of its 11M; against the single-device stream over
+    the same rows, the test probabilities within MESH_MLP_PROBA_TOL and
+    the AUC within MESH_MLP_AUC_TOL. No kernel of the repo runs."""
+    from spark_bagging_tpu_torch.utils.metrics import roc_auc
+
+    cfg, shape = MLP_STREAM, MESH_1B["stream_mlp"]
+    fit_kw = dict(classes=[0, 1], n_epochs=cfg["n_epochs"],
+                  steps_per_chunk=cfg["steps_per_chunk"], lr=cfg["lr"])
+    Xte, yte = mlp_test_data()
+    fits, seconds = {}, {}
+    reset_launches()
+    for name, mesh in (("mesh", mesh_of(*shape)), ("single", None)):
+        est = mlp_bagger(cfg["n_estimators"])
+        est.set_params(mesh=mesh)
+        t0 = time.perf_counter()
+        est.fit_stream(mlp_source(MESH_MLP_ROWS, cfg["chunk_rows"]), **fit_kw)
+        seconds[name] = time.perf_counter() - t0
+        fits[name] = est
+    counts = read_launches()
+    proba = {k: v.predict_proba(Xte) for k, v in fits.items()}
+    auc = {k: roc_auc(yte, p[:, 1]) for k, p in proba.items()}
+    diff = float(np.abs(proba["mesh"] - proba["single"]).max())
+    rep = fits["mesh"].fit_report_
+    n_chunks = -(-MESH_MLP_ROWS // cfg["chunk_rows"])
+    del fits
+    torch.cuda.empty_cache()
+    fields = dict(mesh=list(shape), **cfg, hidden=MLP["hidden"],
+                  rows=MESH_MLP_ROWS, rows_cut_from=cfg["n_rows"],
+                  rows_a_shard_a_chunk=cfg["chunk_rows"] // shape[0],
+                  replicas_a_shard=cfg["n_estimators"] // shape[1],
+                  n_chunks=rep["n_chunks"], opt_steps=rep["opt_steps"],
+                  stream_seconds=seconds["mesh"],
+                  single_device_stream_seconds=seconds["single"],
+                  row_replica_per_sec=MESH_MLP_ROWS * cfg["n_estimators"]
+                  / seconds["mesh"], launches=counts,
+                  test_auc=auc["mesh"], single_device_test_auc=auc["single"],
+                  auc_tol=MESH_MLP_AUC_TOL, proba_max_abs_diff=diff,
+                  proba_tol=MESH_MLP_PROBA_TOL, card=CARD)
+    ok = (rep["n_chunks"] == n_chunks and not any(counts.values())
+          and np.isfinite(proba["mesh"]).all()
+          and diff <= MESH_MLP_PROBA_TOL
+          and abs(auc["mesh"] - auc["single"]) <= MESH_MLP_AUC_TOL)
+    emit("mesh_stream_mlp", ok=ok, **fields)
+    if not ok:
+        fail("mesh_stream_mlp", f"checks failed: {fields}")
+
+
+def mesh_zoo_gaps(make_est, X, y, shape, fit_kw=None,
+                  device: str = "cuda") -> tuple[float, float]:
+    """``mesh_exact_pair``'s two fits of ``make_est()``: the largest gap
+    of their parameters and of their predictions (probabilities for a
+    classifier), each over ``max(1, |single-device value|)``."""
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+
+    on_mesh, single = mesh_exact_pair(make_est, X, y, shape, fit_kw, device)
+    pred = (on_mesh.predict_proba if hasattr(on_mesh, "predict_proba")
+            else on_mesh.predict)
+    pred_single = (single.predict_proba if hasattr(single, "predict_proba")
+                   else single.predict)
+    param = max(rel(v.cpu().numpy(), single.ensemble_[k].cpu().numpy())
+                for k, v in on_mesh.ensemble_.items())
+    return param, rel(pred(X), pred_single(X))
+
+
+def phase_mesh_zoo(X: np.ndarray, y: np.ndarray, split) -> None:
+    """The rest of the zoo on a (4, 1) data mesh with ``bootstrap=False``
+    (16 replicas; 20,000 covtype rows for the classifiers, the 16,512
+    California training rows for the regressors): LinearSVC, the three
+    naive Bayes learners, FMClassifier, MLPClassifier (config 4's width,
+    50 full-batch Adam steps), GLM, isotonic (under the mesh's averaged
+    edges) and AFT (100 Adam steps, censor flags through ``aux``), each
+    against its single-device fit on the card within MESH_ZOO_TOL (each
+    family's CPU parity tolerance, ZOO_TOL, but for the naive Bayes
+    probabilities and the MLP: see MESH_ZOO_TOL), over ``max(1,
+    |single-device value|)``.
+    Their products are torch matmuls: no kernel of the repo runs."""
+    from spark_bagging_tpu_torch import (
+        AFTSurvivalRegression,
+        BaggingClassifier,
+        BaggingRegressor,
+        BernoulliNB,
+        FMClassifier,
+        GaussianNB,
+        GeneralizedLinearRegression,
+        IsotonicRegression,
+        LinearSVC,
+        MLPClassifier,
+        MultinomialNB,
+    )
+
+    shape, R = MESH_1B["zoo"], MESH_1B["zoo_replicas"]
+    n = MESH_1B["zoo_rows"]
+    Xc, yc = X[:n], y[:n]
+    Xtr, ytr = split[0], split[1]
+    t_obs, cens, _ = survival_data(split)
+    tols = MESH_ZOO_TOL
+    learners = [
+        ("svc", BaggingClassifier, lambda: LinearSVC(max_iter=8), Xc, yc,
+         {}, tols["svc"]),
+        ("gaussian_nb", BaggingClassifier, GaussianNB, Xc, yc, {},
+         tols["nb"]),
+        ("bernoulli_nb", BaggingClassifier, BernoulliNB, Xc, yc, {},
+         tols["nb"]),
+        ("multinomial_nb", BaggingClassifier, MultinomialNB, np.abs(Xc), yc,
+         {}, tols["nb"]),
+        ("fm", BaggingClassifier,
+         lambda: FMClassifier(factor_size=8, max_iter=100), Xc, yc, {},
+         tols["fm"]),
+        ("mlp", BaggingClassifier,
+         lambda: MLPClassifier(**MLP, max_iter=50), Xc, yc, {}, tols["mlp"]),
+        ("glm", BaggingRegressor, GeneralizedLinearRegression, Xtr, ytr,
+         {}, tols["glm"]),
+        ("isotonic", BaggingRegressor,
+         lambda: IsotonicRegression(n_bins=128, increasing=False), Xtr, ytr,
+         {}, tols["iso"]),
+        ("aft", BaggingRegressor,
+         lambda: AFTSurvivalRegression(max_iter=100), Xtr, t_obs,
+         {"aux": cens}, tols["aft"]),
+    ]
+
+    t_phase = time.perf_counter()
+    results, ok = {}, True
+    reset_launches()
+    for name, E, learner, Xf, yf, fit_kw, tol in learners:
+        t0 = time.perf_counter()
+        param, out = mesh_zoo_gaps(
+            lambda E=E, learner=learner: E(learner(), n_estimators=R,
+                                           seed=0),
+            Xf, yf, shape, fit_kw)
+        good = param <= tol[0] and out <= tol[1]
+        results[name] = dict(param_rel_err=param, pred_rel_err=out,
+                             param_tol=tol[0], pred_tol=tol[1], ok=good,
+                             seconds=time.perf_counter() - t0)
+        ok = ok and good
+    counts = read_launches()
+    torch.cuda.empty_cache()
+    ok = ok and not any(counts.values())
+    emit("mesh_zoo", ok=ok, mesh=list(shape), replicas=R,
+         classifier_rows=n, regressor_rows=len(ytr), learners=results,
+         launches=counts, phase_seconds=time.perf_counter() - t_phase,
+         card=CARD)
+    if not ok:
+        fail("mesh_zoo", f"checks failed: {results}, launches {counts}")
+
+
+def mesh_witness(device: str) -> None:
+    """``python3 chip_smoke.py --mesh-witness [cpu]``: the evidence behind
+    MESH_ZOO_TOL and the GBT pairs' tie gate, a JSON line each; not part
+    of the smoke. (1) ``mesh_zoo``'s MLP (config 4's width, 16 replicas,
+    20,000 covtype rows, ``bootstrap=False``) on (4, 1) against one
+    device after each of WITNESS_MLP_STEPS full-batch Adam steps, and
+    its three naive Bayes learners, each gap beside the family's CPU
+    tolerance and MESH_ZOO_TOL's. A gap of float32 sum-order size after
+    one step that grows with the steps is Adam carrying the shards'
+    summation order forward; a fault shows at step 1. (2) On the card,
+    the ``bootstrap=False`` GBT pairs of ``mesh_gbt`` (at
+    MESH_GBT_EXACT_ROWS and at all 800,000 rows) and ``mesh_gbt_small``
+    with their first divergences (``gbt_first_divergence``)."""
+    from spark_bagging_tpu_torch import (
+        BaggingClassifier,
+        BernoulliNB,
+        GaussianNB,
+        MLPClassifier,
+        MultinomialNB,
+    )
+
+    torch.set_num_threads(max(1, torch.get_num_threads() // 2))
+    shape, R = MESH_1B["zoo"], MESH_1B["zoo_replicas"]
+    X, y = headline_data()
+    Xc, yc = X[:MESH_1B["zoo_rows"]], y[:MESH_1B["zoo_rows"]]
+    for steps in WITNESS_MLP_STEPS:
+        param, out = mesh_zoo_gaps(
+            lambda: BaggingClassifier(MLPClassifier(**MLP, max_iter=steps),
+                                      n_estimators=R, seed=0,
+                                      device=device),
+            Xc, yc, shape, device=device)
+        emit("mesh_witness_mlp", device=device, steps=steps,
+             param_rel_err=param, pred_rel_err=out,
+             family_tol=list(MLP_FAMILY_TOL),
+             mesh_zoo_tol=list(MESH_ZOO_TOL["mlp"]), card=CARD)
+    for name, learner, Xf in (("gaussian_nb", GaussianNB, Xc),
+                              ("bernoulli_nb", BernoulliNB, Xc),
+                              ("multinomial_nb", MultinomialNB,
+                               np.abs(Xc))):
+        param, out = mesh_zoo_gaps(
+            lambda learner=learner: BaggingClassifier(
+                learner(), n_estimators=R, seed=0, device=device),
+            Xf, yc, shape, device=device)
+        emit("mesh_witness_nb", device=device, learner=name,
+             param_rel_err=param, pred_rel_err=out,
+             family_tol=list(ZOO_TOL["nb"]),
+             mesh_zoo_tol=list(MESH_ZOO_TOL["nb"]), card=CARD)
+    if device == "cpu":
+        return
+    Xtr, ytr, _, _ = higgs_data()
+    depth = GBT["max_depth"]
+    pairs = {f"mesh_gbt_{n}": (gbt_bagger, Xtr[:n], ytr[:n],
+                               MESH_1B["gbt"], 2**depth - 1)
+             for n in (MESH_GBT_EXACT_ROWS, len(ytr))}
+    for phase, (make, Xf, yf, cfg, _, _, C) in gbt_small_cases(
+            X, y, regression_data()).items():
+        pairs[phase] = (make, Xf, yf, MESH_1B["gbt_small"],
+                        C * (2**cfg["max_depth"] - 1))
+    for phase, (make, Xf, yf, pshape, per_round) in pairs.items():
+        on_mesh, single = mesh_exact_pair(make, Xf, yf, pshape)
+        round0, every = split_feature_shares(on_mesh, single, per_round)
+        emit("mesh_witness_gbt", pair=phase, rows=len(yf),
+             mesh=list(pshape), round0_equal_split_feature_share=round0,
+             equal_split_feature_share=every,
+             first_divergence=gbt_first_divergence(on_mesh, single,
+                                                   per_round), card=CARD)
+        del on_mesh, single
+        torch.cuda.empty_cache()
+
+
 def sklearn_proxies() -> dict:
     """The sklearn proxies the GBT, MLP and config 8 phases hold the port
     to (GBT_PROXY_AUC, GBT_MC_PROXY_ACC, GBT_REG_PROXY_R2, MLP_PROXY_AUC,
@@ -6059,11 +6864,15 @@ def sklearn_proxies() -> dict:
 
 
 def main() -> int:
+    global CARD
     if sys.argv[1:] == ["--sklearn-proxies"]:
         import sklearn
 
         print(json.dumps({"sklearn": sklearn.__version__,
                           **sklearn_proxies()}))
+        return 0
+    if sys.argv[1:] == ["--mesh-witness", "cpu"]:
+        mesh_witness("cpu")
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -6071,11 +6880,16 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--fleet-peer"]:
         return fleet_peer(sys.argv[2])
+    if sys.argv[1:] == ["--mesh-witness"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        CARD = phase_env()[1]
+        mesh_witness("cuda")
+        return 0
     # the port itself, before any output: a copy of this script without
     # the repo fails here
     import spark_bagging_tpu_torch  # noqa: F401
 
-    global CARD
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name, smi = phase_env()
@@ -6132,6 +6946,9 @@ def main() -> int:
     stream_err = phase_tree_stream_hist_kernels(X, y)
     phase_tree_stream_cross_check(X, y)
     torch.cuda.empty_cache()
+    mst_launches, mst_codes_launches, mst_row = phase_mesh_stream_trees(
+        X, y, tree_acc)
+    torch.cuda.empty_cache()
     split = regression_data()
     phase_reg_fit(split)
     torch.cuda.empty_cache()
@@ -6148,11 +6965,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     gbt_rows = phase_gbt_hist_kernels(higgs, max(gbt_chunks))
     phase_gbt_cross_check(higgs)
+    mg_launches, mg_codes_launches, mg_row = phase_mesh_gbt(higgs)
     del higgs
     torch.cuda.empty_cache()
     mc_launches, mc_codes_launches = phase_gbt_multiclass_fit(X, y)
     torch.cuda.empty_cache()
     gr_launches, gr_codes_launches = phase_gbt_reg_fit(split)
+    torch.cuda.empty_cache()
+    ms_launches, ms_codes_launches = phase_mesh_gbt_small(X, y, split)
     torch.cuda.empty_cache()
     mlp_fit = phase_mlp_stream_fit()
     torch.cuda.empty_cache()
@@ -6161,9 +6981,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_bootstrap_rejection()
     phase_mlp_device_check()
+    phase_mesh_stream_mlp()
     phase_zoo_classifiers(X, y)
     phase_zoo_regressors(split)
     phase_zoo_streams(X, y, split)
+    torch.cuda.empty_cache()
+    phase_mesh_zoo(X, y, split)
     torch.cuda.empty_cache()
     mesh = phase_mesh(X, y, tree_acc)
     del X, y
@@ -6187,8 +7010,10 @@ def main() -> int:
     # so do the online paths: the warm steps' and the anchor replay's
     # Gram launches, the drift loop's refit, the planes phase's refit
     # under the device profile, and the tenancy phase's five tenant fits
-    # and its budgeted refits; so do the mesh phase's fits, launched in
-    # the shards' threads (its tables and Grams are held too)
+    # and its budgeted refits; so do the mesh phases' fits and streams,
+    # launched in the shards' threads (their tables and Grams are held
+    # too: config 3's on (2, 2), config 7's GBTs on (2, 2) and the small
+    # GBTs on (2, 1), and config 3 streamed on (2, 2))
     f32 = rows[max(Rs)]["float32"]
     deepest = hist_rows[max(tree_Rs), 2 ** (TREE["max_depth"] - 1), "bfloat16"]
     print(json.dumps({"kernels": [{
@@ -6214,8 +7039,10 @@ def main() -> int:
         "launches": (tree_launches + rf_launches + gbt_launches
                      + mc_launches + gr_launches + ts_launches
                      + rs_launches + wt_launches + tr_launches
-                     + mesh["binned_left_stats"]),
+                     + mesh["binned_left_stats"] + mg_launches
+                     + ms_launches + mst_launches),
         "max_abs_err": max(stream_err, mesh["hist_row"]["max_abs_err"],
+                           mg_row["max_abs_err"], mst_row["max_abs_err"],
                            *(r["max_abs_err"] for r in (
             *hist_rows.values(), *reg_rows.values(), *rs_rows.values(),
             *gbt_rows.values()))),
@@ -6233,7 +7060,8 @@ def main() -> int:
                      + mc_codes_launches + gr_codes_launches
                      + ts_codes_launches + rs_codes_launches
                      + wt_codes_launches + tr_codes_launches
-                     + mesh["bin_codes"]),
+                     + mesh["bin_codes"] + mg_codes_launches
+                     + ms_codes_launches + mst_codes_launches),
         "max_abs_err": 0.0 if not codes_row["unequal"] else None,
         "ms": codes_row["kernel_ms"],
         "plain_ms": codes_row["plain_ms"],

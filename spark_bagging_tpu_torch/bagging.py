@@ -39,9 +39,8 @@ shards the fit, predicts and OOB over a ``(data, replica)`` mesh
 (``parallel/sharded.py``); the mesh's devices then replace ``device``.
 A mesh-fitted estimator's serving handles refuse, as in the JAX package
 (serve it through ``EnsembleExecutor(model, mesh=...)`` after loading
-it without a mesh). Mesh stream fits, and data meshes over the families
-whose data axis is not threaded yet, raise ``NotImplementedError``
-naming ROADMAP Queue A 12 part 1b.
+it without a mesh). Every learner family fits on replica, data and 2-D
+meshes, in memory and through ``fit_stream``.
 """
 
 from __future__ import annotations
@@ -70,8 +69,6 @@ from spark_bagging_tpu_torch.ops.bootstrap import bootstrap_weights
 from spark_bagging_tpu_torch.utils.device import resolve_device, synchronize
 from spark_bagging_tpu_torch.utils.metrics import accuracy, r2_score
 from spark_bagging_tpu_torch.utils.params import ParamsMixin
-
-_ROADMAP_MESH = "ROADMAP Queue A 12 part 1b"
 
 
 def clear_compiled_caches() -> int:
@@ -223,6 +220,15 @@ class _BaseBagging(ParamsMixin):
             return None
         return tuple(sorted(self.mesh.shape.items()))
 
+    def _check_mesh(self) -> None:
+        if self.mesh is not None:
+            from spark_bagging_tpu_torch.parallel.mesh import Mesh
+
+            if not isinstance(self.mesh, Mesh):
+                raise TypeError(
+                    f"mesh must be a parallel.make_mesh() Mesh, got "
+                    f"{type(self.mesh).__name__}")
+
     def _home_device(self) -> torch.device:
         """Where the fitted state lives: the mesh's first device on a
         mesh, else ``device``."""
@@ -286,13 +292,7 @@ class _BaseBagging(ParamsMixin):
         goes there once (each shard's rows are then a view); over
         distinct devices it stays on the host and each shard copies its
         rows to its device."""
-        if self.mesh is not None:
-            from spark_bagging_tpu_torch.parallel.mesh import Mesh
-
-            if not isinstance(self.mesh, Mesh):
-                raise TypeError(
-                    f"mesh must be a parallel.make_mesh() Mesh, got "
-                    f"{type(self.mesh).__name__}")
+        self._check_mesh()
         device = self._home_device()
         if self.mesh is not None and len(
                 set(self.mesh.devices.ravel().tolist())) > 1:
@@ -686,12 +686,12 @@ class _BaseBagging(ParamsMixin):
     # -- out-of-core fit -----------------------------------------------
 
     def _reject_stream_options(self) -> None:
-        """Refuse what the streamed fit does not port yet. ``fit_stream``
-        cannot extend an ensemble either: its chunk-keyed replica
-        streams are not the in-memory fit's, so a ``warm_start=True``
-        estimator that is fitted raises, as in the JAX package."""
-        if self.mesh is not None:
-            raise NotImplementedError(f"mesh stream fits ({_ROADMAP_MESH})")
+        """Refuse what the streamed fit cannot do: a mesh that is not a
+        ``parallel.make_mesh()`` one, and extending an ensemble (its
+        chunk-keyed replica streams are not the in-memory fit's, so a
+        ``warm_start=True`` estimator that is fitted raises, as in the
+        JAX package)."""
+        self._check_mesh()
         if self.warm_start and hasattr(self, "ensemble_"):
             raise ValueError(
                 "warm_start cannot extend an ensemble via fit_stream "
@@ -742,16 +742,27 @@ class _BaseBagging(ParamsMixin):
                 "max_samples < 1.0"
             )
         learner = self._learner()
-        device = resolve_device(self.device)
+        tree_stream = getattr(learner, "tree_streamable", False)
+        if (self.oob_score and tree_stream and self.mesh is not None
+                and self.mesh.shape["data"] > 1):
+            # the OOB pass replays the global chunk-keyed draws; a
+            # data-sharded tree stream folds the shard into its draws
+            raise ValueError(
+                "oob_score cannot replay a data-sharded tree "
+                "stream's per-shard draws; use a replica-only mesh "
+                "or drop oob_score"
+            )
+        device = self._home_device()
         # aux_col: one streamed column is the aux channel, not a feature
         n_feat_data = source.n_features - (1 if aux_col is not None else 0)
         n_subspace = self._n_subspace(n_feat_data)
         key = prng.key(self.seed, device)
         common = dict(sample_ratio=ratio, bootstrap=bool(self.bootstrap),
                       n_subspace=n_subspace,
-                      bootstrap_features=bool(self.bootstrap_features))
+                      bootstrap_features=bool(self.bootstrap_features),
+                      mesh=self.mesh)
         t0 = time.perf_counter()
-        if getattr(learner, "tree_streamable", False):
+        if tree_stream:
             if aux_col is not None:
                 raise ValueError(
                     "aux_col applies to SGD-streamable uses_aux "
@@ -816,6 +827,8 @@ class _BaseBagging(ParamsMixin):
             flops = (per_step * aux["opt_steps"]
                      if per_step is not None else None)
             extra = {"opt_steps": aux["opt_steps"]}
+        if self.mesh is not None:
+            extra["n_devices"] = int(self.mesh.size)
         first = aux["first_step_seconds"] or 0.0
         self._write_report(
             fit_seconds, None, losses, int(source.n_rows), int(n_feat_data),

@@ -93,9 +93,8 @@ def fit_ensemble(
     if use_pooled_init is None:
         use_pooled_init = learner.uses_pooled_init
     row_key = _row_key(key, data_axis)
-    # the axis reaches the learner only when set: a learner whose data
-    # axis is not threaded is refused before any shard runs
-    # (parallel/sharded.py)
+    # the axis reaches the learner only when set, so a learner written
+    # for one device keeps its plain signature
     axis_kw = {} if data_axis is None else {"axis_name": data_axis}
     # replica-invariant work runs once, outside the replica chunks
     prepared = learner.prepare(X, row_mask=row_mask, **axis_kw)

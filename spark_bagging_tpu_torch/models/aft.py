@@ -26,7 +26,7 @@ import torch
 
 from spark_bagging_tpu_torch.models.base import BaseLearner, augment_bias
 from spark_bagging_tpu_torch.ops.precision import fp32_matmul, gram_op_dtype
-from spark_bagging_tpu_torch.ops.reduce import maybe_psum
+from spark_bagging_tpu_torch.ops.reduce import maybe_psum, maybe_psum_many
 from spark_bagging_tpu_torch.optim import Adam
 
 _EPS = 1e-8
@@ -122,17 +122,17 @@ class AFTSurvivalRegression(BaseLearner):
         return float(4 * n_rows * (n_features + 1) + 24 * n_rows)
 
     def fit(self, params, X, y, sample_weight, keys, *, prepared=None,
-            aux=None):
+            aux=None, axis_name=None):
         del keys, prepared
         X = X.to(torch.float32)
         w = sample_weight.to(torch.float32)
         # delta: 1 = event observed, 0 = right-censored; None: observed
         delta = torch.ones_like(w) if aux is None else aux.to(torch.float32)
-        denom = torch.clamp_min(maybe_psum(w.sum(dim=-1)), _EPS)
+        denom = torch.clamp_min(maybe_psum(w.sum(dim=-1), axis_name), _EPS)
 
-        def nll(p):
-            data = maybe_psum((w * self._nll_rows(p, X, y, delta)).sum(dim=-1))
-            return data / denom + self.penalty(p)
+        def data(p):
+            """This shard's weighted NLL over the global weight sum."""
+            return (w * self._nll_rows(p, X, y, delta)).sum(dim=-1) / denom
 
         p = {k: v.clone() for k, v in params.items()}
         opt = Adam(p, self.lr)
@@ -140,10 +140,20 @@ class AFTSurvivalRegression(BaseLearner):
         for _ in range(self.max_iter):
             q = {k: v.detach().requires_grad_() for k, v in p.items()}
             with torch.enable_grad(), fp32_matmul():
-                loss = nll(q)
-                grads = torch.autograd.grad(loss.sum(), list(q.values()))
-            losses.append(loss.detach())
+                # the data term's gradient sums over the row shards; the
+                # penalty's is every shard's own
+                local = data(q)
+                g_data = torch.autograd.grad(local.sum(), list(q.values()))
+                pen = self.penalty(q)
+                g_pen = torch.autograd.grad(pen.sum(), list(q.values()),
+                                            allow_unused=True)
+            loss, *g_data = maybe_psum_many([local.detach(), *g_data],
+                                            axis_name)
+            grads = [gd if gp is None else gd + gp
+                     for gd, gp in zip(g_data, g_pen)]
+            loss = loss + pen.detach()
+            losses.append(loss)
             opt.step(p, dict(zip(q, grads)))
         with torch.no_grad():
-            final = nll(p)
+            final = maybe_psum(data(p), axis_name) + self.penalty(p)
         return p, {"loss": final, "loss_curve": torch.stack(losses, dim=1)}

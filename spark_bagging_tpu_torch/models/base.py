@@ -20,13 +20,11 @@ out-of-core engine (streaming.py) can fit it by Adam over data chunks.
 Params are dicts of tensors. ``sample_weight`` carries the Poisson
 bootstrap counts, which a learner treats as exact row multiplicities.
 
-Row reductions go through ``ops/reduce.maybe_psum(_, axis_name)``, so a
-learner whose ``data_axis_ready`` is True fits data-parallel: ``prepare``,
-``pooled_init``, ``fit`` and ``fit_from_init`` take ``axis_name``, the
-mesh axis rows are sharded over, and every shard's fit is the fit on all
-shards' rows. The engines pass ``axis_name`` only when it is set, so a
-learner whose data axis is not threaded yet keeps its plain signature
-(``parallel/sharded.py`` refuses it on a data mesh).
+Row reductions go through ``ops/reduce.maybe_psum(_, axis_name)``, so
+every learner fits data-parallel: ``prepare``, ``pooled_init``, ``fit``
+and ``fit_from_init`` take ``axis_name``, the mesh axis rows are sharded
+over, and every shard's fit is the fit on all shards' rows. The engines
+pass ``axis_name`` only when it is set.
 """
 
 from __future__ import annotations
@@ -65,9 +63,6 @@ class BaseLearner(ParamsMixin):
     # True: ``row_loss``/``penalty`` are implemented and ``fit_stream``
     # fits the learner by Adam over data chunks (streaming.py)
     streamable: ClassVar[bool] = False
-    # True: ``prepare``/``pooled_init``/``fit`` sum their row statistics
-    # over ``axis_name``, so the learner fits on a data mesh
-    data_axis_ready: ClassVar[bool] = False
 
     def pooled_amortizes(self, n_replicas: int) -> bool:
         """Is the pooled pre-pass worth running for an ensemble of this

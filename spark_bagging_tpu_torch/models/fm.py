@@ -110,11 +110,13 @@ class _FMBase(BaseLearner):
         return 0.5 * self.l2 * ((params["W"][:, :-1] ** 2).sum(dim=(1, 2))
                                 + (params["V"] ** 2).sum(dim=(1, 2, 3)))
 
-    def fit(self, params, X, y, sample_weight, keys, *, prepared=None):
+    def fit(self, params, X, y, sample_weight, keys, *, prepared=None,
+            axis_name=None):
         del keys, prepared
         w = sample_weight.to(torch.float32)
         # floor: all-zero bootstrap draws must stay finite
-        w_sum = torch.clamp_min(maybe_psum(w.sum(dim=-1)), 1e-12)   # (R,)
+        w_sum = torch.clamp_min(maybe_psum(w.sum(dim=-1), axis_name),
+                                1e-12)                               # (R,)
         p = {k: v.clone() for k, v in params.items()}
         opt = Adam(p, self.lr)
         losses = []
@@ -128,12 +130,14 @@ class _FMBase(BaseLearner):
                 g_pen = torch.autograd.grad(pen.sum(), list(q.values()))
             # the penalty's gradient by autograd of penalty() itself, added
             # to the data's, as the JAX learner adds them
-            g = {k: maybe_psum(g[k]) + gp for k, gp in zip(q, g_pen)}
-            losses.append(maybe_psum(local.detach()) + pen.detach())
+            g = {k: maybe_psum(g[k], axis_name) + gp
+                 for k, gp in zip(q, g_pen)}
+            losses.append(maybe_psum(local.detach(), axis_name)
+                          + pen.detach())
             opt.step(p, g)
         with torch.no_grad():
-            final = maybe_psum((w * self.row_loss(p, X, y)).sum(dim=-1)) \
-                / w_sum + self.penalty(p)
+            final = maybe_psum((w * self.row_loss(p, X, y)).sum(dim=-1),
+                               axis_name) / w_sum + self.penalty(p)
         return p, {"loss": final, "loss_curve": torch.stack(losses, dim=1)}
 
 

@@ -18,6 +18,14 @@ accumulator. Quantile bin edges are computed once a fit (``prepare``)
 and shared by every round and replica; a feature subspace is read
 through each replica's column index, as the trees read it.
 
+On a data mesh (``axis_name``) the initial margin, every level's table,
+the leaf sums and the round losses sum over the row shards, the edges
+are the shards' averaged quantiles, and each shard draws its own rows'
+keep mask (stochastic GBT): every shard grows the same trees. The
+tables are summed as floats after each shard's fixed-point pass (each
+shard scales by its own ``max |S|``), so a mesh fit is not bitwise the
+single-device fit, as in the JAX package.
+
 Params keep the JAX layout with the replica axis leading: ``f0`` ``(R,)``
 (``(R, C)`` multiclass), ``feature``/``threshold``/``gain`` ``(R,
 rounds·M)`` (``(R, rounds·C·M)``, in (round, class, node) order) and
@@ -34,6 +42,7 @@ import torch
 from spark_bagging_tpu_torch.models.tree import DecisionTreeRegressor, _EPS
 from spark_bagging_tpu_torch.ops import prng
 from spark_bagging_tpu_torch.ops.precision import fp32_matmul
+from spark_bagging_tpu_torch.ops.reduce import maybe_psum
 
 # a saturated sigmoid makes h -> 0; the floor keeps z = -g/h finite
 _HESS_FLOOR = 1e-6
@@ -55,9 +64,6 @@ class _GBTBase(DecisionTreeRegressor):
     # a fit is rounds of trees over margins of the whole dataset, not the
     # one tree the streamed tree engine grows (tree_stream.py)
     tree_streamable = False
-    # the boosting rounds do not sum over a data mesh yet (ROADMAP Queue
-    # A 12 part 1b)
-    data_axis_ready = False
 
     def __init__(
         self,
@@ -110,25 +116,31 @@ class _GBTBase(DecisionTreeRegressor):
             0.0,
         )
 
-    def _round_row_mask(self, key_m, n):
+    def _round_row_mask(self, key_m, n, axis_name=None):
         """Stochastic-GBT keep mask ``(R, n)`` of one round, None when
         subsample == 1: ``uniform(fold_in(key_m, 0x5B), (n,)) <
-        subsample`` per replica, the JAX package's draw."""
+        subsample`` per replica, the JAX package's draw. On a data mesh
+        the shard's index is folded in after the tag, so each shard
+        draws its own rows' mask."""
         if self.subsample >= 1.0:
             return None
         mask_key = prng.fold_in(key_m, _ROW_MASK_TAG)
+        if axis_name is not None:
+            from spark_bagging_tpu_torch.parallel.compat import axis_index
+
+            mask_key = prng.fold_in(mask_key, axis_index(axis_name))
         return (prng.uniform(mask_key, n) < self.subsample).to(torch.float32)
 
     # -- per-task hooks -------------------------------------------------
 
-    def _init_margin(self, y, w, w_sum):
+    def _init_margin(self, y, w, w_sum, axis_name=None):
         raise NotImplementedError
 
     def _pseudo(self, y, F, w):
         """(h, z): Newton row weights and targets at margin F."""
         raise NotImplementedError
 
-    def _round_loss(self, y, F, w, w_sum):
+    def _round_loss(self, y, F, w, w_sum, axis_name=None):
         raise NotImplementedError
 
     # -- BaseLearner contract ------------------------------------------
@@ -210,36 +222,39 @@ class _GBTBase(DecisionTreeRegressor):
                 out.append("\n".join(body.split("\n")[1:]))  # no header
         return "\n".join(out)
 
-    def fit(self, params, X, y, sample_weight, keys, *, prepared=None):
+    def fit(self, params, X, y, sample_weight, keys, *, prepared=None,
+            axis_name=None):
         del params
         self._validate_fit_key(keys)
         if prepared is None:
-            prepared = self.prepare(X)
+            prepared = self.prepare(X, axis_name=axis_name)
         yf = y.to(torch.float32)
         w = sample_weight.to(torch.float32)                  # (R, n)
         # the _EPS guard: an all-zero bootstrap draw must not make f0 NaN
-        w_sum = torch.clamp_min(w.sum(-1), _EPS)             # (R,)
-        f0 = self._init_margin(yf, w, w_sum)                 # (R,)
+        w_sum = torch.clamp_min(maybe_psum(w.sum(-1), axis_name), _EPS)
+        f0 = self._init_margin(yf, w, w_sum, axis_name)      # (R,)
         R, n = w.shape
         F = f0[:, None].expand(R, n)
         feats, thrs, gains, leaves, losses = [], [], [], [], []
         for m in range(self.n_rounds):
             h, z = self._pseudo(yf, F, w)
             key_m = prng.fold_in(keys, m) if keys is not None else None
-            keep = self._round_row_mask(key_m, n)
+            keep = self._round_row_mask(key_m, n, axis_name)
             if keep is not None:
                 # stochastic GBT: dropped rows carry zero weight through
                 # every split statistic and leaf sum of this round
                 h = h * keep
             S = torch.stack([h, h * z, h * z * z], dim=-1)
-            feat, thr, gain, node, _ = self._grow(X, S, prepared, key_m)
-            leaf = self._newton_leaf(self._leaf_stats(node, S))  # (R, L)
+            feat, thr, gain, node, _ = self._grow(
+                X, S, prepared, key_m, axis_name=axis_name)
+            leaf = self._newton_leaf(
+                self._leaf_stats(node, S, axis_name))          # (R, L)
             F = F + self.lr * leaf.gather(1, node.long())
             feats.append(feat)
             thrs.append(thr)
             gains.append(gain)
             leaves.append(leaf)
-            losses.append(self._round_loss(yf, F, w, w_sum))
+            losses.append(self._round_loss(yf, F, w, w_sum, axis_name))
         curve = torch.stack(losses, dim=1)
         new = {
             "f0": f0,
@@ -269,14 +284,14 @@ class GBTRegressor(_GBTBase):
 
     task = "regression"
 
-    def _init_margin(self, y, w, w_sum):
-        return (w * y).sum(-1) / w_sum
+    def _init_margin(self, y, w, w_sum, axis_name=None):
+        return maybe_psum((w * y).sum(-1), axis_name) / w_sum
 
     def _pseudo(self, y, F, w):
         return w, y - F
 
-    def _round_loss(self, y, F, w, w_sum):
-        return (w * (y - F) ** 2).sum(-1) / w_sum
+    def _round_loss(self, y, F, w, w_sum, axis_name=None):
+        return maybe_psum((w * (y - F) ** 2).sum(-1), axis_name) / w_sum
 
     def predict_scores(self, params, X, cols=None):
         return self._margin(params, X, cols)
@@ -338,14 +353,16 @@ class GBTClassifier(_GBTBase):
                     if v.dim() == per_replica.get(k) else v)
                 for k, v in prepared.items()}
 
-    def _fit_multiclass(self, params, X, y, w, keys, prepared):
+    def _fit_multiclass(self, params, X, y, w, keys, prepared,
+                        axis_name=None):
         C = params["leaf"].shape[2]
         R, n = w.shape
         yf32 = torch.nn.functional.one_hot(y.long(), C).to(torch.float32)
         # _EPS: see the binary fit
-        w_sum = torch.clamp_min(w.sum(-1), _EPS)             # (R,)
+        w_sum = torch.clamp_min(maybe_psum(w.sum(-1), axis_name), _EPS)
         with fp32_matmul():
-            prior = torch.clamp(w @ yf32 / w_sum[:, None], 1e-6, 1.0)
+            prior = torch.clamp(maybe_psum(w @ yf32, axis_name)
+                                / w_sum[:, None], 1e-6, 1.0)
         f0 = torch.log(prior)                                # (R, C)
         trees = self._class_prepared(prepared, C)
         F = f0[:, None, :].expand(R, n, C)
@@ -354,7 +371,7 @@ class GBTClassifier(_GBTBase):
             p = torch.softmax(F, dim=-1)                     # (R, n, C)
             h_unit = torch.clamp_min(p * (1.0 - p), _HESS_FLOOR)
             key_m = prng.fold_in(keys, m) if keys is not None else None
-            keep = self._round_row_mask(key_m, n)
+            keep = self._round_row_mask(key_m, n, axis_name)
             wr = w if keep is None else w * keep
             h = (wr[..., None] * h_unit).transpose(1, 2)     # (R, C, n)
             z = ((yf32 - p) / h_unit).transpose(1, 2)
@@ -368,13 +385,15 @@ class GBTClassifier(_GBTBase):
                     prng.fold_in(key_m, _CLASS_TAG)[:, None, :],
                     torch.arange(C, device=key_m.device),
                 ).reshape(R * C, 2)
-            feat, thr, gain, node, _ = self._grow(X, S, trees, keys_c)
-            leaf = self._newton_leaf(self._leaf_stats(node, S))  # (R·C, L)
+            feat, thr, gain, node, _ = self._grow(
+                X, S, trees, keys_c, axis_name=axis_name)
+            leaf = self._newton_leaf(
+                self._leaf_stats(node, S, axis_name))          # (R·C, L)
             upd = leaf.gather(1, node.long()).reshape(R, C, n)
             F = F + self.lr * upd.transpose(1, 2)
             logp = torch.log_softmax(F, dim=-1)
             nll = -(yf32 * logp).sum(-1)
-            losses.append((w * nll).sum(-1) / w_sum)
+            losses.append(maybe_psum((w * nll).sum(-1), axis_name) / w_sum)
             feats.append(feat.reshape(R, -1))
             thrs.append(thr.reshape(R, -1))
             gains.append(gain.reshape(R, -1))
@@ -389,10 +408,11 @@ class GBTClassifier(_GBTBase):
         }
         return new, {"loss": curve[:, -1], "loss_curve": curve}
 
-    def fit(self, params, X, y, sample_weight, keys, *, prepared=None):
+    def fit(self, params, X, y, sample_weight, keys, *, prepared=None,
+            axis_name=None):
         if params["leaf"].dim() == 3:  # binary: the scalar-margin engine
             return super().fit(params, X, y, sample_weight, keys,
-                               prepared=prepared)
+                               prepared=prepared, axis_name=axis_name)
         self._validate_fit_key(keys)
         F = X.shape[-1] if prepared is None or "cols" not in prepared \
             else prepared["cols"].shape[-1]
@@ -402,9 +422,10 @@ class GBTClassifier(_GBTBase):
                 "fit key; fit was called with key=None"
             )
         if prepared is None:
-            prepared = self.prepare(X)
+            prepared = self.prepare(X, axis_name=axis_name)
         return self._fit_multiclass(
-            params, X, y, sample_weight.to(torch.float32), keys, prepared)
+            params, X, y, sample_weight.to(torch.float32), keys, prepared,
+            axis_name)
 
     def _margin_multiclass(self, params, X, cols=None):
         M = 2**self.max_depth - 1
@@ -421,8 +442,9 @@ class GBTClassifier(_GBTBase):
             acc = acc + self.lr * upd.reshape(R, C, n).transpose(1, 2)
         return acc
 
-    def _init_margin(self, y, w, w_sum):
-        p = torch.clamp((w * y).sum(-1) / w_sum, 1e-6, 1 - 1e-6)
+    def _init_margin(self, y, w, w_sum, axis_name=None):
+        p = torch.clamp(maybe_psum((w * y).sum(-1), axis_name) / w_sum,
+                        1e-6, 1 - 1e-6)
         return torch.log(p / (1.0 - p))
 
     def _pseudo(self, y, F, w):
@@ -430,10 +452,11 @@ class GBTClassifier(_GBTBase):
         h_unit = torch.clamp_min(p * (1.0 - p), _HESS_FLOOR)
         return w * h_unit, (y - p) / h_unit
 
-    def _round_loss(self, y, F, w, w_sum):
+    def _round_loss(self, y, F, w, w_sum, axis_name=None):
         # weighted mean logistic loss: softplus(F) - y F
         softplus = torch.logaddexp(F, torch.zeros_like(F))
-        return (w * (softplus - y * F)).sum(-1) / w_sum
+        return maybe_psum((w * (softplus - y * F)).sum(-1),
+                          axis_name) / w_sum
 
     def predict_scores(self, params, X, cols=None):
         if params["leaf"].dim() == 4:

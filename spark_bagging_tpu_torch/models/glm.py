@@ -223,13 +223,15 @@ class GeneralizedLinearRegression(PooledStartMixin, BaseLearner):
 
     # ------------------------------------------------------------------
 
-    def fit(self, params, X, y, sample_weight, keys, *, prepared=None):
+    def fit(self, params, X, y, sample_weight, keys, *, prepared=None,
+            axis_name=None):
         del keys, prepared
         Xb = augment_bias(X.to(torch.float32))
         yf = y.to(torch.float32)
         w = sample_weight.to(torch.float32)
         # floor: all-zero bootstrap draws must stay finite
-        w_sum = torch.clamp_min(maybe_psum(w.sum(dim=-1)), 1e-12)   # (R,)
+        w_sum = torch.clamp_min(maybe_psum(w.sum(dim=-1), axis_name),
+                                1e-12)                               # (R,)
         beta = params["beta"]
         d = Xb.shape[-1]
         pen = torch.full((d,), self.l2, dtype=torch.float32,
@@ -240,7 +242,7 @@ class GeneralizedLinearRegression(PooledStartMixin, BaseLearner):
         def objective(eta, b):
             """Half-deviance + penalty from eta = Xb @ b, ``(R,)``."""
             dev = maybe_psum((w * self._unit_deviance(
-                yf, self._mean(eta))).sum(dim=-1)) / w_sum
+                yf, self._mean(eta))).sum(dim=-1), axis_name) / w_sum
             return 0.5 * dev + 0.5 * self.l2 * (b[:, :-1] ** 2).sum(dim=-1)
 
         def linear(b):
@@ -256,12 +258,12 @@ class GeneralizedLinearRegression(PooledStartMixin, BaseLearner):
                 losses.append(objective(eta, beta))
                 # the GLM score: -Xb^T [w (y - mu) dmu/deta / V]
                 r = w * (yf - mu) * dmu / V
-                G = -maybe_psum((Xb.transpose(-1, -2) @ r[..., None])[..., 0]) \
-                    / w_sum[:, None] + pen * beta
+                G = -maybe_psum((Xb.transpose(-1, -2) @ r[..., None])[..., 0],
+                                axis_name) / w_sum[:, None] + pen * beta
                 # Fisher information: Xb^T diag(w (dmu/deta)^2 / V) Xb
                 s = w * dmu * dmu / V
-                H = maybe_psum((Xb * s[..., None]).transpose(-1, -2) @ Xb) \
-                    / w_sum[:, None, None]
+                H = maybe_psum((Xb * s[..., None]).transpose(-1, -2) @ Xb,
+                               axis_name) / w_sum[:, None, None]
                 H = H + torch.diag(pen) + _SOLVER_DAMPING * eye
                 L, _ = torch.linalg.cholesky_ex(H)
                 delta = torch.cholesky_solve(G[..., None], L)[..., 0]

@@ -16,7 +16,9 @@ leading replica axis. Pool-adjacent-violators is sequential; instead:
 Exact (PAV's answer) wherever every distinct x has a bin of its own;
 otherwise isotonic regression on the binned means. Prediction
 interpolates linearly between the bins' weighted mean x (``jnp.interp``'s
-arithmetic), constant beyond. ``increasing=False`` fits the antitonic
+arithmetic), constant beyond. On a data mesh the edges are the shards'
+averaged quantiles and the bin moments and the MSE sum over the row
+shards. ``increasing=False`` fits the antitonic
 case by flipping the sign of y. Products run in float32 with TF32 off.
 """
 
@@ -27,7 +29,10 @@ import math
 import torch
 
 from spark_bagging_tpu_torch.models.base import BaseLearner
-from spark_bagging_tpu_torch.models.tree import _quantile_edges
+from spark_bagging_tpu_torch.models.tree import (
+    _psum_average_edges,
+    _quantile_edges,
+)
 from spark_bagging_tpu_torch.ops.precision import fp32_matmul
 from spark_bagging_tpu_torch.ops.reduce import maybe_psum
 
@@ -75,10 +80,12 @@ class IsotonicRegression(BaseLearner):
 
     # -- replica-invariant binning, once a fit --------------------------
 
-    def prepare(self, X, *, row_mask=None):
-        interior, _ = _quantile_edges(X.to(torch.float32), row_mask,
-                                      self.n_bins)
-        return {"interior": interior}                          # (F, B-1)
+    def prepare(self, X, *, row_mask=None, axis_name=None):
+        interior, n_valid = _quantile_edges(X.to(torch.float32), row_mask,
+                                            self.n_bins)
+        # a data mesh's shards average their quantiles (models/tree.py)
+        return {"interior": _psum_average_edges(interior, n_valid,
+                                                axis_name)}    # (F, B-1)
 
     def gather_subspace(self, prepared, idx):
         return {"interior": prepared["interior"][idx.long()]}  # (R, k, B-1)
@@ -97,7 +104,8 @@ class IsotonicRegression(BaseLearner):
         # indices and the report's predictions; the (B, B) span tables
         return float(4 * n_rows * (B + 8) + 4 * 6 * B * B)
 
-    def fit(self, params, X, y, sample_weight, keys, *, prepared=None):
+    def fit(self, params, X, y, sample_weight, keys, *, prepared=None,
+            axis_name=None):
         del params, keys
         B = self.n_bins
         X = X.to(torch.float32)
@@ -109,7 +117,8 @@ class IsotonicRegression(BaseLearner):
         R = w.shape[0]
         # the bins' geometry ignores the weights; their statistics do not
         if prepared is None:
-            prepared = self.prepare(X if X.dim() == 2 else X[0])
+            prepared = self.prepare(X if X.dim() == 2 else X[0],
+                                    axis_name=axis_name)
         interior = prepared["interior"]
         interior = (interior[0].expand(R, -1) if interior.dim() == 2
                     else interior[:, 0])                       # (R, B-1)
@@ -119,7 +128,8 @@ class IsotonicRegression(BaseLearner):
         onehot = torch.nn.functional.one_hot(idx, B).to(torch.float32)
         moments = torch.stack([w, w * yf, w * xr], dim=-1)     # (R, n, 3)
         with fp32_matmul():
-            stats = maybe_psum(onehot.transpose(1, 2) @ moments)  # (R, B, 3)
+            stats = maybe_psum(onehot.transpose(1, 2) @ moments,
+                               axis_name)                      # (R, B, 3)
         W, Swy = stats[..., 0], stats[..., 1]
         # centers: each bin's weighted mean x; an empty bin its edges'
         # midpoint (the interpolation's anchor)
@@ -149,9 +159,9 @@ class IsotonicRegression(BaseLearner):
             values = -values
         # the weighted mean squared error, for the report
         pred = interp(xr, centers, values)
-        w_sum = maybe_psum(w.sum(dim=-1))
-        mse = maybe_psum((w * (pred - y.to(torch.float32)) ** 2).sum(dim=-1)) \
-            / torch.clamp_min(w_sum, _EPS)
+        w_sum = maybe_psum(w.sum(dim=-1), axis_name)
+        mse = maybe_psum((w * (pred - y.to(torch.float32)) ** 2).sum(dim=-1),
+                         axis_name) / torch.clamp_min(w_sum, _EPS)
         return ({"centers": centers, "values": values},
                 {"loss": mse, "loss_curve": mse[:, None]})
 

@@ -46,7 +46,6 @@ class LinearRegression(BaseLearner):
 
     task = "regression"
     streamable = True
-    data_axis_ready = True
 
     def __init__(self, l2: float = 1e-6, precision: str = "highest"):
         self.l2 = l2

@@ -58,7 +58,6 @@ class LogisticRegression(PooledStartMixin, BaseLearner):
 
     task = "classification"
     streamable = True
-    data_axis_ready = True
 
     def __init__(
         self,

@@ -7,7 +7,10 @@ optax's arithmetic) over ``max_iter`` steps, full batch
 each replica draws with ``prng.randint`` from its own step keys
 (``prng.split(key, max_iter)``), as the JAX learner does. The Poisson
 bootstrap counts weight each row's loss (weighted sum over weight
-sum), so rows a replica never drew contribute nothing.
+sum), so rows a replica never drew contribute nothing. On a data mesh
+(``axis_name``) the weight sums, the gradients and the losses sum over
+the row shards before the update, so every shard takes the same step;
+each shard's first layer is still one GEMM over its rows.
 
 Replicas share no parameters, so the gradient of the sum of their
 losses is every replica's own gradient: one ``autograd`` call serves
@@ -38,6 +41,7 @@ import torch.nn.functional as F
 from spark_bagging_tpu_torch.models.base import BaseLearner
 from spark_bagging_tpu_torch.ops import prng
 from spark_bagging_tpu_torch.ops.precision import fp32_matmul, gram_op_dtype
+from spark_bagging_tpu_torch.ops.reduce import maybe_psum, maybe_psum_many
 from spark_bagging_tpu_torch.optim import Adam
 
 _EPS = 1e-8
@@ -214,10 +218,12 @@ class _MLPBase(BaseLearner):
 
     # -- the fit ---------------------------------------------------------
 
-    def _weighted_grad(self, params, X, y, w):
+    def _weighted_grad(self, params, X, y, w, axis_name=None):
         """``(loss, grad)`` of each replica's weighted mean loss plus its
         penalty: the gradient of the weighted loss sum over the weight
-        sum, plus the penalty's gradient, as the JAX learner forms it."""
+        sum, plus the penalty's gradient, as the JAX learner forms it.
+        The loss sums, weight sums and gradients sum over ``axis_name``
+        (the penalty is every shard's own)."""
         p = {k: v.detach().requires_grad_() for k, v in params.items()}
         with torch.enable_grad(), fp32_matmul():
             loss_sum = (w * self._row_loss(p, X, y)).sum(dim=-1)    # (R,)
@@ -226,13 +232,18 @@ class _MLPBase(BaseLearner):
             pen = self._penalty(p)
             pen_w1, pen_w2 = torch.autograd.grad(pen.sum(),
                                                  [p["W1"], p["W2"]])
-        denom = torch.clamp_min(w.sum(dim=-1), _EPS)
+        # one collective a step on a data mesh
+        w_sum, loss_sum, *summed = maybe_psum_many(
+            [w.sum(dim=-1), loss_sum.detach(), *grads.values()], axis_name)
+        grads = dict(zip(grads, summed))
+        denom = torch.clamp_min(w_sum, _EPS)
         g = {k: v / _per_replica(denom, v) for k, v in grads.items()}
         g["W1"] += pen_w1
         g["W2"] += pen_w2
-        return loss_sum.detach() / denom + pen.detach(), g
+        return loss_sum / denom + pen.detach(), g
 
-    def fit(self, params, X, y, sample_weight, keys, *, prepared=None):
+    def fit(self, params, X, y, sample_weight, keys, *, prepared=None,
+            axis_name=None):
         del prepared
         X = X.to(torch.float32)
         w = sample_weight.to(torch.float32)
@@ -254,13 +265,15 @@ class _MLPBase(BaseLearner):
                                    0, n).long()           # (R, b)
                 Xb = X[idx] if X.dim() == 2 else X[rows, idx]
                 yb, wb = y[idx], w.gather(1, idx)
-            loss, g = self._weighted_grad(params, Xb, yb, wb)
+            loss, g = self._weighted_grad(params, Xb, yb, wb, axis_name)
             opt.step(params, g)
             curve.append(loss)
         # the final loss on the full weighted data, for the report
         with torch.no_grad(), fp32_matmul():
-            full_loss = ((w * self._row_loss(params, X, y)).sum(dim=-1)
-                         / torch.clamp_min(w.sum(dim=-1), _EPS)
+            w_sum = maybe_psum(w.sum(dim=-1), axis_name)
+            full_loss = (maybe_psum((w * self._row_loss(params, X, y))
+                                    .sum(dim=-1), axis_name)
+                         / torch.clamp_min(w_sum, _EPS)
                          + self._penalty(params))
         return params, {"loss": full_loss,
                         "loss_curve": torch.stack(curve, dim=1)}

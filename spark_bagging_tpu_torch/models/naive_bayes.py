@@ -5,7 +5,9 @@ leading replica axis. Each fit is closed form: the Poisson bootstrap
 counts weight a few moment products over rows, ``(C, n) @ (n, F)`` a
 replica, with a class-weighted row selector ``Yw[c, i] = w_i [y_i =
 c]``. None of the three is streamable. Every product runs in float32
-with TF32 off, as the JAX learners' float32 products.
+with TF32 off, as the JAX learners' float32 products. On a data mesh
+(``axis_name``) every moment, count and loss sum runs over the row
+shards, so each shard's fit is the fit on all rows.
 """
 
 from __future__ import annotations
@@ -33,12 +35,12 @@ def _rows_product(Yw: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
         return Yw @ X
 
 
-def _weighted_nll(scores, y, w, w_sum):
+def _weighted_nll(scores, y, w, w_sum, axis_name=None):
     """Each replica's weighted mean NLL of its scores ``(R, n, C)``."""
     logp = torch.log_softmax(scores, dim=-1)
     idx = y.long().view(1, -1, 1).expand(logp.shape[0], -1, 1)
     nll = -logp.gather(-1, idx)[..., 0]
-    return maybe_psum((w * nll).sum(dim=-1)) / w_sum
+    return maybe_psum((w * nll).sum(dim=-1), axis_name) / w_sum
 
 
 class GaussianNB(BaseLearner):
@@ -82,26 +84,27 @@ class GaussianNB(BaseLearner):
         return float(4 * (4 * n_rows * n_features + 3 * n_rows * n_outputs
                           + 2 * n_rows))
 
-    def fit(self, params, X, y, sample_weight, keys, *, prepared=None):
+    def fit(self, params, X, y, sample_weight, keys, *, prepared=None,
+            axis_name=None):
         del keys, prepared
         C = params["mean"].shape[1]
         X = X.to(torch.float32)
         w = sample_weight.to(torch.float32)
         Yw = _class_selector(y, w, C)
-        cls_w = maybe_psum(Yw.sum(dim=-1))                     # (R, C)
+        cls_w = maybe_psum(Yw.sum(dim=-1), axis_name)          # (R, C)
         w_sum = torch.clamp_min(cls_w.sum(dim=-1), _FLOOR)     # (R,)
         denom = torch.clamp_min(cls_w, _FLOOR)[..., None]
         # moments about the global weighted mean: raw E[x²] − μ² cancels
         # in float32 for features far from 0
         with fp32_matmul():
             if X.dim() == 2:
-                gmean = maybe_psum(w @ X) / w_sum[:, None]     # (R, F)
+                gmean = maybe_psum(w @ X, axis_name) / w_sum[:, None]
             else:
-                gmean = maybe_psum(torch.bmm(w[:, None], X)[:, 0]) \
-                    / w_sum[:, None]
+                gmean = maybe_psum(torch.bmm(w[:, None], X)[:, 0],
+                                   axis_name) / w_sum[:, None]  # (R, F)
         Xs = X - gmean[:, None, :]                             # (R, n, F)
-        s1 = maybe_psum(_rows_product(Yw, Xs))                 # (R, C, F)
-        s2 = maybe_psum(_rows_product(Yw, Xs * Xs))
+        s1 = maybe_psum(_rows_product(Yw, Xs), axis_name)      # (R, C, F)
+        s2 = maybe_psum(_rows_product(Yw, Xs * Xs), axis_name)
         dmean = s1 / denom
         var = torch.clamp_min(s2 / denom - dmean**2, 0.0)
         # smoothing from the largest global variance: the one-hot rows
@@ -113,7 +116,8 @@ class GaussianNB(BaseLearner):
                               / w_sum[:, None])
         params = {"log_prior": log_prior, "shift": gmean, "mean": dmean,
                   "var": var}
-        loss = _weighted_nll(self.predict_scores(params, X), y, w, w_sum)
+        loss = _weighted_nll(self.predict_scores(params, X), y, w, w_sum,
+                             axis_name)
         return params, {"loss": loss, "loss_curve": loss[:, None]}
 
     def predict_scores(self, params, X):
@@ -131,14 +135,14 @@ class GaussianNB(BaseLearner):
         return params["log_prior"][:, None, :] - 0.5 * (quad + log_norm)
 
 
-def _weighted_class_counts(Xc, y, w, C):
+def _weighted_class_counts(Xc, y, w, C, axis_name=None):
     """Count naive Bayes' statistics: per-class weight totals ``(R, C)``,
     the weight sums ``(R,)``, the weighted feature counts ``(R, C, F)``
     and the log priors."""
     Yw = _class_selector(y, w, C)
-    cls_w = maybe_psum(Yw.sum(dim=-1))
+    cls_w = maybe_psum(Yw.sum(dim=-1), axis_name)
     w_sum = torch.clamp_min(cls_w.sum(dim=-1), _FLOOR)
-    counts = maybe_psum(_rows_product(Yw, Xc))
+    counts = maybe_psum(_rows_product(Yw, Xc), axis_name)
     log_prior = torch.log(torch.clamp_min(cls_w, _FLOOR) / w_sum[:, None])
     return cls_w, w_sum, counts, log_prior
 
@@ -182,18 +186,21 @@ class MultinomialNB(_CountNB):
             "log_theta": torch.zeros((R, n_outputs, n_features), device=dev),
         }
 
-    def fit(self, params, X, y, sample_weight, keys, *, prepared=None):
+    def fit(self, params, X, y, sample_weight, keys, *, prepared=None,
+            axis_name=None):
         del keys, prepared
         C = params["log_theta"].shape[1]
         X = X.to(torch.float32)
         w = sample_weight.to(torch.float32)
-        _, w_sum, counts, log_prior = _weighted_class_counts(X, y, w, C)
+        _, w_sum, counts, log_prior = _weighted_class_counts(X, y, w, C,
+                                                             axis_name)
         # alpha = 0 with a zero count would give log(0) and then 0 * -inf
         # in the score product: the floor keeps the cell finite
         sm = torch.clamp_min(counts + self.alpha, _FLOOR)
         log_theta = torch.log(sm) - torch.log(sm.sum(dim=-1))[..., None]
         params = {"log_prior": log_prior, "log_theta": log_theta}
-        loss = _weighted_nll(self.predict_scores(params, X), y, w, w_sum)
+        loss = _weighted_nll(self.predict_scores(params, X), y, w, w_sum,
+                             axis_name)
         return params, {"loss": loss, "loss_curve": loss[:, None]}
 
     def predict_scores(self, params, X):
@@ -221,12 +228,14 @@ class BernoulliNB(_CountNB):
             "log_1m_theta": half.clone(),
         }
 
-    def fit(self, params, X, y, sample_weight, keys, *, prepared=None):
+    def fit(self, params, X, y, sample_weight, keys, *, prepared=None,
+            axis_name=None):
         del keys, prepared
         C = params["log_theta"].shape[1]
         Xb = (X > self.binarize).to(torch.float32)
         w = sample_weight.to(torch.float32)
-        cls_w, w_sum, counts, log_prior = _weighted_class_counts(Xb, y, w, C)
+        cls_w, w_sum, counts, log_prior = _weighted_class_counts(
+            Xb, y, w, C, axis_name)
         theta = (counts + self.alpha) / (
             torch.clamp_min(cls_w, _FLOOR) + 2.0 * self.alpha)[..., None]
         # alpha = 0 can put theta at 0 or 1; the margin must survive
@@ -237,7 +246,7 @@ class BernoulliNB(_CountNB):
         # the binary matrix scored directly: predict_scores would binarize
         # it again, which is wrong where binarize is outside [0, 1)
         loss = _weighted_nll(self._scores_from_binary(params, Xb), y, w,
-                             w_sum)
+                             w_sum, axis_name)
         return params, {"loss": loss, "loss_curve": loss[:, None]}
 
     @staticmethod

@@ -117,12 +117,14 @@ class LinearSVC(PooledStartMixin, BaseLearner):
 
     # ------------------------------------------------------------------
 
-    def fit(self, params, X, y, sample_weight, keys, *, prepared=None):
+    def fit(self, params, X, y, sample_weight, keys, *, prepared=None,
+            axis_name=None):
         del keys, prepared  # deterministic solver; no precomputation
         Xb = augment_bias(X.to(torch.float32))
         w = sample_weight.to(torch.float32)
         # floor: all-zero bootstrap draws must stay finite
-        w_sum = torch.clamp_min(maybe_psum(w.sum(dim=-1)), 1e-12)   # (R,)
+        w_sum = torch.clamp_min(maybe_psum(w.sum(dim=-1), axis_name),
+                                1e-12)                               # (R,)
         W = params["W"]
         R, d, C = W.shape
         T = self._signs(y, C, W.device)                            # (n, C)
@@ -138,8 +140,8 @@ class LinearSVC(PooledStartMixin, BaseLearner):
         def data_loss(M):
             """Weighted squared-hinge mass from the margins, ``(R,)``."""
             a = torch.relu(1.0 - T * M)
-            return maybe_psum((w[..., None] * a * a).sum(dim=(-2, -1))) \
-                / w_sum
+            return maybe_psum((w[..., None] * a * a).sum(dim=(-2, -1)),
+                              axis_name) / w_sum
 
         losses = []
         with fp32_matmul():
@@ -149,7 +151,7 @@ class LinearSVC(PooledStartMixin, BaseLearner):
                 losses.append(data_loss(M) + reg(W))
                 # d/dW sum w a^2 = Xb^T (-2 w T a); the penalty outside
                 G = maybe_psum(Xb.transpose(-1, -2)
-                               @ (-2.0 * w[..., None] * T * a)) \
+                               @ (-2.0 * w[..., None] * T * a), axis_name) \
                     / w_sum[:, None, None]
                 G = G + self.l2 * torch.cat(
                     [W[:, :-1], torch.zeros_like(W[:, -1:])], dim=1)
@@ -158,7 +160,8 @@ class LinearSVC(PooledStartMixin, BaseLearner):
                 H = torch.stack([
                     (Xb * active[..., c, None]).transpose(-1, -2) @ Xb
                     for c in range(C)], dim=1) / w_sum[:, None, None, None]
-                H = maybe_psum(H) + torch.diag(pen) + _SOLVER_DAMPING * eye
+                H = maybe_psum(H, axis_name) + torch.diag(pen) \
+                    + _SOLVER_DAMPING * eye
                 L, _ = torch.linalg.cholesky_ex(H)
                 delta = torch.cholesky_solve(
                     G.transpose(1, 2)[..., None], L)[..., 0]       # (R, C, d)

@@ -139,8 +139,6 @@ class _TreeBase(BaseLearner):
     # one tree a replica: fit_stream grows it with the multi-pass
     # level-synchronous engine (tree_stream.py)
     tree_streamable: ClassVar[bool] = True
-    # the edges, level tables and leaf statistics sum over a data mesh
-    data_axis_ready: ClassVar[bool] = True
 
     def __init__(
         self,

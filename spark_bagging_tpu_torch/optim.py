@@ -35,6 +35,14 @@ class Adam:
         self.mu = {k: torch.zeros_like(v) for k, v in params.items()}
         self.nu = {k: torch.zeros_like(v) for k, v in params.items()}
 
+    def with_moments(self, mu: Params, nu: Params) -> "Adam":
+        """This optimizer's hyperparameters and step count over other
+        moment tensors (a mesh shard's slices of the replica axis)."""
+        other = object.__new__(Adam)
+        other.__dict__.update(self.__dict__)
+        other.mu, other.nu = mu, nu
+        return other
+
     def _f32(self, x: float) -> float:
         """A Python float rounded to float32, as a weakly typed scalar
         meets float32 arrays in JAX."""

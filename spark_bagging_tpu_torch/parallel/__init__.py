@@ -4,8 +4,9 @@ package's ``parallel/``.
 - Replica-axis sharding: each shard of the ``replica`` mesh axis fits
   and forwards its slice of the ensemble;
 - data-axis sharding: rows split over the ``data`` axis, the learners'
-  row statistics summed over it (logistic regression, ridge and the
-  trees; the other families wait for ROADMAP Queue A 12 part 1b).
+  row statistics summed over it. Every learner family runs on data and
+  2-D meshes, and ``fit_stream`` takes the estimator's ``mesh=`` for
+  both stream engines (streaming.py, tree_stream.py).
 
 ``shard_map`` (``compat.py``) runs one thread a mesh position and gives
 the bodies JAX's collectives (``psum``, ``all_gather``, ``axis_index``)

@@ -279,14 +279,17 @@ def _ready_cuda(devices) -> None:
     """Load each CUDA device's lazily loaded libraries (cuSOLVER and the
     linear-algebra module) from the calling thread, once: their loader
     is not thread-safe, and the shards' first Cholesky or solve would
-    race on it."""
+    race on it. Every solver the learners call runs once here: the
+    Cholesky factor and its solve (LinearSVC, GLM, logistic) and the
+    general solve (ridge)."""
     with _ready_lock:
         for dev in devices:
             if dev.type != "cuda" or dev in _ready_devices:
                 continue
             with torch.cuda.device(dev):
                 eye = torch.eye(2, device=dev)
-                torch.linalg.cholesky_ex(eye)
+                L, _ = torch.linalg.cholesky_ex(eye)
+                torch.cholesky_solve(eye, L)
                 torch.linalg.solve_ex(eye, eye)
             _ready_devices.add(dev)
 

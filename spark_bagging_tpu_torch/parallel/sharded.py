@@ -15,10 +15,9 @@ in-process ``shard_map`` of ``parallel/compat.py``. The sharding plan:
 
 Inside the shards the single-device engine runs unchanged: learners sum
 their row statistics over ``data`` (every replica's fit is the fit on
-all rows), the aggregation sums over ``replica``. The data axis is
-threaded through logistic regression, ridge and the trees (and so the
-random forests); the other families fit on a replica mesh only, and a
-data mesh refuses them (ROADMAP Queue A 12 part 1b).
+all rows), the aggregation sums over ``replica``. Every learner family
+takes the data axis, so any family fits on a replica, a data or a 2-D
+mesh.
 
 Divisibility: callers pad rows (``pad_rows``: padded rows carry zero
 weight) and choose ``n_estimators`` divisible by the replica-axis size;
@@ -53,9 +52,6 @@ from spark_bagging_tpu_torch.ops.aggregate import mean_aggregate
 from spark_bagging_tpu_torch.ops.reduce import maybe_psum
 from spark_bagging_tpu_torch.parallel.compat import P, shard_map
 from spark_bagging_tpu_torch.parallel.mesh import DATA_AXIS, REPLICA_AXIS, Mesh
-
-PART_1B = "ROADMAP Queue A 12 part 1b"
-
 
 def _axis_sizes(mesh: Mesh) -> tuple[int, int]:
     return mesh.shape.get(DATA_AXIS, 1), mesh.shape.get(REPLICA_AXIS, 1)
@@ -130,17 +126,6 @@ def _count_trace(kind: str, mesh: Mesh) -> None:
                   labels={"kind": kind, "mesh": _mesh_label(mesh)})
 
 
-def refuse_data_axis(learner: BaseLearner, mesh: Mesh) -> None:
-    """Raise for a data mesh over a learner whose row reductions do not
-    sum over the data axis yet: it must not return a wrong fit."""
-    if (mesh.shape.get(DATA_AXIS, 1) > 1
-            and not getattr(learner, "data_axis_ready", False)):
-        raise NotImplementedError(
-            f"data-sharded fits of {type(learner).__name__} ({PART_1B}); "
-            "use a replica-only mesh (data=1)"
-        )
-
-
 def sharded_fit(
     learner: BaseLearner,
     mesh: Mesh,
@@ -166,7 +151,6 @@ def sharded_fit(
     mesh's first device. ``id_offset`` shifts the replica ids (a warm
     start); ``aux`` shards over the data axis beside ``y``."""
     _check_divisible(X.shape[0], n_replicas, mesh)
-    refuse_data_axis(learner, mesh)
     data_axis = DATA_AXIS if mesh.shape.get(DATA_AXIS, 1) > 1 else None
     _count_trace("fit", mesh)
     with_aux = aux is not None

@@ -34,8 +34,19 @@ msgpack layout, ``meta.json``), installed atomically
 (:func:`save_snapshot`); ``resume_from`` restores one, the JAX
 package's included, and replays the stream from its cursor. Chunk-keyed
 draws do not depend on when a chunk is visited, so a resumed fit is bit
-for bit the uninterrupted one. Not ported yet: ``mesh`` (the estimators
-raise naming the ROADMAP item).
+for bit the uninterrupted one.
+
+On a ``(data, replica)`` mesh (``parallel.make_mesh``) each chunk step
+runs as one ``shard_map``: every replica shard steps its slice of the
+parameters and Adam moments, and every data shard takes its block of
+the chunk's rows. The weights are drawn over the whole chunk, as on one
+device, and each data shard takes its slice of them, so a chunk's
+weights do not depend on the mesh (JAX's step body is the same on any
+layout). The weighted losses, the weight sums and the gradients sum
+over ``data`` before each Adam step; the penalty is each shard's own.
+The state is gathered back after every chunk on the mesh's first
+device, where snapshots read it; their config is the single-device
+one, since nothing drawn depends on the mesh.
 """
 
 from __future__ import annotations
@@ -68,7 +79,10 @@ from spark_bagging_tpu_torch.ops.bootstrap import (
     replica_init_fit_keys,
 )
 from spark_bagging_tpu_torch.ops.precision import fp32_matmul
+from spark_bagging_tpu_torch.ops.reduce import maybe_psum, maybe_psum_many
 from spark_bagging_tpu_torch.optim import Adam
+from spark_bagging_tpu_torch.parallel.compat import P, axis_index, shard_map
+from spark_bagging_tpu_torch.parallel.mesh import DATA_AXIS, REPLICA_AXIS
 from spark_bagging_tpu_torch.utils.device import synchronize
 from spark_bagging_tpu_torch.utils import msgpack
 from spark_bagging_tpu_torch.utils.checkpoint import install, reap_stale_tmp
@@ -190,18 +204,96 @@ def chunk_context(row_key: torch.Tensor, chunk_id: int, n_valid: int,
     return valid, prng.fold_in(row_key, chunk_id)
 
 
-def _loss_and_grad(learner, params, X, y, w, denom, aux=None):
+def check_stream_mesh(mesh, n_replicas: int,
+                      chunk_rows: int) -> tuple[int, int]:
+    """``(data size, replica size)`` of a stream's mesh, after the JAX
+    package's divisibility checks."""
+    data_size = mesh.shape.get(DATA_AXIS, 1)
+    replica_size = mesh.shape.get(REPLICA_AXIS, 1)
+    if n_replicas % replica_size != 0:
+        raise ValueError(
+            f"n_replicas={n_replicas} not divisible by replica mesh "
+            f"axis {replica_size}"
+        )
+    if chunk_rows % data_size != 0:
+        raise ValueError(
+            f"chunk_rows={chunk_rows} not divisible by data mesh "
+            f"axis {data_size}"
+        )
+    return data_size, replica_size
+
+
+def _loss_and_grad(learner, params, X, y, w, denom, aux=None,
+                   axis_name=None):
     """Each replica's weighted mean row loss plus its penalty ``(R,)``,
     and the gradient of their sum: replicas share no parameters, so it
     is every replica's own gradient. ``aux``: the chunk's aux column,
-    for a ``uses_aux`` learner."""
+    for a ``uses_aux`` learner. The data term is differentiated on this
+    shard's rows and its losses and gradients sum over ``axis_name``
+    (a data mesh) in one collective; the penalty and its gradient are
+    each shard's own, added after."""
     p = {k: v.detach().requires_grad_() for k, v in params.items()}
     kw = {"aux": aux} if learner.uses_aux else {}
     with torch.enable_grad(), fp32_matmul():
-        loss = ((w * learner.row_loss(p, X, y, **kw)).sum(dim=-1) / denom
-                + learner.penalty(p))
-        grads = torch.autograd.grad(loss.sum(), list(p.values()))
-    return loss.detach(), dict(zip(p, grads))
+        local = (w * learner.row_loss(p, X, y, **kw)).sum(dim=-1) / denom
+        g_data = torch.autograd.grad(local.sum(), list(p.values()))
+        pen = learner.penalty(p)
+        g_pen = torch.autograd.grad(pen.sum(), list(p.values()),
+                                    allow_unused=True)
+    loss, *g_data = maybe_psum_many([local.detach(), *g_data], axis_name)
+    grads = {k: g if gp is None else g + gp
+             for k, g, gp in zip(p, g_data, g_pen)}
+    return loss + pen.detach(), grads
+
+
+def _chunk_step(learner, mesh, opt: Adam, steps_per_chunk: int,
+                identity_subspace: bool, with_aux: bool):
+    """One chunk visit: ``step(params, mu, nu, X, y, w, subspaces[,
+    aux])`` with the whole chunk's ``X`` and weights ``w``
+    ``(R, chunk_rows)`` returns the stepped ``(params, mu, nu, losses)``
+    and advances ``opt``'s step count. Off a mesh it steps ``params``
+    and ``opt``'s moments in place; over ``mesh`` the same body runs a
+    shard at a time on its replica slice and its block of rows, and the
+    state comes back gathered in replica order on the mesh's first
+    device."""
+    data_axis = (DATA_AXIS if mesh is not None and mesh.shape[DATA_AXIS] > 1
+                 else None)
+
+    def body(p, mu, nu, X, y, w, subs, *aux):
+        step_opt = opt
+        if mesh is not None:
+            # the data shards of one replica slice are handed the same
+            # tensors: each steps copies of its own
+            p = {k: v.clone() for k, v in p.items()}
+            step_opt = opt.with_moments(
+                {k: v.clone() for k, v in mu.items()},
+                {k: v.clone() for k, v in nu.items()})
+        if data_axis is not None:
+            rows = X.shape[0]
+            i = axis_index(data_axis)
+            w = w[:, i * rows:(i + 1) * rows]
+        denom = torch.clamp_min(maybe_psum(w.sum(dim=-1), data_axis), _EPS)
+        Xs = X if identity_subspace else _gather_columns(X, subs)
+        for _ in range(steps_per_chunk):
+            loss, grads = _loss_and_grad(learner, p, Xs, y, w, denom,
+                                         aux[0] if aux else None, data_axis)
+            step_opt.step(p, grads)
+        return p, step_opt.mu, step_opt.nu, loss
+
+    if mesh is None:
+        return body
+    rep, rows = P(REPLICA_AXIS), P(DATA_AXIS)
+    in_specs = (rep, rep, rep, P(DATA_AXIS, None), rows, rep, rep)
+    run = shard_map(body, mesh=mesh,
+                    in_specs=in_specs + ((rows,) if with_aux else ()),
+                    out_specs=(rep, rep, rep, rep), check_vma=False)
+
+    def step(*args):
+        out = run(*args)
+        opt.count += steps_per_chunk
+        return out
+
+    return step
 
 
 def fit_ensemble_stream(
@@ -222,9 +314,11 @@ def fit_ensemble_stream(
     checkpoint_every: int = 0,
     resume_from: str | None = None,
     aux_col: int | None = None,
+    mesh=None,
 ) -> tuple[dict[str, torch.Tensor], torch.Tensor, dict[str, Any]]:
     """Fit all replicas by streaming chunks from ``source`` on the
-    device ``key`` lies on.
+    device ``key`` lies on (with ``mesh``: over the mesh, the state
+    gathered on ``key``'s device, its first).
 
     Returns ``(stacked_params, subspaces, aux)`` as ``fit_ensemble``
     does, so the fitted ensemble predicts like an in-memory fit.
@@ -275,6 +369,8 @@ def fit_ensemble_stream(
         )
     device = key.device
     chunk_rows = source.chunk_rows
+    if mesh is not None:
+        check_stream_mesh(mesh, n_replicas, chunk_rows)
     if n_subspace is None:
         n_subspace = n_features
     identity_subspace = n_subspace == n_features and not bootstrap_features
@@ -286,6 +382,8 @@ def fit_ensemble_stream(
     init_keys, _ = replica_init_fit_keys(key, ids)
     params = learner.init_params(init_keys, n_subspace, n_outputs)
     opt = Adam(params, lr)
+    chunk_step = _chunk_step(learner, mesh, opt, steps_per_chunk,
+                             identity_subspace, aux_col is not None)
     y_dtype = (torch.int64 if learner.task == "classification"
                else torch.float32)
 
@@ -355,13 +453,9 @@ def fit_ensemble_stream(
                     chunk_key, ids, chunk_rows, ratio=sample_ratio,
                     replacement=bootstrap,
                 ) * valid
-                denom = torch.clamp_min(w.sum(dim=-1), _EPS)
-                Xs = Xd if identity_subspace else _gather_columns(
-                    Xd, subspaces)
-                for _ in range(steps_per_chunk):
-                    loss, grads = _loss_and_grad(learner, params, Xs, yd,
-                                                 w, denom, auxd)
-                    opt.step(params, grads)
+                extra = () if auxd is None else (auxd,)
+                params, opt.mu, opt.nu, loss = chunk_step(
+                    params, opt.mu, opt.nu, Xd, yd, w, subspaces, *extra)
                 if first_step_seconds is None:
                     synchronize(device)
                     first_step_seconds = time.perf_counter() - t0

@@ -31,7 +31,17 @@ pass and after every level, in the JAX package's format
 (``streaming.save_snapshot``); ``resume_from`` skips the finished
 passes and runs only the rest, so a resumed fit launches ``bin_codes``
 and the histogram only for the levels it has left, and equals the
-uninterrupted fit bit for bit. Not ported yet: ``mesh``.
+uninterrupted fit bit for bit.
+
+On a ``(data, replica)`` mesh each chunk of a level or leaf pass runs as
+one ``shard_map``: every replica shard accumulates its replicas' tables,
+and on a data mesh shard i takes rows ``[i·rows, (i+1)·rows)`` of the
+chunk (valid where ``off + arange(rows) < n_valid``), draws their
+weights from the chunk key folded with i (the per-shard stream of the
+in-memory data-sharded fit), runs ``bin_codes`` and the histogram on
+them, and the tables sum over ``data`` before they are added up. The
+edge pass stays global. The snapshot config records the data-axis size,
+which keys the draws: a resume on another data size is refused.
 """
 
 from __future__ import annotations
@@ -56,10 +66,14 @@ from spark_bagging_tpu_torch.ops.bootstrap import (
     feature_subspaces,
     replica_init_fit_keys,
 )
+from spark_bagging_tpu_torch.ops.reduce import maybe_psum
+from spark_bagging_tpu_torch.parallel.compat import P, axis_index, shard_map
+from spark_bagging_tpu_torch.parallel.mesh import DATA_AXIS, REPLICA_AXIS
 from spark_bagging_tpu_torch.streaming import (
     _CHUNK_STREAM,
     _load_stream_checkpoint,
     check_resume_config,
+    check_stream_mesh,
     chunk_context,
     key_data,
     learner_fingerprint,
@@ -94,11 +108,13 @@ def fit_tree_ensemble_stream(
     bootstrap: bool = True,
     n_subspace: int | None = None,
     bootstrap_features: bool = False,
+    mesh=None,
     checkpoint_dir: str | None = None,
     resume_from: str | None = None,
 ) -> tuple[dict[str, torch.Tensor], torch.Tensor, dict[str, Any]]:
-    """Stream-fit a tree ensemble on the device ``key`` lies on; the
-    return contract of ``streaming.fit_ensemble_stream``.
+    """Stream-fit a tree ensemble on the device ``key`` lies on (with
+    ``mesh``: over the mesh, the tables gathered on ``key``'s device);
+    the return contract of ``streaming.fit_ensemble_stream``.
     ``checkpoint_dir`` snapshots at every pass boundary (the state is
     ``O(R 2^d)``, not the mid-pass histogram); ``resume_from`` goes on
     after a snapshot's last finished pass."""
@@ -111,6 +127,10 @@ def fit_tree_ensemble_stream(
     device = key.device
     n_features = source.n_features
     chunk_rows = source.chunk_rows
+    data_size = 1
+    if mesh is not None:
+        data_size, _ = check_stream_mesh(mesh, n_replicas, chunk_rows)
+    data_axis = DATA_AXIS if data_size > 1 else None
     if n_subspace is None:
         n_subspace = n_features
     identity = n_subspace == n_features and not bootstrap_features
@@ -118,7 +138,6 @@ def fit_tree_ensemble_stream(
     subspaces = feature_subspaces(
         key, ids, n_features, n_subspace, replacement=bootstrap_features
     )
-    cols = None if identity else subspaces
     row_key = prng.fold_in(key, _CHUNK_STREAM)
     d, B = learner.max_depth, learner.n_bins
     K = learner._stats_per_row(n_outputs)
@@ -142,7 +161,7 @@ def fit_tree_ensemble_stream(
         "n_chunks": source.n_chunks,
         "rng_schema": RNG_SCHEMA,
         # the data-axis size the weight stream folds (1: no mesh)
-        "data_size": 1,
+        "data_size": data_size,
         "learner": learner_fingerprint(learner),
     }
     start_pass = 0
@@ -172,22 +191,50 @@ def fit_tree_ensemble_stream(
         }, {"config": config, "next_pass": next_pass})
 
     def chunks():
-        """One pass: each chunk on the device as ``(c, X, y, valid mask,
-        weights (R, chunk_rows))``."""
+        """One pass: each chunk on the device as ``(c, X, y, n_valid)``."""
         nonlocal first_step_seconds
         with closing(source.chunks()) as chunk_iter:
             for c, (Xc, yc, n_valid) in enumerate(chunk_iter):
-                valid, chunk_key = chunk_context(row_key, c, n_valid,
-                                                 chunk_rows)
-                w = bootstrap_weights(
-                    chunk_key, ids, chunk_rows, ratio=sample_ratio,
-                    replacement=bootstrap,
-                ) * valid
-                yield (to_device(Xc, device, torch.float32),
-                       to_device(yc, device, y_dtype), valid, w)
+                yield (c, to_device(Xc, device, torch.float32),
+                       to_device(yc, device, y_dtype), n_valid)
                 if first_step_seconds is None:
                     synchronize(device)
                     first_step_seconds = time.perf_counter() - t0
+
+    def local_weights(c, X, n_valid, rids):
+        """The weights ``(R, rows)`` of this shard's block of chunk c,
+        times its validity: the whole chunk off a data mesh; on one,
+        shard i's rows ``[i·rows, (i+1)·rows)``, drawn from the chunk key
+        folded with i."""
+        rows = X.shape[0]
+        valid, chunk_key = chunk_context(row_key, c, n_valid, chunk_rows)
+        if data_axis is not None:
+            i = axis_index(data_axis)
+            chunk_key = prng.fold_in(chunk_key, i)
+            valid = valid[i * rows:(i + 1) * rows]
+        return bootstrap_weights(chunk_key, rids, rows, ratio=sample_ratio,
+                                 replacement=bootstrap) * valid
+
+    def on_mesh(body):
+        """``body(c, n_valid, X, y, feats, thrs, rids, subs)`` a chunk,
+        over the mesh when there is one: rows over ``data``, replicas
+        over ``replica``, its tables summed over ``data`` and gathered in
+        replica order."""
+        def summed(c, n_valid, *args):
+            return maybe_psum(body(c, n_valid, *args), data_axis)
+
+        if mesh is None:
+            return summed
+        rep = P(REPLICA_AXIS)
+
+        def run(c, n_valid, *args):
+            return shard_map(
+                lambda *a: summed(c, n_valid, *a), mesh=mesh,
+                in_specs=(P(DATA_AXIS, None), P(DATA_AXIS), rep, rep, rep,
+                          rep),
+                out_specs=rep, check_vma=False)(*args)
+
+        return run
 
     if start_pass == 0:
         # -- pass 0: averaged per-chunk quantile edges over every
@@ -196,7 +243,9 @@ def fit_tree_ensemble_stream(
                             device=device)
         e_cnt = torch.zeros((), dtype=torch.float32, device=device)
         n_chunks = 0
-        for X, _, valid, _ in chunks():
+        for _, X, _, n_valid in chunks():
+            valid = (torch.arange(chunk_rows, device=device)
+                     < n_valid).to(torch.float32)
             interior, nv = _quantile_edges(X, valid, B)
             has = (nv > 0).to(torch.float32)
             e_sum += torch.where(torch.isfinite(interior), interior,
@@ -228,14 +277,21 @@ def fit_tree_ensemble_stream(
     fit_keys = replica_init_fit_keys(key, ids)[1]
     for level in range(len(feats), d):
         N = 2**level
+
+        def level_table(c, n_valid, X, y, fls, tls, rids, subs, N=N):
+            w = local_weights(c, X, n_valid, rids)
+            sub_cols = None if identity else subs
+            node = _route_partial(fls, tls, X, sub_cols, rids.shape[0])
+            S = learner._row_stats(y, w, n_outputs)
+            return learner._chunk_level_hist(
+                X, S, edges, node, N, cols=sub_cols,
+                integral=learner.integral_stats)
+
+        step = on_mesh(level_table)
         hist = torch.zeros((n_replicas, n_subspace, B, N, K),
                            dtype=torch.float32, device=device)
-        for X, y, _, w in chunks():
-            node = _route_partial(feats, thrs, X, cols, n_replicas)
-            S = learner._row_stats(y, w, n_outputs)
-            hist += learner._chunk_level_hist(
-                X, S, edges, node, N, cols=cols,
-                integral=learner.integral_stats)
+        for c, X, y, n_valid in chunks():
+            hist += step(c, n_valid, X, y, feats, thrs, ids, subspaces)
         # the in-memory fit's per-split feature masks: the same draws
         # from each replica's fit key, folded with the level
         mask = (learner._level_feat_mask(fit_keys, level, N, n_subspace,
@@ -250,12 +306,17 @@ def fit_tree_ensemble_stream(
         snapshot(level + 2)
 
     # -- last pass: leaf statistics
+    def leaf_table(c, n_valid, X, y, fls, tls, rids, subs):
+        w = local_weights(c, X, n_valid, rids)
+        node = _route_partial(fls, tls, X, None if identity else subs,
+                              rids.shape[0])
+        return learner._leaf_stats(node, learner._row_stats(y, w, n_outputs))
+
+    step = on_mesh(leaf_table)
     leaf_acc = torch.zeros((n_replicas, 2**d, K), dtype=torch.float32,
                            device=device)
-    for X, y, _, w in chunks():
-        node = _route_partial(feats, thrs, X, cols, n_replicas)
-        leaf_acc += learner._leaf_stats(node, learner._row_stats(
-            y, w, n_outputs))
+    for c, X, y, n_valid in chunks():
+        leaf_acc += step(c, n_valid, X, y, feats, thrs, ids, subspaces)
     params, aux_tree = learner._finalize_leaves(
         torch.cat(feats, dim=1), torch.cat(thrs, dim=1),
         torch.cat(gains, dim=1), leaf_acc, torch.stack(curve, dim=1))

@@ -288,16 +288,19 @@ def test_default_device_is_cuda_and_raises_without_it():
 
 def test_unported_surfaces_raise(tmp_path):
     X, y = make_classification(50, 3, 2, seed=0)
-    # a mesh fit runs; a data mesh over a family whose data axis is not
-    # threaded yet refuses (ROADMAP Queue A 12 part 1b), as does a mesh
-    # that is not a parallel.Mesh
+    # a mesh fit runs, a data mesh over any family too (here naive
+    # Bayes: with every weight 1 it is the single-device fit); a mesh
+    # that is not a parallel.Mesh refuses
     cpu2 = [torch.device("cpu")] * 2
     on_mesh = T.BaggingClassifier(n_estimators=2, device="cpu",
                                   mesh=T.make_mesh(1, devices=cpu2)).fit(X, y)
     assert on_mesh.n_estimators_ == 2
-    with pytest.raises(NotImplementedError, match="Queue A 12 part 1b"):
-        T.BaggingClassifier(T.GaussianNB(), n_estimators=2, device="cpu",
-                            mesh=T.make_mesh(2, devices=cpu2)).fit(X, y)
+    exact = dict(n_estimators=2, device="cpu", bootstrap=False)
+    nb_mesh = T.BaggingClassifier(T.GaussianNB(), **exact,
+                                  mesh=T.make_mesh(2, devices=cpu2)).fit(X, y)
+    nb = T.BaggingClassifier(T.GaussianNB(), **exact).fit(X, y)
+    np.testing.assert_allclose(nb_mesh.predict_proba(X), nb.predict_proba(X),
+                               atol=1e-6, rtol=0)
     with pytest.raises(TypeError, match="make_mesh"):
         T.BaggingClassifier(device="cpu", mesh=object()).fit(X, y)
     # warm_start grows a fitted ensemble (the growth's contract:

@@ -1891,3 +1891,81 @@ def test_mesh_serving_on_the_card_with_a_shard_loss(cuda):
         want = fn(p, s, torch.as_tensor(X[k * 8:k * 8 + 8],
                                         device=cuda)).cpu().numpy()
         np.testing.assert_array_equal(outs[k], want)
+
+
+def test_data_mesh_newton_fits_in_a_fresh_process_on_the_card(cuda):
+    """LinearSVC and GLM on a (4, 1) mesh over ``cuda:0`` x 4, in a fresh
+    process whose first Cholesky and Cholesky solve run in the shard
+    threads: no lazy-loader race ("lazy wrapper should be called at most
+    once"), and with ``bootstrap=False`` each fit is the single-device
+    fit within its CPU parity tolerance (tests/test_torch_zoo_*.py)."""
+    import subprocess
+    import sys
+
+    script = """
+import numpy as np, torch
+import spark_bagging_tpu_torch as T
+from spark_bagging_tpu_torch.utils.datasets import make_classification
+X, y = make_classification(4000, 12, 3, seed=0)
+mesh = T.make_mesh(4, devices=[torch.device("cuda")] * 4)
+kw = dict(n_estimators=8, bootstrap=False, max_samples=1.0, seed=0)
+svc = [T.BaggingClassifier(T.LinearSVC(max_iter=5), mesh=m, **kw).fit(X, y)
+       for m in (mesh, None)]
+d = np.abs(svc[0].predict_proba(X) - svc[1].predict_proba(X)).max()
+assert d <= 1e-4, d
+yr = X[:, 0] - 0.5 * X[:, 1]
+glm = [T.BaggingRegressor(T.GeneralizedLinearRegression(max_iter=5),
+                          mesh=m, **kw).fit(X, yr) for m in (mesh, None)]
+d = np.abs(glm[0].predict(X) - glm[1].predict(X)).max()
+assert d <= 5e-4 * max(1.0, np.abs(glm[1].predict(X)).max()), d
+print("ok")
+"""
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", script], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("engine", ["sgd", "tree"])
+def test_mesh_stream_fit_on_the_card(cuda, engine):
+    """``fit_stream(mesh=(2, 2))`` over ``cuda:0`` x 4. The SGD engine
+    (MLP): its probabilities within 1e-4 of the single-device stream's
+    (the gradients summed over two row shards in another order). The
+    tree engine with ``bootstrap=False``: bitwise the single-device
+    stream, the histogram and bin codes launched by all four shards,
+    levels x chunks each."""
+    import spark_bagging_tpu_torch as T
+    from spark_bagging_tpu_torch.ops.hist import bin_codes, binned_left_stats
+    from spark_bagging_tpu_torch.utils.datasets import make_classification
+
+    X, y = make_classification(6000, 12, 3, seed=2)
+    mesh = T.make_mesh(2, devices=[cuda] * 4)
+    if engine == "sgd":
+        est = dict(n_estimators=16, seed=0, device="cuda")
+        fit = dict(chunk_rows=1000, n_epochs=2, steps_per_chunk=2, lr=0.01,
+                   prefetch=0)
+        fits = [T.BaggingClassifier(T.MLPClassifier(hidden=16), mesh=m,
+                                    **est).fit_stream((X, y), **fit)
+                for m in (mesh, None)]
+        np.testing.assert_allclose(fits[0].predict_proba(X),
+                                   fits[1].predict_proba(X), atol=1e-4)
+        assert fits[0].fit_report_["n_devices"] == 4
+        return
+    est = dict(n_estimators=16, seed=0, bootstrap=False, max_features=0.8,
+               device="cuda")
+    learner = T.DecisionTreeClassifier(max_depth=4, n_bins=32)
+    for fn in (binned_left_stats, bin_codes):
+        fn.__dict__.pop("shard_launches", None)
+    a = T.BaggingClassifier(learner, mesh=mesh, **est).fit_stream(
+        (X, y), chunk_rows=2048, prefetch=0)
+    for fn in (binned_left_stats, bin_codes):
+        per = {s: v for (attr, s), v in fn.shard_launches.items()
+               if attr == "launches"}
+        assert per == {s: 4 * 3 for s in ((0, 0), (0, 1), (1, 0), (1, 1))}
+    b = T.BaggingClassifier(learner, **est).fit_stream(
+        (X, y), chunk_rows=2048, prefetch=0)
+    for k, v in b.ensemble_.items():
+        assert torch.equal(a.ensemble_[k], v), k

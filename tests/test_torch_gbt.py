@@ -314,9 +314,9 @@ def test_multiclass_class_keys_and_feature_subset_match_jax(monkeypatch):
     seen = []
     grow = tgbt.GBTClassifier._grow
 
-    def spy(self, X, S, prepared, keys=None, integral=False):
+    def spy(self, X, S, prepared, keys=None, integral=False, axis_name=None):
         seen.append(keys)
-        return grow(self, X, S, prepared, keys, integral)
+        return grow(self, X, S, prepared, keys, integral, axis_name)
 
     monkeypatch.setattr(tgbt.GBTClassifier, "_grow", spy)
     jp, jaux, tp, taux, _ = _learner_fits("multiclass",

@@ -303,10 +303,16 @@ def test_regressor_surface_rules(data):
         tr.fit_stream((X, y), resume_from="no-such-snapshot")
     np.testing.assert_array_equal(tr.predict_stream((X, y)), tr.predict(X))
     assert tr.score_stream((X, y)) == pytest.approx(tr.score(X, y))
-    with pytest.raises(NotImplementedError, match="Queue A 12 part 1b"):
-        T.BaggingRegressor(T.MLPRegressor(hidden=4), device="cpu",
-                           mesh=T.make_mesh(
-                               2, devices=[torch.device("cpu")] * 2)).fit(X, y)
+    # a data mesh fits any family: with every weight 1 the MLP's
+    # data-parallel Adam steps are the single-device steps
+    exact = dict(device="cpu", bootstrap=False)
+    mlp_mesh = T.BaggingRegressor(T.MLPRegressor(hidden=4), **exact,
+                                  mesh=T.make_mesh(
+                                      2, devices=[torch.device("cpu")] * 2)
+                                  ).fit(X, y)
+    mlp = T.BaggingRegressor(T.MLPRegressor(hidden=4), **exact).fit(X, y)
+    np.testing.assert_allclose(mlp_mesh.predict(X), mlp.predict(X),
+                               atol=1e-5, rtol=0)
     # warm_start grows: the grown bag draws the cold fit's weights bit
     # for bit; its ridge solves, batched over 1 replica instead of 3,
     # round alike to within an ulp or two

@@ -291,20 +291,36 @@ def test_shardmap_trace_counts_equal_jax(breast_cancer):
     assert ("fit", "2x4", 1.0) in series(telemetry)
 
 
-def test_mesh_refusals(breast_cancer, tmp_path):
-    """What a mesh does not do yet, or ever: a data mesh over a family
-    whose data axis is not threaded (ROADMAP Queue A 12 part 1b), mesh
-    stream fits (part 1b), serving handles of a mesh-fitted estimator
-    and quantiles (as in JAX), an indivisible replica axis, and a warm
-    start across a changed mesh."""
+def test_mesh_refusals(breast_cancer, tmp_path, monkeypatch):
+    """What a mesh does not do, or not yet: serving handles of a
+    mesh-fitted estimator and quantiles (as in JAX), an indivisible
+    replica axis, a warm start across a changed mesh, OOB over a
+    data-sharded tree stream (as in JAX), and more than one process
+    (ROADMAP Queue A 12 part 2). What it does since every family took
+    the data axis: the GBT, MLP, SVM and naive Bayes fits on a data mesh
+    (``bootstrap=False``) are the single-device fits (the GBT's under
+    the mesh's averaged edges), and ``fit_stream`` runs on a mesh."""
     X, y = breast_cancer
     Xs, ys = X[:64], y[:64]
+    exact = dict(n_estimators=2, bootstrap=False, max_samples=1.0)
     for learner in (T.GBTClassifier(n_rounds=2, max_depth=2),
-                    T.MLPClassifier(hidden=4), T.LinearSVC(),
+                    T.MLPClassifier(hidden=4, max_iter=20), T.LinearSVC(),
                     T.GaussianNB()):
-        with pytest.raises(NotImplementedError, match="Queue A 12 part 1b"):
-            T.BaggingClassifier(learner, n_estimators=2, mesh=tmesh(8),
-                                device="cpu").fit(Xs, ys)
+        on_mesh = T.BaggingClassifier(learner, mesh=tmesh(8), device="cpu",
+                                      **exact).fit(Xs, ys)
+        if isinstance(learner, T.GBTClassifier):
+            edges = compat.shard_map(
+                lambda Xd: learner.prepare(Xd, axis_name="data")["edges"],
+                mesh=tmesh(8), in_specs=(P("data", None),),
+                out_specs=P())(torch.from_numpy(Xs))
+            monkeypatch.setattr(T.GBTClassifier, "prepare",
+                                lambda self, Xp, **_: self._binned(Xp, edges))
+        single = T.BaggingClassifier(learner, device="cpu",
+                                     **exact).fit(Xs, ys)
+        monkeypatch.undo()
+        np.testing.assert_allclose(on_mesh.predict_proba(Xs),
+                                   single.predict_proba(Xs), atol=1e-5,
+                                   err_msg=type(learner).__name__)
     # the replica axis needs no learner plumbing: every family runs
     nb = T.BaggingClassifier(T.GaussianNB(), n_estimators=8, mesh=tmesh(),
                              device="cpu").fit(Xs, ys)
@@ -312,9 +328,19 @@ def test_mesh_refusals(breast_cancer, tmp_path):
                                     device="cpu").fit(Xs, ys)
     np.testing.assert_allclose(nb.predict_proba(Xs),
                                nb_single.predict_proba(Xs), atol=1e-6)
-    with pytest.raises(NotImplementedError, match="Queue A 12 part 1b"):
-        T.BaggingClassifier(n_estimators=8, mesh=tmesh(),
+    # a stream on a replica mesh draws the single-device stream's weights
+    streamed = T.BaggingClassifier(n_estimators=8, mesh=tmesh(),
+                                   device="cpu").fit_stream((Xs, ys))
+    streamed_single = T.BaggingClassifier(n_estimators=8,
+                                          device="cpu").fit_stream((Xs, ys))
+    np.testing.assert_allclose(streamed.predict_proba(Xs),
+                               streamed_single.predict_proba(Xs), atol=1e-5)
+    with pytest.raises(ValueError, match="data-sharded tree stream"):
+        T.BaggingClassifier(T.DecisionTreeClassifier(max_depth=2),
+                            n_estimators=8, oob_score=True, mesh=tmesh(2),
                             device="cpu").fit_stream((Xs, ys))
+    # one process only (Queue A 12 part 2): no initialize_distributed
+    assert not hasattr(T.parallel, "initialize_distributed")
     with pytest.raises(ValueError, match="single-device serving handle"):
         nb.aggregated_forward()
     with pytest.raises(ValueError, match="single-device serving handle"):
