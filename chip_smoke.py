@@ -284,6 +284,19 @@ counted by shard:
   FM, MLP, GLM, isotonic and AFT on (4, 1) with ``bootstrap=False``
   against their single-device fits.
 
+More than one process (``multiprocess``, after ``mesh``): two children
+of this script (``--mp-worker RANK PORT DIR``) join over gloo with
+``initialize_distributed`` and fit on one (2, 2) mesh that spans them,
+each child with ``cuda:0`` x 2 (process 0 on data row 0): the headline
+at full width, config 3's trees, config 4's learner streamed over the
+first MP["stream_rows"] rows with a snapshot after MP["snapshot_every"]
+chunks and a resume from it, the ``oob_score`` stream refusal and a
+``save()`` by both. Their gathered state is bitwise the 1-process (2, 2)
+mesh's over ``cuda:0`` x 4 here (the trees: ``mesh_trees``' fit), and
+each other's; only process 0 wrote; the checkpoint loaded here on the
+1-process mesh predicts bitwise what the children's mesh predicted; the
+Gram and histogram launches a shard equal the 1-process mesh's.
+
 The sklearn proxies are constants, made on a CPU host that has sklearn
 by ``python3 chip_smoke.py --sklearn-proxies``.
 
@@ -653,6 +666,12 @@ MESH_ZOO_TOL = {**ZOO_TOL, "nb": (ZOO_TOL["nb"][0], 1e-4),
 # MLP_TOL), and the Adam steps `--mesh-witness` reads the mesh gap after
 MLP_FAMILY_TOL = (2e-4, 1e-5)
 WITNESS_MLP_STEPS = (1, 5, 10, 25, 50)
+# the multiprocess phase: two children joined over gloo on one (2, 2)
+# mesh, each child's collectives timing out after group_timeout_s, both
+# killed after timeout_s; config 4's stream cut to its first stream_rows
+# rows (10 chunks of 20,000), snapshotted after snapshot_every chunks
+MP = dict(shape=(2, 2), stream_rows=200_000, snapshot_every=6,
+          timeout_s=300, group_timeout_s=120)
 # the card's `nvidia-smi` name and power limit, printed with every time
 # of the online and data-plane phases
 CARD = ""
@@ -5845,13 +5864,15 @@ def mesh_hist_check(c: dict) -> dict:
                 bound_by="operations" if t_ops >= t_bytes else "bytes")
 
 
-def mesh_trees(X, y, tree_acc: float) -> tuple[dict, dict]:
+def mesh_trees(X, y, tree_acc: float) -> tuple[dict, dict, dict]:
     """Config 3's trees on a 2 x 2 mesh. With ``bootstrap=False`` the
     mesh's edges are the shards' quantiles averaged in shard order, and
     its trees equal, bit for bit, the single-device trees grown under
     those edges (every level's integer table and the leaf counts sum
     exactly over the shards). With the bootstrap, the accuracy is within
-    MESH_TREE_ACC_TOL of the single-device fit's."""
+    MESH_TREE_ACC_TOL of the single-device fit's. Returns the
+    bootstrap fit's launches, the histogram row, and its state, launches
+    by shard and seconds (the multiprocess phase's reference)."""
     from spark_bagging_tpu_torch.ensemble import fit_ensemble
     from spark_bagging_tpu_torch.ops import prng
 
@@ -5902,6 +5923,10 @@ def mesh_trees(X, y, tree_acc: float) -> tuple[dict, dict]:
     fit_seconds = time.perf_counter() - t0
     counts, per_shard = read_launches(), shard_launches()
     rep = boot.fit_report_
+    ref = dict(state={k: v.cpu().numpy() for k, v in boot.ensemble_.items()},
+               launches_by_shard=per_shard, fit_seconds=fit_seconds,
+               chunk_size=rep["chunk_size_resolved"]
+               or N_REPLICAS // shape[1])
     r_shard = N_REPLICAS // shape[1]
     chunk = rep["chunk_size_resolved"] or r_shard
     expected = TREE["max_depth"] * -(-r_shard // chunk)
@@ -5924,7 +5949,7 @@ def mesh_trees(X, y, tree_acc: float) -> tuple[dict, dict]:
     emit("mesh_trees", ok=ok, **fields)
     if not ok:
         fail("mesh_trees", f"checks failed: {fields}")
-    return counts, hist
+    return counts, hist, ref
 
 
 def mesh_serving(single, X: np.ndarray) -> None:
@@ -6085,7 +6110,7 @@ def phase_mesh(X: np.ndarray, y: np.ndarray, tree_acc: float) -> dict:
     gram_rows = phase_kernels(X[:n_shard], [data_chunk], modes=("float32",),
                               phase="mesh_kernels")
     torch.cuda.empty_cache()
-    tree_counts, hist_row = mesh_trees(X, y, tree_acc)
+    tree_counts, hist_row, tree_ref = mesh_trees(X, y, tree_acc)
     mesh_serving(single, X)
     del single
     torch.cuda.empty_cache()
@@ -6095,7 +6120,8 @@ def phase_mesh(X: np.ndarray, y: np.ndarray, tree_acc: float) -> dict:
                              + ex_launches),
                 binned_left_stats=tree_counts["binned_left_stats"],
                 bin_codes=tree_counts["bin_codes"],
-                gram_row=gram_rows[data_chunk]["float32"], hist_row=hist_row)
+                gram_row=gram_rows[data_chunk]["float32"], hist_row=hist_row,
+                tree_ref=tree_ref)
 
 
 def mesh_exact_pair(make_est, X, y, shape, fit_kw=None,
@@ -6644,6 +6670,336 @@ def phase_mesh_stream_mlp() -> None:
         fail("mesh_stream_mlp", f"checks failed: {fields}")
 
 
+def mp_headline(mesh, X, y, chunk_size=None):
+    """The multiprocess phase's headline fit on ``mesh``: ``(estimator,
+    fit seconds, launches, launches by shard)``."""
+    from spark_bagging_tpu_torch import BaggingClassifier
+
+    clf = BaggingClassifier(headline_learner(), n_estimators=N_REPLICAS,
+                            seed=0, mesh=mesh, chunk_size=chunk_size)
+    reset_launches()
+    t0 = time.perf_counter()
+    clf.fit(X, y)
+    return clf, time.perf_counter() - t0, read_launches(), shard_launches()
+
+
+def mp_stream(mesh, **fit_kw):
+    """Config 4's learner streamed on ``mesh`` over the first
+    MP["stream_rows"] rows: ``(estimator, seconds)``."""
+    cfg = MLP_STREAM
+    est = mlp_bagger(cfg["n_estimators"])
+    est.set_params(mesh=mesh)
+    t0 = time.perf_counter()
+    est.fit_stream(mlp_source(MP["stream_rows"], cfg["chunk_rows"]),
+                   classes=[0, 1], n_epochs=cfg["n_epochs"],
+                   steps_per_chunk=cfg["steps_per_chunk"], lr=cfg["lr"],
+                   **fit_kw)
+    return est, time.perf_counter() - t0
+
+
+def mp_state(prefix: str, est) -> dict:
+    return {f"{prefix}.{k}": v.cpu().numpy() for k, v in est.ensemble_.items()}
+
+
+def mp_worker(rank: int, port: str, out: str) -> int:
+    """One child of the multiprocess phase: join, build the (2, 2) mesh
+    with ``cuda:0`` x 2 as this process's part, arm telemetry, fit the
+    headline, config 3's trees and config 4's stream (snapshot and
+    resume), try the OOB stream, ``save()`` the headline; write the
+    gathered state to ``out/arrays<rank>.npz`` and the numbers to
+    ``out/scalars<rank>.json``. The replica chunks are the 1-process
+    references' (``out/chunks.json``): a chunk sets how many replicas
+    one Gram launch sums, and so the bits."""
+    import torch.distributed as dist
+
+    from spark_bagging_tpu_torch import telemetry
+    from spark_bagging_tpu_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    n_devices = initialize_distributed(f"127.0.0.1:{port}", 2, rank,
+                                       timeout_s=MP["group_timeout_s"])
+    mesh = make_mesh(*MP["shape"], devices=["cuda:0"] * 2)
+    telemetry.reset()
+    telemetry.enable()
+    X, y = headline_data()
+    t_ready = time.perf_counter() - t_start
+    # the parent writes the chunks once its references are fitted
+    path = os.path.join(out, "chunks.json")
+    while not os.path.exists(path):
+        if time.perf_counter() - t_start > MP["timeout_s"]:
+            raise TimeoutError(f"no {path}")
+        time.sleep(0.05)
+    with open(path) as f:
+        chunks = json.load(f)
+    t_waited = time.perf_counter() - t_start - t_ready
+
+    def series(name, label=None):
+        return [s for s in telemetry.registry().snapshot()
+                if s["name"] == name
+                and (label is None or s["labels"] == label)]
+
+    clf, fit_s, counts, per_shard = mp_headline(mesh, X, y,
+                                                chunks["headline"])
+    h2d_fit = sum(s["value"] for s in series("sbt_h2d_bytes_total",
+                                             {"process": str(rank)}))
+    arrays = {**mp_state("headline", clf),
+              "headline.subspaces": clf.subspaces_.cpu().numpy(),
+              "headline.proba": clf.predict_proba(X[:N_SERVE_ROWS])}
+    clf.save(os.path.join(out, "headline"))
+    del clf
+    reset_launches()
+    trees = tree_bagger(N_REPLICAS, split_impl="fused",
+                        chunk_size=chunks["trees"])
+    trees.set_params(mesh=mesh)
+    t0 = time.perf_counter()
+    trees.fit(X, y)
+    tree_s = time.perf_counter() - t0
+    tree_shards = shard_launches()
+    arrays.update(mp_state("trees", trees))
+    del trees, X, y
+    ck = os.path.join(out, "stream_ck")
+    stream, stream_s = mp_stream(mesh, checkpoint_dir=ck,
+                                 checkpoint_every=MP["snapshot_every"])
+    with open(os.path.join(ck, "meta.json")) as f:
+        snapshot_next_chunk = json.load(f)["next_chunk"]
+    resumed, resume_s = mp_stream(mesh, resume_from=ck)
+    arrays.update({**mp_state("stream", stream),
+                   **mp_state("stream_resumed", resumed)})
+    del stream, resumed
+    try:
+        oob = mlp_bagger(MLP_STREAM["n_estimators"])
+        oob.set_params(mesh=mesh, oob_score=True)
+        oob.fit_stream(mlp_source(MLP_STREAM["chunk_rows"],
+                                  MLP_STREAM["chunk_rows"]), classes=[0, 1])
+        oob_error = None
+    except ValueError as e:
+        oob_error = str(e)
+    saved = {s["labels"]["kind"]: s["value"]
+             for s in series("sbt_checkpoint_bytes_total")
+             if s["labels"].get("op") == "save"}
+    coll = series("sbt_collective_seconds")
+    scalars = dict(
+        rank=rank, n_global_devices=n_devices,
+        mesh_processes=mesh.processes.tolist(), ready_seconds=t_ready,
+        waited_seconds=t_waited,
+        fit_seconds=fit_s, launches=counts, launches_by_shard=per_shard,
+        tree_fit_seconds=tree_s, tree_launches_by_shard=tree_shards,
+        stream_seconds=stream_s, resume_seconds=resume_s,
+        snapshot_next_chunk=snapshot_next_chunk, oob_stream_error=oob_error,
+        h2d_bytes_headline_fit=h2d_fit,
+        h2d_bytes=sum(s["value"] for s in series("sbt_h2d_bytes_total",
+                                                 {"process": str(rank)})),
+        d2h_bytes=sum(s["value"] for s in series("sbt_d2h_bytes_total",
+                                                 {"process": str(rank)})),
+        collective_count=sum(s["count"] for s in coll),
+        collective_seconds=sum(s["sum"] for s in coll),
+        exchanges=mesh.exchanges, staged_bytes=mesh.staged_bytes,
+        checkpoint_bytes_saved=saved)
+    np.savez(os.path.join(out, f"arrays{rank}.npz"), **arrays)
+    with open(os.path.join(out, f"scalars{rank}.json"), "w") as f:
+        json.dump(scalars, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def mp_start(out: str) -> tuple[list, list, float]:
+    """Start the two children: ``(processes, their logs, deadline)``.
+    Children log to files: a pipe nobody drained could stall one in a
+    collective."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ)
+    if os.path.isdir("/sys/class/net/lo"):
+        # gloo on the loopback interface, whatever the host name resolves to
+        env.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    logs = [open(os.path.join(out, f"log{r}.txt"), "w+") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mp-worker", str(r),
+         str(port), out], stdout=log, stderr=log, env=env)
+        for r, log in enumerate(logs)]
+    return procs, logs, time.monotonic() + MP["timeout_s"]
+
+
+def mp_finish(procs, logs, deadline) -> list[tuple[int | None, str]]:
+    """Wait for both children until the deadline, then kill what is
+    left: ``(exit code or None, log tail)`` each."""
+    codes = []
+    for p in procs:
+        try:
+            codes.append(p.wait(timeout=max(0.0, deadline - time.monotonic())))
+        except subprocess.TimeoutExpired:
+            codes.append(None)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    tails = []
+    for log in logs:
+        log.seek(0)
+        tails.append(log.read()[-3000:])
+        log.close()
+    return list(zip(codes, tails))
+
+
+def phase_multiprocess(X: np.ndarray, y: np.ndarray, tree_ref: dict) -> dict:
+    """Two processes on one (2, 2) mesh (see the module docstring): the
+    children start (import, join, make their data) while the 1-process
+    references are fitted here (the headline and the stream on (2, 2)
+    over ``cuda:0`` x 4; the trees are ``mesh_trees``' fit); the
+    children's fits begin once the references' replica chunks are
+    written, so the card runs one side at a time. Then the gates.
+    Returns each kernel's launches in the references and in both
+    children."""
+    import shutil
+
+    from spark_bagging_tpu_torch import BaggingClassifier
+
+    t_phase = time.perf_counter()
+    shape = MP["shape"]
+    torch.cuda.empty_cache()
+    out = tempfile.mkdtemp(prefix="sbt_mp_")
+    procs, logs, deadline = mp_start(out)
+    try:
+        clf, fit_s, counts, per_shard = mp_headline(mesh_of(*shape), X, y)
+        ref = {**mp_state("headline", clf),
+               "headline.subspaces": clf.subspaces_.cpu().numpy(),
+               "headline.proba": clf.predict_proba(X[:N_SERVE_ROWS]),
+               **{f"trees.{k}": v for k, v in tree_ref["state"].items()}}
+        classes = clf.classes_
+        chunks = dict(headline=clf.fit_report_["chunk_size_resolved"]
+                      or N_REPLICAS // shape[1], trees=tree_ref["chunk_size"])
+        del clf
+        stream, stream_s = mp_stream(mesh_of(*shape))
+        ref.update(mp_state("stream", stream))
+        del stream
+        torch.cuda.empty_cache()
+        # written whole, then renamed: the children wait for the name
+        with open(os.path.join(out, "chunks.tmp"), "w") as f:
+            json.dump(chunks, f)
+        os.replace(os.path.join(out, "chunks.tmp"),
+                   os.path.join(out, "chunks.json"))
+        t0 = time.perf_counter()
+        results = mp_finish(procs, logs, deadline)
+        children_s = time.perf_counter() - t0
+        for r, (code, tail) in enumerate(results):
+            if code != 0:
+                fail("multiprocess", f"child {r} exit {code}:\n{tail}")
+        got, sc = [], []
+        for r in range(2):
+            with np.load(os.path.join(out, f"arrays{r}.npz")) as z:
+                got.append(dict(z))
+            with open(os.path.join(out, f"scalars{r}.json")) as f:
+                sc.append(json.load(f))
+        loaded = BaggingClassifier.load(os.path.join(out, "headline"),
+                                        mesh=mesh_of(*shape))
+        loaded_proba = loaded.predict_proba(X[:N_SERVE_ROWS])
+        del loaded
+    finally:
+        # no child outlives the phase, whatever failed
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+        shutil.rmtree(out, ignore_errors=True)
+    unequal = [sorted(k for k, v in ref.items()
+                      if not np.array_equal(got[r][k], v)) for r in range(2)]
+    resume_unequal = [sorted(
+        k for k in got[r] if k.startswith("stream.") and not np.array_equal(
+            got[r][k], got[r][k.replace("stream.", "stream_resumed.")]))
+        for r in range(2)]
+    between = sorted(k for k in got[0]
+                     if not np.array_equal(got[0][k], got[1][k]))
+    acc = float((classes[got[0]["headline.proba"].argmax(1)]
+                 == y[:N_SERVE_ROWS]).mean())
+    # one row block a process for X (float32), y (int64) and the mask
+    # (float32): its two positions share cuda:0
+    h2d_want = (N_ROWS // shape[0]) * (N_FEATURES * 4 + 8 + 4)
+    kinds = ("scaled_gram", "binned_left_stats", "bin_codes")
+
+    def own(want: dict, r: int) -> dict:
+        return {k: {s: v for s, v in want[k].items()
+                    if s.startswith(f"{r},")} for k in kinds}
+
+    launch_ok = [
+        own(sc[r]["launches_by_shard"], r) == own(per_shard, r)
+        and own(sc[r]["tree_launches_by_shard"], r)
+        == own(tree_ref["launches_by_shard"], r)
+        and len(sc[r]["launches_by_shard"]["scaled_gram"]) == 2
+        and len(sc[r]["tree_launches_by_shard"]["binned_left_stats"]) == 2
+        for r in range(2)]
+    fields = dict(
+        mesh=list(shape), processes=sc[0]["mesh_processes"],
+        replica_chunks=chunks,
+        n_global_devices=[c["n_global_devices"] for c in sc],
+        replicas=N_REPLICAS, rows=N_ROWS, stream_rows=MP["stream_rows"],
+        stream_rows_cut_from=MLP_STREAM["n_rows"],
+        fit_seconds_2proc=[c["fit_seconds"] for c in sc],
+        fit_seconds_1proc=fit_s,
+        tree_fit_seconds_2proc=[c["tree_fit_seconds"] for c in sc],
+        tree_fit_seconds_1proc=tree_ref["fit_seconds"],
+        stream_seconds_2proc=[c["stream_seconds"] for c in sc],
+        stream_seconds_1proc=stream_s,
+        resume_seconds_2proc=[c["resume_seconds"] for c in sc],
+        snapshot_next_chunk=[c["snapshot_next_chunk"] for c in sc],
+        child_ready_seconds=[c["ready_seconds"] for c in sc],
+        child_waited_seconds=[c["waited_seconds"] for c in sc],
+        children_seconds_after_references=children_s,
+        collective_seconds=[c["collective_seconds"] for c in sc],
+        collective_gathers=[c["collective_count"] for c in sc],
+        exchanges=[c["exchanges"] for c in sc],
+        staged_bytes=[c["staged_bytes"] for c in sc],
+        d2h_bytes=[c["d2h_bytes"] for c in sc],
+        h2d_bytes=[c["h2d_bytes"] for c in sc],
+        h2d_bytes_headline_fit=[c["h2d_bytes_headline_fit"] for c in sc],
+        h2d_bytes_headline_fit_want=h2d_want,
+        checkpoint_bytes_saved=[c["checkpoint_bytes_saved"] for c in sc],
+        oob_stream_error=[c["oob_stream_error"] for c in sc],
+        unequal_to_1proc=unequal, resume_unequal=resume_unequal,
+        unequal_between_children=between,
+        loaded_checkpoint_bitwise=bool(np.array_equal(
+            loaded_proba, got[0]["headline.proba"])),
+        accuracy_100k=acc, acc_bar=ACC_BAR,
+        launches_by_shard_1proc=per_shard,
+        tree_launches_by_shard_1proc=tree_ref["launches_by_shard"],
+        launches_by_shard_2proc=[c["launches_by_shard"] for c in sc],
+        tree_launches_by_shard_2proc=[c["tree_launches_by_shard"]
+                                      for c in sc],
+        launches_a_shard_equal=launch_ok,
+        phase_seconds=time.perf_counter() - t_phase, card=CARD)
+    ok = (not any(unequal) and not any(resume_unequal) and not between
+          and fields["loaded_checkpoint_bitwise"] and acc >= ACC_BAR
+          and all(launch_ok) and fields["n_global_devices"] == [2, 2]
+          and fields["processes"] == [[0, 0], [1, 1]]
+          and all(c["snapshot_next_chunk"] == MP["snapshot_every"]
+                  for c in sc)
+          and all(c["h2d_bytes_headline_fit"] == h2d_want for c in sc)
+          and all(c["d2h_bytes"] > 0 and c["collective_count"] > 0
+                  and c["exchanges"] > 0 for c in sc)
+          and sc[0]["checkpoint_bytes_saved"].get("stream", 0) > 0
+          and sc[0]["checkpoint_bytes_saved"].get("model", 0) > 0
+          and not sc[1]["checkpoint_bytes_saved"]
+          and all(c["oob_stream_error"]
+                  == "oob_score with fit_stream is single-process only"
+                  for c in sc))
+    emit("multiprocess", ok=ok, **fields)
+    if not ok:
+        fail("multiprocess", f"checks failed: {fields}")
+    return {k: counts[k] + sum(
+        sum(c["launches_by_shard" if k == "scaled_gram"
+              else "tree_launches_by_shard"][k].values()) for c in sc)
+        for k in kinds}
+
+
 def mesh_zoo_gaps(make_est, X, y, shape, fit_kw=None,
                   device: str = "cuda") -> tuple[float, float]:
     """``mesh_exact_pair``'s two fits of ``make_est()``: the largest gap
@@ -6880,6 +7236,16 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--fleet-peer"]:
         return fleet_peer(sys.argv[2])
+    if sys.argv[1:2] == ["--mp-worker"]:
+        try:
+            return mp_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+        except BaseException:
+            import traceback
+
+            traceback.print_exc()
+            sys.stderr.flush()
+            # a failed child exits at once: no teardown may wait on its peer
+            os._exit(1)
     if sys.argv[1:] == ["--mesh-witness"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -6989,6 +7355,8 @@ def main() -> int:
     phase_mesh_zoo(X, y, split)
     torch.cuda.empty_cache()
     mesh = phase_mesh(X, y, tree_acc)
+    torch.cuda.empty_cache()
+    mp = phase_multiprocess(X, y, mesh.pop("tree_ref"))
     del X, y
     torch.cuda.empty_cache()
     phase_readers()
@@ -7013,7 +7381,9 @@ def main() -> int:
     # and its budgeted refits; so do the mesh phases' fits and streams,
     # launched in the shards' threads (their tables and Grams are held
     # too: config 3's on (2, 2), config 7's GBTs on (2, 2) and the small
-    # GBTs on (2, 1), and config 3 streamed on (2, 2))
+    # GBTs on (2, 1), and config 3 streamed on (2, 2)), and the
+    # multiprocess phase's 1-process headline and both children's fits,
+    # launched in each child's own shards)
     f32 = rows[max(Rs)]["float32"]
     deepest = hist_rows[max(tree_Rs), 2 ** (TREE["max_depth"] - 1), "bfloat16"]
     print(json.dumps({"kernels": [{
@@ -7023,7 +7393,7 @@ def main() -> int:
         "replaces": "spark_bagging_tpu/ops/gram.py:53",
         "launches": launches + warm_launches + online_launches
         + anchor_launches + loop_launches + planes_launches
-        + tenancy_launches + mesh["scaled_gram"],
+        + tenancy_launches + mesh["scaled_gram"] + mp["scaled_gram"],
         "max_abs_err": max(f32["max_abs_err"],
                            mesh["gram_row"]["max_abs_err"]),
         "ms": f32["kernel_ms"],
@@ -7040,7 +7410,8 @@ def main() -> int:
                      + mc_launches + gr_launches + ts_launches
                      + rs_launches + wt_launches + tr_launches
                      + mesh["binned_left_stats"] + mg_launches
-                     + ms_launches + mst_launches),
+                     + ms_launches + mst_launches
+                     + mp["binned_left_stats"]),
         "max_abs_err": max(stream_err, mesh["hist_row"]["max_abs_err"],
                            mg_row["max_abs_err"], mst_row["max_abs_err"],
                            *(r["max_abs_err"] for r in (
@@ -7061,7 +7432,8 @@ def main() -> int:
                      + ts_codes_launches + rs_codes_launches
                      + wt_codes_launches + tr_codes_launches
                      + mesh["bin_codes"] + mg_codes_launches
-                     + ms_codes_launches + mst_codes_launches),
+                     + ms_codes_launches + mst_codes_launches
+                     + mp["bin_codes"]),
         "max_abs_err": 0.0 if not codes_row["unequal"] else None,
         "ms": codes_row["kernel_ms"],
         "plain_ms": codes_row["plain_ms"],

@@ -40,7 +40,16 @@ shards the fit, predicts and OOB over a ``(data, replica)`` mesh
 A mesh-fitted estimator's serving handles refuse, as in the JAX package
 (serve it through ``EnsembleExecutor(model, mesh=...)`` after loading
 it without a mesh). Every learner family fits on replica, data and 2-D
-meshes, in memory and through ``fit_stream``.
+meshes, in memory and through ``fit_stream``. A mesh made after
+``parallel.initialize_distributed`` spans processes: every process
+calls the same fit with the same data, places only its shards
+(``parallel.multihost.global_put``) and gathers the fitted state whole
+(``multihost.to_host``), so each process holds the same ensemble.
+
+Telemetry (one attribute read each while unarmed): the fit's spans
+``h2d``, ``fit``, ``aggregate`` and ``oob``, ``sbt_h2d_bytes_total``
+(by process) and ``sbt_oob_evaluations_total`` (by mode), as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -66,6 +75,12 @@ from spark_bagging_tpu_torch.models.linear import LinearRegression
 from spark_bagging_tpu_torch.models.logistic import LogisticRegression
 from spark_bagging_tpu_torch.ops import prng
 from spark_bagging_tpu_torch.ops.bootstrap import bootstrap_weights
+from spark_bagging_tpu_torch.parallel.distributed import process_index
+from spark_bagging_tpu_torch.parallel.multihost import (
+    is_multiprocess_mesh,
+    to_host,
+    to_local,
+)
 from spark_bagging_tpu_torch.utils.device import resolve_device, synchronize
 from spark_bagging_tpu_torch.utils.metrics import accuracy, r2_score
 from spark_bagging_tpu_torch.utils.params import ParamsMixin
@@ -230,10 +245,11 @@ class _BaseBagging(ParamsMixin):
                     f"{type(self.mesh).__name__}")
 
     def _home_device(self) -> torch.device:
-        """Where the fitted state lives: the mesh's first device on a
-        mesh, else ``device``."""
+        """Where the fitted state lives: on a mesh this process's first
+        device (the mesh's first device in one process), else
+        ``device``."""
         if self.mesh is not None:
-            return self.mesh.first_device
+            return self.mesh.home_device
         return resolve_device(self.device)
 
     def _eff_chunk(self) -> int | None:
@@ -285,26 +301,30 @@ class _BaseBagging(ParamsMixin):
 
     def _start_fit(self, X) -> tuple[torch.Tensor, torch.device, float,
                                      np.ndarray]:
-        """X on the device, with the seconds the copy took, and X on the
-        host (the caller's array itself where it already is float32
-        numpy; pulled back only when the caller handed a CUDA tensor) for
-        the quality profile. On a mesh whose shards share one device X
-        goes there once (each shard's rows are then a view); over
-        distinct devices it stays on the host and each shard copies its
-        rows to its device."""
+        """X on the device, with the seconds the copy took (the ``h2d``
+        span), and X on the host (the caller's array itself where it
+        already is float32 numpy; pulled back only when the caller handed
+        a CUDA tensor) for the quality profile. On a mesh X stays on the
+        host: the fit pads it there and places each shard once
+        (``_mesh_place``, which times that copy)."""
         self._check_mesh()
-        device = self._home_device()
-        if self.mesh is not None and len(
-                set(self.mesh.devices.ravel().tolist())) > 1:
-            device = torch.device("cpu")
         if isinstance(X, torch.Tensor):
             X_host = X.detach().cpu().numpy()
         else:
             X = X_host = np.asarray(X, np.float32)  # converted once
+        if self.mesh is not None:
+            host = torch.device("cpu")
+            return self._validate_X(X, host), host, None, X_host
+        device = self._home_device()
         t0 = time.perf_counter()
-        X = self._validate_X(X, device)
-        synchronize(device)
-        return X, device, time.perf_counter() - t0, X_host
+        with telemetry.span("h2d"):
+            X = self._validate_X(X, device)
+            synchronize(device)
+        h2d_seconds = time.perf_counter() - t0
+        telemetry.inc("sbt_h2d_bytes_total",
+                      float(X.numel() * X.element_size()),
+                      labels={"process": process_index()})
+        return X, device, h2d_seconds, X_host
 
     # -- warm start ----------------------------------------------------
 
@@ -498,19 +518,28 @@ class _BaseBagging(ParamsMixin):
                       n_subspace=n_subspace,
                       bootstrap_features=bool(self.bootstrap_features),
                       chunk_size=chunk_size, use_pooled_init=use_pooled)
-        t0 = time.perf_counter()
         if self.mesh is not None:
-            params, subspaces, fit_aux = self._mesh_fit(
-                learner, X, y, key, n_new, n_outputs, id_start, row_mask,
-                aux, common)
-        else:
-            params, subspaces, fit_aux = fit_ensemble(
-                learner, X, y, key, ids, n_outputs, row_mask=row_mask,
-                aux=aux, **common)
-        losses = fit_aux["loss"].cpu().numpy()  # completion barrier
+            from spark_bagging_tpu_torch.parallel.sharded import sharded_fit
+
+            (Xp, yp, mask, auxp), h2d_seconds = self._mesh_place(
+                X, y, row_mask, aux)
+        t0 = time.perf_counter()
+        with telemetry.span("fit", n_replicas=n_new):
+            if self.mesh is not None:
+                params, subspaces, fit_aux = sharded_fit(
+                    learner, self.mesh, Xp, yp, mask, key, n_new, n_outputs,
+                    id_offset=id_start, aux=auxp, **common)
+            else:
+                params, subspaces, fit_aux = fit_ensemble(
+                    learner, X, y, key, ids, n_outputs, row_mask=row_mask,
+                    aux=aux, **common)
+            # the completion barrier (a gather over the processes of a
+            # process-spanning mesh)
+            losses = to_host(fit_aux["loss"])
         fit_seconds = time.perf_counter() - t0
         device = self._home_device()
         key = key.to(device)
+        params, subspaces = to_local((params, subspaces), device)
         if id_start > 0:
             # warm start: the new replicas after the old, on the device
             params = {k: torch.cat([self.ensemble_[k], v])
@@ -544,17 +573,24 @@ class _BaseBagging(ParamsMixin):
         extra = {"warm_started_from": id_start} if id_start > 0 else {}
         if self.mesh is not None:
             extra["n_devices"] = int(self.mesh.size)
-        self._write_report(
-            fit_seconds, h2d_seconds, losses, n_rows, n_features, n_subspace,
-            learner.flops_per_fit(n_rows, n_subspace, n_outputs),
-            chunk_size_resolved=chunk_size, n_replicas=n_new, **extra)
+        # aggregate: the per-replica losses folded into the fit report
+        with telemetry.span("aggregate", n_replicas=n_new):
+            self._write_report(
+                fit_seconds, h2d_seconds, losses, n_rows, n_features,
+                n_subspace,
+                learner.flops_per_fit(n_rows, n_subspace, n_outputs),
+                chunk_size_resolved=chunk_size, n_replicas=n_new, **extra)
         self._fit_quality_profile(host_xy, n_outputs)
 
     def _auto_chunk(self, learner, n_rows, n_subspace, n_outputs, n_new,
                     device, n_features):
         """The fit's replica chunk when ``chunk_size`` is None. On a mesh
         a shard fits ``n_rows / data`` rows and ``n_new / replica``
-        replicas, and shards that share a device share its memory."""
+        replicas, and shards that share a device share its memory. On a
+        mesh that spans processes every process takes the smallest of
+        their chunks (a collective): a chunk sets the shapes of the
+        shards' psums, which must be one in every process, and each
+        process reads its own free memory."""
         from spark_bagging_tpu_torch.utils.memory import (
             auto_chunk_size,
             device_memory_budget,
@@ -563,39 +599,53 @@ class _BaseBagging(ParamsMixin):
         budget = None
         if self.mesh is not None:
             data, replica = self.mesh.shape["data"], self.mesh.shape["replica"]
-            devs = self.mesh.devices.ravel().tolist()
-            device = self.mesh.first_device
+            devs = self.mesh.local_devices
+            device = self.mesh.home_device
             budget = device_memory_budget(device) / max(
                 devs.count(d) for d in devs)
             n_rows = -(-n_rows // data)
             n_new = max(1, n_new // replica)
-        return auto_chunk_size(
+        chunk = auto_chunk_size(
             learner, n_rows, n_subspace, n_outputs, n_new, device,
             budget_bytes=budget, n_features=n_features,
             bootstrap_features=self.bootstrap_features,
         )
+        if is_multiprocess_mesh(self.mesh):
+            import torch.distributed as dist
 
-    def _mesh_fit(self, learner, X, y, key, n_new, n_outputs, id_start,
-                  row_mask, aux, common):
-        """The fit over ``self.mesh``: rows padded to the data axis
-        (padding carries zero weight; ``sample_weight`` rides the mask),
-        then ``parallel.sharded_fit``."""
-        from spark_bagging_tpu_torch.parallel.sharded import (
-            pad_rows,
-            sharded_fit,
-        )
+            chunks: list = [None] * dist.get_world_size()
+            dist.all_gather_object(chunks, chunk)
+            # None (every replica in one chunk) is the largest chunk
+            known = [c for c in chunks if c is not None]
+            chunk = min(known) if known else None
+        return chunk
 
-        Xp, yp, mask = pad_rows(X, y, self.mesh.shape["data"])
+    def _mesh_place(self, X, y, row_mask, aux):
+        """The mesh fit's one host-to-device copy: rows padded on the host
+        to the data axis (padding carries zero weight; ``sample_weight``
+        rides the mask), then each of this process's shards placed once
+        (``global_put``), under the ``h2d`` span. Returns the placed
+        ``(X, y, mask, aux)`` and the seconds the copy took."""
+        from spark_bagging_tpu_torch.parallel.compat import P
+        from spark_bagging_tpu_torch.parallel.multihost import global_put
+        from spark_bagging_tpu_torch.parallel.sharded import pad_rows
+
+        mesh = self.mesh
+        Xp, yp, mask = pad_rows(X, y, mesh.shape["data"])
         pad = Xp.shape[0] - X.shape[0]
         if row_mask is not None:
-            mask = mask * torch.cat([row_mask.to(mask.device),
-                                     torch.zeros(pad, device=mask.device)])
+            mask = mask * torch.cat([row_mask.cpu(), torch.zeros(pad)])
         if aux is not None and pad:
-            aux = torch.cat([aux, torch.zeros(pad, dtype=aux.dtype,
-                                              device=aux.device)])
-        return sharded_fit(
-            learner, self.mesh, Xp, yp, mask, key, n_new, n_outputs,
-            id_offset=id_start, aux=aux, **common)
+            aux = torch.cat([aux.cpu(), torch.zeros(pad, dtype=aux.dtype)])
+        t0 = time.perf_counter()
+        with telemetry.span("h2d"):
+            rows = P("data")
+            placed = (global_put(Xp, mesh, P("data", None)),
+                      global_put(yp, mesh, rows), global_put(mask, mesh, rows),
+                      None if aux is None else global_put(aux, mesh, rows))
+            for dev in set(mesh.local_devices):
+                synchronize(dev)
+        return placed, time.perf_counter() - t0
 
     def _fit_quality_profile(self, host_xy, n_outputs: int) -> None:
         """The fit-time quality reference (``telemetry/quality.py``): the
@@ -743,6 +793,11 @@ class _BaseBagging(ParamsMixin):
             )
         learner = self._learner()
         tree_stream = getattr(learner, "tree_streamable", False)
+        if self.oob_score and is_multiprocess_mesh(self.mesh):
+            # each process's OOB pass would feed only its own chunks
+            raise ValueError(
+                "oob_score with fit_stream is single-process only"
+            )
         if (self.oob_score and tree_stream and self.mesh is not None
                 and self.mesh.shape["data"] > 1):
             # the OOB pass replays the global chunk-keyed draws; a
@@ -900,6 +955,8 @@ class _BaseBagging(ParamsMixin):
         from spark_bagging_tpu_torch.streaming import oob_scores_stream
 
         ratio, replacement = self._fit_sampling
+        telemetry.inc("sbt_oob_evaluations_total",
+                      labels={"mode": "stream"})
         return oob_scores_stream(
             self._fitted_learner, source, self._fit_key,
             self.ensemble_, self.subspaces_, self.n_estimators_,
@@ -913,35 +970,37 @@ class _BaseBagging(ParamsMixin):
 
     def _oob_scores(self, X, n_classes):
         """OOB aggregate and per-row vote counts, as numpy (rows with no
-        vote are the caller's to exclude)."""
+        vote are the caller's to exclude). On a mesh the rows are padded
+        as at fit time, so each shard replays its draws."""
         ratio, replacement = self._fit_sampling
-        if self.mesh is not None:
-            from spark_bagging_tpu_torch.parallel.sharded import (
-                pad_rows_X,
-                sharded_oob_scores,
-            )
+        telemetry.inc("sbt_oob_evaluations_total",
+                      labels={"mode": "memory"})
+        with telemetry.span("oob", n_replicas=self.n_estimators_):
+            if self.mesh is not None:
+                from spark_bagging_tpu_torch.parallel.sharded import (
+                    sharded_oob_scores,
+                )
 
-            # padded as at fit time, so each shard replays its draws
-            n = X.shape[0]
-            agg, votes = sharded_oob_scores(
-                self._fitted_learner, self.mesh, self.ensemble_,
-                self.subspaces_, pad_rows_X(X, self.mesh.shape["data"]),
-                self._fit_key, self.n_estimators_, sample_ratio=ratio,
-                bootstrap=replacement, n_classes=n_classes,
-                chunk_size=self._eff_chunk(),
+                n = X.shape[0]
+                agg, votes = sharded_oob_scores(
+                    self._fitted_learner, self.mesh, self.ensemble_,
+                    self.subspaces_, self._mesh_rows(X), self._fit_key,
+                    self.n_estimators_, sample_ratio=ratio,
+                    bootstrap=replacement, n_classes=n_classes,
+                    chunk_size=self._eff_chunk(),
+                    identity_subspace=self._identity_subspace,
+                )
+                return to_host(agg)[:n], to_host(votes)[:n]
+            agg, votes = oob_predict_scores(
+                self._fitted_learner, self.ensemble_, self.subspaces_, X,
+                self._fit_key,
+                torch.arange(self.n_estimators_, dtype=torch.int64,
+                             device=X.device),
+                sample_ratio=ratio, bootstrap=replacement,
+                n_classes=n_classes, chunk_size=self._eff_chunk(),
                 identity_subspace=self._identity_subspace,
             )
-            return agg[:n].cpu().numpy(), votes[:n].cpu().numpy()
-        agg, votes = oob_predict_scores(
-            self._fitted_learner, self.ensemble_, self.subspaces_, X,
-            self._fit_key,
-            torch.arange(self.n_estimators_, dtype=torch.int64,
-                         device=X.device),
-            sample_ratio=ratio, bootstrap=replacement, n_classes=n_classes,
-            chunk_size=self._eff_chunk(),
-            identity_subspace=self._identity_subspace,
-        )
-        return agg.cpu().numpy(), votes.cpu().numpy()
+            return agg.cpu().numpy(), votes.cpu().numpy()
 
     # -- the fitted replicas -------------------------------------------
 
@@ -1054,14 +1113,22 @@ class _BaseBagging(ParamsMixin):
                 "serve it"
             )
 
-    def _mesh_predict(self, X, run) -> np.ndarray:
-        """``run`` over X padded to the data axis, padding sliced off."""
+    def _mesh_rows(self, X):
+        """X padded on the host to the data axis and placed row-sharded
+        over the mesh (``global_put``)."""
+        from spark_bagging_tpu_torch.parallel.compat import P
+        from spark_bagging_tpu_torch.parallel.multihost import global_put
         from spark_bagging_tpu_torch.parallel.sharded import pad_rows_X
 
-        X = self._validate_X(X, self._device, fitted=True)
+        Xp = pad_rows_X(X, self.mesh.shape["data"])
+        return global_put(Xp, self.mesh, P("data", None))
+
+    def _mesh_predict(self, X, run) -> np.ndarray:
+        """``run`` over X padded to the data axis, padding sliced off
+        (gathered over the processes of a process-spanning mesh)."""
+        X = self._validate_X(X, torch.device("cpu"), fitted=True)
         n = X.shape[0]
-        out = run(pad_rows_X(X, self.mesh.shape["data"]))
-        return out[:n].cpu().numpy()
+        return to_host(run(self._mesh_rows(X)))[:n]
 
     def _cached_batch_forward(self, X: torch.Tensor) -> np.ndarray:
         """The batch forward through the unified program cache

@@ -1,5 +1,5 @@
-"""Device-mesh parallelism in one process: the port of the JAX
-package's ``parallel/``.
+"""Device-mesh parallelism, in one process or several: the port of the
+JAX package's ``parallel/``.
 
 - Replica-axis sharding: each shard of the ``replica`` mesh axis fits
   and forwards its slice of the ensemble;
@@ -10,8 +10,11 @@ package's ``parallel/``.
 
 ``shard_map`` (``compat.py``) runs one thread a mesh position and gives
 the bodies JAX's collectives (``psum``, ``all_gather``, ``axis_index``)
-in a fixed shard order. More than one process
-(``initialize_distributed``) is ROADMAP Queue A 12 part 2.
+in a fixed shard order. ``initialize_distributed`` (``distributed.py``)
+joins several processes over gloo; a mesh made after the join spans
+them, its collectives exchange through the host, and
+``multihost.global_put`` / ``multihost.to_host`` are the estimator's
+host/device seams on it.
 """
 
 from spark_bagging_tpu_torch.parallel.compat import (
@@ -32,6 +35,7 @@ from spark_bagging_tpu_torch.parallel.sharded import (
     sharded_predict_classifier,
     sharded_predict_regressor,
 )
+from spark_bagging_tpu_torch.parallel.distributed import initialize_distributed
 
 __all__ = [
     "HAS_SHARD_MAP",
@@ -46,4 +50,5 @@ __all__ = [
     "sharded_oob_scores",
     "sharded_predict_classifier",
     "sharded_predict_regressor",
+    "initialize_distributed",
 ]

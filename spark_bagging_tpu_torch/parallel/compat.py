@@ -27,6 +27,23 @@ A body that raises aborts every group's barrier, so its siblings stop
 at their next collective rather than hang; the first error is raised in
 the caller, and every wait has a timeout (``COLLECTIVE_TIMEOUT_S``).
 
+On a mesh that spans processes (``parallel/distributed.py``,
+``parallel/mesh.py``) each process runs threads only for its own
+positions and takes only their slices of the inputs. A group whose
+members span processes exchanges in three steps: the local members hand
+in their values; the group's first local member stages them through
+host memory and ``all_gather``s them with the group's other processes
+over the mesh's gloo subgroup for that group; then every process runs
+the same ``combine`` over all the values in global shard order, on its
+own first device of the group. A psum is therefore the same left-to-
+right sum in every process and on any split of the mesh into
+processes: a 2-process mesh is bitwise the 1-process mesh of its shape
+on the same device type. A raising shard aborts its local barriers;
+the peer processes fail at the process group's timeout. The outputs of
+such a ``shard_map`` are :class:`LocalShards`: this process's shards
+with their mesh and spec, which ``multihost.to_host`` assembles. On a
+1-process mesh the outputs stay plain tensors.
+
 :func:`count_launch` is the kernel wrappers' launch counter: a launch
 counts under one lock (the shards launch from several threads), once in
 the wrapper's total and once under the shard it ran in.
@@ -39,7 +56,12 @@ from typing import Any, Callable
 
 import torch
 
-from spark_bagging_tpu_torch.parallel.mesh import DATA_AXIS, REPLICA_AXIS, Mesh
+from spark_bagging_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    REPLICA_AXIS,
+    Mesh,
+    group_members,
+)
 
 HAS_SHARD_MAP: bool = True
 SHARD_MAP_SOURCE: str = "spark_bagging_tpu_torch.parallel.compat"
@@ -67,33 +89,123 @@ class PartitionSpec(tuple):
 P = PartitionSpec
 
 
+class LocalShards:
+    """This process's shards of one mesh-placed tensor: the holder
+    ``global_put`` returns and a process-spanning ``shard_map`` outputs.
+    ``shards`` maps each local ``(data, replica)`` position to its
+    tensor; ``spec`` says how the shards tile the whole (``P(axis)``:
+    concatenated over ``axis`` in shard order; ``P()``: replicated)."""
+
+    def __init__(self, mesh: Mesh, spec, shards: dict):
+        self.mesh = mesh
+        self.spec = spec
+        self.shards = shards
+
+    @property
+    def axis(self) -> str | None:
+        return _split_axis(self.spec)
+
+    @property
+    def _any(self) -> torch.Tensor:
+        return next(iter(self.shards.values()))
+
+    @property
+    def shape(self) -> tuple[int, ...]:
+        s = tuple(self._any.shape)
+        if self.axis is None:
+            return s
+        return (s[0] * self.mesh.shape[self.axis], *s[1:])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self._any.dtype
+
+    def __repr__(self) -> str:
+        return (f"LocalShards(spec={self.spec!r}, shape={self.shape}, "
+                f"positions={sorted(self.shards)})")
+
+
+def canonical_positions(spec, mesh: Mesh) -> list[tuple[int, int]]:
+    """The positions whose shards make up the whole, in order: along the
+    spec's axis at index 0 of the other axis, or ``(0, 0)`` for
+    ``P()`` (what ``_assemble`` reads in one process)."""
+    axis = _split_axis(spec)
+    if axis is None:
+        return [(0, 0)]
+    return group_members(mesh, axis, 0)
+
+
 class _Group:
     """One collective group: the members of one axis at fixed other
-    coordinates. Exchanges go through generation-indexed slots."""
+    coordinates. Exchanges go through generation-indexed slots; only
+    this process's members take part in the slots and the barrier, and
+    a group whose members span processes exchanges over ``subgroup``."""
 
-    def __init__(self, members: list[tuple[int, int]], devices: list):
-        self.members = members
-        self.devices = devices
-        self.barrier = threading.Barrier(len(members))
+    def __init__(self, mesh: Mesh, axis: str, other: int):
+        self.members = group_members(mesh, axis, other)
+        self.devices = [mesh.device(*ix) for ix in self.members]
+        self.owners = [int(mesh.processes[ix]) for ix in self.members]
+        self.local = [k for k, ix in enumerate(self.members)
+                      if mesh.is_local(ix)]
+        self.rank = mesh.rank
+        self.mesh = mesh
+        # where this process combines: its first member's device
+        self.home = self.devices[self.local[0]]
+        self.subgroup = mesh.subgroups.get((axis, other))
+        self.barrier = threading.Barrier(len(self.local))
         self.slots: dict[tuple[int, int], Any] = {}
         self.results: dict[int, Any] = {}
         self.lock = threading.Lock()
 
     def exchange(self, pos: int, gen: int, value, combine):
-        """Every member hands in ``value``; member 0 runs ``combine`` over
-        the values in shard order once they are all in, and every member
-        gets its result."""
+        """Every member hands in ``value``; this process's first member
+        runs ``combine`` over all the members' values in shard order
+        once they are in (gathered from the other processes first), and
+        every local member gets its result."""
         with self.lock:
             self.slots[(gen, pos)] = value
         self.barrier.wait(COLLECTIVE_TIMEOUT_S)
-        if pos == 0:
-            vals = [self.slots.pop((gen, k)) for k in range(len(self.members))]
+        if pos == self.local[0]:
+            vals = [self.slots.pop((gen, k)) for k in self.local]
+            if self.subgroup is not None:
+                vals = self._gather(vals)
             self.results[gen] = combine(vals)
             # every member has read the previous generation's result
             # before handing in this generation's value
             self.results.pop(gen - 1, None)
         self.barrier.wait(COLLECTIVE_TIMEOUT_S)
         return self.results[gen]
+
+    def _gather(self, local_vals: list) -> list:
+        """Every member's value in shard order: this process's stacked
+        on the host and ``all_gather``ed with the group's other
+        processes (padded to the largest local count); the others' copied
+        to this process's combine device."""
+        import torch.distributed as dist
+
+        procs = sorted(set(self.owners))
+        k_max = max(self.owners.count(p) for p in procs)
+        ref = local_vals[0]
+        staged = torch.stack([v.detach().to("cpu") for v in local_vals])
+        if ref.dtype == torch.bool:
+            staged = staged.to(torch.uint8)  # gloo has no bool
+        if staged.shape[0] < k_max:
+            staged = torch.cat([staged, staged.new_zeros(
+                (k_max - staged.shape[0], *staged.shape[1:]))])
+        staged = staged.contiguous()
+        outs = [torch.empty_like(staged) for _ in procs]
+        dist.all_gather(outs, staged, group=self.subgroup)
+        self.mesh.count_exchange(staged.numel() * staged.element_size())
+        taken = {p: 0 for p in procs}
+        vals = []
+        for k, p in enumerate(self.owners):
+            if p == self.rank:
+                vals.append(local_vals[self.local.index(k)])
+            else:
+                v = outs[procs.index(p)][taken[p]]
+                vals.append(v.to(device=self.home, dtype=ref.dtype))
+            taken[p] += 1
+        return vals
 
 
 class _ShardContext:
@@ -150,16 +262,17 @@ def _collective(axis: str, value, combine):
     ctx.gens[axis] = gen + 1
     pos = ctx.position(axis)
     out = group.exchange(pos, gen, value, combine)
-    # member 0 keeps the combined tensor; the others take copies, so no
-    # member's in-place update can reach another's
-    return out if pos == 0 else out.to(ctx.device, copy=True)
+    # the combining member keeps the combined tensor; the others take
+    # copies, so no member's in-place update can reach another's
+    return out if pos == group.local[0] else out.to(ctx.device, copy=True)
 
 
 def psum(x: torch.Tensor, axis: str) -> torch.Tensor:
     """The sum of ``x`` over ``axis``, in shard order on the group's
-    first device; every member gets it on its own device."""
+    first device (this process's first one, on a process-spanning
+    mesh); every member gets it on its own device."""
     ctx = _context(axis)
-    first = ctx.groups[axis].devices[0]
+    first = ctx.groups[axis].home
 
     def combine(vals):
         acc = vals[0].to(first)
@@ -174,9 +287,10 @@ def psum(x: torch.Tensor, axis: str) -> torch.Tensor:
 
 def all_gather(x: torch.Tensor, axis: str, *, tiled: bool = True) -> torch.Tensor:
     """The members' ``x`` along ``axis``: concatenated on axis 0 in shard
-    order (``tiled=True``) or stacked on a new leading axis."""
+    order (``tiled=True``) or stacked on a new leading axis. On a
+    process-spanning group the members' tensors must share one shape."""
     ctx = _context(axis)
-    first = ctx.groups[axis].devices[0]
+    first = ctx.groups[axis].home
 
     def combine(vals):
         vals = [v.to(first) for v in vals]
@@ -221,6 +335,15 @@ def _split_axis(spec) -> str | None:
 
 def _take(leaf, axis: str | None, index: tuple[int, int], mesh: Mesh,
           device: torch.device):
+    if isinstance(leaf, LocalShards):
+        if leaf.axis != axis:
+            raise ValueError(
+                f"an input placed as {leaf.spec!r} cannot be taken as "
+                f"{P(axis) if axis else P()!r}: place it with that spec")
+        if index not in leaf.shards:
+            raise ValueError(
+                f"the input holds no shard for mesh position {index}")
+        return leaf.shards[index].to(device)
     if not isinstance(leaf, torch.Tensor):
         return leaf
     if axis is None:
@@ -240,16 +363,8 @@ def _assemble(outs: dict, spec, mesh: Mesh):
     """One output tree from every shard's: concatenated over the spec's
     axis in shard order (taking index 0 of the other axis), or shard
     (0, 0)'s for ``P()``."""
-    axis = _split_axis(spec)
-    D, R = mesh.shape[DATA_AXIS], mesh.shape[REPLICA_AXIS]
     first = mesh.first_device
-    if axis is None:
-        order = [(0, 0)]
-    elif axis == DATA_AXIS:
-        order = [(i, 0) for i in range(D)]
-    else:
-        order = [(0, j) for j in range(R)]
-    parts = [outs[ix] for ix in order]
+    parts = [outs[ix] for ix in canonical_positions(spec, mesh)]
 
     def join(*leaves):
         if not isinstance(leaves[0], torch.Tensor):
@@ -259,6 +374,19 @@ def _assemble(outs: dict, spec, mesh: Mesh):
         return torch.cat([v.to(first) for v in leaves], dim=0)
 
     return _zip_map(join, parts)
+
+
+def _hold(outs: dict, spec, mesh: Mesh):
+    """The output tree of a process-spanning ``shard_map``: each tensor
+    leaf as the :class:`LocalShards` of this process's positions."""
+    positions = mesh.local_positions
+
+    def hold(*leaves):
+        if not isinstance(leaves[0], torch.Tensor):
+            return leaves[0]
+        return LocalShards(mesh, spec, dict(zip(positions, leaves)))
+
+    return _zip_map(hold, [outs[ix] for ix in positions])
 
 
 def _zip_map(fn, trees: list):
@@ -308,17 +436,13 @@ def shard_map(f: Callable, *, mesh: Mesh, in_specs, out_specs,
             raise TypeError(
                 f"shard_map body takes {len(in_specs)} arguments, got "
                 f"{len(args)}")
-        D, R = mesh.shape[DATA_AXIS], mesh.shape[REPLICA_AXIS]
-        index_list = [(i, j) for i in range(D) for j in range(R)]
-        data_groups = {
-            j: _Group([(i, j) for i in range(D)],
-                      [mesh.device(i, j) for i in range(D)])
-            for j in range(R)}
-        replica_groups = {
-            i: _Group([(i, j) for j in range(R)],
-                      [mesh.device(i, j) for j in range(R)])
-            for i in range(D)}
-        _ready_cuda(set(mesh.devices.ravel().tolist()))
+        index_list = mesh.local_positions
+        local_rows = sorted({i for i, _ in index_list})
+        local_cols = sorted({j for _, j in index_list})
+        data_groups = {j: _Group(mesh, DATA_AXIS, j) for j in local_cols}
+        replica_groups = {i: _Group(mesh, REPLICA_AXIS, i)
+                          for i in local_rows}
+        _ready_cuda(set(mesh.local_devices))
         outs: dict[tuple[int, int], Any] = {}
         errors: list[tuple[tuple[int, int], BaseException]] = []
         err_lock = threading.Lock()
@@ -370,10 +494,11 @@ def shard_map(f: Callable, *, mesh: Mesh, in_specs, out_specs,
                     f"shard {index} timed out at a collective after "
                     f"{COLLECTIVE_TIMEOUT_S} s") from err
             raise err
+        join = _hold if mesh.is_multiprocess else _assemble
         if single_out:
-            return _assemble(outs, out_specs, mesh)
+            return join(outs, out_specs, mesh)
         return tuple(
-            _assemble({ix: outs[ix][k] for ix in index_list}, spec, mesh)
+            join({ix: outs[ix][k] for ix in index_list}, spec, mesh)
             for k, spec in enumerate(out_specs))
 
     return run

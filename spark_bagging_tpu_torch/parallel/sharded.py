@@ -23,6 +23,11 @@ Divisibility: callers pad rows (``pad_rows``: padded rows carry zero
 weight) and choose ``n_estimators`` divisible by the replica-axis size;
 both are checked here.
 
+On a mesh that spans processes the inputs may be ``global_put``
+placements (``parallel/multihost.py``) and the outputs are this
+process's shards (``compat.LocalShards``), which the caller gathers
+with ``multihost.to_host``.
+
 Serving shards the replica axis only (:func:`replica_sharded_serving`):
 each shard forwards its replicas, the per-replica outputs are gathered
 in replica order and reduced by the same operations the single-device
@@ -148,7 +153,8 @@ def sharded_fit(
     """Ensemble fit over the mesh, with the contract of
     :func:`~spark_bagging_tpu_torch.ensemble.fit_ensemble`. The returned
     params, subspaces and losses keep their global replica axis, on the
-    mesh's first device. ``id_offset`` shifts the replica ids (a warm
+    mesh's first device (this process's shards of them on a
+    process-spanning mesh). ``id_offset`` shifts the replica ids (a warm
     start); ``aux`` shards over the data axis beside ``y``."""
     _check_divisible(X.shape[0], n_replicas, mesh)
     data_axis = DATA_AXIS if mesh.shape.get(DATA_AXIS, 1) > 1 else None

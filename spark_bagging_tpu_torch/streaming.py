@@ -47,6 +47,16 @@ over ``data`` before each Adam step; the penalty is each shard's own.
 The state is gathered back after every chunk on the mesh's first
 device, where snapshots read it; their config is the single-device
 one, since nothing drawn depends on the mesh.
+
+On a mesh that spans processes every process streams the same chunks
+and places only its shards of each (``multihost.global_put``); the
+state stays as each process's shards between chunks and is gathered
+whole (``multihost.to_host``, a collective every process reaches) at
+every snapshot and at the end. Only process 0 writes a snapshot.
+
+Telemetry: ``sbt_stream_epochs_total`` and ``sbt_stream_chunks_total``
+(``engine="sgd"``), and each chunk visit's ``chunk_step`` span on
+``sbt_chunk_seconds``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -82,7 +92,13 @@ from spark_bagging_tpu_torch.ops.precision import fp32_matmul
 from spark_bagging_tpu_torch.ops.reduce import maybe_psum, maybe_psum_many
 from spark_bagging_tpu_torch.optim import Adam
 from spark_bagging_tpu_torch.parallel.compat import P, axis_index, shard_map
+from spark_bagging_tpu_torch.parallel.distributed import process_index
 from spark_bagging_tpu_torch.parallel.mesh import DATA_AXIS, REPLICA_AXIS
+from spark_bagging_tpu_torch.parallel.multihost import (
+    global_put,
+    to_host,
+    to_local,
+)
 from spark_bagging_tpu_torch.utils.device import synchronize
 from spark_bagging_tpu_torch.utils import msgpack
 from spark_bagging_tpu_torch.utils.checkpoint import install, reap_stale_tmp
@@ -134,7 +150,11 @@ def save_snapshot(path: str, tree: Any, meta: dict) -> None:
     The previous snapshot moves aside to ``path.old`` until the new one
     is installed, so a kill at any point leaves one valid snapshot
     (:func:`_load_stream_checkpoint` falls back to ``path.old``). One
-    writer (this process) per ``path``."""
+    writer per ``path``: in a multi-process run the processes other
+    than 0 return before they touch the file system (``path`` must then
+    be on storage every process reads, for a resume)."""
+    if process_index() != 0:
+        return
     tmp = f"{path}.tmp.{os.getpid()}"
     reap_stale_tmp(path, tmp)
     os.makedirs(tmp, exist_ok=True)
@@ -155,11 +175,15 @@ def _save_stream_checkpoint(path: str, params, opt: Adam,
     """Snapshot an SGD stream fit: the parameters, the Adam state as
     optax's state dict, and the last epoch's per-chunk losses so far
     (``host_losses``: the caller's host mirror, extended between
-    snapshots)."""
+    snapshots). The ``to_host`` gathers are collective on a mesh that
+    spans processes: every process calls this at every snapshot."""
     n_rep = next(iter(params.values())).shape[0]
+    host = lambda d: {k: torch.from_numpy(to_host(v))  # noqa: E731
+                      for k, v in d.items()}
     tree = {
-        "params": {k: v.detach().cpu().numpy() for k, v in params.items()},
-        "opt_state": adam_state_to_jax(opt, n_rep),
+        "params": {k: to_host(v) for k, v in params.items()},
+        "opt_state": adam_state_to_jax(
+            opt.with_moments(host(opt.mu), host(opt.nu)), n_rep),
         "final_epoch_losses": (np.stack(host_losses) if host_losses
                                else np.zeros((0, 0), np.float32)),
     }
@@ -193,6 +217,21 @@ def to_device(a: np.ndarray, device: torch.device,
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
+
+
+def _place_chunk(Xc, yc, auxc, mesh, device, y_dtype):
+    """A host chunk's ``(X, y, aux)`` on the device, or on a mesh placed
+    row-sharded over ``data`` (each process its own shards)."""
+    yc = np.asarray(yc)
+    if mesh is None:
+        return (to_device(Xc, device, torch.float32),
+                to_device(yc, device, y_dtype),
+                None if auxc is None
+                else to_device(auxc, device, torch.float32))
+    rows = P(DATA_AXIS)
+    return (global_put(Xc, mesh, P(DATA_AXIS, None)),
+            global_put(torch.from_numpy(yc).to(y_dtype), mesh, rows),
+            None if auxc is None else global_put(auxc, mesh, rows))
 
 
 def chunk_context(row_key: torch.Tensor, chunk_id: int, n_valid: int,
@@ -434,28 +473,34 @@ def fit_ensemble_stream(
     first_step_seconds = None
     steps_done = 0
     for epoch in range(start_epoch, n_epochs):
+        telemetry.inc("sbt_stream_epochs_total", labels={"engine": "sgd"})
         # a resume seeks straight to its cursor
         offset = start_chunk if epoch == start_epoch else 0
         seen = offset - 1
         with closing(source.chunks_from(offset)) as chunk_iter:
             for c, (Xc, yc, n_valid) in enumerate(chunk_iter, start=offset):
                 seen = c
-                Xc, auxc = split_aux_col(Xc, aux_col)
-                Xd = to_device(Xc, device, torch.float32)
-                yd = to_device(np.asarray(yc), device, y_dtype)
-                auxd = (None if auxc is None
-                        else to_device(auxc, device, torch.float32))
-                valid, chunk_key = chunk_context(row_key, c, n_valid,
-                                                 chunk_rows)
-                # fixed for the visit: the objective doesn't change
-                # across its steps
-                w = bootstrap_weights(
-                    chunk_key, ids, chunk_rows, ratio=sample_ratio,
-                    replacement=bootstrap,
-                ) * valid
-                extra = () if auxd is None else (auxd,)
-                params, opt.mu, opt.nu, loss = chunk_step(
-                    params, opt.mu, opt.nu, Xd, yd, w, subspaces, *extra)
+                # the chunk's wall-clock: its copy and its step's
+                # dispatch (the device-sync opt-in makes it the step's
+                # latency), the distribution sbt_chunk_seconds keeps
+                with telemetry.span("chunk_step", metric="sbt_chunk_seconds",
+                                    epoch=epoch, chunk=c):
+                    Xc, auxc = split_aux_col(Xc, aux_col)
+                    Xd, yd, auxd = _place_chunk(Xc, yc, auxc, mesh, device,
+                                                y_dtype)
+                    valid, chunk_key = chunk_context(row_key, c, n_valid,
+                                                     chunk_rows)
+                    # fixed for the visit: the objective doesn't change
+                    # across its steps
+                    w = bootstrap_weights(
+                        chunk_key, ids, chunk_rows, ratio=sample_ratio,
+                        replacement=bootstrap,
+                    ) * valid
+                    extra = () if auxd is None else (auxd,)
+                    params, opt.mu, opt.nu, loss = chunk_step(
+                        params, opt.mu, opt.nu, Xd, yd, w, subspaces, *extra)
+                telemetry.inc("sbt_stream_chunks_total",
+                              labels={"engine": "sgd"})
                 if first_step_seconds is None:
                     synchronize(device)
                     first_step_seconds = time.perf_counter() - t0
@@ -467,8 +512,10 @@ def fit_ensemble_stream(
                     nxt_epoch, nxt_chunk = epoch, c + 1
                     if nxt_chunk >= n_chunks:
                         nxt_epoch, nxt_chunk = epoch + 1, 0
+                    # collective on a process-spanning mesh: every
+                    # process extends its mirror identically
                     host_losses.extend(
-                        l.cpu().numpy()
+                        to_host(l)
                         for l in final_epoch_losses[len(host_losses):])
                     _save_stream_checkpoint(
                         checkpoint_dir, params, opt, host_losses,
@@ -486,6 +533,9 @@ def fit_ensemble_stream(
             )
     if not final_epoch_losses:
         raise ValueError("source yielded no chunks")
+    # a process-spanning mesh's shards gathered whole, in every process
+    params, opt.mu, opt.nu, final_epoch_losses = to_local(
+        (params, opt.mu, opt.nu, final_epoch_losses), device)
     aux = {
         # per-replica mean over the final epoch's chunks (reporting only)
         "loss": torch.stack(final_epoch_losses).mean(dim=0),

@@ -143,6 +143,19 @@ SERIES_HELP: dict[str, str] = {
     "sbt_compile_seconds": "XLA compile wall-clock per fit (histogram)",
     "sbt_fit_seconds": "Device fit wall-clock per fit call (histogram)",
     "sbt_h2d_seconds": "Host-to-device transfer seconds per fit (histogram)",
+    # the fit, stream and multihost series (bagging.py, streaming.py,
+    # tree_stream.py, utils/io.py, utils/prefetch.py,
+    # parallel/multihost.py)
+    "sbt_h2d_bytes_total": "Bytes transferred host-to-device",
+    "sbt_d2h_bytes_total": "Bytes transferred device-to-host",
+    "sbt_oob_evaluations_total": "Out-of-bag scoring passes",
+    "sbt_collective_seconds": "Multihost collective wall-clock (histogram)",
+    "sbt_stream_epochs_total": "Streaming-fit epochs completed",
+    "sbt_stream_chunks_total": "Streaming-fit chunks consumed",
+    "sbt_chunks_yielded_total": "Chunks yielded by streaming sources",
+    "sbt_chunk_seconds": "Per-chunk step wall-clock (histogram)",
+    "sbt_prefetch_queue_depth": "Prefetch queue depth (gauge)",
+    "sbt_prefetch_stall_seconds_total": "Seconds the consumer stalled on prefetch",
     # per-bucket forward cost: FLOPs counted at the bucket's build, bytes
     # as every input read once and the output written once
     "sbt_serving_bucket_cost_flops": "Compiled FLOPs per forward at this bucket (gauge, label bucket)",

@@ -41,7 +41,16 @@ weights from the chunk key folded with i (the per-shard stream of the
 in-memory data-sharded fit), runs ``bin_codes`` and the histogram on
 them, and the tables sum over ``data`` before they are added up. The
 edge pass stays global. The snapshot config records the data-axis size,
-which keys the draws: a resume on another data size is refused.
+which keys the draws: a resume on another data size is refused. On a
+mesh that spans processes each process places only its shards of a
+chunk (``multihost.global_put``) and every chunk's tables are gathered
+whole (``multihost.to_host``) before they are added up, so every
+process selects the same splits; only process 0 writes a snapshot.
+
+Telemetry: the ``tree_pass`` spans (``kind`` edges, level, leaves),
+each chunk's ``chunk_step`` span on ``sbt_chunk_seconds`` in the level
+and leaf passes, and ``sbt_stream_chunks_total`` (``engine="tree"``),
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -59,6 +68,7 @@ from spark_bagging_tpu_torch.models.tree import (
     _take_feature,
     _TreeBase,
 )
+from spark_bagging_tpu_torch import telemetry
 from spark_bagging_tpu_torch.ops import prng
 from spark_bagging_tpu_torch.ops.bootstrap import (
     RNG_SCHEMA,
@@ -69,6 +79,7 @@ from spark_bagging_tpu_torch.ops.bootstrap import (
 from spark_bagging_tpu_torch.ops.reduce import maybe_psum
 from spark_bagging_tpu_torch.parallel.compat import P, axis_index, shard_map
 from spark_bagging_tpu_torch.parallel.mesh import DATA_AXIS, REPLICA_AXIS
+from spark_bagging_tpu_torch.parallel.multihost import global_put, to_local
 from spark_bagging_tpu_torch.streaming import (
     _CHUNK_STREAM,
     _load_stream_checkpoint,
@@ -191,15 +202,41 @@ def fit_tree_ensemble_stream(
         }, {"config": config, "next_pass": next_pass})
 
     def chunks():
-        """One pass: each chunk on the device as ``(c, X, y, n_valid)``."""
+        """One pass: each host chunk as ``(c, X, y, n_valid)``, counted
+        in ``sbt_stream_chunks_total`` once the caller is done with it;
+        the first one's wait times the first step."""
         nonlocal first_step_seconds
         with closing(source.chunks()) as chunk_iter:
             for c, (Xc, yc, n_valid) in enumerate(chunk_iter):
-                yield (c, to_device(Xc, device, torch.float32),
-                       to_device(yc, device, y_dtype), n_valid)
+                yield c, Xc, yc, n_valid
+                telemetry.inc("sbt_stream_chunks_total",
+                              labels={"engine": "tree"})
                 if first_step_seconds is None:
                     synchronize(device)
                     first_step_seconds = time.perf_counter() - t0
+
+    def place(Xc, yc):
+        """A chunk's ``(X, y)`` on the device, or on a mesh row-sharded
+        over ``data`` (each process its own shards)."""
+        if mesh is None:
+            return (to_device(Xc, device, torch.float32),
+                    to_device(yc, device, y_dtype))
+        return (global_put(np.asarray(Xc, np.float32), mesh,
+                           P(DATA_AXIS, None)),
+                global_put(torch.from_numpy(np.asarray(yc)).to(y_dtype),
+                           mesh, P(DATA_AXIS)))
+
+    def accumulate(body, acc):
+        """One level or leaf pass: every chunk's table (``body``, over
+        the mesh when there is one) added to ``acc``."""
+        step = on_mesh(body)
+        for c, Xc, yc, n_valid in chunks():
+            with telemetry.span("chunk_step", metric="sbt_chunk_seconds",
+                                chunk=c):
+                X, y = place(Xc, yc)
+                acc += to_local(step(c, n_valid, X, y, feats, thrs, ids,
+                                     subspaces), device)
+        return acc
 
     def local_weights(c, X, n_valid, rids):
         """The weights ``(R, rows)`` of this shard's block of chunk c,
@@ -243,15 +280,17 @@ def fit_tree_ensemble_stream(
                             device=device)
         e_cnt = torch.zeros((), dtype=torch.float32, device=device)
         n_chunks = 0
-        for _, X, _, n_valid in chunks():
-            valid = (torch.arange(chunk_rows, device=device)
-                     < n_valid).to(torch.float32)
-            interior, nv = _quantile_edges(X, valid, B)
-            has = (nv > 0).to(torch.float32)
-            e_sum += torch.where(torch.isfinite(interior), interior,
-                                 0.0) * has
-            e_cnt += has
-            n_chunks += 1
+        with telemetry.span("tree_pass", kind="edges"):
+            for _, Xc, _, n_valid in chunks():
+                X = to_device(Xc, device, torch.float32)
+                valid = (torch.arange(chunk_rows, device=device)
+                         < n_valid).to(torch.float32)
+                interior, nv = _quantile_edges(X, valid, B)
+                has = (nv > 0).to(torch.float32)
+                e_sum += torch.where(torch.isfinite(interior), interior,
+                                     0.0) * has
+                e_cnt += has
+                n_chunks += 1
         if n_chunks == 0:
             raise ValueError("source yielded no chunks")
         edges = torch.cat([
@@ -287,11 +326,10 @@ def fit_tree_ensemble_stream(
                 X, S, edges, node, N, cols=sub_cols,
                 integral=learner.integral_stats)
 
-        step = on_mesh(level_table)
         hist = torch.zeros((n_replicas, n_subspace, B, N, K),
                            dtype=torch.float32, device=device)
-        for c, X, y, n_valid in chunks():
-            hist += step(c, n_valid, X, y, feats, thrs, ids, subspaces)
+        with telemetry.span("tree_pass", kind="level", level=level):
+            hist = accumulate(level_table, hist)
         # the in-memory fit's per-split feature masks: the same draws
         # from each replica's fit key, folded with the level
         mask = (learner._level_feat_mask(fit_keys, level, N, n_subspace,
@@ -312,11 +350,10 @@ def fit_tree_ensemble_stream(
                               rids.shape[0])
         return learner._leaf_stats(node, learner._row_stats(y, w, n_outputs))
 
-    step = on_mesh(leaf_table)
     leaf_acc = torch.zeros((n_replicas, 2**d, K), dtype=torch.float32,
                            device=device)
-    for c, X, y, n_valid in chunks():
-        leaf_acc += step(c, n_valid, X, y, feats, thrs, ids, subspaces)
+    with telemetry.span("tree_pass", kind="leaves"):
+        leaf_acc = accumulate(leaf_table, leaf_acc)
     params, aux_tree = learner._finalize_leaves(
         torch.cat(feats, dim=1), torch.cat(thrs, dim=1),
         torch.cat(gains, dim=1), leaf_acc, torch.stack(curve, dim=1))

@@ -23,7 +23,10 @@ Saves are atomic (the whole checkpoint is built in a temp directory and
 swapped in, with a ``.old`` recovery slot a crash between the two swap
 renames leaves behind), and the swap window carries the
 ``checkpoint.write`` fault site. Checkpoints are trusted input, like
-pickle: the manifest names the classes to instantiate.
+pickle: the manifest names the classes to instantiate. In a
+multi-process run only process 0 writes; the save of a model fitted on
+a process-spanning mesh is collective (every process calls it and
+returns once the checkpoint is installed).
 """
 
 from __future__ import annotations
@@ -287,9 +290,29 @@ def install(tmp: str, path: str) -> None:
 
 
 def _save_model_impl(model: Any, path: str, *, compress: bool | str) -> None:
-    from spark_bagging_tpu_torch.convert import params_to_jax
+    from spark_bagging_tpu_torch.parallel.distributed import process_index
+    from spark_bagging_tpu_torch.parallel.multihost import (
+        is_multiprocess_mesh,
+    )
 
     model._check_fitted()
+    # On a mesh that spans processes save() is COLLECTIVE: every process
+    # calls it, only process 0 touches the file system (one writer: two
+    # writers to one shared path can tear files), and every process
+    # returns once the checkpoint is installed. ``path`` must then be on
+    # storage every process reads, for a load anywhere.
+    collective = is_multiprocess_mesh(getattr(model, "mesh", None))
+    if process_index() == 0:
+        _write_model(model, path, compress=compress)
+    if collective:
+        import torch.distributed as dist
+
+        dist.barrier()
+
+
+def _write_model(model: Any, path: str, *, compress: bool | str) -> None:
+    from spark_bagging_tpu_torch.convert import params_to_jax
+
     manifest = _manifest(model)
     ensemble, subspaces = params_to_jax(model.ensemble_, model.subspaces_)
     tree: dict[str, Any] = {"ensemble": ensemble, "subspaces": subspaces}
@@ -345,8 +368,8 @@ def _load_model_impl(path: str, *, device: str, mesh=None) -> Any:
             f"than supported ({_FORMAT_VERSION})")
     tree = msgpack.restore(_read_arrays(path))
     # a mesh is a runtime resource, never persisted: with one, the
-    # weights go to its first device and its shards predict
-    dev = mesh.first_device if mesh is not None else resolve_device(device)
+    # weights go to this process's first device and its shards predict
+    dev = mesh.home_device if mesh is not None else resolve_device(device)
 
     cls = _import_class(manifest["estimator"])
     params = {k: _deserialize_value(v) for k, v in manifest["params"].items()}

@@ -16,7 +16,8 @@ Copied: ``ChunkSource``, ``DropColumnChunks``, ``ArrayChunks``,
 ``CSVChunks`` (the g++-built host loader, ``utils/host_native.py``,
 where it builds; the pure-Python parsers, which give the same chunks,
 where it does not), ``as_chunk_source`` and the optional zstd codec
-resolution, without the chunk telemetry counters. The Arrow reader is
+resolution, with the ``sbt_chunks_yielded_total`` counter (label
+``source``: the source's class name). The Arrow reader is
 ``utils/arrow.py``, the hashed CSV reader ``utils/hashing.py``.
 """
 
@@ -122,6 +123,9 @@ class ChunkSource:
                 yield item
 
     def _chunks_over(self, raw) -> Iterator[Chunk]:
+        from spark_bagging_tpu_torch import telemetry
+
+        src = type(self).__name__
         buf_X: list[np.ndarray] = []
         buf_y: list[np.ndarray] = []
         buffered = 0
@@ -134,6 +138,8 @@ class ChunkSource:
             while buffered >= self.chunk_rows:
                 Xa = np.concatenate(buf_X) if len(buf_X) > 1 else buf_X[0]
                 ya = np.concatenate(buf_y) if len(buf_y) > 1 else buf_y[0]
+                telemetry.inc("sbt_chunks_yielded_total",
+                              labels={"source": src})
                 yield Xa[: self.chunk_rows], ya[: self.chunk_rows], self.chunk_rows
                 buffered -= self.chunk_rows
                 # drop zero-length leftovers: a lingering empty view
@@ -147,6 +153,10 @@ class ChunkSource:
         if buffered > 0:
             Xa = np.concatenate(buf_X) if len(buf_X) > 1 else buf_X[0]
             ya = np.concatenate(buf_y) if len(buf_y) > 1 else buf_y[0]
+            # the padded tail is a yielded chunk too: producer/consumer
+            # counter diffs must not show a phantom gap of one a pass
+            telemetry.inc("sbt_chunks_yielded_total",
+                          labels={"source": src})
             yield _pad_chunk(Xa, ya, self.chunk_rows)
 
 

@@ -1,8 +1,9 @@
 """Background chunk prefetching: host ingestion overlapped with the
 device's steps.
 
-A copy of the JAX package's ``utils/prefetch.py`` (host-only, without
-the telemetry gauges). ``PrefetchChunks`` runs a source's iterator on a
+A copy of the JAX package's ``utils/prefetch.py`` (host-only), with
+its telemetry: ``sbt_prefetch_queue_depth`` and
+``sbt_prefetch_stall_seconds_total``, read at the consumer. ``PrefetchChunks`` runs a source's iterator on a
 daemon thread with a small bounded queue, so the host makes chunk
 ``c+1`` while the device fits chunk ``c``, at most ``depth`` chunks of
 host memory ahead.
@@ -17,6 +18,7 @@ from __future__ import annotations
 
 import queue
 import threading
+import time as _time
 from typing import Any
 
 import os as _os
@@ -142,9 +144,24 @@ class PrefetchChunks(ChunkSource):
             target=produce, daemon=True, name="prefetch-producer"
         )
         t.start()
+        from spark_bagging_tpu_torch import telemetry
+
         try:
             while True:
-                item = q.get()
+                if telemetry.enabled():
+                    # consumer-side stall: how long the device loop sat
+                    # waiting for the producer, the number that says
+                    # whether ingestion or compute is the bottleneck;
+                    # the queue depth sampled at the same moment (0:
+                    # producer-bound, full: consumer-bound)
+                    telemetry.set_gauge("sbt_prefetch_queue_depth",
+                                        q.qsize())
+                    t0 = _time.perf_counter()
+                    item = q.get()
+                    telemetry.inc("sbt_prefetch_stall_seconds_total",
+                                  _time.perf_counter() - t0)
+                else:
+                    item = q.get()
                 if item is _DONE:
                     return
                 if isinstance(item, BaseException):

@@ -1969,3 +1969,85 @@ def test_mesh_stream_fit_on_the_card(cuda, engine):
         (X, y), chunk_rows=2048, prefetch=0)
     for k, v in b.ensemble_.items():
         assert torch.equal(a.ensemble_[k], v), k
+
+
+_MP_FITS = """
+def fits(T, mesh, make_classification):
+    import numpy as np
+    X, y = make_classification(4000, 12, 3, seed=4)
+    out = {}
+    for name, learner in (
+            ("logistic", T.LogisticRegression(max_iter=2, init="pooled",
+                                              hessian_impl="pallas")),
+            ("trees", T.DecisionTreeClassifier(max_depth=3, n_bins=16,
+                                               split_impl="fused"))):
+        est = T.BaggingClassifier(learner, n_estimators=8, seed=0,
+                                  max_features=0.8, mesh=mesh).fit(X, y)
+        out.update({f"{name}.{k}": v.cpu().numpy()
+                    for k, v in est.ensemble_.items()})
+        out[f"{name}.pred"] = est.predict_proba(X)
+    stream = T.BaggingClassifier(T.MLPClassifier(hidden=8), n_estimators=8,
+                                 seed=0, mesh=mesh)
+    stream.fit_stream((X, y), chunk_rows=1000, n_epochs=2, prefetch=0)
+    out.update({f"stream.{k}": v.cpu().numpy()
+                for k, v in stream.ensemble_.items()})
+    return out
+"""
+
+_MP_WORKER = _MP_FITS + """
+import sys
+import numpy as np
+import spark_bagging_tpu_torch as T
+from spark_bagging_tpu_torch.parallel import initialize_distributed, make_mesh
+from spark_bagging_tpu_torch.utils.datasets import make_classification
+pid, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+initialize_distributed(f"127.0.0.1:{port}", 2, pid, timeout_s=60)
+mesh = make_mesh(2, 2, devices=["cuda:0"] * 2)
+np.savez(f"{out}/p{pid}.npz", **fits(T, mesh, make_classification))
+"""
+
+
+def test_two_process_mesh_on_the_card_is_bitwise_the_one_process_mesh(
+        cuda, tmp_path):
+    """Two processes joined over gloo, each with ``cuda:0`` x 2 of one
+    (2, 2) mesh: the collectives staged through the host. The pooled
+    logistic fit (the scaled-Gram kernel), the fused trees (the
+    histogram kernel) and an MLP stream are bitwise the 1-process (2, 2)
+    mesh over ``cuda:0`` x 4 in this process, in both processes."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    import spark_bagging_tpu_torch as T
+    from spark_bagging_tpu_torch.utils.datasets import make_classification
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    logs = [open(tmp_path / f"log{pid}", "w+") for pid in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MP_WORKER, str(pid), str(port),
+         str(tmp_path)], cwd=root, stdout=log, stderr=log)
+        for pid, log in enumerate(logs)]
+    try:
+        codes = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for code, log in zip(codes, logs):
+        log.seek(0)
+        assert code == 0, log.read()[-4000:]
+        log.close()
+    scope: dict = {}
+    exec(_MP_FITS, scope)
+    want = scope["fits"](T, T.make_mesh(2, 2, devices=[cuda] * 4),
+                         make_classification)
+    for pid in range(2):
+        with np.load(tmp_path / f"p{pid}.npz") as got:
+            assert sorted(got.files) == sorted(want)
+            for k, v in want.items():
+                np.testing.assert_array_equal(got[k], v, err_msg=f"{pid} {k}")

@@ -258,8 +258,10 @@ def _learner_fits(task, gbt, n=300, R=3):
                                   tkeys.numpy())
     jX, jy = jnp.asarray(X), jnp.asarray(y)
     p0 = jl.init_params(None, X.shape[1], C)
-    jp, jaux = jax.vmap(
-        lambda wr, k: jl.fit(p0, jX, jy, wr, k))(jnp.asarray(w), jkeys)
+    # jitted, as the JAX package's bagging runs it (one compile instead
+    # of an eager dispatch per operation)
+    jp, jaux = jax.jit(jax.vmap(
+        lambda wr, k: jl.fit(p0, jX, jy, wr, k)))(jnp.asarray(w), jkeys)
     yt = torch.from_numpy(y) if task == "regression" \
         else torch.from_numpy(y).long()
     tp, taux = tl.fit(tl.init_params(tkeys, X.shape[1], C),
@@ -360,19 +362,21 @@ def test_from_jax_arrays_predicts_like_jax(fits, task):
 
 
 def test_to_debug_string_matches_jax(fits):
+    """Both packages' strings of the same trees' parameters (the port's
+    fits: the strings depend on the parameters only)."""
     X, y = tdata.make_classification(300, 6, 3, seed=2)
     names = [f"x{i}" for i in range(6)]
     cases = [(J.DecisionTreeClassifier(max_depth=3, n_bins=16),
               T.DecisionTreeClassifier(max_depth=3, n_bins=16), X, y,
-              J.BaggingClassifier),
+              T.BaggingClassifier),
              (J.DecisionTreeRegressor(max_depth=3, n_bins=16),
               T.DecisionTreeRegressor(max_depth=3, n_bins=16), X,
-              X[:, 0] + (y == 1), J.BaggingRegressor)]
-    for jl, tl, Xc, yc, JE in cases:
-        jf = JE(jl, n_estimators=2, seed=0).fit(Xc, yc)
+              X[:, 0] + (y == 1), T.BaggingRegressor)]
+    for jl, tl, Xc, yc, TE in cases:
+        tf = TE(tl, n_estimators=2, seed=0, device="cpu").fit(Xc, yc)
         for i in range(2):
             params = {k: np.asarray(v) for k, v in
-                      jf.replica_params(i)[0].items()}
+                      tf.replica_params(i)[0].items()}
             want = jl.to_debug_string(params)
             assert tl.to_debug_string(params) == want
             assert tl.to_debug_string(params, names) == \

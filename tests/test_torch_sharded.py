@@ -295,8 +295,9 @@ def test_mesh_refusals(breast_cancer, tmp_path, monkeypatch):
     """What a mesh does not do, or not yet: serving handles of a
     mesh-fitted estimator and quantiles (as in JAX), an indivisible
     replica axis, a warm start across a changed mesh, OOB over a
-    data-sharded tree stream (as in JAX), and more than one process
-    (ROADMAP Queue A 12 part 2). What it does since every family took
+    data-sharded tree stream (as in JAX), and ``oob_score`` with
+    ``fit_stream`` on a multi-process mesh (as in JAX; the 2-process
+    runs are tests/test_torch_multihost.py). What it does since every family took
     the data axis: the GBT, MLP, SVM and naive Bayes fits on a data mesh
     (``bootstrap=False``) are the single-device fits (the GBT's under
     the mesh's averaged edges), and ``fit_stream`` runs on a mesh."""
@@ -339,8 +340,13 @@ def test_mesh_refusals(breast_cancer, tmp_path, monkeypatch):
         T.BaggingClassifier(T.DecisionTreeClassifier(max_depth=2),
                             n_estimators=8, oob_score=True, mesh=tmesh(2),
                             device="cpu").fit_stream((Xs, ys))
-    # one process only (Queue A 12 part 2): no initialize_distributed
-    assert not hasattr(T.parallel, "initialize_distributed")
+    # more than one process: initialize_distributed is exported, and
+    # with no arguments and no launcher environment it is a no-op
+    assert T.parallel.initialize_distributed is (
+        T.parallel.distributed.initialize_distributed)
+    for var in ("MASTER_ADDR", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    assert T.parallel.initialize_distributed() == 1
     with pytest.raises(ValueError, match="single-device serving handle"):
         nb.aggregated_forward()
     with pytest.raises(ValueError, match="single-device serving handle"):
