@@ -33,7 +33,7 @@ each of those two fits' ``serve`` phases, on the fitted bag itself:
   bucket's replay bit for bit the same closure run eagerly, and 40
   requests of 1-300 rows (slabs beyond 256) within SERVE_TOL of
   ``predict_proba``;
-- ``serving_latency``: 3,200 closed-loop single-row requests a run at
+- ``serving_latency``: 1,600 closed-loop single-row requests a run at
   concurrency 1, 4 and 16 through ``MicroBatcher(max_delay_ms=0.5,
   max_batch_rows=256)`` against naive per-request ``predict_proba``,
   rows/s and p50/p99 ms as serving_latency.py measures them (one
@@ -45,7 +45,15 @@ each of those two fits' ``serve`` phases, on the fitted bag itself:
   a new name (its own captures): the same served bits;
 - ``serving_trees_*``: config 3's hard-vote trees on both ladders, served
   votes bit for bit ``predict_proba``'s, and their served rows/s at
-  concurrency 16.
+  concurrency 16;
+- ``analysis`` (its ``analysis_audit`` lines come from the two serving
+  phases, on executors they build): ``analysis.audit_executor`` on the
+  logistic bag's 1..256 executor at its smallest and largest bucket and
+  on config 3's 8..4096 executor at both ends — the forward traced with
+  ``make_fx`` on the card (no host sync, no float64, at most 1 MiB of
+  closure constants; the op count, the constants' bytes and the
+  hand-written kernels the trace launched), then one real call under
+  ``torch.cuda.set_sync_debug_mode("error")``.
 
 The scaled-Gram kernel is also held against its plain version at
 d = 250 (``wide_gram``), and its fp32 mode against a float64 reference
@@ -204,7 +212,7 @@ printed with the card's name and power limit:
   forced rejection writing one ``refit_rejected`` flight dump;
 - ``planes`` (after ``drift_loop``, on the headline bag; the 1..256
   ladder, 4 clients of single rows through ``MicroBatcher(
-  max_delay_ms=0.5)``): 3,200 rows unarmed, then the same rows with the
+  max_delay_ms=0.5)``): 1,600 rows unarmed, then the same rows with the
   capacity and performance planes armed and the exposition server
   running, unscraped and then with ``/metrics`` and ``/healthz``
   scraped every 50 ms — no capture on a
@@ -225,7 +233,7 @@ printed with the card's name and power limit:
   after ``close()`` and the source gone after ``retire()``;
 - ``fleet`` (after ``planes``): the registry ``save``d and loaded by a
   second process, ``chip_smoke.py --fleet-peer <dir>``, with its own
-  exposition server; 1,600 rows served by each process inside a capture
+  exposition server; 800 rows served by each process inside a capture
   log; a ``FleetAggregator`` over both ``/varz``: the merged request
   counter the sum of the processes' own, the merged latency histogram
   their bucket-wise sum, version skew 0; the peer killed: stale, quorum
@@ -240,7 +248,7 @@ printed with the card's name and power limit:
   (``flops`` None at every bucket, the cost model on rows), votes
   bitwise ``predict_proba``'s, the ledger reconciled with
   ``graph_pool_bytes``;
-- ``readers``: 200,000 synthetic HIGGS rows written as libsvm, CSV and a
+- ``readers``: 100,000 synthetic HIGGS rows written as libsvm, CSV and a
   hashed CSV (3 categorical columns), streamed through ``LibsvmChunks``,
   ``CSVChunks`` and ``HashedCSVChunks`` on the g++-built host loader
   (which must serve): every chunk bitwise the ``ArrayChunks`` chunk of
@@ -249,8 +257,8 @@ printed with the card's name and power limit:
   stream over the arrays; each reader's MB/s;
 - ``criteo_stream``: BASELINE config 8 at full width (128 logistic
   replicas, 1024 features, 200,000-row chunks, 2 Adam steps a chunk),
-  its rows cut from 40M to 1M (a fifth of the config's 5M pre-flight
-  floor; 2.5M until PR 17): test AUC
+  its rows cut from 40M to 600,000 (under the config's 5M pre-flight
+  floor; 2.5M, then 1M before): test AUC
   on 100,000 fresh rows at or above sklearn's proxy minus 0.02, the
   stream's seconds, row-replicas/s, peak memory and the host's chunk
   making against the device's chunk visits.
@@ -485,11 +493,14 @@ SERVE_LADDERS = {"bench": dict(min_bucket_rows=1, max_batch_rows=256),
 # is another GEMM shape, which cuBLAS may run with another kernel
 SERVE_TOL = 1e-5
 SERVE_LEVELS = (1, 4, 16)
-SERVE_REQUESTS = 3_200
-# the naive per-request yardstick runs half as many (its 300-400 rows/s
-# at concurrency 4 and 16 made it most of the phase's seconds); rows/s
-# and percentiles are per run, so the halves compare
-SERVE_NAIVE_REQUESTS = 1_600
+# single-row requests a run (3,200 until the analysis phase came in:
+# rows/s and percentiles are per run, and the serving, quality-tap and
+# tree-latency phases run 4 of them a level, the monitored tap's at
+# ~1,000 rows/s)
+SERVE_REQUESTS = 1_600
+# the naive per-request yardstick runs half as many (its 450-500 rows/s
+# at concurrency 4 and 16 made it most of the phase's seconds)
+SERVE_NAIVE_REQUESTS = 800
 SERVE_REPEATS = 3
 SERVE_BATCHER = dict(max_delay_ms=0.5, max_batch_rows=256, max_queue=4096)
 SERVE_SWAP_WINDOW_S = 0.5
@@ -521,15 +532,16 @@ ONLINE_ACC_BAR = ACC_BAR - 0.01
 # rows and its disagreement sampling (every 8th packed batch, replay.py's
 # default)
 QUALITY = dict(refresh_every=64, disagreement_every=8)
-# the operator's planes on the headline bag: 3,200 single rows (4
-# clients) unarmed, then armed with the exposition server scraped every
-# 50 ms; a refit under a 3 s device profile; config 3's trees for 800
-# rows armed; the two-process fleet at 1,600 rows a process, its SLO
-# (p99 under 50 ms, padding under half the FLOPs, no capture on a
-# request)
-PLANES = dict(requests=3_200, clients=4, scrape_every_s=0.05,
+# the operator's planes on the headline bag: 1,600 single rows (4
+# clients; 3,200 until the analysis phase came in: the gates are
+# equalities over the rows served) unarmed, then armed with the
+# exposition server scraped every 50 ms; a refit under a 3 s device
+# profile; config 3's trees for 800 rows armed; the two-process fleet at
+# 800 rows a process, its SLO (p99 under 50 ms, padding under half the
+# FLOPs, no capture on a request)
+PLANES = dict(requests=1_600, clients=4, scrape_every_s=0.05,
               profile_seconds=3, profile_pace_s=0.005, tree_rows=800,
-              fleet_rows=1_600,
+              fleet_rows=800,
               slo_p99_ms=50.0, slo_padding_waste=0.5)
 # the tenancy plane: the JAX drill's default policy
 # (benchmarks/replay.py:1998-2200, replay_tenants) at full width. Six
@@ -545,13 +557,14 @@ PLANES = dict(requests=3_200, clients=4, scrape_every_s=0.05,
 # twice; the tenant-chaos drive on its first 1,500 requests; the
 # budgeted refits (t0 and t3 on rows shifted by + 4.0, as the drift
 # loop shifts them; cold, on 1,024 rows) during a drive of its first
-# 600; the threaded drive: 4 clients of single rows, 3,200 rows (row
-# seed 81). The private program cache holds (residency + 2) ladders:
-# every resident's entries, a restore's captures before its victim's
-# demotion, and a swap's pre-captures, so no pressure eviction drops a
-# resident's entry and the ledger equals the residents'
-# graph_pool_bytes exactly (the JAX drill's 4 x residency holds its
-# 3-rung ladder the same way)
+# 600; the threaded drive: 4 clients of single rows, 500 rows (row
+# seed 81; its numbers are rates and percentiles, restore-bound at ~80
+# rows/s, so 3,200 rows took 34 s to show the same). The private
+# program cache holds (residency + 2) ladders: every resident's
+# entries, a restore's captures before its victim's demotion, and a
+# swap's pre-captures, so no pressure eviction drops a resident's entry
+# and the ledger equals the residents' graph_pool_bytes exactly (the
+# JAX drill's 4 x residency holds its 3-rung ladder the same way)
 TENANCY = dict(tenants=6, residency=4, zipf_s=1.1, head_quota_rps=25.0,
                hot_rps=50.0, warm_rps=20.0,
                batcher=dict(max_delay_ms=2.0, idle_flush_ms=1.0,
@@ -562,7 +575,7 @@ TENANCY = dict(tenants=6, residency=4, zipf_s=1.1, head_quota_rps=25.0,
                rows=tuple(range(1, 9)), pool_rows=4_096, snapshot_every=8,
                min_requests=3_000, chaos_requests=1_500, refit_requests=600,
                refit_rows=1_024, refit_shift=4.0, refit_margin=0.05,
-               threaded_requests=3_200, clients=4)
+               threaded_requests=500, clients=4)
 # the closed loop on the headline bag: 3,200 fresh rows of the headline
 # mixture (row seed 71, not used before), then rows shifted as
 # benchmarks/replay.py:188-206 shifts them at its defaults (scale 1.0,
@@ -584,14 +597,16 @@ DRIFT = dict(fresh=3_200, shifted=3_200, post_swap=1_024, seed=71,
              min_rows=256, window=1_024, margin=0.05, warm=False)
 # the file readers: synthetic HIGGS rows written as libsvm, CSV
 # and a hashed CSV with a few categorical columns, streamed in chunks
-READERS = dict(n_rows=200_000, chunk_rows=65_536, n_estimators=64,
+# (100,000 rows: one full chunk and a partial one; 200,000 until the
+# analysis phase came in)
+READERS = dict(n_rows=100_000, chunk_rows=65_536, n_estimators=64,
                n_categorical=3, n_hash=64)
 # BASELINE config 8 (benchmarks/run_configs.py:551-664) at full width,
-# its rows cut from 40,000,000 to a fifth of the config's own pre-flight
+# its rows cut from 40,000,000 to under the config's own pre-flight
 # floor (run_configs.py:603, floor_rows=5_000_000) to fit the script's
-# time limit (2.5M until the mesh phases of PR 17): 5 chunks of 200,000
-# x 1024
-CRITEO = dict(n_rows=1_000_000, n_features=1024, chunk_rows=200_000,
+# time limit (2.5M, then 1M before the analysis phase came in): 3
+# chunks of 200,000 x 1024, host-bound at ~4 s a chunk
+CRITEO = dict(n_rows=600_000, n_features=1024, chunk_rows=200_000,
               n_estimators=128, n_epochs=1, steps_per_chunk=2, lr=0.05,
               l2=1e-4, n_test=100_000)
 # sklearn LogisticRegression(max_iter=100, C=1 / (1e-4 * 50,000)) on
@@ -3088,11 +3103,12 @@ def swap_under_traffic(reg, name: str, new_model, Xr: np.ndarray,
     return fields, ok, new_ex
 
 
-def phase_serving(clf, X: np.ndarray, y: np.ndarray) -> None:
+def phase_serving(clf, X: np.ndarray, y: np.ndarray) -> list:
     """The serving plane on the headline logistic bag: the two ladders,
-    closed-loop single-row traffic through the micro-batcher against
-    naive per-request ``predict_proba``, a hot swap mid-traffic to a
-    second fit, and ``registry.save`` / ``load`` under a new name."""
+    the graph audit of the 1..256 executor, closed-loop single-row
+    traffic through the micro-batcher against naive per-request
+    ``predict_proba``, a hot swap mid-traffic to a second fit, and
+    ``registry.save`` / ``load`` under a new name. Returns the audits."""
     import tempfile
 
     from spark_bagging_tpu_torch import BaggingClassifier, LogisticRegression
@@ -3102,6 +3118,9 @@ def phase_serving(clf, X: np.ndarray, y: np.ndarray) -> None:
     Xs = X[:N_SERVE_ROWS]
     ladders = serving_ladders(clf, Xs, "serving", exact=False)
     reg, ex = ladders["registry"], ladders["bench"]
+    audits = [analysis_audit(ex, rows, "serving_bench")
+              for rows in (min(ex.compiled_buckets),
+                           max(ex.compiled_buckets))]
     name = "serving_bench"
     # closed-loop single-row traffic, as benchmarks/serving_latency.py
     c0 = serving_compiles()
@@ -3197,17 +3216,22 @@ def phase_serving(clf, X: np.ndarray, y: np.ndarray) -> None:
     emit("serving_adopted_after_free", ok=ok, **fields)
     if not ok:
         fail("serving_adopted_after_free", f"checks failed: {fields}")
+    return audits
 
 
-def phase_serving_trees(tree, X: np.ndarray) -> None:
+def phase_serving_trees(tree, X: np.ndarray) -> list:
     """Config 3's tree bag (hard vote) on both ladders: captures, graph
     replay against the eager closure and the served votes against
-    ``predict_proba``, bit for bit; and a batched throughput figure."""
+    ``predict_proba``, bit for bit; the graph audit of the 8..4096
+    executor; and a batched throughput figure. Returns the audits."""
     from spark_bagging_tpu_torch.serving import MicroBatcher
 
     Xs = X[:N_SERVE_ROWS]
     ladders = serving_ladders(tree, Xs, "serving_trees", exact=True)
     ex = ladders["default"]
+    audits = [analysis_audit(ex, rows, "serving_trees_default")
+              for rows in (min(ex.compiled_buckets),
+                           max(ex.compiled_buckets))]
     c0 = serving_compiles()
     with MicroBatcher(ex, **SERVE_BATCHER) as b:
         served = measure(lambda: run_window(Xs, 16, SERVE_REQUESTS, b.submit))
@@ -3216,6 +3240,55 @@ def phase_serving_trees(tree, X: np.ndarray) -> None:
          captures_during_traffic=serving_compiles() - c0)
     if serving_compiles() != c0:
         fail("serving_trees_latency", "captures on the request path")
+    return audits
+
+
+# -- the analysis phase: the serving forwards' graph audit --------------
+
+def analysis_audit(ex, rows: int, label: str) -> dict:
+    """``audit_executor`` on a CUDA executor at one bucket: the forward
+    traced with ``make_fx`` on the card, then one real call under
+    ``torch.cuda.set_sync_debug_mode("error")``. Prints and returns the
+    op count, the closure constants' bytes, the counted kernels the
+    trace launched and the seconds; a failed audit fails the run."""
+    from spark_bagging_tpu_torch.analysis import AuditError, audit_executor
+
+    t0 = time.perf_counter()
+    try:
+        report = audit_executor(ex, n_rows=rows)
+    except AuditError as e:
+        fail("analysis", f"{label}@{rows}: {e}")
+    fields = dict(executor=label, rows=rows, name=report.name,
+                  ops=report.n_eqns, aten_ops=sorted(report.primitives),
+                  const_count=report.const_count,
+                  const_bytes=report.const_bytes,
+                  wide_dtypes=sorted(report.wide_dtypes),
+                  host_syncs=report.host_syncs,
+                  opaque_kernels=report.opaque_kernels,
+                  sync_debug_checked=report.sync_debug_checked,
+                  seconds=time.perf_counter() - t0)
+    ok = report.ok and report.sync_debug_checked
+    emit("analysis_audit", ok=ok, **fields)
+    if not ok:
+        fail("analysis", f"{label}@{rows}: no real call under sync debug")
+    return fields
+
+
+def phase_analysis(audits: list) -> None:
+    """The audits' summary (``audits``: the serving phases'
+    ``analysis_audit`` results): each serving forward audited at both
+    ends of its ladder, the phase's seconds."""
+    want = {"serving_bench", "serving_trees_default"}
+    seen = {a["executor"] for a in audits}
+    fields = dict(audits=[{k: a[k] for k in ("executor", "rows", "ops",
+                                             "const_bytes",
+                                             "opaque_kernels", "seconds")}
+                          for a in audits],
+                  seconds=sum(a["seconds"] for a in audits), card=CARD)
+    ok = seen == want and len(audits) == 4
+    emit("analysis", ok=ok, **fields)
+    if not ok:
+        fail("analysis", f"audited {sorted(seen)}, expected {sorted(want)}")
 
 
 # -- growth and resume ------------------------------------------------
@@ -3706,7 +3779,7 @@ def phase_quality_tap(model, X: np.ndarray, name: str) -> None:
     bit the eager ``replica_forward`` closure, its mean (soft vote) or
     vote count (hard vote) the served output; served outputs bitwise with
     and without the monitor; rows/s and p50/p99 at concurrency 4 with and
-    without it on the same 3,200 rows; the monitor's host microseconds a
+    without it on the same 1,600 rows; the monitor's host microseconds a
     single-row batch and a sampled batch's tap replay."""
     from spark_bagging_tpu_torch.serving import (
         MicroBatcher,
@@ -4182,7 +4255,7 @@ def headline_learner():
 def phase_planes(clf, X: np.ndarray, y: np.ndarray):
     """The operator's planes on the headline bag (256 replicas, the 1..256
     ladder, 4 clients of single rows through ``MicroBatcher(
-    max_delay_ms=0.5)``): 3,200 rows unarmed, then the same rows with the
+    max_delay_ms=0.5)``): 1,600 rows unarmed, then the same rows with the
     capacity and performance planes armed and the exposition server
     scraped (``/metrics``, ``/healthz``) every 50 ms; a refit during
     traffic under ``GET /debug/profile?seconds=3``; the refit hot-swapped
@@ -4558,7 +4631,7 @@ def wait_for(path: str, proc, timeout_s: float) -> None:
 def phase_fleet(reg, X: np.ndarray, digest: str) -> None:
     """Two serving processes on one card: the parent ``save``s its
     registry and starts ``chip_smoke.py --fleet-peer``, which loads it;
-    each process serves 1,600 rows inside a capture log; a
+    each process serves 800 rows inside a capture log; a
     ``FleetAggregator`` over both ``/varz`` merges them exactly; the peer
     is killed and goes stale (quorum degraded, no counter falls);
     ``python -m spark_bagging_tpu_torch.telemetry dump --merge`` over the
@@ -7264,7 +7337,7 @@ def main() -> int:
     X, y = headline_data()
     clf, launches, Rs = phase_fit(X, y)
     phase_serve(clf, X)
-    phase_serving(clf, X, y)
+    audits = phase_serving(clf, X, y)
     torch.cuda.empty_cache()
     warm_launches = phase_warm_start(clf, X, y)
     torch.cuda.empty_cache()
@@ -7289,7 +7362,7 @@ def main() -> int:
     tree, tree_launches, codes_launches, tree_Rs = phase_tree_fit(X, y)
     tree_acc = tree.score(X[:N_SERVE_ROWS], y[:N_SERVE_ROWS])
     phase_tree_serve(tree, X)
-    phase_serving_trees(tree, X)
+    phase_analysis(audits + phase_serving_trees(tree, X))
     phase_quality_tap(tree, X, "quality_tap_trees")
     phase_planes_trees(tree, X)
     tenants, tenancy_run, tenancy_wl, tenancy_launches = phase_tenancy(

@@ -1000,6 +1000,7 @@ class _BaseBagging(ParamsMixin):
                 n_classes=n_classes, chunk_size=self._eff_chunk(),
                 identity_subspace=self._identity_subspace,
             )
+            # sbt-lint: disable=host-sync-in-span — one-shot OOB result materialization (offline scoring, not a serving path)
             return agg.cpu().numpy(), votes.cpu().numpy()
 
     # -- the fitted replicas -------------------------------------------

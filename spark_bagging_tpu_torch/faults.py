@@ -104,6 +104,12 @@ SITES: dict[str, str] = {
     "budget.refit": "per refit-budget decision (refit_allowed)",
 }
 
+#: SITES entries with no fire() site in the port: the reference
+#: package's AOT executable files, which a CUDA graph has no
+#: counterpart of. They stay in SITES so a plan naming them still
+#: loads (and never fires); the contracts engine exempts exactly these
+UNPORTED_SITES: tuple[str, ...] = ("aot.save", "aot.load")
+
 ACTIONS = ("error", "transient", "poison", "shard", "kill", "delay")
 
 

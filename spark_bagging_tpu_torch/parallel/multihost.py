@@ -116,6 +116,7 @@ def to_host(x: Any) -> np.ndarray:
         with telemetry.span("to_host_gather",
                             metric="sbt_collective_seconds",
                             process=process_index()):
+            # sbt-lint: disable=host-sync-in-span — the gather span exists to TIME this d2h collective; the pull is the phase
             mine = {k: x.shards[ix].detach().cpu().numpy()
                     for k, ix in enumerate(order) if x.mesh.is_local(ix)}
             parts: list = [None] * dist.get_world_size()

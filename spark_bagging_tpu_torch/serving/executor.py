@@ -734,21 +734,30 @@ class EnsembleExecutor:
         """Serve another forward from the next build on (the caller
         holds the build lock): every program of the old one is dropped,
         with the costs counted for it."""
+        # sbt-lint: disable=shared-state-unlocked — every caller holds self._build_lock (_degrade_shard, reset_degraded)
         self._fn = fn
+        # sbt-lint: disable=shared-state-unlocked — under self._build_lock (above)
         self._replica_fn = rep_fn
+        # sbt-lint: disable=shared-state-unlocked — under self._build_lock (above)
         self._replica_unavailable = False
+        # sbt-lint: disable=shared-state-unlocked — under self._build_lock (above)
         self._params = params
+        # sbt-lint: disable=shared-state-unlocked — under self._build_lock (above)
         self._subspaces = subspaces
+        # sbt-lint: disable=shared-state-unlocked — under self._build_lock (above)
         self._variant = _pc.forward_variant(self.model) + tag
+        # sbt-lint: disable=shared-state-unlocked — under self._build_lock (above)
         self._replica_variant = (
             _pc.forward_variant(self.model, "replica") + tag)
         self._compiled.clear()
         self._replica_compiled.clear()
         self.bucket_costs.clear()
         self._counted.clear()
+        # sbt-lint: disable=static-unlocked-check-then-act — under self._build_lock (above)
         if self._pool is not None:
             # the allocator refuses a capture into a private pool whose
             # last graph died, as the old forward's may have
+            # sbt-lint: disable=shared-state-unlocked — under self._build_lock (above)
             self._pool = torch.cuda.graph_pool_handle()
         self._shard_pools.clear()
 

@@ -431,6 +431,7 @@ class ProgramCache:
         """Drop the entries whose program died (under ``self._lock``)."""
         dead = [k for k, e in self._entries.items() if e.compiled is None]
         for k in dead:
+            # sbt-lint: disable=shared-state-unlocked — every caller holds self._lock (put, stats, entries, __len__)
             del self._entries[k]
 
     def stats(self) -> dict:

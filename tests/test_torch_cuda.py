@@ -1123,6 +1123,44 @@ def test_serving_swap_frees_the_old_pool(cuda):
                                   new.predict_proba(X[:5]))
 
 
+@pytest.mark.parametrize("name", sorted(_serving_cases()))
+def test_graph_audit_of_every_cuda_executor(cuda, name):
+    # analysis.audit_executor on the card: every learner family's
+    # serving forward traced with make_fx at both ends of a ladder, no
+    # host sync, no float64 (the MLP's CPU-only float64 first layer is
+    # not on this path), bounded constants, no kernel launched, and one
+    # real call under torch.cuda.set_sync_debug_mode("error")
+    from spark_bagging_tpu_torch.analysis import audit_executor
+    from spark_bagging_tpu_torch.serving import EnsembleExecutor
+
+    est, _ = _serving_model(name)
+    ex = EnsembleExecutor(est, min_bucket_rows=1, max_batch_rows=64)
+    for rows in (1, 64):
+        report = audit_executor(ex, n_rows=rows)
+        assert report.ok and report.n_eqns > 0
+        assert report.sync_debug_checked
+        assert not report.wide_dtypes and not report.host_syncs
+        assert report.opaque_kernels == {}
+    assert torch.cuda.get_sync_debug_mode() == 0
+
+
+def test_graph_audit_flags_a_planted_item_under_sync_debug(cuda):
+    from spark_bagging_tpu_torch.analysis import AuditError, audit_fn
+
+    def planted(x):
+        return x * x.sum().item()
+
+    report = audit_fn(planted, torch.ones(8, device=cuda), name="planted")
+    assert report.sync_debug_checked
+    assert any("_local_scalar_dense" in p for p in report.problems)
+    assert any("set_sync_debug_mode" in p for p in report.problems)
+    assert torch.cuda.get_sync_debug_mode() == 0
+    with pytest.raises(AuditError):
+        report.raise_if_bad()
+    clean = audit_fn(lambda x: x * x.sum(), torch.ones(8, device=cuda))
+    assert clean.ok and clean.sync_debug_checked
+
+
 def _churn_the_allocator(nbytes: int) -> None:
     # take the freed blocks back and fill them with NaN, so a graph that
     # replays against freed memory reads garbage
