@@ -1,0 +1,13 @@
+"""A whole fit's share of the card's dense bf16 peak (989 TFLOP/s at
+700 W): the configuration's FLOPs a fit (counts/<family>.fit_flops,
+from its shapes) over the traced window's seconds a fit."""
+
+from counts import peaks
+
+
+def read(run):
+    flops = getattr(run.counts, "fit_flops", None)
+    if flops is None or not run.calls:
+        return None
+    per_fit = run.trace.window_s / len(run.calls)
+    return 100.0 * flops(run.config) / per_fit / peaks.BF16
