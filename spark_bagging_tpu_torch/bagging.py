@@ -1131,33 +1131,49 @@ class _BaseBagging(ParamsMixin):
         n = X.shape[0]
         return to_host(run(self._mesh_rows(X)))[:n]
 
-    def _cached_batch_forward(self, X: torch.Tensor) -> np.ndarray:
-        """The batch forward through the unified program cache
-        (``serving/program_cache.py``), under the key a serving
+    def _device_predict(self, X) -> np.ndarray:
+        """The single-device batch predict, through the unified program
+        cache (``serving/program_cache.py``) under the key a serving
         executor's program at bucket ``n`` has: a batch predict at a row
         count serving already built replays that program, and a miss
         records an eager batch program (``EagerBatchProgram``: 0 program
         bytes, source "eager") that this estimator holds, since the cache
         keeps weak references. No CUDA graph is captured for a batch; the
-        outputs are the eager forward's bits either way."""
+        outputs are the eager forward's bits either way.
+
+        Spans: ``estimator_predict`` over the call, ``predict_h2d`` (X to
+        the device), ``predict_forward`` (the cache lookup and the
+        forward's dispatch) and ``predict_d2h`` (the copy back, which
+        waits for the forward)."""
         from spark_bagging_tpu_torch.serving import program_cache as _pc
 
-        n = int(X.shape[0])
-        fn = self._forward_closure()
-        if n == 0:
-            return fn(self.ensemble_, self.subspaces_, X).cpu().numpy()
-        key = _pc.ProgramKey(
-            _pc.fingerprint_model(self), _pc.forward_variant(self), n,
-            None, *_pc.toolchain_id(self._device),
-        )
-        prog, _hit = _pc.cache().get_or_build(
-            key, lambda: _pc.EagerBatchProgram(
-                fn, self.ensemble_, self.subspaces_, n, X.shape[1]))
-        if isinstance(prog, _pc.EagerBatchProgram):
-            self.__dict__.setdefault("_batch_programs", {})[key] = prog
-            return prog(X).cpu().numpy()
-        # a serving executor's program for this bucket
-        return prog.run(X.cpu().numpy(), n)
+        with telemetry.span("estimator_predict"):
+            with telemetry.span("predict_h2d"):
+                X = self._validate_X(X, self._device, fitted=True)
+            with telemetry.span("predict_forward"):
+                n = int(X.shape[0])
+                fn = self._forward_closure()
+                if n == 0:
+                    out = fn(self.ensemble_, self.subspaces_, X)
+                else:
+                    key = _pc.ProgramKey(
+                        _pc.fingerprint_model(self), _pc.forward_variant(self),
+                        n, None, *_pc.toolchain_id(self._device),
+                    )
+                    prog, _hit = _pc.cache().get_or_build(
+                        key, lambda: _pc.EagerBatchProgram(
+                            fn, self.ensemble_, self.subspaces_, n,
+                            X.shape[1]))
+                    if not isinstance(prog, _pc.EagerBatchProgram):
+                        # a serving executor's program for this bucket: it
+                        # takes and returns host rows
+                        # sbt-lint: disable=host-sync-in-span — a serving program runs on host rows; the branch replays what serving built
+                        return prog.run(X.cpu().numpy(), n)
+                    self.__dict__.setdefault("_batch_programs", {})[key] = prog
+                    out = prog(X)
+            with telemetry.span("predict_d2h"):
+                # sbt-lint: disable=host-sync-in-span — the copy back is the phase this span times
+                return out.cpu().numpy()
 
     def save(self, path: str, *, compress: bool | str = "auto") -> None:
         """Persist the fitted ensemble in the JAX package's checkpoint
@@ -1255,30 +1271,35 @@ class BaggingClassifier(_BaseBagging):
         bootstrap counts; OOB membership stays weight-independent. With
         ``warm_start=True`` a fitted ensemble grows to ``n_estimators``
         (the same X, y and ``sample_weight`` as its first fit); OOB is
-        then scored over the whole grown ensemble."""
-        X, device, h2d_seconds, X_host = self._start_fit(X)
-        classes, y_enc = np.unique(self._labels(y), return_inverse=True)
-        if self.warm_start and hasattr(self, "ensemble_"):
-            if not np.array_equal(classes, self.classes_):
-                raise ValueError(
-                    "warm_start requires the same class set as the "
-                    "original fit"
-                )
-        id_start = self._warm_start_id(X, sample_weight)
-        if self._nothing_to_grow(id_start):
+        then scored over the whole grown ensemble.
+
+        The ``estimator_fit`` span holds the whole call; its time outside
+        its child spans is the estimator's own host work (labels,
+        validation, the chunk choice)."""
+        with telemetry.span("estimator_fit"):
+            X, device, h2d_seconds, X_host = self._start_fit(X)
+            classes, y_enc = np.unique(self._labels(y), return_inverse=True)
+            if self.warm_start and hasattr(self, "ensemble_"):
+                if not np.array_equal(classes, self.classes_):
+                    raise ValueError(
+                        "warm_start requires the same class set as the "
+                        "original fit"
+                    )
+            id_start = self._warm_start_id(X, sample_weight)
+            if self._nothing_to_grow(id_start):
+                return self
+            if len(classes) < 2:
+                raise ValueError("y has a single class")
+            self.classes_ = classes
+            self.n_classes_ = int(len(classes))
+            y_t = torch.as_tensor(y_enc.astype(np.int64), device=device)
+            self._fit_engine(X, y_t, self.n_classes_, device, h2d_seconds,
+                             sample_weight, id_start=id_start,
+                             host_xy=(X_host, y_enc))
+            if self.oob_score:
+                counts, votes = self._oob_scores(X, self.n_classes_)
+                self._finalize_oob(counts, votes, y_enc)
             return self
-        if len(classes) < 2:
-            raise ValueError("y has a single class")
-        self.classes_ = classes
-        self.n_classes_ = int(len(classes))
-        y_t = torch.as_tensor(y_enc.astype(np.int64), device=device)
-        self._fit_engine(X, y_t, self.n_classes_, device, h2d_seconds,
-                         sample_weight, id_start=id_start,
-                         host_xy=(X_host, y_enc))
-        if self.oob_score:
-            counts, votes = self._oob_scores(X, self.n_classes_)
-            self._finalize_oob(counts, votes, y_enc)
-        return self
 
     def fit_stream(
         self,
@@ -1384,7 +1405,7 @@ class BaggingClassifier(_BaseBagging):
     def predict_proba(self, X) -> np.ndarray:
         """Aggregated class probabilities ``(n, C)``: on a mesh, each
         shard's rows voted on by its replicas; else through the program
-        cache (``_cached_batch_forward``)."""
+        cache (``_device_predict``)."""
         self._check_fitted()
         if self.mesh is not None:
             from spark_bagging_tpu_torch.parallel.sharded import (
@@ -1398,8 +1419,7 @@ class BaggingClassifier(_BaseBagging):
                     self.n_estimators_, voting=self.voting,
                     chunk_size=self._eff_chunk(),
                     identity_subspace=self._identity_subspace))
-        X = self._validate_X(X, self._device, fitted=True)
-        return self._cached_batch_forward(X)
+        return self._device_predict(X)
 
     def predict(self, X) -> np.ndarray:
         return self.classes_[self.predict_proba(X).argmax(axis=1)]
@@ -1484,7 +1504,8 @@ class BaggingRegressor(_BaseBagging):
         :meth:`BaggingClassifier.fit`. ``aux`` ``(n,)`` is the per-row
         auxiliary column of a learner that declares ``uses_aux`` (the
         survival learner's censor flags); passing it to any other
-        learner is an error."""
+        learner is an error. The ``estimator_fit`` span holds the whole
+        call, as in :meth:`BaggingClassifier.fit`."""
         self.__dict__.pop("_collapsed_beta_cache", None)
         if aux is not None:
             learner = self._learner()
@@ -1493,26 +1514,34 @@ class BaggingRegressor(_BaseBagging):
                     f"aux was passed but {type(learner).__name__} does not "
                     "declare uses_aux (it would be silently ignored)"
                 )
-        X, device, h2d_seconds, X_host = self._start_fit(X)
-        y = self._labels(y).astype(np.float32)
-        y_t = torch.as_tensor(y, device=device)
-        aux_t = None
-        if aux is not None:
-            if isinstance(aux, torch.Tensor):
-                aux = aux.detach().cpu().numpy()
-            aux = np.asarray(aux, np.float32).ravel()
-            if aux.shape != (X.shape[0],):
-                raise ValueError(f"aux shape {aux.shape} != ({X.shape[0]},)")
-            aux_t = torch.as_tensor(aux, device=device)
-        id_start = self._warm_start_id(X, sample_weight, aux)
-        if self._nothing_to_grow(id_start):
+        with telemetry.span("estimator_fit"):
+            X, device, h2d_seconds, X_host = self._start_fit(X)
+            y = self._labels(y).astype(np.float32)
+            y_t = torch.as_tensor(y, device=device)
+            aux_t = None
+            if aux is not None:
+                aux = self._aux_column(aux, X.shape[0])
+                aux_t = torch.as_tensor(aux, device=device)
+            id_start = self._warm_start_id(X, sample_weight, aux)
+            if self._nothing_to_grow(id_start):
+                return self
+            self._fit_engine(X, y_t, 1, device, h2d_seconds, sample_weight,
+                             aux=aux_t, id_start=id_start,
+                             host_xy=(X_host, y))
+            if self.oob_score:
+                sums, votes = self._oob_scores(X, None)
+                self._finalize_oob(sums, votes, y)
             return self
-        self._fit_engine(X, y_t, 1, device, h2d_seconds, sample_weight,
-                         aux=aux_t, id_start=id_start, host_xy=(X_host, y))
-        if self.oob_score:
-            sums, votes = self._oob_scores(X, None)
-            self._finalize_oob(sums, votes, y)
-        return self
+
+    @staticmethod
+    def _aux_column(aux, n_rows: int) -> np.ndarray:
+        """``aux`` as a host float32 vector of ``n_rows`` entries."""
+        if isinstance(aux, torch.Tensor):
+            aux = aux.detach().cpu().numpy()
+        aux = np.asarray(aux, np.float32).ravel()
+        if aux.shape != (n_rows,):
+            raise ValueError(f"aux shape {aux.shape} != ({n_rows},)")
+        return aux
 
     def fit_stream(
         self,
@@ -1625,8 +1654,7 @@ class BaggingRegressor(_BaseBagging):
                     self.subspaces_, Xp, self.n_estimators_,
                     chunk_size=self._eff_chunk(),
                     identity_subspace=self._identity_subspace))
-        X = self._validate_X(X, self._device, fitted=True)
-        return self._cached_batch_forward(X)
+        return self._device_predict(X)
 
     def predict_quantiles(self, X, probs=(0.1, 0.5, 0.9)) -> np.ndarray:
         """Per-row quantiles ``(n, len(probs))`` averaged over replicas,

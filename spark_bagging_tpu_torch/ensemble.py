@@ -28,6 +28,7 @@ from typing import Any, Callable
 
 import torch
 
+from spark_bagging_tpu_torch import telemetry
 from spark_bagging_tpu_torch.models.base import BaseLearner
 from spark_bagging_tpu_torch.ops.aggregate import (
     hard_vote_counts,
@@ -96,34 +97,41 @@ def fit_ensemble(
     # the axis reaches the learner only when set, so a learner written
     # for one device keeps its plain signature
     axis_kw = {} if data_axis is None else {"axis_name": data_axis}
-    # replica-invariant work runs once, outside the replica chunks
-    prepared = learner.prepare(X, row_mask=row_mask, **axis_kw)
-    if use_pooled_init:
-        prepared = learner.pooled_init(
-            key, prepared, X, y, n_outputs, row_mask=row_mask, **axis_kw
-        )
+    # replica-invariant work runs once, outside the replica chunks: the
+    # trees' bin edges and codes, the pooled start
+    with telemetry.span("fit_prepare"):
+        prepared = learner.prepare(X, row_mask=row_mask, **axis_kw)
+        if use_pooled_init:
+            prepared = learner.pooled_init(
+                key, prepared, X, y, n_outputs, row_mask=row_mask, **axis_kw
+            )
 
     def fit_chunk(rids):
-        w = bootstrap_weights(
-            row_key, rids, n_rows, ratio=sample_ratio, replacement=bootstrap
-        )
-        check_bootstrap_weights(w)  # no-op unless debug_mode()
-        if row_mask is not None:
-            w = w * row_mask
-        idx = feature_subspaces(
-            key, rids, n_features, n_subspace, replacement=bootstrap_features
-        )
-        if identity_subspace:
-            Xs, prep = X, prepared
-        else:
-            prep = learner.gather_subspace(prepared, idx)
-            Xs = (X if learner.reads_subspace_index
-                  else _gather_columns(X, idx))
-        params, fit_aux = learner.fit_from_init(
-            fit_key(key, rids), Xs, y, w, n_outputs, prepared=prep, aux=aux,
-            **axis_kw,
-        )
-        return params, idx, fit_aux["loss"]
+        # a chunk's draws and subspaces, then the learner's fit of it
+        with telemetry.span("replica_chunk", replicas=int(rids.shape[0])):
+            w = bootstrap_weights(
+                row_key, rids, n_rows, ratio=sample_ratio,
+                replacement=bootstrap
+            )
+            check_bootstrap_weights(w)  # no-op unless debug_mode()
+            if row_mask is not None:
+                w = w * row_mask
+            idx = feature_subspaces(
+                key, rids, n_features, n_subspace,
+                replacement=bootstrap_features
+            )
+            if identity_subspace:
+                Xs, prep = X, prepared
+            else:
+                prep = learner.gather_subspace(prepared, idx)
+                Xs = (X if learner.reads_subspace_index
+                      else _gather_columns(X, idx))
+            with telemetry.span("learner_fit"):
+                params, fit_aux = learner.fit_from_init(
+                    fit_key(key, rids), Xs, y, w, n_outputs, prepared=prep,
+                    aux=aux, **axis_kw,
+                )
+            return params, idx, fit_aux["loss"]
 
     params, subspaces, losses = map_replicas(fit_chunk, replica_ids, chunk_size)
     return params, subspaces, {"loss": losses}

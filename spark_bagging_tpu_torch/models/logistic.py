@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from spark_bagging_tpu_torch import telemetry
 from spark_bagging_tpu_torch.models.base import (
     Aux,
     BaseLearner,
@@ -296,25 +297,29 @@ class LogisticRegression(PooledStartMixin, BaseLearner):
         not_pd = torch.zeros(R, dtype=torch.bool, device=W.device)
         losses = []
         for _ in range(self.max_iter):
-            loss_sum = 0.0
-            G = torch.zeros((R, d, C), dtype=torch.float32, device=W.device)
-            H = torch.zeros((R, C * d, C * d), dtype=torch.float32,
-                            device=W.device)
-            for sl in tiles:
-                dl, dG, dH = self._newton_stats(
-                    W, Xb[..., sl, :], y[sl], w[:, sl], C, impl
-                )
-                loss_sum, G, H = loss_sum + dl, G + dG, H + dH
-            ws = w_sum[:, None, None]
-            losses.append(maybe_psum(loss_sum, axis_name) / w_sum
-                          + self._penalty(W))
-            G = maybe_psum(G, axis_name) / ws + self._penalty_grad(W)
-            H = maybe_psum(H, axis_name) / ws + damp
-            L, info = torch.linalg.cholesky_ex(H)
-            not_pd |= info != 0
-            g = G.transpose(-1, -2).reshape(R, C * d, 1)
-            delta = torch.cholesky_solve(g, L)
-            W = W - delta.reshape(R, C, d).transpose(-1, -2)
+            # one damped step: the statistics over the row tiles, the
+            # Cholesky solve and the update
+            with telemetry.span("newton_step"):
+                loss_sum = 0.0
+                G = torch.zeros((R, d, C), dtype=torch.float32,
+                                device=W.device)
+                H = torch.zeros((R, C * d, C * d), dtype=torch.float32,
+                                device=W.device)
+                for sl in tiles:
+                    dl, dG, dH = self._newton_stats(
+                        W, Xb[..., sl, :], y[sl], w[:, sl], C, impl
+                    )
+                    loss_sum, G, H = loss_sum + dl, G + dG, H + dH
+                ws = w_sum[:, None, None]
+                losses.append(maybe_psum(loss_sum, axis_name) / w_sum
+                              + self._penalty(W))
+                G = maybe_psum(G, axis_name) / ws + self._penalty_grad(W)
+                H = maybe_psum(H, axis_name) / ws + damp
+                L, info = torch.linalg.cholesky_ex(H)
+                not_pd |= info != 0
+                g = G.transpose(-1, -2).reshape(R, C * d, 1)
+                delta = torch.cholesky_solve(g, L)
+                W = W - delta.reshape(R, C, d).transpose(-1, -2)
         if bool(not_pd.any()):
             raise FloatingPointError(
                 "damped Newton Hessian is not positive definite for "

@@ -46,6 +46,7 @@ from typing import ClassVar
 import numpy as np
 import torch
 
+from spark_bagging_tpu_torch import telemetry
 from spark_bagging_tpu_torch.models.base import BaseLearner
 from spark_bagging_tpu_torch.ops import hist as hist_ops
 from spark_bagging_tpu_torch.ops import prng
@@ -431,25 +432,28 @@ class _TreeBase(BaseLearner):
         node = torch.zeros((R, n), dtype=torch.int32, device=S.device)
         feats, thrs, curve, gains = [], [], [], []
         for level in range(d):
-            N = 2**level
-            if fused:
-                hist = hist_ops.coded_left_stats(
-                    prepared["codes"], edges, node, S, n_nodes=N,
-                    hist_dtype=hdt, cols=cols, integral=integral)
-            else:
-                hist = self._dense_left_stats(Tf, Sh, node, N)
-            hist = maybe_psum(hist, axis_name).reshape(R, F, B, N, K)
-            mask = (self._level_feat_mask(keys, level, N, F, k_split)
-                    if k_split is not None else None)
-            bf, thr, score_sum, gain = self._select_splits(hist, edges, mask)
-            feats.append(bf)
-            thrs.append(thr)
-            curve.append(score_sum)
-            gains.append(gain)
-            f_row = bf.gather(1, node.long())
-            t_row = thr.gather(1, node.long())
-            x_sel = _take_feature(X, f_row, cols)
-            node = node * 2 + (x_sel > t_row).to(torch.int32)
+            # one level: its histogram, the split search and the routing
+            with telemetry.span("tree_level", level=level):
+                N = 2**level
+                if fused:
+                    hist = hist_ops.coded_left_stats(
+                        prepared["codes"], edges, node, S, n_nodes=N,
+                        hist_dtype=hdt, cols=cols, integral=integral)
+                else:
+                    hist = self._dense_left_stats(Tf, Sh, node, N)
+                hist = maybe_psum(hist, axis_name).reshape(R, F, B, N, K)
+                mask = (self._level_feat_mask(keys, level, N, F, k_split)
+                        if k_split is not None else None)
+                bf, thr, score_sum, gain = self._select_splits(hist, edges,
+                                                               mask)
+                feats.append(bf)
+                thrs.append(thr)
+                curve.append(score_sum)
+                gains.append(gain)
+                f_row = bf.gather(1, node.long())
+                t_row = thr.gather(1, node.long())
+                x_sel = _take_feature(X, f_row, cols)
+                node = node * 2 + (x_sel > t_row).to(torch.int32)
         return (torch.cat(feats, dim=1), torch.cat(thrs, dim=1),
                 torch.cat(gains, dim=1), node, torch.stack(curve, dim=1))
 

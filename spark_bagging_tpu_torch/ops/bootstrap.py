@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from spark_bagging_tpu_torch.ops import prng
+from spark_bagging_tpu_torch.ops.ranges import profiler_range
 
 # Poisson(lam<=1) essentially never exceeds this; counts fit in uint8.
 _MAX_COUNT = 255
@@ -118,7 +119,7 @@ def bootstrap_weights(
     """
     if ratio <= 0:
         raise ValueError(f"ratio={ratio} must be positive")
-    with torch.profiler.record_function(DRAW_RANGE):
+    with profiler_range(DRAW_RANGE):
         rk = prng.fold_in(prng.fold_in(k, _ROW_STREAM), replica_ids)
         if replacement:
             if ratio <= _INV_CDF_MAX_LAM:

@@ -42,6 +42,7 @@ import math
 import torch
 
 from spark_bagging_tpu_torch.ops.precision import bf16_round, fp32_matmul
+from spark_bagging_tpu_torch.ops.ranges import profiler_range
 
 _OP_DTYPES = ("float32", "bfloat16")
 # The kernel's compile-time tiling, decided here only: utils/native.py
@@ -68,6 +69,9 @@ _BLOCKS_PER_SM = 2
 MAX_SPLIT_ROWS = 16384
 # the grid's y (output tiles) and z (row splits) extents
 _MAX_GRID_YZ = 65535
+# The profiler range around every call of scaled_grams: the launch and
+# the sum of its row-split partials, whatever implements them
+GRAM_RANGE = "scaled_grams"
 
 
 def scaled_grams_plain(
@@ -244,11 +248,12 @@ def scaled_grams(
     ``scaled_grams.launches`` counts kernel launches (CUDA tensors only).
     """
     _check(X, S, op_dtype)
-    if S.device.type == "cpu":
-        return scaled_grams_plain(X, S, op_dtype=op_dtype)
-    if S.device.type != "cuda":
-        raise ValueError(f"unsupported device {S.device}")
-    return _launch(X, S, op_dtype)
+    with profiler_range(GRAM_RANGE):
+        if S.device.type == "cpu":
+            return scaled_grams_plain(X, S, op_dtype=op_dtype)
+        if S.device.type != "cuda":
+            raise ValueError(f"unsupported device {S.device}")
+        return _launch(X, S, op_dtype)
 
 
 scaled_grams.launches = 0

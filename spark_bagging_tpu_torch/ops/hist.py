@@ -75,6 +75,7 @@ import math
 import torch
 
 from spark_bagging_tpu_torch.ops.precision import bf16_round, fp32_matmul
+from spark_bagging_tpu_torch.ops.ranges import profiler_range
 
 _HIST_DTYPES = ("float32", "bfloat16")
 # The kernel's compile-time block size and the rows a thread lists a
@@ -118,6 +119,11 @@ MIN_SPLIT_ROWS = 4096
 FIXED_SPLIT_ROWS = 32_768
 # the most bins bin codes hold: codes run to B, in int16
 MAX_BINS = 32_766
+# The profiler ranges around every call of the entry points: a level's
+# histogram launches and finalize, and the bin codes, whatever implements
+# them (binned_left_stats's codes fall in both)
+HIST_RANGE = "histogram"
+CODES_RANGE = "bin_codes"
 
 
 def code_dtype(n_bins: int) -> torch.dtype:
@@ -574,11 +580,12 @@ def bin_codes(X: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
     ``bin_codes.launches`` counts kernel launches (CUDA tensors only).
     """
     _check_codes_input(X, edges)
-    if X.device.type == "cpu":
-        return bin_codes_plain(X, edges)
-    if X.device.type != "cuda":
-        raise ValueError(f"unsupported device {X.device}")
-    return _launch_codes(X, edges)
+    with profiler_range(CODES_RANGE):
+        if X.device.type == "cpu":
+            return bin_codes_plain(X, edges)
+        if X.device.type != "cuda":
+            raise ValueError(f"unsupported device {X.device}")
+        return _launch_codes(X, edges)
 
 
 bin_codes.launches = 0
@@ -673,13 +680,15 @@ def coded_left_stats(
     are summed in fixed point. The CPU ignores it: its float32
     contraction is exact for integer sums below 2**24."""
     _check_coded(codes, edges, node, S, cols, n_nodes, hist_dtype)
-    if S.device.type == "cpu":
-        return coded_left_stats_plain(codes, edges, node, S, n_nodes=n_nodes,
-                                      hist_dtype=hist_dtype, cols=cols)
-    if S.device.type != "cuda":
-        raise ValueError(f"unsupported device {S.device}")
-    return _launch(codes, edges, node, S, cols, n_nodes, hist_dtype,
-                   integral)
+    with profiler_range(HIST_RANGE):
+        if S.device.type == "cpu":
+            return coded_left_stats_plain(codes, edges, node, S,
+                                          n_nodes=n_nodes,
+                                          hist_dtype=hist_dtype, cols=cols)
+        if S.device.type != "cuda":
+            raise ValueError(f"unsupported device {S.device}")
+        return _launch(codes, edges, node, S, cols, n_nodes, hist_dtype,
+                       integral)
 
 
 def binned_left_stats(
@@ -696,15 +705,17 @@ def binned_left_stats(
     launches (CUDA tensors only, through either entry point).
     """
     _check(X, edges, node, S, n_nodes, hist_dtype)
-    if S.device.type == "cpu":
-        return binned_left_stats_plain(X, edges, node, S, n_nodes=n_nodes,
-                                       hist_dtype=hist_dtype)
-    if S.device.type != "cuda":
-        raise ValueError(f"unsupported device {S.device}")
-    _, _, node2, S3, squeeze = _as_batched(X, edges, node, S)
-    out = _launch(bin_codes(X, edges), edges, node2, S3, None, n_nodes,
-                  hist_dtype, False)
-    return out[0] if squeeze else out
+    with profiler_range(HIST_RANGE):
+        if S.device.type == "cpu":
+            return binned_left_stats_plain(X, edges, node, S,
+                                           n_nodes=n_nodes,
+                                           hist_dtype=hist_dtype)
+        if S.device.type != "cuda":
+            raise ValueError(f"unsupported device {S.device}")
+        _, _, node2, S3, squeeze = _as_batched(X, edges, node, S)
+        out = _launch(bin_codes(X, edges), edges, node2, S3, None, n_nodes,
+                      hist_dtype, False)
+        return out[0] if squeeze else out
 
 
 binned_left_stats.launches = 0

@@ -62,14 +62,19 @@ from spark_bagging_tpu_torch.ops.bootstrap import DRAW_RANGE
 TOP = 12
 
 
+def _is_device_op(e) -> bool:
+    """A kernel or copy on the device. A profiler range (a span of the
+    program, an ops range such as ``DRAW_RANGE``) also appears on the
+    device, as a user annotation spanning its kernels, and is not one."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation)
+
+
 def _busy_seconds(events) -> float:
-    """Union of the device kernels' [start, end) intervals, seconds. The
-    bootstrap draws' range is an annotation spanning its kernels on the
-    device, not a kernel, and is left out."""
+    """Union of the device operations' [start, end) intervals, seconds."""
     spans = sorted(
         (e.time_range.start, e.time_range.end) for e in events
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and e.name != DRAW_RANGE
+        if _is_device_op(e)
     )
     busy, cur_s, cur_e = 0.0, None, None
     for s, e in spans:
@@ -103,12 +108,9 @@ def profile_device(fit, table_path: str | None = None) -> dict:
     averages = prof.key_averages()
     draws = {ev.device_type == cuda: ev.device_time_total / 1e6
              for ev in averages if ev.key == DRAW_RANGE}
-    rows = []
-    for ev in averages:
-        # device kernels only: a CPU op's device time repeats its kernels'
-        if ev.device_type == cuda and ev.key != DRAW_RANGE:
-            rows.append((ev.self_device_time_total / 1e6, ev.count, ev.key))
-    rows.sort(reverse=True)
+    # device operations only: a CPU op's device time repeats its kernels'
+    rows = sorted(((ev.self_device_time_total / 1e6, ev.count, ev.key)
+                   for ev in averages if _is_device_op(ev)), reverse=True)
     total_dev = sum(r[0] for r in rows)
     if table_path is not None:
         with open(table_path, "w") as f:

@@ -34,6 +34,7 @@ import spark_bagging_tpu_torch as T  # noqa: E402
 from spark_bagging_tpu import faults as jfaults  # noqa: E402
 from spark_bagging_tpu import telemetry as jtelemetry  # noqa: E402
 from spark_bagging_tpu.serving import EnsembleExecutor as JExecutor  # noqa: E402
+from spark_bagging_tpu.serving import program_cache as _jpc  # noqa: E402
 from spark_bagging_tpu_torch import faults, telemetry  # noqa: E402
 from spark_bagging_tpu_torch.parallel.sharded import (  # noqa: E402
     replica_sharded_serving,
@@ -55,11 +56,16 @@ def _fresh():
     for t in (telemetry, jtelemetry):
         t.reset()
         t.enable()
+    # both packages start from an empty program cache: the JAX one is
+    # process-wide, and another module's programs for the same model and
+    # mesh shape would be hits here (and count no compile)
     prev = _pc.install(_pc.ProgramCache(capacity=64))
+    jprev = _jpc.install(_jpc.ProgramCache(capacity=64))
     yield
     faults.disarm()
     jfaults.disarm()
     _pc.install(prev)
+    _jpc.install(jprev)
 
 
 @pytest.fixture(scope="module")
