@@ -11,7 +11,10 @@ on the full 581,012 x 54 synthetic covtype:
   ``predict_proba``; the kernel held against its plain torch version at
   every replica count the fit launched it with, on the fit's kind of
   data and on exact inputs; the kernel Hessian cross-checked against
-  the plain "blocked" one;
+  the plain "blocked" one; the soft-vote kernel (``soft_vote``) at the
+  benchmark cell's shapes (1000 replicas in chunks of 121) against
+  float64, with its times (``python3 chip_smoke.py --soft-vote`` runs
+  that phase alone);
 - bagged decision trees (BASELINE config 3: depth 5, 32 bins, 256
   replicas, 43 of 54 features each, hard vote): the fit, which bins the
   shared X once (bin-codes kernel) and reads the codes through each
@@ -705,12 +708,14 @@ def reset_launches() -> None:
     """Every kernel's launch count to 0."""
     from spark_bagging_tpu_torch.ops.gram import scaled_grams
     from spark_bagging_tpu_torch.ops.hist import bin_codes, binned_left_stats
+    from spark_bagging_tpu_torch.ops.soft_vote import soft_vote_quanta
 
     scaled_grams.launches = 0
     binned_left_stats.launches = 0
     binned_left_stats.float_launches = 0
     bin_codes.launches = 0
-    for fn in (scaled_grams, binned_left_stats, bin_codes):
+    soft_vote_quanta.launches = 0
+    for fn in (scaled_grams, binned_left_stats, bin_codes, soft_vote_quanta):
         fn.__dict__.pop("shard_launches", None)
 
 
@@ -719,11 +724,13 @@ def shard_launches() -> dict:
     ``reset_launches``: what the threads of a mesh run launched."""
     from spark_bagging_tpu_torch.ops.gram import scaled_grams
     from spark_bagging_tpu_torch.ops.hist import bin_codes, binned_left_stats
+    from spark_bagging_tpu_torch.ops.soft_vote import soft_vote_quanta
 
     out = {}
     for name, fn in (("scaled_gram", scaled_grams),
                      ("binned_left_stats", binned_left_stats),
-                     ("bin_codes", bin_codes)):
+                     ("bin_codes", bin_codes),
+                     ("soft_vote", soft_vote_quanta)):
         per = fn.__dict__.get("shard_launches", {})
         out[name] = {f"{s[0]},{s[1]}": v for (attr, s), v in
                      sorted(per.items()) if attr == "launches"}
@@ -733,11 +740,13 @@ def shard_launches() -> dict:
 def read_launches() -> dict:
     from spark_bagging_tpu_torch.ops.gram import scaled_grams
     from spark_bagging_tpu_torch.ops.hist import bin_codes, binned_left_stats
+    from spark_bagging_tpu_torch.ops.soft_vote import soft_vote_quanta
 
     return {"scaled_gram": scaled_grams.launches,
             "binned_left_stats": binned_left_stats.launches,
             "binned_left_stats_float": binned_left_stats.float_launches,
-            "bin_codes": bin_codes.launches}
+            "bin_codes": bin_codes.launches,
+            "soft_vote": soft_vote_quanta.launches}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1002,6 +1011,85 @@ def phase_kernels(X: np.ndarray, Rs: list[int],
     return rows
 
 
+SOFT_VOTE_TOL = 2e-6  # mean probabilities vs float64 (the card tests')
+
+
+def soft_vote_reference(X, W, rows: int = 32_768):
+    """Float64 soft-vote sums ``(n, C)``: each replica's scores as one
+    wide product a slice of rows, softmax over its classes."""
+    R, d1, C = W.shape
+    W64 = W.double().permute(1, 0, 2).reshape(d1, R * C)
+    out = torch.empty((X.shape[0], C), dtype=torch.float64, device=X.device)
+    for s in range(0, X.shape[0], rows):
+        Xb = torch.cat([X[s:s + rows].double(),
+                        torch.ones((min(rows, X.shape[0] - s), 1),
+                                   dtype=torch.float64, device=X.device)], 1)
+        out[s:s + rows] = torch.softmax((Xb @ W64).view(-1, R, C),
+                                        dim=-1).sum(dim=1)
+    return out
+
+
+def phase_soft_vote(X: np.ndarray, R: int = 1000, chunk: int = 121) -> dict:
+    """The soft-vote kernel at the benchmark cell's shapes: the headline's
+    rows and a 1000-replica bag of near-equal replicas (unit weights
+    around one model, as bootstrap fits of one model are). Its gap to
+    float64 on the mean probabilities, bitwise repeats, sums the same in
+    chunks of 121, and ms a call (one launch over the 1000 replicas, as
+    the forward makes it; and a 121-replica chunk) beside the bound and
+    the plain version in the fit's chunks of 121 (the torch chain it
+    replaced: bmm, softmax, sum; the library yardstick too)."""
+    from spark_bagging_tpu_torch.ops.soft_vote import (
+        kernel_geometry,
+        soft_vote_mean,
+        soft_vote_quanta,
+        soft_vote_sums_plain,
+    )
+
+    dev = torch.device("cuda")
+    Xd = torch.as_tensor(X, device=dev)
+    n, d = Xd.shape
+    g = torch.Generator(device=dev).manual_seed(23)
+    W = torch.randn((1, d + 1, N_CLASSES), generator=g, device=dev)
+    W = W + 1e-3 * torch.randn((R, d + 1, N_CLASSES), generator=g,
+                               device=dev)
+    chunks = [W[s:s + chunk] for s in range(0, R, chunk)]
+    ref = soft_vote_reference(Xd, W) / R
+    parts = torch.stack([soft_vote_quanta(Xd, w) for w in chunks])
+    got = soft_vote_mean(parts, n_total=R)
+    gap = float((got.double() - ref).abs().max())
+    plain_gap = float((sum(soft_vote_sums_plain(Xd, w) for w in chunks)
+                       .double() / R - ref).abs().max())
+    q = soft_vote_quanta(Xd, W)
+    exact = bool(torch.equal(q, parts.sum(dim=0)))
+    bitwise = bool(torch.equal(q, soft_vote_quanta(Xd, W)))
+    del ref, got, q, parts
+    flops = 2.0 * n * R * (d + 1) * N_CLASSES
+    nbytes = 4.0 * (n * d + R * (d + 1) * N_CLASSES + n * N_CLASSES)
+    t_ops, t_bytes = 3e3 * flops / PEAK_TF32, 1e3 * nbytes / PEAK_BYTES
+    row = dict(
+        kernel_ms=cuda_ms(lambda: soft_vote_quanta(Xd, W), 5),
+        kernel_ms_chunk=cuda_ms(lambda: soft_vote_quanta(Xd, chunks[0]), 10),
+        plain_ms=cuda_ms(
+            lambda: [soft_vote_sums_plain(Xd, w) for w in chunks], 2),
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        bound_fp32_simt_ms=1e3 * flops / PEAK_FP32,
+        max_mean_gap=gap, plain_max_mean_gap=plain_gap, tol=SOFT_VOTE_TOL,
+        bitwise_repeat=bitwise, chunking_exact=exact)
+    row["library_ms"] = row["plain_ms"]
+    torch.cuda.empty_cache()
+    emit("soft_vote", kernel="soft_vote", shape=dict(n=n, d=d, C=N_CLASSES,
+                                                      R=R, chunk=chunk),
+         geometry=kernel_geometry(n, d, N_CLASSES, chunk,
+                                  torch.cuda.get_device_properties(0)
+                                  .multi_processor_count),
+         **row, card=CARD)
+    if not (gap <= SOFT_VOTE_TOL and bitwise and exact):
+        fail("soft_vote", f"gap {gap:.3g} (tol {SOFT_VOTE_TOL}), bitwise "
+             f"{bitwise}, chunking exact {exact}")
+    return row
+
+
 def phase_wide_gram() -> None:
     """The kernel at d = 250, P = 28 (beyond the earlier kernel's d <= 176,
     within the JAX kernel's envelope) against its plain version, in both
@@ -1144,21 +1232,30 @@ def phase_fit(X: np.ndarray, y: np.ndarray):
     return clf, launches, sorted({1, *chunks})
 
 
-def phase_serve(clf, X: np.ndarray) -> float:
+def phase_serve(clf, X: np.ndarray) -> int:
+    """The headline bag's batch ``predict_proba``: its soft vote is the
+    soft-vote kernel, one launch a call (logistic, identity subspace,
+    soft vote). Returns the launches."""
     Xs = X[:N_SERVE_ROWS]
+    reset_launches()
     clf.predict_proba(Xs)  # warm-up
     t0 = time.perf_counter()
     proba = clf.predict_proba(Xs)
     seconds = time.perf_counter() - t0
+    counts = read_launches()
     rows_per_sec = N_SERVE_ROWS / seconds
     sums_err = float(np.abs(proba.sum(axis=1) - 1.0).max())
     emit("serve", ok=True, rows=N_SERVE_ROWS, seconds=seconds,
          rows_per_sec=rows_per_sec, shape=list(proba.shape),
-         max_row_sum_err=sums_err)
+         max_row_sum_err=sums_err, launches=counts,
+         expected_soft_vote_launches=2)
     if proba.shape != (N_SERVE_ROWS, N_CLASSES) or not sums_err <= 1e-5:
         fail("serve", f"bad probabilities: shape {proba.shape}, "
              f"row-sum error {sums_err}")
-    return rows_per_sec
+    if counts["soft_vote"] != 2 or counts["scaled_gram"] != 0:
+        fail("serve", f"launches {counts}: expected one soft-vote launch a "
+             "predict_proba (2 calls) and nothing else")
+    return counts["soft_vote"]
 
 
 def phase_cross_check(X: np.ndarray, y: np.ndarray) -> None:
@@ -7319,6 +7416,14 @@ def main() -> int:
             sys.stderr.flush()
             # a failed child exits at once: no teardown may wait on its peer
             os._exit(1)
+    if sys.argv[1:] == ["--soft-vote"]:
+        # the soft-vote kernel's phase alone (~1 min with the build)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        CARD = phase_env()[1]
+        phase_build()
+        phase_soft_vote(headline_data()[0])
+        print(json.dumps({"ok": True}))
+        return 0
     if sys.argv[1:] == ["--mesh-witness"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -7336,7 +7441,7 @@ def main() -> int:
     phase_build()
     X, y = headline_data()
     clf, launches, Rs = phase_fit(X, y)
-    phase_serve(clf, X)
+    serve_launches = phase_serve(clf, X)
     audits = phase_serving(clf, X, y)
     torch.cuda.empty_cache()
     warm_launches = phase_warm_start(clf, X, y)
@@ -7357,6 +7462,7 @@ def main() -> int:
     phase_wide_gram()
     phase_depth(X)
     phase_probe(Rs)
+    sv_row = phase_soft_vote(X)
     phase_cross_check(X, y)
     torch.cuda.empty_cache()
     tree, tree_launches, codes_launches, tree_Rs = phase_tree_fit(X, y)
@@ -7513,6 +7619,22 @@ def main() -> int:
         "bound_ms": codes_row["bound_ms"],
         "bound_by": codes_row["bound_by"],
         "library_ms": codes_row["library_ms"],
+    }, {
+        # the main path's launches (the headline bag's batch predict);
+        # the times and the gap at the predict cell's shapes (1000
+        # near-equal replicas, one launch), the gap on the means
+        "name": "soft_vote",
+        "route": "cuda",
+        "source": "spark_bagging_tpu_torch/csrc/soft_vote.cu",
+        "replaces": "spark_bagging_tpu/ensemble.py predict_ensemble_classifier "
+                    "(XLA; no TPU kernel)",
+        "launches": serve_launches,
+        "max_abs_err": sv_row["max_mean_gap"],
+        "ms": sv_row["kernel_ms"],
+        "plain_ms": sv_row["plain_ms"],
+        "bound_ms": sv_row["bound_ms"],
+        "bound_by": sv_row["bound_by"],
+        "library_ms": sv_row["library_ms"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -112,10 +112,12 @@ def _kernel_counts() -> dict[str, int]:
     """The port's kernel wrappers' launch counters."""
     from spark_bagging_tpu_torch.ops.gram import scaled_grams
     from spark_bagging_tpu_torch.ops.hist import bin_codes, binned_left_stats
+    from spark_bagging_tpu_torch.ops.soft_vote import soft_vote_quanta
 
     return {"scaled_gram": scaled_grams.launches,
             "binned_left_stats": binned_left_stats.launches,
-            "bin_codes": bin_codes.launches}
+            "bin_codes": bin_codes.launches,
+            "soft_vote": soft_vote_quanta.launches}
 
 
 def _op_name(target: Any) -> str:

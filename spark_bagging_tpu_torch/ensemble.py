@@ -41,6 +41,12 @@ from spark_bagging_tpu_torch.ops.bootstrap import (
     fit_key,
     oob_mask,
 )
+from spark_bagging_tpu_torch.ops.soft_vote import (
+    MAX_CLASSES,
+    MAX_REPLICAS,
+    soft_vote_mean,
+    soft_vote_quanta,
+)
 from spark_bagging_tpu_torch.utils.debug import check_bootstrap_weights
 
 
@@ -200,6 +206,53 @@ def predict_quantiles_ensemble(
     return mean_aggregate(chunk_sums, n_total=_leading_size(subspaces))
 
 
+def soft_vote_kernel_applies(
+    learner: BaseLearner,
+    stacked_params: dict[str, torch.Tensor],
+    X: torch.Tensor,
+    n_classes: int,
+    n_total: int,
+    *,
+    voting: str,
+    identity_subspace: bool,
+) -> bool:
+    """Does the soft vote go through the soft-vote kernel
+    (ops/soft_vote.py)? For a learner that declares its scores
+    ``augment_bias(X) @ W`` (``linear_softmax_weights``), a soft vote,
+    the identity subspace, CUDA float32 X and W, at most
+    ``MAX_CLASSES`` classes and a bag of at most ``MAX_REPLICAS``.
+    Everything else keeps the torch chain."""
+    key = learner.linear_softmax_weights
+    if key is None or voting != "soft" or not identity_subspace:
+        return False
+    W = stacked_params[key]
+    return (X.device.type == "cuda" and X.dtype == torch.float32
+            and W.dtype == torch.float32 and n_classes <= MAX_CLASSES
+            and n_total <= MAX_REPLICAS)
+
+
+def soft_vote_kernel_sums(
+    learner: BaseLearner,
+    stacked_params: dict[str, torch.Tensor],
+    X: torch.Tensor,
+    n_classes: int,
+    n_total: int,
+    *,
+    voting: str,
+    identity_subspace: bool,
+) -> torch.Tensor | None:
+    """The soft-vote kernel's sums over the replicas of
+    ``stacked_params`` (``soft_vote_quanta``, ``(n, C, 2)`` int64) where
+    :func:`soft_vote_kernel_applies`, else None: the one place the
+    forwards (the batch and serving closure, a mesh shard's) take the
+    kernel."""
+    if not soft_vote_kernel_applies(learner, stacked_params, X, n_classes,
+                                    n_total, voting=voting,
+                                    identity_subspace=identity_subspace):
+        return None
+    return soft_vote_quanta(X, stacked_params[learner.linear_softmax_weights])
+
+
 def predict_ensemble_classifier(
     learner: BaseLearner,
     stacked_params: dict[str, torch.Tensor],
@@ -218,9 +271,21 @@ def predict_ensemble_classifier(
     (``"hard"``). Each chunk is reduced over its replicas as it is
     scored, so the ``(R, n, C)`` scores of the whole ensemble never
     exist at once; the chunk sums are then averaged over all replicas
-    (summed over ``replica_axis``'s shards first, where it is set)."""
+    (summed over ``replica_axis``'s shards first, where it is set).
+
+    Where :func:`soft_vote_kernel_applies`, the sum over every replica is
+    one launch of the soft-vote kernel: it keeps no ``(R, n, C)`` scores,
+    so no replica chunk bounds its memory. Its sums are exact (fixed
+    point, int64), so they have the same bits as chunk by chunk, or
+    shard by shard on a mesh."""
     if voting not in ("soft", "hard"):
         raise ValueError(f"unknown voting {voting!r}")
+    sums = soft_vote_kernel_sums(learner, stacked_params, X, n_classes,
+                                 n_total, voting=voting,
+                                 identity_subspace=identity_subspace)
+    if sums is not None:
+        return soft_vote_mean(sums[None], n_total=n_total,
+                              axis_name=replica_axis)
 
     def one(chunk):
         params, idx = chunk

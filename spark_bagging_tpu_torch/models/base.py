@@ -63,6 +63,11 @@ class BaseLearner(ParamsMixin):
     # True: ``row_loss``/``penalty`` are implemented and ``fit_stream``
     # fits the learner by Adam over data chunks (streaming.py)
     streamable: ClassVar[bool] = False
+    # The params leaf ``W (R, d+1, C)`` of a classifier whose scores are
+    # ``augment_bias(X) @ W`` (bias in the last row): its soft vote is
+    # one pass of the soft-vote kernel (ops/soft_vote.py). None: the
+    # scores take another form
+    linear_softmax_weights: ClassVar[str | None] = None
 
     def pooled_amortizes(self, n_replicas: int) -> bool:
         """Is the pooled pre-pass worth running for an ensemble of this

@@ -59,6 +59,9 @@ class LogisticRegression(PooledStartMixin, BaseLearner):
 
     task = "classification"
     streamable = True
+    # predict_scores is augment_bias(X) @ W: the soft vote takes the
+    # soft-vote kernel on the card
+    linear_softmax_weights = "W"
 
     def __init__(
         self,

@@ -38,9 +38,10 @@ def _defines() -> list[str]:
     """Compile-time constants that the Python wrappers own (each
     kernel's tiling), as nvcc ``-D`` flags: stated once, in the wrapper
     that also computes the launch geometry from them."""
-    from spark_bagging_tpu_torch.ops import gram, hist
+    from spark_bagging_tpu_torch.ops import gram, hist, soft_vote
 
-    defines = {**gram.CUDA_DEFINES, **hist.CUDA_DEFINES}
+    defines = {**gram.CUDA_DEFINES, **hist.CUDA_DEFINES,
+               **soft_vote.CUDA_DEFINES}
     return [f"-D{k}={v}" for k, v in sorted(defines.items())]
 
 
@@ -158,6 +159,16 @@ def _declare(lib: ctypes.CDLL) -> None:
         i32, vp, vp, vp,                   # bf16, scale, inv_scale, stream
     ]
     lib.sbt_binned_left_stats.restype = i32
+    lib.sbt_soft_vote.argtypes = [
+        vp, vp, vp, vp,                    # X, W, split images, out
+        i32, i32, i32, i32,                # n, d, C, R
+        i32, i32, i32, vp,                 # nkb, gps, splits, stream
+    ]
+    lib.sbt_soft_vote.restype = i32
+    lib.sbt_soft_vote_init.argtypes = []
+    lib.sbt_soft_vote_init.restype = i32
+    lib.sbt_soft_vote_stage_units.argtypes = []
+    lib.sbt_soft_vote_stage_units.restype = i32
     lib.sbt_cuda_error_string.argtypes = [i32]
     lib.sbt_cuda_error_string.restype = ctypes.c_char_p
 
