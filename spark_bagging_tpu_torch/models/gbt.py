@@ -26,6 +26,11 @@ tables are summed as floats after each shard's fixed-point pass (each
 shard scales by its own ``max |S|``), so a mesh fit is not bitwise the
 single-device fit, as in the JAX package.
 
+Each round runs inside a ``boost_round`` span (attr ``round``), which
+holds the round's ``tree_level`` spans and its ``leaf_stats``; a learner
+fit counts its rounds and trees once, in ``sbt_gbt_rounds_total`` and
+``sbt_gbt_trees_total``.
+
 Params keep the JAX layout with the replica axis leading: ``f0`` ``(R,)``
 (``(R, C)`` multiclass), ``feature``/``threshold``/``gain`` ``(R,
 rounds·M)`` (``(R, rounds·C·M)``, in (round, class, node) order) and
@@ -39,6 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from spark_bagging_tpu_torch import telemetry
 from spark_bagging_tpu_torch.models.tree import DecisionTreeRegressor, _EPS
 from spark_bagging_tpu_torch.ops import prng
 from spark_bagging_tpu_torch.ops.precision import fp32_matmul
@@ -130,6 +136,15 @@ class _GBTBase(DecisionTreeRegressor):
 
             mask_key = prng.fold_in(mask_key, axis_index(axis_name))
         return (prng.uniform(mask_key, n) < self.subsample).to(torch.float32)
+
+    def _count_rounds(self, trees_per_round: int) -> None:
+        """One learner fit's rounds, and the trees they grew
+        (``trees_per_round`` a round: a tree a replica, or a replica's
+        class)."""
+        telemetry.inc_many((
+            ("sbt_gbt_rounds_total", float(self.n_rounds)),
+            ("sbt_gbt_trees_total", float(self.n_rounds * trees_per_round)),
+        ))
 
     # -- per-task hooks -------------------------------------------------
 
@@ -237,24 +252,27 @@ class _GBTBase(DecisionTreeRegressor):
         F = f0[:, None].expand(R, n)
         feats, thrs, gains, leaves, losses = [], [], [], [], []
         for m in range(self.n_rounds):
-            h, z = self._pseudo(yf, F, w)
-            key_m = prng.fold_in(keys, m) if keys is not None else None
-            keep = self._round_row_mask(key_m, n, axis_name)
-            if keep is not None:
-                # stochastic GBT: dropped rows carry zero weight through
-                # every split statistic and leaf sum of this round
-                h = h * keep
-            S = torch.stack([h, h * z, h * z * z], dim=-1)
-            feat, thr, gain, node, _ = self._grow(
-                X, S, prepared, key_m, axis_name=axis_name)
-            leaf = self._newton_leaf(
-                self._leaf_stats(node, S, axis_name))          # (R, L)
-            F = F + self.lr * leaf.gather(1, node.long())
-            feats.append(feat)
-            thrs.append(thr)
-            gains.append(gain)
-            leaves.append(leaf)
-            losses.append(self._round_loss(yf, F, w, w_sum, axis_name))
+            with telemetry.span("boost_round", round=m):
+                h, z = self._pseudo(yf, F, w)
+                key_m = prng.fold_in(keys, m) if keys is not None else None
+                keep = self._round_row_mask(key_m, n, axis_name)
+                if keep is not None:
+                    # stochastic GBT: dropped rows carry zero weight
+                    # through every split statistic and leaf sum of this
+                    # round
+                    h = h * keep
+                S = torch.stack([h, h * z, h * z * z], dim=-1)
+                feat, thr, gain, node, _ = self._grow(
+                    X, S, prepared, key_m, axis_name=axis_name)
+                leaf = self._newton_leaf(
+                    self._leaf_stats(node, S, axis_name))      # (R, L)
+                F = F + self.lr * leaf.gather(1, node.long())
+                feats.append(feat)
+                thrs.append(thr)
+                gains.append(gain)
+                leaves.append(leaf)
+                losses.append(self._round_loss(yf, F, w, w_sum, axis_name))
+        self._count_rounds(R)
         curve = torch.stack(losses, dim=1)
         new = {
             "f0": f0,
@@ -368,36 +386,39 @@ class GBTClassifier(_GBTBase):
         F = f0[:, None, :].expand(R, n, C)
         feats, thrs, gains, leaves, losses = [], [], [], [], []
         for m in range(self.n_rounds):
-            p = torch.softmax(F, dim=-1)                     # (R, n, C)
-            h_unit = torch.clamp_min(p * (1.0 - p), _HESS_FLOOR)
-            key_m = prng.fold_in(keys, m) if keys is not None else None
-            keep = self._round_row_mask(key_m, n, axis_name)
-            wr = w if keep is None else w * keep
-            h = (wr[..., None] * h_unit).transpose(1, 2)     # (R, C, n)
-            z = ((yf32 - p) / h_unit).transpose(1, 2)
-            S = torch.stack([h, h * z, h * z * z], dim=-1).reshape(
-                R * C, n, 3)
-            # class keys under their own tag, so a class index never
-            # collides with the row mask's fold
-            keys_c = None
-            if key_m is not None:
-                keys_c = prng.fold_in(
-                    prng.fold_in(key_m, _CLASS_TAG)[:, None, :],
-                    torch.arange(C, device=key_m.device),
-                ).reshape(R * C, 2)
-            feat, thr, gain, node, _ = self._grow(
-                X, S, trees, keys_c, axis_name=axis_name)
-            leaf = self._newton_leaf(
-                self._leaf_stats(node, S, axis_name))          # (R·C, L)
-            upd = leaf.gather(1, node.long()).reshape(R, C, n)
-            F = F + self.lr * upd.transpose(1, 2)
-            logp = torch.log_softmax(F, dim=-1)
-            nll = -(yf32 * logp).sum(-1)
-            losses.append(maybe_psum((w * nll).sum(-1), axis_name) / w_sum)
-            feats.append(feat.reshape(R, -1))
-            thrs.append(thr.reshape(R, -1))
-            gains.append(gain.reshape(R, -1))
-            leaves.append(leaf.reshape(R, C, -1))
+            with telemetry.span("boost_round", round=m):
+                p = torch.softmax(F, dim=-1)                 # (R, n, C)
+                h_unit = torch.clamp_min(p * (1.0 - p), _HESS_FLOOR)
+                key_m = prng.fold_in(keys, m) if keys is not None else None
+                keep = self._round_row_mask(key_m, n, axis_name)
+                wr = w if keep is None else w * keep
+                h = (wr[..., None] * h_unit).transpose(1, 2)  # (R, C, n)
+                z = ((yf32 - p) / h_unit).transpose(1, 2)
+                S = torch.stack([h, h * z, h * z * z], dim=-1).reshape(
+                    R * C, n, 3)
+                # class keys under their own tag, so a class index never
+                # collides with the row mask's fold
+                keys_c = None
+                if key_m is not None:
+                    keys_c = prng.fold_in(
+                        prng.fold_in(key_m, _CLASS_TAG)[:, None, :],
+                        torch.arange(C, device=key_m.device),
+                    ).reshape(R * C, 2)
+                feat, thr, gain, node, _ = self._grow(
+                    X, S, trees, keys_c, axis_name=axis_name)
+                leaf = self._newton_leaf(
+                    self._leaf_stats(node, S, axis_name))      # (R·C, L)
+                upd = leaf.gather(1, node.long()).reshape(R, C, n)
+                F = F + self.lr * upd.transpose(1, 2)
+                logp = torch.log_softmax(F, dim=-1)
+                nll = -(yf32 * logp).sum(-1)
+                losses.append(
+                    maybe_psum((w * nll).sum(-1), axis_name) / w_sum)
+                feats.append(feat.reshape(R, -1))
+                thrs.append(thr.reshape(R, -1))
+                gains.append(gain.reshape(R, -1))
+                leaves.append(leaf.reshape(R, C, -1))
+        self._count_rounds(R * C)
         curve = torch.stack(losses, dim=1)
         new = {
             "f0": f0,

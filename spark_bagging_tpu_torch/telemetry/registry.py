@@ -156,6 +156,9 @@ SERIES_HELP: dict[str, str] = {
     "sbt_chunk_seconds": "Per-chunk step wall-clock (histogram)",
     "sbt_prefetch_queue_depth": "Prefetch queue depth (gauge)",
     "sbt_prefetch_stall_seconds_total": "Seconds the consumer stalled on prefetch",
+    # the boosting learners (models/gbt.py), once a learner fit
+    "sbt_gbt_rounds_total": "Boosting rounds run by GBT learner fits (one count a round of a replica chunk)",
+    "sbt_gbt_trees_total": "Trees grown by GBT learner fits (a tree a replica, or a replica's class, each round)",
     # per-bucket forward cost: FLOPs counted at the bucket's build, bytes
     # as every input read once and the output written once
     "sbt_serving_bucket_cost_flops": "Compiled FLOPs per forward at this bucket (gauge, label bucket)",
