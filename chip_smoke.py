@@ -19,7 +19,11 @@ on the full 581,012 x 54 synthetic covtype:
   replicas, 43 of 54 features each, hard vote): the fit, which bins the
   shared X once (bin-codes kernel) and reads the codes through each
   replica's column index at every level (histogram kernel), with no
-  per-replica copy of X; a warm ``predict`` / ``predict_proba``; both
+  per-replica copy of X; a warm ``predict`` / ``predict_proba``, whose
+  hard vote is the tree-vote kernel (``tree_vote``: one launch a call,
+  held bit for bit against the torch chain it replaced on the fitted
+  trees and all 581,012 rows, with its times; ``python3 chip_smoke.py
+  --tree-vote`` runs that phase alone); both fit
   kernels held bit for bit against their plain versions on the fit's
   own inputs, the histogram kernel at every replica count and level the
   fit launched it with, in both operand modes and both accumulators;
@@ -709,13 +713,16 @@ def reset_launches() -> None:
     from spark_bagging_tpu_torch.ops.gram import scaled_grams
     from spark_bagging_tpu_torch.ops.hist import bin_codes, binned_left_stats
     from spark_bagging_tpu_torch.ops.soft_vote import soft_vote_quanta
+    from spark_bagging_tpu_torch.ops.tree_vote import tree_vote_counts
 
     scaled_grams.launches = 0
     binned_left_stats.launches = 0
     binned_left_stats.float_launches = 0
     bin_codes.launches = 0
     soft_vote_quanta.launches = 0
-    for fn in (scaled_grams, binned_left_stats, bin_codes, soft_vote_quanta):
+    tree_vote_counts.launches = 0
+    for fn in (scaled_grams, binned_left_stats, bin_codes, soft_vote_quanta,
+               tree_vote_counts):
         fn.__dict__.pop("shard_launches", None)
 
 
@@ -725,12 +732,14 @@ def shard_launches() -> dict:
     from spark_bagging_tpu_torch.ops.gram import scaled_grams
     from spark_bagging_tpu_torch.ops.hist import bin_codes, binned_left_stats
     from spark_bagging_tpu_torch.ops.soft_vote import soft_vote_quanta
+    from spark_bagging_tpu_torch.ops.tree_vote import tree_vote_counts
 
     out = {}
     for name, fn in (("scaled_gram", scaled_grams),
                      ("binned_left_stats", binned_left_stats),
                      ("bin_codes", bin_codes),
-                     ("soft_vote", soft_vote_quanta)):
+                     ("soft_vote", soft_vote_quanta),
+                     ("tree_vote", tree_vote_counts)):
         per = fn.__dict__.get("shard_launches", {})
         out[name] = {f"{s[0]},{s[1]}": v for (attr, s), v in
                      sorted(per.items()) if attr == "launches"}
@@ -741,12 +750,14 @@ def read_launches() -> dict:
     from spark_bagging_tpu_torch.ops.gram import scaled_grams
     from spark_bagging_tpu_torch.ops.hist import bin_codes, binned_left_stats
     from spark_bagging_tpu_torch.ops.soft_vote import soft_vote_quanta
+    from spark_bagging_tpu_torch.ops.tree_vote import tree_vote_counts
 
     return {"scaled_gram": scaled_grams.launches,
             "binned_left_stats": binned_left_stats.launches,
             "binned_left_stats_float": binned_left_stats.float_launches,
             "bin_codes": bin_codes.launches,
-            "soft_vote": soft_vote_quanta.launches}
+            "soft_vote": soft_vote_quanta.launches,
+            "tree_vote": tree_vote_counts.launches}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1396,6 +1407,61 @@ def phase_tree_serve(clf, X: np.ndarray) -> None:
             or not np.isin(labels, clf.classes_).all()):
         fail("tree_serve", f"bad output: shape {proba.shape}, row-sum "
              f"error {sums_err}")
+
+
+def phase_tree_vote(clf, X: np.ndarray) -> dict:
+    """The tree-vote kernel at config 3's shapes, on the fitted bag's own
+    trees and the 581,012 rows: its counts bit for bit against the plain
+    version (the torch chain it replaced: route, gather, argmax, one-hot
+    sum), bitwise repeats, one launch a ``predict_proba``, and ms a call
+    beside the bound (X, the tables and the counts moved once; the
+    compares on the fp32 cores) and the plain version."""
+    from spark_bagging_tpu_torch.ops.tree_vote import (
+        kernel_geometry,
+        tree_vote_counts,
+        tree_vote_counts_plain,
+    )
+
+    dev = torch.device("cuda")
+    Xd = torch.as_tensor(X, device=dev)
+    n, F = Xd.shape
+    learner, p, cols = clf._fitted_learner, clf.ensemble_, clf.subspaces_
+    C, R, D = int(clf.n_classes_), int(clf.n_estimators_), learner.max_depth
+
+    def kernel():
+        return tree_vote_counts(Xd, p["feature"], p["threshold"],
+                                p["leaf_logp"], depth=D, n_classes=C,
+                                cols=cols)
+
+    def plain():
+        return tree_vote_counts_plain(learner, p, Xd, C, cols)
+
+    got = kernel()
+    bitwise = bool(torch.equal(got, plain()))
+    repeat = bool(torch.equal(kernel(), got))
+    reset_launches()
+    clf.predict_proba(X)
+    launches = read_launches()["tree_vote"]
+    nbytes = 4.0 * (n * F + 2 * R * (2 ** D - 1) + R * 2 ** D * C + n * C)
+    t_ops, t_bytes = 1e3 * n * R * D / PEAK_FP32, 1e3 * nbytes / PEAK_BYTES
+    row = dict(
+        kernel_ms=cuda_ms(kernel, 20),
+        plain_ms=cuda_ms(plain, 3),
+        bound_ms=max(t_ops, t_bytes),
+        bound_by="operations" if t_ops >= t_bytes else "bytes",
+        bitwise=bitwise, bitwise_repeat=repeat, launches_a_call=launches)
+    row["library_ms"] = row["plain_ms"]
+    torch.cuda.empty_cache()
+    emit("tree_vote", kernel="tree_vote",
+         shape=dict(n=n, F=F, C=C, R=R, depth=D, k=int(cols.shape[1])),
+         geometry=kernel_geometry(n, F, C, R, D,
+                                  torch.cuda.get_device_properties(0)
+                                  .multi_processor_count),
+         **row, card=CARD)
+    if not (bitwise and repeat and launches == 1):
+        fail("tree_vote", f"bitwise {bitwise}, repeat {repeat}, "
+             f"{launches} launches a predict_proba (expected 1)")
+    return row
 
 
 def record_levels(X: np.ndarray, y: np.ndarray, R: int, est=None,
@@ -7424,6 +7490,15 @@ def main() -> int:
         phase_soft_vote(headline_data()[0])
         print(json.dumps({"ok": True}))
         return 0
+    if sys.argv[1:] == ["--tree-vote"]:
+        # the tree-vote kernel's phase alone, on config 3's fitted trees
+        torch.backends.cuda.matmul.allow_tf32 = False
+        CARD = phase_env()[1]
+        phase_build()
+        X, y = headline_data()
+        phase_tree_vote(tree_bagger(N_REPLICAS).fit(X, y), X)
+        print(json.dumps({"ok": True}))
+        return 0
     if sys.argv[1:] == ["--mesh-witness"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -7468,6 +7543,7 @@ def main() -> int:
     tree, tree_launches, codes_launches, tree_Rs = phase_tree_fit(X, y)
     tree_acc = tree.score(X[:N_SERVE_ROWS], y[:N_SERVE_ROWS])
     phase_tree_serve(tree, X)
+    tv_row = phase_tree_vote(tree, X)
     phase_analysis(audits + phase_serving_trees(tree, X))
     phase_quality_tap(tree, X, "quality_tap_trees")
     phase_planes_trees(tree, X)
@@ -7635,6 +7711,20 @@ def main() -> int:
         "bound_ms": sv_row["bound_ms"],
         "bound_by": sv_row["bound_by"],
         "library_ms": sv_row["library_ms"],
+    }, {
+        # config 3's batch predict: one launch a call; exact counts
+        "name": "tree_vote",
+        "route": "cuda",
+        "source": "spark_bagging_tpu_torch/csrc/tree_vote.cu",
+        "replaces": "spark_bagging_tpu/models/tree.py:566 _route and the "
+                    "hard vote (XLA; no TPU kernel)",
+        "launches": tv_row["launches_a_call"],
+        "max_abs_err": 0.0 if tv_row["bitwise"] else None,
+        "ms": tv_row["kernel_ms"],
+        "plain_ms": tv_row["plain_ms"],
+        "bound_ms": tv_row["bound_ms"],
+        "bound_by": tv_row["bound_by"],
+        "library_ms": tv_row["library_ms"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

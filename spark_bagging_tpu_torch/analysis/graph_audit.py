@@ -113,11 +113,13 @@ def _kernel_counts() -> dict[str, int]:
     from spark_bagging_tpu_torch.ops.gram import scaled_grams
     from spark_bagging_tpu_torch.ops.hist import bin_codes, binned_left_stats
     from spark_bagging_tpu_torch.ops.soft_vote import soft_vote_quanta
+    from spark_bagging_tpu_torch.ops.tree_vote import tree_vote_counts
 
     return {"scaled_gram": scaled_grams.launches,
             "binned_left_stats": binned_left_stats.launches,
             "bin_codes": bin_codes.launches,
-            "soft_vote": soft_vote_quanta.launches}
+            "soft_vote": soft_vote_quanta.launches,
+            "tree_vote": tree_vote_counts.launches}
 
 
 def _op_name(target: Any) -> str:

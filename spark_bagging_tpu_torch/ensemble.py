@@ -41,6 +41,7 @@ from spark_bagging_tpu_torch.ops.bootstrap import (
     fit_key,
     oob_mask,
 )
+from spark_bagging_tpu_torch.ops import tree_vote
 from spark_bagging_tpu_torch.ops.soft_vote import (
     MAX_CLASSES,
     MAX_REPLICAS,
@@ -253,6 +254,30 @@ def soft_vote_kernel_sums(
     return soft_vote_quanta(X, stacked_params[learner.linear_softmax_weights])
 
 
+def tree_vote_kernel_applies(
+    learner: BaseLearner,
+    stacked_params: dict[str, torch.Tensor],
+    X: torch.Tensor,
+    n_classes: int,
+    n_total: int,
+    *,
+    voting: str,
+) -> bool:
+    """Does the hard vote go through the tree-vote kernel
+    (ops/tree_vote.py)? For a learner that declares its leaf table
+    (``tree_leaf_scores``, the decision-tree classifier), a hard vote,
+    CUDA float32 X and thresholds, a depth of at most ``MAX_DEPTH``, at
+    most ``MAX_CLASSES`` classes and a bag of at most ``MAX_REPLICAS``.
+    Everything else keeps the torch chain."""
+    if learner.tree_leaf_scores is None or voting != "hard":
+        return False
+    return (X.device.type == "cuda" and X.dtype == torch.float32
+            and stacked_params["threshold"].dtype == torch.float32
+            and learner.max_depth <= tree_vote.MAX_DEPTH
+            and n_classes <= tree_vote.MAX_CLASSES
+            and n_total <= tree_vote.MAX_REPLICAS)
+
+
 def predict_ensemble_classifier(
     learner: BaseLearner,
     stacked_params: dict[str, torch.Tensor],
@@ -277,7 +302,9 @@ def predict_ensemble_classifier(
     one launch of the soft-vote kernel: it keeps no ``(R, n, C)`` scores,
     so no replica chunk bounds its memory. Its sums are exact (fixed
     point, int64), so they have the same bits as chunk by chunk, or
-    shard by shard on a mesh."""
+    shard by shard on a mesh. Where :func:`tree_vote_kernel_applies`, the
+    hard vote over every replica is one launch of the tree-vote kernel;
+    its counts are whole numbers, so the same bits as the chain's."""
     if voting not in ("soft", "hard"):
         raise ValueError(f"unknown voting {voting!r}")
     sums = soft_vote_kernel_sums(learner, stacked_params, X, n_classes,
@@ -285,6 +312,15 @@ def predict_ensemble_classifier(
                                  identity_subspace=identity_subspace)
     if sums is not None:
         return soft_vote_mean(sums[None], n_total=n_total,
+                              axis_name=replica_axis)
+    if tree_vote_kernel_applies(learner, stacked_params, X, n_classes,
+                                n_total, voting=voting):
+        p = stacked_params
+        counts = tree_vote.tree_vote_counts(
+            X, p["feature"], p["threshold"], p[learner.tree_leaf_scores],
+            depth=learner.max_depth, n_classes=n_classes,
+            cols=None if identity_subspace else subspaces)
+        return mean_aggregate(counts[None], n_total=n_total,
                               axis_name=replica_axis)
 
     def one(chunk):

@@ -68,6 +68,11 @@ class BaseLearner(ParamsMixin):
     # one pass of the soft-vote kernel (ops/soft_vote.py). None: the
     # scores take another form
     linear_softmax_weights: ClassVar[str | None] = None
+    # The params leaf ``(R, 2^D, C)`` of a depth-D tree classifier whose
+    # scores are the row of the leaf its ``feature``/``threshold`` heap
+    # routes a row to: its hard vote is one pass of the tree-vote kernel
+    # (ops/tree_vote.py). None: the scores take another form
+    tree_leaf_scores: ClassVar[str | None] = None
 
     def pooled_amortizes(self, n_replicas: int) -> bool:
         """Is the pooled pre-pass worth running for an ensemble of this

@@ -605,6 +605,7 @@ class DecisionTreeClassifier(_TreeBase):
 
     task = "classification"
     integral_stats = True
+    tree_leaf_scores = "leaf_logp"
 
     def __init__(
         self,

@@ -38,10 +38,10 @@ def _defines() -> list[str]:
     """Compile-time constants that the Python wrappers own (each
     kernel's tiling), as nvcc ``-D`` flags: stated once, in the wrapper
     that also computes the launch geometry from them."""
-    from spark_bagging_tpu_torch.ops import gram, hist, soft_vote
+    from spark_bagging_tpu_torch.ops import gram, hist, soft_vote, tree_vote
 
     defines = {**gram.CUDA_DEFINES, **hist.CUDA_DEFINES,
-               **soft_vote.CUDA_DEFINES}
+               **soft_vote.CUDA_DEFINES, **tree_vote.CUDA_DEFINES}
     return [f"-D{k}={v}" for k, v in sorted(defines.items())]
 
 
@@ -169,6 +169,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.sbt_soft_vote_init.restype = i32
     lib.sbt_soft_vote_stage_units.argtypes = []
     lib.sbt_soft_vote_stage_units.restype = i32
+    lib.sbt_tree_vote.argtypes = [
+        vp, vp, vp, vp,                    # X, nodes, leaf, out
+        i32, i32, i32, i32, i32,           # n, F, C, R, D
+        i32, i32, i32,                     # per_stage, stages, blocks
+        i32, i32, i32, vp,                 # staged, accumulate, smem, stream
+    ]
+    lib.sbt_tree_vote.restype = i32
+    lib.sbt_tree_vote_init.argtypes = []
+    lib.sbt_tree_vote_init.restype = i32
     lib.sbt_cuda_error_string.argtypes = [i32]
     lib.sbt_cuda_error_string.restype = ctypes.c_char_p
 

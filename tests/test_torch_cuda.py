@@ -1129,16 +1129,18 @@ def test_graph_audit_of_every_cuda_executor(cuda, name):
     # serving forward traced with make_fx at both ends of a ladder, no
     # host sync, no float64 (the MLP's CPU-only float64 first layer is
     # not on this path), bounded constants, and one real call under
-    # torch.cuda.set_sync_debug_mode("error"). The only kernel a serving
-    # forward launches is the logistic soft vote's (identity subspace,
-    # soft vote): once a traced call; every other family (and the
-    # subspaced logistic) launches none
+    # torch.cuda.set_sync_debug_mode("error"). The only kernels a
+    # serving forward launches are the logistic soft vote's (identity
+    # subspace, soft vote) and the hard-voting trees' tree vote: once a
+    # traced call; every other family (and the subspaced logistic)
+    # launches none
     from spark_bagging_tpu_torch.analysis import audit_executor
     from spark_bagging_tpu_torch.serving import EnsembleExecutor
 
     est, _ = _serving_model(name)
     ex = EnsembleExecutor(est, min_bucket_rows=1, max_batch_rows=64)
-    want = {"soft_vote": 1} if name == "logistic" else {}
+    want = {"logistic": {"soft_vote": 1},
+            "tree_hard": {"tree_vote": 1}}.get(name, {})
     for rows in (1, 64):
         report = audit_executor(ex, n_rows=rows)
         assert report.ok and report.n_eqns > 0
