@@ -710,54 +710,33 @@ def fail(phase: str, msg: str) -> None:
 
 def reset_launches() -> None:
     """Every kernel's launch count to 0."""
-    from spark_bagging_tpu_torch.ops.gram import scaled_grams
-    from spark_bagging_tpu_torch.ops.hist import bin_codes, binned_left_stats
-    from spark_bagging_tpu_torch.ops.soft_vote import soft_vote_quanta
-    from spark_bagging_tpu_torch.ops.tree_vote import tree_vote_counts
+    from spark_bagging_tpu_torch.ops import kernels
 
-    scaled_grams.launches = 0
-    binned_left_stats.launches = 0
-    binned_left_stats.float_launches = 0
-    bin_codes.launches = 0
-    soft_vote_quanta.launches = 0
-    tree_vote_counts.launches = 0
-    for fn in (scaled_grams, binned_left_stats, bin_codes, soft_vote_quanta,
-               tree_vote_counts):
+    for fn, attr in kernels.counters().values():
+        setattr(fn, attr, 0)
         fn.__dict__.pop("shard_launches", None)
 
 
 def shard_launches() -> dict:
     """Each kernel's launches by mesh shard (``"data,replica"``) since
     ``reset_launches``: what the threads of a mesh run launched."""
-    from spark_bagging_tpu_torch.ops.gram import scaled_grams
-    from spark_bagging_tpu_torch.ops.hist import bin_codes, binned_left_stats
-    from spark_bagging_tpu_torch.ops.soft_vote import soft_vote_quanta
-    from spark_bagging_tpu_torch.ops.tree_vote import tree_vote_counts
+    from spark_bagging_tpu_torch.ops import kernels
 
     out = {}
-    for name, fn in (("scaled_gram", scaled_grams),
-                     ("binned_left_stats", binned_left_stats),
-                     ("bin_codes", bin_codes),
-                     ("soft_vote", soft_vote_quanta),
-                     ("tree_vote", tree_vote_counts)):
+    for name, (fn, attr) in kernels.counters().items():
+        if attr != "launches":
+            continue
         per = fn.__dict__.get("shard_launches", {})
-        out[name] = {f"{s[0]},{s[1]}": v for (attr, s), v in
-                     sorted(per.items()) if attr == "launches"}
+        out[name] = {f"{s[0]},{s[1]}": v for (a, s), v in
+                     sorted(per.items()) if a == attr}
     return out
 
 
 def read_launches() -> dict:
-    from spark_bagging_tpu_torch.ops.gram import scaled_grams
-    from spark_bagging_tpu_torch.ops.hist import bin_codes, binned_left_stats
-    from spark_bagging_tpu_torch.ops.soft_vote import soft_vote_quanta
-    from spark_bagging_tpu_torch.ops.tree_vote import tree_vote_counts
+    from spark_bagging_tpu_torch.ops import kernels
 
-    return {"scaled_gram": scaled_grams.launches,
-            "binned_left_stats": binned_left_stats.launches,
-            "binned_left_stats_float": binned_left_stats.float_launches,
-            "bin_codes": bin_codes.launches,
-            "soft_vote": soft_vote_quanta.launches,
-            "tree_vote": tree_vote_counts.launches}
+    return {k: getattr(fn, attr)
+            for k, (fn, attr) in kernels.counters().items()}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -838,10 +817,11 @@ def sass_atomics(path: str) -> dict | None:
 
 
 def phase_build() -> None:
+    from spark_bagging_tpu_torch.ops import kernels
     from spark_bagging_tpu_torch.utils import native
 
     t0 = time.perf_counter()
-    native.library()
+    kernels.library()
     log = native.build_info.get("log", "")
     emit("build", ok=True, seconds=time.perf_counter() - t0,
          library=native.build_info.get("path"),

@@ -109,17 +109,13 @@ class AuditReport:
 
 
 def _kernel_counts() -> dict[str, int]:
-    """The port's kernel wrappers' launch counters."""
-    from spark_bagging_tpu_torch.ops.gram import scaled_grams
-    from spark_bagging_tpu_torch.ops.hist import bin_codes, binned_left_stats
-    from spark_bagging_tpu_torch.ops.soft_vote import soft_vote_quanta
-    from spark_bagging_tpu_torch.ops.tree_vote import tree_vote_counts
+    """The port's kernel wrappers' launch counters (their launches, not
+    the sub-counts of a kind of launch)."""
+    from spark_bagging_tpu_torch.ops import kernels
 
-    return {"scaled_gram": scaled_grams.launches,
-            "binned_left_stats": binned_left_stats.launches,
-            "bin_codes": bin_codes.launches,
-            "soft_vote": soft_vote_quanta.launches,
-            "tree_vote": tree_vote_counts.launches}
+    return {k: getattr(fn, attr)
+            for k, (fn, attr) in kernels.counters().items()
+            if attr == "launches"}
 
 
 def _op_name(target: Any) -> str:

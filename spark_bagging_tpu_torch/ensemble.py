@@ -41,13 +41,7 @@ from spark_bagging_tpu_torch.ops.bootstrap import (
     fit_key,
     oob_mask,
 )
-from spark_bagging_tpu_torch.ops import tree_vote
-from spark_bagging_tpu_torch.ops.soft_vote import (
-    MAX_CLASSES,
-    MAX_REPLICAS,
-    soft_vote_mean,
-    soft_vote_quanta,
-)
+from spark_bagging_tpu_torch.ops import soft_vote, tree_vote
 from spark_bagging_tpu_torch.utils.debug import check_bootstrap_weights
 
 
@@ -207,75 +201,45 @@ def predict_quantiles_ensemble(
     return mean_aggregate(chunk_sums, n_total=_leading_size(subspaces))
 
 
-def soft_vote_kernel_applies(
+def kernel_vote(
     learner: BaseLearner,
     stacked_params: dict[str, torch.Tensor],
+    subspaces: torch.Tensor,
     X: torch.Tensor,
     n_classes: int,
     n_total: int,
     *,
     voting: str,
     identity_subspace: bool,
-) -> bool:
-    """Does the soft vote go through the soft-vote kernel
-    (ops/soft_vote.py)? For a learner that declares its scores
-    ``augment_bias(X) @ W`` (``linear_softmax_weights``), a soft vote,
-    the identity subspace, CUDA float32 X and W, at most
-    ``MAX_CLASSES`` classes and a bag of at most ``MAX_REPLICAS``.
-    Everything else keeps the torch chain."""
-    key = learner.linear_softmax_weights
-    if key is None or voting != "soft" or not identity_subspace:
-        return False
-    W = stacked_params[key]
-    return (X.device.type == "cuda" and X.dtype == torch.float32
-            and W.dtype == torch.float32 and n_classes <= MAX_CLASSES
-            and n_total <= MAX_REPLICAS)
+) -> tuple[torch.Tensor, Callable] | None:
+    """The vote over every replica of ``stacked_params`` through a
+    hand-written kernel: ``(sums, finish)``, the kernel's exact sums and
+    the step that turns stacked parts' sums into the mean probabilities
+    (``finish(parts, n_total=, axis_name=)``); None where the torch chain
+    runs. The one place the forwards (the batch and serving closure, a
+    mesh shard's, a replica-sharded server's) take a vote kernel.
 
-
-def soft_vote_kernel_sums(
-    learner: BaseLearner,
-    stacked_params: dict[str, torch.Tensor],
-    X: torch.Tensor,
-    n_classes: int,
-    n_total: int,
-    *,
-    voting: str,
-    identity_subspace: bool,
-) -> torch.Tensor | None:
-    """The soft-vote kernel's sums over the replicas of
-    ``stacked_params`` (``soft_vote_quanta``, ``(n, C, 2)`` int64) where
-    :func:`soft_vote_kernel_applies`, else None: the one place the
-    forwards (the batch and serving closure, a mesh shard's) take the
-    kernel."""
-    if not soft_vote_kernel_applies(learner, stacked_params, X, n_classes,
-                                    n_total, voting=voting,
-                                    identity_subspace=identity_subspace):
-        return None
-    return soft_vote_quanta(X, stacked_params[learner.linear_softmax_weights])
-
-
-def tree_vote_kernel_applies(
-    learner: BaseLearner,
-    stacked_params: dict[str, torch.Tensor],
-    X: torch.Tensor,
-    n_classes: int,
-    n_total: int,
-    *,
-    voting: str,
-) -> bool:
-    """Does the hard vote go through the tree-vote kernel
-    (ops/tree_vote.py)? For a learner that declares its leaf table
-    (``tree_leaf_scores``, the decision-tree classifier), a hard vote,
-    CUDA float32 X and thresholds, a depth of at most ``MAX_DEPTH``, at
-    most ``MAX_CLASSES`` classes and a bag of at most ``MAX_REPLICAS``.
-    Everything else keeps the torch chain."""
-    if learner.tree_leaf_scores is None or voting != "hard":
-        return False
-    return (X.device.type == "cuda" and X.dtype == torch.float32
-            and stacked_params["threshold"].dtype == torch.float32
-            and learner.max_depth <= tree_vote.MAX_DEPTH
-            and n_classes <= tree_vote.MAX_CLASSES
-            and n_total <= tree_vote.MAX_REPLICAS)
+    A learner declares the form of its scores, and the kernel's module
+    says which inputs it takes (``kernel_applies``): a soft vote of
+    ``augment_bias(X) @ W`` (``linear_softmax_weights``) on the identity
+    subspace takes ops/soft_vote.py's fixed-point sums and
+    ``soft_vote_mean``; a hard vote of trees (``tree_leaf_scores``) takes
+    ops/tree_vote.py's whole-number counts and ``mean_aggregate``."""
+    if (voting == "soft" and identity_subspace
+            and learner.linear_softmax_weights is not None):
+        W = stacked_params[learner.linear_softmax_weights]
+        if soft_vote.kernel_applies(X, W, n_classes, n_total):
+            return soft_vote.soft_vote_quanta(X, W), soft_vote.soft_vote_mean
+    if voting == "hard" and learner.tree_leaf_scores is not None:
+        p = stacked_params
+        if tree_vote.kernel_applies(X, p["threshold"], learner.max_depth,
+                                    n_classes, n_total):
+            counts = tree_vote.tree_vote_counts(
+                X, p["feature"], p["threshold"], p[learner.tree_leaf_scores],
+                depth=learner.max_depth, n_classes=n_classes,
+                cols=None if identity_subspace else subspaces)
+            return counts, mean_aggregate
+    return None
 
 
 def predict_ensemble_classifier(
@@ -298,30 +262,18 @@ def predict_ensemble_classifier(
     exist at once; the chunk sums are then averaged over all replicas
     (summed over ``replica_axis``'s shards first, where it is set).
 
-    Where :func:`soft_vote_kernel_applies`, the sum over every replica is
-    one launch of the soft-vote kernel: it keeps no ``(R, n, C)`` scores,
-    so no replica chunk bounds its memory. Its sums are exact (fixed
-    point, int64), so they have the same bits as chunk by chunk, or
-    shard by shard on a mesh. Where :func:`tree_vote_kernel_applies`, the
-    hard vote over every replica is one launch of the tree-vote kernel;
-    its counts are whole numbers, so the same bits as the chain's."""
+    Where a kernel takes the vote (:func:`kernel_vote`), the sum over
+    every replica is one launch: it keeps no ``(R, n, C)`` scores, so no
+    replica chunk bounds its memory, and its sums are exact, so they
+    have the same bits as chunk by chunk, or shard by shard on a mesh."""
     if voting not in ("soft", "hard"):
         raise ValueError(f"unknown voting {voting!r}")
-    sums = soft_vote_kernel_sums(learner, stacked_params, X, n_classes,
-                                 n_total, voting=voting,
-                                 identity_subspace=identity_subspace)
-    if sums is not None:
-        return soft_vote_mean(sums[None], n_total=n_total,
-                              axis_name=replica_axis)
-    if tree_vote_kernel_applies(learner, stacked_params, X, n_classes,
-                                n_total, voting=voting):
-        p = stacked_params
-        counts = tree_vote.tree_vote_counts(
-            X, p["feature"], p["threshold"], p[learner.tree_leaf_scores],
-            depth=learner.max_depth, n_classes=n_classes,
-            cols=None if identity_subspace else subspaces)
-        return mean_aggregate(counts[None], n_total=n_total,
-                              axis_name=replica_axis)
+    voted = kernel_vote(learner, stacked_params, subspaces, X, n_classes,
+                        n_total, voting=voting,
+                        identity_subspace=identity_subspace)
+    if voted is not None:
+        sums, finish = voted
+        return finish(sums[None], n_total=n_total, axis_name=replica_axis)
 
     def one(chunk):
         params, idx = chunk

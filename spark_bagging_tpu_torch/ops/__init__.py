@@ -1,3 +1,4 @@
 """Device ops: threefry keys, bootstrap draws, aggregation, the
-scaled-Gram kernel, the precision policy and the profiler range that the
-entry points open (``ranges.py``)."""
+hand-written kernels' wrappers and their seam (``kernels.py``), the
+precision policy and the profiler range that the entry points open
+(``ranges.py``)."""

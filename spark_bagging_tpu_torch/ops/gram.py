@@ -41,11 +41,13 @@ import math
 
 import torch
 
+from spark_bagging_tpu_torch.ops import kernels
+from spark_bagging_tpu_torch.ops.kernels import I32, I64, VP
 from spark_bagging_tpu_torch.ops.precision import bf16_round, fp32_matmul
 from spark_bagging_tpu_torch.ops.ranges import profiler_range
 
 _OP_DTYPES = ("float32", "bfloat16")
-# The kernel's compile-time tiling, decided here only: utils/native.py
+# The kernel's compile-time tiling, decided here only: ops/kernels.py
 # passes these to nvcc as -D defines, and csrc/scaled_gram.cu refuses to
 # build without them. A block has WARPS warps, each keeping one
 # (replica, pair)'s output tile; output tiles are TILE x TILE; a pipeline
@@ -171,13 +173,24 @@ def launch_bytes(n: int, d: int, P: int) -> float:
     return 4.0 * (math.ceil(n / MAX_SPLIT_ROWS) + 2) * P * d * d
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
+def declare(lib) -> None:
+    """The signatures of the csrc/scaled_gram.cu functions called here."""
+    lib.sbt_scaled_gram.restype = I32
+    lib.sbt_scaled_gram.argtypes = [
+        VP, I64, VP, VP, VP,               # X, x_rstride, S, out, partials
+        I32, I32, I32, I32,                # n, d, P, R
+        I32, I32, I32, I32, I32, I32,      # n_x pg groups nt splits rows
+        I32, VP,                           # bf16, stream
+    ]
+    lib.sbt_gram_mma_probe.restype = I32
+    lib.sbt_gram_mma_probe.argtypes = [
+        VP, VP, VP, VP,                    # xa, xb, s, out
+        I32, VP,                           # bf16, stream
+    ]
 
 
 def _launch(X, S, op_dtype):
     from spark_bagging_tpu_torch.parallel.compat import count_launch
-    from spark_bagging_tpu_torch.utils import native
 
     X3, S3, squeeze = _as_batched(X, S)
     R, n, P = S3.shape
@@ -196,15 +209,16 @@ def _launch(X, S, op_dtype):
         torch.empty((g["splits"], R, P, d, d), dtype=torch.float32, device=dev)
         if g["splits"] > 1 else out
     )
-    lib = native.library()
+    lib = kernels.library()
     with torch.cuda.device(dev):
         err = lib.sbt_scaled_gram(
             X3.data_ptr(), 0 if shared_x else n * d, S3.data_ptr(),
             out.data_ptr(), partials.data_ptr(), n, d, P, R,
             g["n_x"], g["pg"], g["groups"], g["nt"], g["splits"],
-            g["rows_per_split"], int(op_dtype == "bfloat16"), _stream(dev),
+            g["rows_per_split"], int(op_dtype == "bfloat16"),
+            kernels.stream(dev),
         )
-    native.check(lib, err, "scaled_gram")
+    kernels.check(lib, err, "scaled_gram")
     count_launch(scaled_grams)
     return out[0] if squeeze else out
 
@@ -218,8 +232,6 @@ def mma_tile_probe(xa: torch.Tensor, xb: torch.Tensor, s: torch.Tensor, *,
     ``s (K,)``, K = 8 in "float32" (m16n8k8 TF32, as 3xTF32) and 16 in
     "bfloat16" (m16n8k16). For the card tests of the fragment layouts;
     CUDA tensors only, and not counted as a launch."""
-    from spark_bagging_tpu_torch.utils import native
-
     if op_dtype not in _OP_DTYPES:
         raise ValueError(f"op_dtype must be one of {_OP_DTYPES}, got {op_dtype!r}")
     K = 16 if op_dtype == "bfloat16" else 8
@@ -230,12 +242,12 @@ def mma_tile_probe(xa: torch.Tensor, xb: torch.Tensor, s: torch.Tensor, *,
             raise ValueError(f"{name} must be a contiguous float32 CUDA "
                              f"tensor of shape {shape}")
     out = torch.empty((16, 8), dtype=torch.float32, device=xa.device)
-    lib = native.library()
+    lib = kernels.library()
     with torch.cuda.device(xa.device):
         err = lib.sbt_gram_mma_probe(
             xa.data_ptr(), xb.data_ptr(), s.data_ptr(), out.data_ptr(),
-            int(op_dtype == "bfloat16"), _stream(xa.device))
-    native.check(lib, err, "gram_mma_probe")
+            int(op_dtype == "bfloat16"), kernels.stream(xa.device))
+    kernels.check(lib, err, "gram_mma_probe")
     return out
 
 
@@ -257,3 +269,4 @@ def scaled_grams(
 
 
 scaled_grams.launches = 0
+LAUNCH_COUNTERS = {"scaled_gram": (scaled_grams, "launches")}

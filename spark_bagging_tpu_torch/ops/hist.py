@@ -74,12 +74,14 @@ import math
 
 import torch
 
+from spark_bagging_tpu_torch.ops import kernels
+from spark_bagging_tpu_torch.ops.kernels import I32, I64, VP
 from spark_bagging_tpu_torch.ops.precision import bf16_round, fp32_matmul
 from spark_bagging_tpu_torch.ops.ranges import profiler_range
 
 _HIST_DTYPES = ("float32", "bfloat16")
 # The kernel's compile-time block size and the rows a thread lists a
-# pass, decided here only: utils/native.py passes them to nvcc as -D
+# pass, decided here only: ops/kernels.py passes them to nvcc as -D
 # defines, and csrc/binned_left_stats.cu refuses to build without them.
 CUDA_DEFINES = {"SBT_HIST_THREADS": 512, "SBT_HIST_ROWS_PER_THREAD": 4}
 _THREADS = CUDA_DEFINES["SBT_HIST_THREADS"]
@@ -537,13 +539,30 @@ def fixed_splits(n: int) -> int:
     return max(1, math.ceil(n / FIXED_SPLIT_ROWS))
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
+def declare(lib) -> None:
+    """The signatures of the csrc/binned_left_stats.cu functions called
+    here."""
+    lib.sbt_bin_codes.restype = I32
+    lib.sbt_bin_codes.argtypes = [
+        VP, I64, VP, I64, VP,              # X, x_rstride, E, e_rstride, codes
+        I64, I32, I32, I32,                # n, F, B, R
+        I32, I32, VP,                      # code_bytes, blocks, stream
+    ]
+    lib.sbt_binned_left_stats.restype = I32
+    lib.sbt_binned_left_stats.argtypes = [
+        VP, I64, I32, I32, VP,             # codes, c_rstride, c_row, bytes, cols
+        VP, I64,                           # edges, e_rstride
+        VP, VP, VP, VP,                    # node, S, out, partials
+        I32, I32, I32, I32, I32, I32, I32,  # n, F, B, b0, N, K, R
+        I32, I32, I32, I32,                # f_tile n_tile f_tiles n_tiles
+        I32, I32,                          # b_stride cap
+        I32, I32, I32,                     # splits rows_per_split smem
+        I32, VP, VP, VP,                   # bf16, scale, inv_scale, stream
+    ]
 
 
 def _launch_codes(X, edges):
     from spark_bagging_tpu_torch.parallel.compat import count_launch
-    from spark_bagging_tpu_torch.utils import native
 
     X3 = X[None] if X.dim() == 2 else X
     E3 = edges[None] if edges.dim() == 2 else edges
@@ -558,14 +577,14 @@ def _launch_codes(X, edges):
     if out.numel():
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
         blocks = min(math.ceil(n * F / 256), max(1, 32 * n_sm // R))
-        lib = native.library()
+        lib = kernels.library()
         with torch.cuda.device(dev):
             err = lib.sbt_bin_codes(
                 X3.data_ptr(), 0 if X3.shape[0] == 1 else n * F,
                 E3.data_ptr(), 0 if E3.shape[0] == 1 else F * B,
                 out.data_ptr(), n, F, B, R, out.element_size(), blocks,
-                _stream(dev))
-        native.check(lib, err, "bin_codes")
+                kernels.stream(dev))
+        kernels.check(lib, err, "bin_codes")
         count_launch(bin_codes)
     return out[0] if X.dim() == 2 and edges.dim() == 2 else out
 
@@ -599,7 +618,6 @@ def _launch_one(C3, cols, E3, node, S3, out, b0, n_nodes, hist_dtype,
     accumulator, else :func:`fixed_scales` of the whole statistics (a
     class slice keeps the whole table's scales)."""
     from spark_bagging_tpu_torch.parallel.compat import count_launch
-    from spark_bagging_tpu_torch.utils import native
 
     R, n, K = S3.shape
     F, B = E3.shape[-2:]
@@ -620,7 +638,7 @@ def _launch_one(C3, cols, E3, node, S3, out, b0, n_nodes, hist_dtype,
                                dtype=torch.float32, device=dev)
     else:
         partials = out
-    lib = native.library()
+    lib = kernels.library()
     with torch.cuda.device(dev):
         err = lib.sbt_binned_left_stats(
             C3.data_ptr(), 0 if C3.shape[0] == 1 else n * c_row, c_row,
@@ -632,9 +650,9 @@ def _launch_one(C3, cols, E3, node, S3, out, b0, n_nodes, hist_dtype,
             g["b_stride"], g["cap"], g["splits"],
             g["rows_per_split"], g["smem"], int(hist_dtype == "bfloat16"),
             None if integral else scales[0].data_ptr(),
-            None if integral else scales[1].data_ptr(), _stream(dev),
+            None if integral else scales[1].data_ptr(), kernels.stream(dev),
         )
-    native.check(lib, err, "binned_left_stats")
+    kernels.check(lib, err, "binned_left_stats")
     count_launch(binned_left_stats)
     if not integral:
         count_launch(binned_left_stats, "float_launches")
@@ -720,3 +738,8 @@ def binned_left_stats(
 
 binned_left_stats.launches = 0
 binned_left_stats.float_launches = 0
+LAUNCH_COUNTERS = {
+    "binned_left_stats": (binned_left_stats, "launches"),
+    "binned_left_stats_float": (binned_left_stats, "float_launches"),
+    "bin_codes": (bin_codes, "launches"),
+}

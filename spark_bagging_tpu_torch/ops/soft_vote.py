@@ -27,22 +27,23 @@ probability.
 
 Classes and replicas: the kernel takes ``C <= MAX_CLASSES`` and bags of
 at most ``MAX_REPLICAS`` (the low word's sums stay within int64); any
-other keeps the torch chain (``ensemble.soft_vote_kernel_applies``).
+other keeps the torch chain (:func:`kernel_applies`).
 """
 
 from __future__ import annotations
 
 import math
-import threading
 
 import torch
 
 from spark_bagging_tpu_torch.models.base import augment_bias
+from spark_bagging_tpu_torch.ops import kernels
+from spark_bagging_tpu_torch.ops.kernels import I32, VP
 from spark_bagging_tpu_torch.ops.precision import fp32_matmul
 from spark_bagging_tpu_torch.ops.reduce import maybe_psum
 from spark_bagging_tpu_torch.ops.ranges import profiler_range
 
-# The kernel's compile-time tiling, decided here only: utils/native.py
+# The kernel's compile-time tiling, decided here only: ops/kernels.py
 # passes these to nvcc as -D defines, and csrc/soft_vote.cu refuses to
 # build without them. A stage holds a KBLOCK-column block of X (bias
 # column included) and PAIRS (replica, n8 class tile) pairs of W, the
@@ -73,6 +74,14 @@ MAX_REPLICAS = 2 ** 17
 #: the profiler range around every launch, whatever implements it (the
 #: kernel's launches and the sum of its splits' partials)
 SOFT_VOTE_RANGE = "soft_vote"
+
+
+def kernel_applies(X, W, n_classes: int, n_total: int) -> bool:
+    """Does the kernel take this vote: CUDA float32 X and W, at most
+    ``MAX_CLASSES`` classes and a bag of at most ``MAX_REPLICAS``?"""
+    return (X.device.type == "cuda" and X.dtype == torch.float32
+            and W.dtype == torch.float32 and n_classes <= MAX_CLASSES
+            and n_total <= MAX_REPLICAS)
 
 
 def soft_vote_sums_plain(X: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
@@ -119,34 +128,26 @@ def _check(X: torch.Tensor, W: torch.Tensor) -> None:
                          f"{tuple(X.shape)}, {tuple(W.shape)}")
 
 
-_init_lock = threading.Lock()
-_init_devices: set[int] = set()
-
-
-def _ready(dev: torch.device):
-    """The kernel library, its functions' shared-memory size set on
-    ``dev`` (once a device, never inside a CUDA-graph capture)."""
-    from spark_bagging_tpu_torch.utils import native
-
-    lib = native.library()
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    with _init_lock:
-        if idx not in _init_devices:
-            if torch.cuda.is_current_stream_capturing():
-                raise RuntimeError(
-                    "soft_vote: the first launch on a device must run "
-                    "outside a CUDA-graph capture (warm it up eagerly)")
-            with torch.cuda.device(idx):
-                native.check(lib, lib.sbt_soft_vote_init(), "soft_vote init")
-            _init_devices.add(idx)
-    return lib
+def declare(lib) -> None:
+    """The signatures of the csrc/soft_vote.cu functions called here
+    (the init through ``kernels.ready``; the stage units by the card
+    tests)."""
+    lib.sbt_soft_vote.restype = I32
+    lib.sbt_soft_vote.argtypes = [
+        VP, VP, VP, VP,                    # X, W, split images, out
+        I32, I32, I32, I32,                # n, d, C, R
+        I32, I32, I32, VP,                 # nkb, gps, splits, stream
+    ]
+    lib.sbt_soft_vote_init.restype = I32
+    lib.sbt_soft_vote_init.argtypes = []
+    lib.sbt_soft_vote_stage_units.restype = I32
+    lib.sbt_soft_vote_stage_units.argtypes = []
 
 
 def _launch(X: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     """The two launches on CUDA tensors (the body of the operator): the
     sums in fixed point, ``(n, C, 2)`` int64."""
     from spark_bagging_tpu_torch.parallel.compat import count_launch
-    from spark_bagging_tpu_torch.utils import native
 
     n, d = X.shape
     R, _, C = W.shape
@@ -162,7 +163,7 @@ def _launch(X: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     X, W = X.contiguous(), W.contiguous()
     g = kernel_geometry(
         n, d, C, R, torch.cuda.get_device_properties(dev).multi_processor_count)
-    lib = _ready(dev)
+    lib = kernels.ready(dev, "soft_vote")
     # one allocation: the splits' partials (two words an entry), then the
     # stages' split W images that the first launch writes (both 16-byte
     # aligned)
@@ -174,9 +175,9 @@ def _launch(X: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
         err = lib.sbt_soft_vote(
             X.data_ptr(), W.data_ptr(), buf[n_out:].data_ptr(),
             out.data_ptr(), n, d, C, R, g["nkb"], g["gps"], g["splits"],
-            torch.cuda.current_stream(dev).cuda_stream,
+            kernels.stream(dev),
         )
-    native.check(lib, err, "soft_vote")
+    kernels.check(lib, err, "soft_vote")
     count_launch(soft_vote_quanta)
     return out[0] if g["splits"] == 1 else out.sum(dim=0)
 
@@ -188,32 +189,8 @@ def _flops(x_shape, w_shape, out_shape=None, **kwargs) -> int:
     return 2 * x_shape[0] * R * d1 * C
 
 
-_library = None
-
-
-def _op():
-    """The launch as the torch operator ``sbt::soft_vote_quanta``
-    (defined at the first launch), so that a ``FlopCounterMode`` counts
-    its products as it counts the plain version's matmul, and a
-    ``make_fx`` trace records it as one node. (Defined through
-    ``torch.library.Library``: a first call costs ~1 ms, where a
-    ``torch.library.custom_op`` imports torch._dynamo, seconds.)"""
-    global _library
-    with _init_lock:
-        try:
-            return torch.ops.sbt.soft_vote_quanta
-        except (AttributeError, RuntimeError):
-            pass
-        from torch.utils.flop_counter import register_flop_formula
-
-        lib = torch.library.Library("sbt", "DEF")
-        lib.define("soft_vote_quanta(Tensor X, Tensor W) -> Tensor")
-        lib.impl("soft_vote_quanta", _launch, "CUDA")
-        lib.impl("soft_vote_quanta", lambda X, W: X.new_empty(
-            (X.shape[0], W.shape[2], 2), dtype=torch.int64), "Meta")
-        register_flop_formula(torch.ops.sbt.soft_vote_quanta)(_flops)
-        _library = lib  # the registrations live as long as it does
-        return torch.ops.sbt.soft_vote_quanta
+def _meta(X: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    return X.new_empty((X.shape[0], W.shape[2], 2), dtype=torch.int64)
 
 
 def soft_vote_quanta(X: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
@@ -230,10 +207,15 @@ def soft_vote_quanta(X: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     if X.device.type != "cuda":
         raise ValueError(f"the quanta are the kernel's; got {X.device}")
     with profiler_range(SOFT_VOTE_RANGE):
-        return _op()(X, W)
+        # the torch operator sbt::soft_vote_quanta: a FlopCounterMode
+        # counts its products as the plain version's matmul
+        return kernels.operator(
+            "soft_vote_quanta", "(Tensor X, Tensor W) -> Tensor", _launch,
+            _meta, _flops)(X, W)
 
 
 soft_vote_quanta.launches = 0
+LAUNCH_COUNTERS = {"soft_vote": (soft_vote_quanta, "launches")}
 
 
 def soft_vote_mean(quanta: torch.Tensor, *, n_total: int,

@@ -25,20 +25,22 @@ Exact: every row takes the same comparisons ``x > t`` as the chain (a
 NaN goes left; infinities compare as IEEE numbers), and the counts are
 whole numbers, exact in float32 up to ``MAX_REPLICAS``, so the result
 has the chain's bits, however the replicas are split into launches or
-mesh shards.
+mesh shards. A vote the kernel does not take (:func:`kernel_applies`)
+keeps the torch chain.
 """
 
 from __future__ import annotations
 
 import math
-import threading
 
 import torch
 
+from spark_bagging_tpu_torch.ops import kernels
 from spark_bagging_tpu_torch.ops.aggregate import hard_vote_counts
+from spark_bagging_tpu_torch.ops.kernels import I32, VP
 from spark_bagging_tpu_torch.ops.ranges import profiler_range
 
-# The kernel's compile-time tiling, decided here only: utils/native.py
+# The kernel's compile-time tiling, decided here only: ops/kernels.py
 # passes these to nvcc as -D defines, and csrc/tree_vote.cu refuses to
 # build without them. A block is WARPS warps over a tile of ROWS rows
 # (ROWS / 32 warps of rows times WARPS / (ROWS / 32) groups of trees);
@@ -65,6 +67,16 @@ MAX_CLASSES = 32
 MAX_REPLICAS = 2 ** 24
 #: the profiler range around every launch and the wrapper's tables
 TREE_VOTE_RANGE = "tree_vote"
+
+
+def kernel_applies(X, threshold, depth: int, n_classes: int,
+                   n_total: int) -> bool:
+    """Does the kernel take this vote: CUDA float32 X and thresholds, a
+    depth of at most ``MAX_DEPTH``, at most ``MAX_CLASSES`` classes and a
+    bag of at most ``MAX_REPLICAS``?"""
+    return (X.device.type == "cuda" and X.dtype == torch.float32
+            and threshold.dtype == torch.float32 and depth <= MAX_DEPTH
+            and n_classes <= MAX_CLASSES and n_total <= MAX_REPLICAS)
 
 
 def tree_vote_counts_plain(learner, params: dict, X: torch.Tensor,
@@ -155,27 +167,18 @@ def _check(X, feature, threshold, leaf_logp, depth, n_classes, cols):
             raise ValueError(f"X on {X.device} but a table on {t.device}")
 
 
-_init_lock = threading.Lock()
-_init_devices: set[int] = set()
-
-
-def _ready(dev: torch.device):
-    """The kernel library, its functions' shared-memory size set on
-    ``dev`` (once a device, never inside a CUDA-graph capture)."""
-    from spark_bagging_tpu_torch.utils import native
-
-    lib = native.library()
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    with _init_lock:
-        if idx not in _init_devices:
-            if torch.cuda.is_current_stream_capturing():
-                raise RuntimeError(
-                    "tree_vote: the first launch on a device must run "
-                    "outside a CUDA-graph capture (warm it up eagerly)")
-            with torch.cuda.device(idx):
-                native.check(lib, lib.sbt_tree_vote_init(), "tree_vote init")
-            _init_devices.add(idx)
-    return lib
+def declare(lib) -> None:
+    """The signatures of the csrc/tree_vote.cu functions called here
+    (the init through ``kernels.ready``)."""
+    lib.sbt_tree_vote.restype = I32
+    lib.sbt_tree_vote.argtypes = [
+        VP, VP, VP, VP,                    # X, nodes, leaf, out
+        I32, I32, I32, I32, I32,           # n, F, C, R, D
+        I32, I32, I32,                     # per_stage, stages, blocks
+        I32, I32, I32, VP,                 # staged, accumulate, smem, stream
+    ]
+    lib.sbt_tree_vote_init.restype = I32
+    lib.sbt_tree_vote_init.argtypes = []
 
 
 def _launch(X: torch.Tensor, nodes: torch.Tensor, leaf: torch.Tensor,
@@ -183,7 +186,6 @@ def _launch(X: torch.Tensor, nodes: torch.Tensor, leaf: torch.Tensor,
     """The launch on CUDA tensors (the body of the operator): the
     counts, ``(n, C)`` float32."""
     from spark_bagging_tpu_torch.parallel.compat import count_launch
-    from spark_bagging_tpu_torch.utils import native
 
     n, F = X.shape
     R, M, _ = nodes.shape
@@ -198,7 +200,7 @@ def _launch(X: torch.Tensor, nodes: torch.Tensor, leaf: torch.Tensor,
     g = kernel_geometry(
         n, F, n_classes, R, depth,
         torch.cuda.get_device_properties(dev).multi_processor_count)
-    lib = _ready(dev)
+    lib = kernels.ready(dev, "tree_vote")
     out = (torch.zeros if g["accumulate"] else torch.empty)(
         (n, n_classes), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
@@ -206,35 +208,16 @@ def _launch(X: torch.Tensor, nodes: torch.Tensor, leaf: torch.Tensor,
             X.data_ptr(), nodes.data_ptr(), leaf.data_ptr(), out.data_ptr(),
             n, F, n_classes, R, depth, g["per_stage"], g["stages"],
             g["blocks"], int(g["staged"]), int(g["accumulate"]), g["smem"],
-            torch.cuda.current_stream(dev).cuda_stream,
+            kernels.stream(dev),
         )
-    native.check(lib, err, "tree_vote")
+    kernels.check(lib, err, "tree_vote")
     count_launch(tree_vote_counts)
     return out
 
 
-_library = None
-
-
-def _op():
-    """The launch as the torch operator ``sbt::tree_vote_counts``
-    (defined at the first launch), so that a ``make_fx`` trace records
-    it as one node. It counts no FLOPs, as the chain's gathers and
-    compares count none."""
-    global _library
-    with _init_lock:
-        try:
-            return torch.ops.sbt.tree_vote_counts
-        except (AttributeError, RuntimeError):
-            pass
-        lib = torch.library.Library("sbt", "FRAGMENT")
-        lib.define("tree_vote_counts(Tensor X, Tensor nodes, Tensor leaf, "
-                   "int n_classes) -> Tensor")
-        lib.impl("tree_vote_counts", _launch, "CUDA")
-        lib.impl("tree_vote_counts", lambda X, nodes, leaf, n_classes:
-                 X.new_empty((X.shape[0], n_classes)), "Meta")
-        _library = lib  # the registrations live as long as it does
-        return torch.ops.sbt.tree_vote_counts
+def _meta(X: torch.Tensor, nodes: torch.Tensor, leaf: torch.Tensor,
+          n_classes: int) -> torch.Tensor:
+    return X.new_empty((X.shape[0], n_classes))
 
 
 def tree_vote_counts(X: torch.Tensor, feature: torch.Tensor,
@@ -258,7 +241,13 @@ def tree_vote_counts(X: torch.Tensor, feature: torch.Tensor,
                          f"{MAX_CLASSES} classes")
     with profiler_range(TREE_VOTE_RANGE):
         nodes, leaf = tree_tables(feature, threshold, leaf_logp, depth, cols)
-        return _op()(X, nodes, leaf, n_classes)
+        # the torch operator sbt::tree_vote_counts: it counts no FLOPs,
+        # as the chain's gathers and compares count none
+        return kernels.operator(
+            "tree_vote_counts",
+            "(Tensor X, Tensor nodes, Tensor leaf, int n_classes) -> Tensor",
+            _launch, _meta)(X, nodes, leaf, n_classes)
 
 
 tree_vote_counts.launches = 0
+LAUNCH_COUNTERS = {"tree_vote": (tree_vote_counts, "launches")}

@@ -48,15 +48,14 @@ from spark_bagging_tpu_torch import telemetry
 from spark_bagging_tpu_torch.ensemble import (
     _slice_tree,
     fit_ensemble,
+    kernel_vote,
     oob_predict_scores,
     predict_ensemble_classifier,
     predict_ensemble_regressor,
-    soft_vote_kernel_sums,
 )
 from spark_bagging_tpu_torch.models.base import BaseLearner
 from spark_bagging_tpu_torch.ops.aggregate import mean_aggregate
 from spark_bagging_tpu_torch.ops.reduce import maybe_psum
-from spark_bagging_tpu_torch.ops.soft_vote import soft_vote_mean
 from spark_bagging_tpu_torch.parallel.compat import P, shard_map
 from spark_bagging_tpu_torch.parallel.mesh import DATA_AXIS, REPLICA_AXIS, Mesh
 
@@ -385,34 +384,27 @@ def replica_sharded_serving(model: Any, mesh: Mesh):
         shard_subs.append(subspaces[sl].to(dev))
     shard_fn, reduce = rep_fn, aggregate_reduce(model, n_total)
     if getattr(model, "task", None) == "classification":
-        shard_fn, reduce = _soft_vote_shards(model, rep_fn, reduce, n_total)
+        # a shard whose vote a kernel takes (ensemble.kernel_vote, on the
+        # shard's X) gives its replicas' exact sums, finished as on one
+        # device; the shards of one call (or capture) decide alike
+        learner, chain, finish = model._fitted_learner, reduce, [None]
+
+        def shard_fn(p, s, X):
+            voted = kernel_vote(
+                learner, p, s, X, int(model.n_classes_), n_total,
+                voting=model.voting,
+                identity_subspace=model._identity_subspace)
+            finish[0] = None if voted is None else voted[1]
+            return rep_fn(p, s, X) if voted is None else voted[0][None]
+
+        def reduce(full: torch.Tensor) -> torch.Tensor:
+            if finish[0] is None:
+                return chain(full)
+            return finish[0](full, n_total=n_total)
+
     fwd = ShardedForward(shard_fn, reduce, devices)
     replica_fwd = ShardedForward(rep_fn, None, devices)
     return fwd, replica_fwd, shard_params, shard_subs, devices[0], replica
-
-
-def _soft_vote_shards(model: Any, rep_fn: Callable, reduce: Callable,
-                      n_total: int):
-    """``(shard_fn, reduce)`` of a classifier's sharded serving forward:
-    a shard whose forward takes the soft-vote kernel
-    (``ensemble.soft_vote_kernel_sums``, decided on the shard's X) gives
-    its replicas' exact sums, ``(1, n, C, 2)`` int64, which add up to the
-    single-device forward's, and their mean is taken as there; any other
-    shard gives ``rep_fn``'s per-replica outputs (float) to ``reduce``."""
-    learner = model._fitted_learner
-
-    def shard_fn(p, s, X):
-        sums = soft_vote_kernel_sums(
-            learner, p, X, int(model.n_classes_), n_total,
-            voting=model.voting, identity_subspace=model._identity_subspace)
-        return rep_fn(p, s, X) if sums is None else sums[None]
-
-    def reduce_sums(full: torch.Tensor) -> torch.Tensor:
-        if full.dtype == torch.int64:  # the kernel's sums
-            return soft_vote_mean(full, n_total=n_total)
-        return reduce(full)
-
-    return shard_fn, reduce_sums
 
 
 def _to(tree: Any, dev: torch.device) -> Any:

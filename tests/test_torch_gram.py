@@ -229,6 +229,7 @@ def test_kernel_geometry_refuses_beyond_the_grid():
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from spark_bagging_tpu_torch.ops import kernels
     from spark_bagging_tpu_torch.utils import native
 
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
@@ -237,8 +238,8 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
         pytest.skip("a CUDA toolkit is installed at /usr/local/cuda")
     monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        native.build()
-    assert native.library_path().endswith(".so")
+        native.build(kernels.defines())
+    assert native.library_path(kernels.defines()).endswith(".so")
 
 
 def _chip_smoke():
@@ -279,11 +280,12 @@ def test_probe_refuses_inexact_depth():
 def test_kernel_tiling_is_stated_once():
     # ops/gram.py owns the tiling; the kernel source takes it from the
     # nvcc defines and refuses to build without them
+    from spark_bagging_tpu_torch.ops import kernels
     from spark_bagging_tpu_torch.utils import native
 
     src = open(os.path.join(native.CSRC_DIR, "scaled_gram.cu")).read()
     for name, value in gram.CUDA_DEFINES.items():
-        assert f"-D{name}={value}" in native._flags()
+        assert f"-D{name}={value}" in native._flags(kernels.defines())
         assert f"#if !defined({name})" in src or f"!defined({name})" in src
         assert f"= {name};" in src
     assert "#error" in src

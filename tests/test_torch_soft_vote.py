@@ -3,8 +3,8 @@ batch forward's dispatch to it.
 
 CPU (tier-1): the plain version is the torch chain it replaces, bit for
 bit; a CPU ``predict_proba`` of a logistic bag is that chain's, bit for
-bit, and launches nothing; the dispatch rule holds in exactly its cases;
-the launch geometry.
+bit, and launches nothing; the launch geometry. (The dispatch rule and
+the kernel's build and C interface: tests/test_torch_kernels.py.)
 
 Card (``cuda`` marker, skipped here with "no CUDA device"; the file
 imports no JAX, so on the card run
@@ -21,7 +21,6 @@ capture; launches per forward.
 
 import itertools
 import math
-from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -36,13 +35,13 @@ from spark_bagging_tpu_torch import (  # noqa: E402
     LogisticRegression,
     MLPClassifier,
 )
-from spark_bagging_tpu_torch.ensemble import soft_vote_kernel_applies  # noqa: E402
+from spark_bagging_tpu_torch.ensemble import kernel_vote  # noqa: E402
+from spark_bagging_tpu_torch.ops import kernels  # noqa: E402
 from spark_bagging_tpu_torch.ops import soft_vote as sv  # noqa: E402
 from spark_bagging_tpu_torch.ops.soft_vote import (  # noqa: E402
     HI_QUANTUM,
     LO_QUANTUM,
     MAX_CLASSES,
-    MAX_REPLICAS,
     kernel_geometry,
     soft_vote_mean,
     soft_vote_quanta,
@@ -100,49 +99,6 @@ def test_cpu_predict_proba_of_a_logistic_bag_is_the_chain_bit_for_bit(
             {"W": W[s:s + step]}, Xt), dim=-1).sum(dim=0)
         for s in range(0, W.shape[0], step)])
     np.testing.assert_array_equal(got, (sums.sum(dim=0) / 7).numpy())
-
-
-def _fake(device, dtype=torch.float32):
-    # the rule reads a tensor's device and dtype only, so a CUDA tensor
-    # is stood in for where there is no card
-    return SimpleNamespace(device=torch.device(device), dtype=dtype)
-
-
-@pytest.mark.parametrize("case, want", [
-    ("logistic", True),
-    ("logistic_adam", True),
-    ("hard_vote", False),
-    ("subspaced", False),
-    ("cpu", False),
-    ("float64_X", False),
-    ("float64_W", False),
-    ("classes_at_limit", True),
-    ("classes_above_limit", False),
-    ("replicas_at_limit", True),
-    ("replicas_above_limit", False),
-    ("trees", False),
-    ("svc", False),
-    ("gaussian_nb", False),
-    ("mlp", False),
-])
-def test_dispatch_rule(case, want):
-    learner = {"logistic_adam": LogisticRegression(solver="adam"),
-               "trees": DecisionTreeClassifier(), "svc": LinearSVC(),
-               "gaussian_nb": GaussianNB(), "mlp": MLPClassifier()}.get(
-                   case, LogisticRegression())
-    params = {"W": _fake("cuda", torch.float64 if case == "float64_W"
-                         else torch.float32)}
-    X = _fake("cpu" if case == "cpu" else "cuda",
-              torch.float64 if case == "float64_X" else torch.float32)
-    C = {"classes_at_limit": MAX_CLASSES,
-         "classes_above_limit": MAX_CLASSES + 1}.get(case, 7)
-    R = {"replicas_at_limit": MAX_REPLICAS,
-         "replicas_above_limit": MAX_REPLICAS + 1}.get(case, 1000)
-    got = soft_vote_kernel_applies(
-        learner, params, X, C, R,
-        voting="hard" if case == "hard_vote" else "soft",
-        identity_subspace=case != "subspaced")
-    assert got is want
 
 
 def test_only_the_logistic_learner_declares_linear_softmax_scores():
@@ -229,15 +185,6 @@ def test_fixed_point_keeps_fp32_precision_and_soft_vote_mean_reads_it(scale):
     assert torch.equal(soft_vote_mean(parts, n_total=40), mean)
 
 
-def test_the_kernel_is_built_with_its_tiling():
-    from spark_bagging_tpu_torch.utils import native
-
-    flags = native._defines()
-    for k, v in sv.CUDA_DEFINES.items():
-        assert f"-D{k}={v}" in flags
-    assert any(s.endswith("soft_vote.cu") for s in native._sources())
-
-
 # -- card ----------------------------------------------------------------
 
 def _reference(X, W, rows=32_768):
@@ -306,9 +253,7 @@ def test_sums_do_not_depend_on_how_the_replicas_are_split(cuda, n):
 
 @pytest.mark.cuda
 def test_the_wrapper_sizes_the_split_images_as_the_kernel_lays_them(cuda):
-    from spark_bagging_tpu_torch.utils import native
-
-    assert native.library().sbt_soft_vote_stage_units() == sv._STAGE_UNITS
+    assert kernels.library().sbt_soft_vote_stage_units() == sv._STAGE_UNITS
 
 
 _EDGES = list(itertools.product((1, 17, 4097), (1, 121, 1001),
@@ -329,9 +274,9 @@ def test_classes_above_the_limit_keep_the_torch_chain(cuda):
     X, W = _inputs(64, 5, MAX_CLASSES + 1, 3, device=cuda)
     with pytest.raises(ValueError, match="classes"):
         soft_vote_quanta(X, W)
-    assert not soft_vote_kernel_applies(
-        LogisticRegression(), {"W": W}, X, MAX_CLASSES + 1, 3, voting="soft",
-        identity_subspace=True)
+    assert kernel_vote(
+        LogisticRegression(), {"W": W}, None, X, MAX_CLASSES + 1, 3,
+        voting="soft", identity_subspace=True) is None
 
 
 @pytest.mark.cuda

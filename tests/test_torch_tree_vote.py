@@ -8,8 +8,9 @@ for bit, at every depth up to ``MAX_DEPTH``, 2 to ``MAX_CLASSES``
 classes, subspaces through ``cols`` and the identity subspace, values
 equal to a threshold, NaN and infinities in X, thresholds at +-inf and
 leaves whose log-probabilities tie or hold a NaN; a replica-axis sum
-over two halves; the dispatch rule in exactly its cases, and the chain
-untouched where it does not hold; the launch geometry.
+over two halves; the chain untouched where the kernel does not take
+the vote; the launch geometry. (The dispatch rule and the kernel's
+build and C interface: tests/test_torch_kernels.py.)
 
 Card (``cuda`` marker, skipped here with "no CUDA device"; the file
 imports no JAX, so on the card run
@@ -17,7 +18,8 @@ imports no JAX, so on the card run
 the kernel against the plain version bit for bit at config 3's shapes,
 at ragged row counts, for bags split over stages, for X too wide to
 stage, at every class-word count; through a captured CUDA graph's
-replay; launches per forward.
+replay; launches per forward; replica-sharded serving of a hard vote,
+a launch a shard, bit for bit the single-device forward.
 """
 
 import numpy as np
@@ -36,14 +38,12 @@ from spark_bagging_tpu_torch import (  # noqa: E402
 from spark_bagging_tpu_torch.ensemble import (  # noqa: E402
     predict_ensemble_classifier,
     predict_scores_ensemble,
-    tree_vote_kernel_applies,
 )
 from spark_bagging_tpu_torch.ops import tree_vote as tv  # noqa: E402
 from spark_bagging_tpu_torch.ops.aggregate import mean_aggregate  # noqa: E402
 from spark_bagging_tpu_torch.ops.tree_vote import (  # noqa: E402
     MAX_CLASSES,
     MAX_DEPTH,
-    MAX_REPLICAS,
     kernel_geometry,
     tree_tables,
     tree_vote_counts,
@@ -168,51 +168,6 @@ def test_replica_axis_sum_over_two_halves_is_the_whole_bag():
     assert torch.equal(sharded, whole)
 
 
-def _fake(device, dtype=torch.float32):
-    # the rule reads a tensor's device and dtype only, so a CUDA tensor
-    # is stood in for where there is no card
-    from types import SimpleNamespace
-
-    return SimpleNamespace(device=torch.device(device), dtype=dtype)
-
-
-@pytest.mark.parametrize("case, want", [
-    ("tree_hard", True),
-    ("tree_soft", False),
-    ("gbt", False),
-    ("tree_regressor", False),
-    ("logistic", False),
-    ("cpu", False),
-    ("float64_X", False),
-    ("float64_threshold", False),
-    ("depth_at_limit", True),
-    ("depth_above_limit", False),
-    ("classes_at_limit", True),
-    ("classes_above_limit", False),
-    ("replicas_at_limit", True),
-    ("replicas_above_limit", False),
-])
-def test_dispatch_rule(case, want):
-    depth = {"depth_at_limit": MAX_DEPTH,
-             "depth_above_limit": MAX_DEPTH + 1}.get(case, 5)
-    learner = {"gbt": GBTClassifier(), "tree_regressor": DecisionTreeRegressor(),
-               "logistic": LogisticRegression()}.get(
-                   case, DecisionTreeClassifier(max_depth=depth))
-    params = {"threshold": _fake("cuda", torch.float64
-                                 if case == "float64_threshold"
-                                 else torch.float32)}
-    X = _fake("cpu" if case == "cpu" else "cuda",
-              torch.float64 if case == "float64_X" else torch.float32)
-    C = {"classes_at_limit": MAX_CLASSES,
-         "classes_above_limit": MAX_CLASSES + 1}.get(case, 7)
-    R = {"replicas_at_limit": MAX_REPLICAS,
-         "replicas_above_limit": MAX_REPLICAS + 1}.get(case, 256)
-    got = tree_vote_kernel_applies(
-        learner, params, X, C, R,
-        voting="soft" if case == "tree_soft" else "hard")
-    assert got is want
-
-
 def test_only_the_tree_classifier_declares_its_leaf_table():
     from spark_bagging_tpu_torch import GBTRegressor, LinearSVC, MLPClassifier
 
@@ -310,15 +265,6 @@ def test_tree_vote_counts_checks_its_inputs():
                          n_classes=4)
     with pytest.raises(ValueError, match="kernel"):
         tree_vote_counts(X, *args, depth=3, n_classes=4)  # the card's only
-
-
-def test_the_kernel_is_built_with_its_tiling():
-    from spark_bagging_tpu_torch.utils import native
-
-    flags = native._defines()
-    for k, v in tv.CUDA_DEFINES.items():
-        assert f"-D{k}={v}" in flags
-    assert any(s.endswith("tree_vote.cu") for s in native._sources())
 
 
 # -- card ----------------------------------------------------------------
@@ -438,3 +384,36 @@ def test_replica_forward_and_oob_keep_the_chain(cuda):
     assert tree_vote_counts.launches == before
     np.testing.assert_array_equal((per.sum(dim=0) / 6).cpu().numpy(),
                                   clf.predict_proba(X))
+
+
+@pytest.mark.cuda
+def test_mesh_serving_of_a_hard_vote_takes_the_kernel_bitwise(cuda):
+    # replica-sharded serving over cuda:0 x 4: each shard's hard vote is
+    # one tree-vote launch (ensemble.kernel_vote, as the single-device
+    # forward's), and the shards' whole-number counts add up to the
+    # single-device forward's bits
+    from spark_bagging_tpu_torch import make_mesh
+    from spark_bagging_tpu_torch.parallel.sharded import (
+        replica_sharded_serving,
+    )
+    from spark_bagging_tpu_torch.serving import EnsembleExecutor
+
+    X, y = make_classification(3000, 12, 4, seed=5)
+    clf = BaggingClassifier(DecisionTreeClassifier(max_depth=4),
+                            n_estimators=16, voting="hard",
+                            max_features=0.75, device=cuda).fit(X, y)
+    mesh = make_mesh(replica=4, devices=[cuda] * 4)
+    fwd, _rep, params, subs, _dev, shards = replica_sharded_serving(clf, mesh)
+    Xt = torch.from_numpy(X).to(cuda)
+    before = tree_vote_counts.launches
+    got = fwd(params, subs, Xt)
+    assert tree_vote_counts.launches == before + shards == before + 4
+    np.testing.assert_array_equal(got.cpu().numpy(), clf.predict_proba(X))
+    single = EnsembleExecutor(clf, min_bucket_rows=1, max_batch_rows=64)
+    sharded = EnsembleExecutor(clf, min_bucket_rows=1, max_batch_rows=64,
+                               mesh=mesh)
+    single.warmup()
+    sharded.warmup()
+    for b in (1, 7, 64):
+        np.testing.assert_array_equal(sharded.forward(X[:b]),
+                                      single.forward(X[:b]))
