@@ -944,7 +944,6 @@ def phase_kernels(X: np.ndarray, Rs: list[int],
         Xb, S = kernel_inputs(X, R)
         n, d = Xb.shape
         P = S.shape[2]
-        geo = kernel_geometry(n, d, P, R, n_sm)
         # the i <= j half of each symmetric Gram, 2 flops per entry
         flops = float(n) * P * d * (d + 1) * R
         nbytes = 4.0 * (n * d + R * n * P + R * P * d * d)
@@ -960,7 +959,10 @@ def phase_kernels(X: np.ndarray, Rs: list[int],
         t_ops_mode = {"float32": min(t_simt, t_3xtf32),
                       "bfloat16": 1e3 * flops / PEAK_BF16}
         for mode in modes:
+            wgmma_before = scaled_grams.wgmma_launches
             out = scaled_grams(Xb, S, op_dtype=mode)
+            design = ("wgmma" if scaled_grams.wgmma_launches > wgmma_before
+                      else "mma.sync")
             again = scaled_grams(Xb, S, op_dtype=mode)
             torch.cuda.synchronize()
             bitwise = bool(torch.equal(out, again))
@@ -983,7 +985,13 @@ def phase_kernels(X: np.ndarray, Rs: list[int],
                 Xb, S, torch.float32 if mode == "float32" else torch.bfloat16)
             torch.cuda.empty_cache()
             t_ops, t_bytes = t_ops_mode[mode], 1e3 * nbytes / PEAK_BYTES
+            geo = kernel_geometry(n, d, P, R, n_sm, op_dtype=mode)
             rows[R][mode] = row = dict(
+                design=design,
+                # launch geometry, arithmetic and not measured: the
+                # upper triangle's entries over the products issued
+                geometry=dict(items=geo["items"],
+                              issued_share=geo["issued_share"]),
                 max_entry_err=err, tol=GRAM_TOL, max_abs_err=abs_err,
                 bitwise_repeat=bitwise, kernel_ms=kernel_ms,
                 plain_ms=plain_ms, library_ms=lib_ms,
@@ -1092,15 +1100,37 @@ def phase_wide_gram() -> None:
     X = torch.randn((n, d), generator=g, device="cuda")
     S = torch.rand((R, n, P), generator=g, device="cuda") * 1.3 - 0.3
     scale = scaled_grams_plain(X.abs(), S.abs()).clamp_min(1e-30)
-    errs = {}
+    errs, kernel_ms = {}, {}
     for mode in ("float32", "bfloat16"):
         out = scaled_grams(X, S, op_dtype=mode)
         want = scaled_grams_plain(X, S, op_dtype=mode)
         errs[mode] = float(((out - want).abs() / scale).max())
+        kernel_ms[mode] = cuda_ms(lambda: scaled_grams(X, S, op_dtype=mode), 5)
     ok = all(e <= GRAM_TOL for e in errs.values())
-    emit("wide_gram", ok=ok, shape=WIDE_GRAM, max_entry_err=errs, tol=GRAM_TOL)
+    emit("wide_gram", ok=ok, shape=WIDE_GRAM, max_entry_err=errs, tol=GRAM_TOL,
+         kernel_ms=kernel_ms, card=CARD)
     if not ok:
         fail("wide_gram", f"entry errors {errs} (tol {GRAM_TOL})")
+
+
+def phase_gram(X: np.ndarray) -> None:
+    """The Gram kernel's gates and times at every shape the fit paths
+    launch it with: the headline's replica chunks in both modes
+    (``phase_kernels``), the online steps' 16,384 rows and the refits'
+    1,024 (``gram_at_shapes``), the data mesh's shard, d = 250, the depth
+    cap and the exact probe."""
+    phase_kernels(X, [1, 14, 121])
+    for phase, rows, Rs in (("gram_online_shapes", 16_384, [14, 121]),
+                            ("gram_refit_shapes", 1_024, [1, 14, 121]),
+                            ("gram_shard_shape", N_ROWS // MESH["data"][0],
+                             [110])):
+        for row in gram_at_shapes(X[:rows], Rs):
+            emit(phase, ok=row["max_entry_err"] <= GRAM_TOL, **row, card=CARD)
+            if not row["max_entry_err"] <= GRAM_TOL:
+                fail(phase, f"entry error {row['max_entry_err']:.3g}")
+    phase_wide_gram()
+    phase_depth(X)
+    phase_probe([1, 14, 121])
 
 
 def phase_depth(X: np.ndarray) -> None:
@@ -1211,6 +1241,9 @@ def phase_fit(X: np.ndarray, y: np.ndarray):
          accuracy_100k=acc, acc_bar=ACC_BAR)
     if launches <= 0 or launches != expected:
         fail("fit", f"{launches} scaled-Gram launches, expected {expected}")
+    if counts["scaled_gram_wgmma"] != launches:
+        fail("fit", f"{counts['scaled_gram_wgmma']} of {launches} scaled-Gram "
+             "launches took the wgmma design")
     if not (rep["mfu"] is not None and 0 < rep["mfu"] < 1):
         fail("fit", f"fit_report_ mfu {rep['mfu']} (peak "
              f"{rep['peak_tflops_bf16']}) is not in (0, 1)")
@@ -7470,6 +7503,15 @@ def main() -> int:
         phase_soft_vote(headline_data()[0])
         print(json.dumps({"ok": True}))
         return 0
+    if sys.argv[1:] == ["--gram"]:
+        # the scaled-Gram kernel's phases alone, at every shape PERF.md's
+        # kernel table lists (~3 min with the build)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        CARD = phase_env()[1]
+        phase_build()
+        phase_gram(headline_data()[0])
+        print(json.dumps({"ok": True}))
+        return 0
     if sys.argv[1:] == ["--tree-vote"]:
         # the tree-vote kernel's phase alone, on config 3's fitted trees
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -7496,6 +7538,7 @@ def main() -> int:
     phase_build()
     X, y = headline_data()
     clf, launches, Rs = phase_fit(X, y)
+    fit_wgmma_launches = read_launches()["scaled_gram_wgmma"]
     serve_launches = phase_serve(clf, X)
     audits = phase_serving(clf, X, y)
     torch.cuda.empty_cache()
@@ -7629,6 +7672,10 @@ def main() -> int:
         "launches": launches + warm_launches + online_launches
         + anchor_launches + loop_launches + planes_launches
         + tenancy_launches + mesh["scaled_gram"] + mp["scaled_gram"],
+        # the headline fit's launches, and those of them the wgmma
+        # design took (every one: the fit's Grams are fp32)
+        "fit_launches": launches,
+        "fit_wgmma_launches": fit_wgmma_launches,
         "max_abs_err": max(f32["max_abs_err"],
                            mesh["gram_row"]["max_abs_err"]),
         "ms": f32["kernel_ms"],

@@ -37,7 +37,11 @@ from spark_bagging_tpu_torch.models.base import (
     PooledStartMixin,
     augment_bias,
 )
-from spark_bagging_tpu_torch.ops.gram import launch_bytes, scaled_grams
+from spark_bagging_tpu_torch.ops.gram import (
+    launch_bytes,
+    scaled_grams,
+    scratch_bytes,
+)
 from spark_bagging_tpu_torch.ops.precision import fp32_matmul, gram_op_dtype
 from spark_bagging_tpu_torch.ops.reduce import maybe_psum
 from spark_bagging_tpu_torch.optim import Adam
@@ -140,6 +144,25 @@ class LogisticRegression(PooledStartMixin, BaseLearner):
             base += 4.0 * rows * d
         base += 3 * 4.0 * (C * d) ** 2
         return float(base)
+
+    def _gram_scratch_bytes(self, n_rows, n_features):
+        """The scaled-Gram launch's images of one X (``ops/gram.py``
+        ``scratch_bytes``), where the Newton step launches the kernel."""
+        if self.solver == "adam" or self.hessian_impl != "pallas":
+            return 0.0
+        rows = min(self.row_tile or n_rows, n_rows)
+        return scratch_bytes(rows, n_features + 1,
+                             gram_op_dtype(self.precision))
+
+    def prepared_bytes(self, n_rows, n_features, device=None):
+        # the shared X's images: one set a launch, whatever the chunk
+        return self._gram_scratch_bytes(n_rows, n_features)
+
+    def subspace_gather_bytes(self, n_rows, n_subspace, device=None):
+        # a gathered subspace gives each replica its own X, and the
+        # launch an image set for each
+        return (super().subspace_gather_bytes(n_rows, n_subspace, device)
+                + self._gram_scratch_bytes(n_rows, n_subspace))
 
     def predict_scores(self, params, X):
         with fp32_matmul():

@@ -603,38 +603,91 @@ def test_scaled_gram_kernel_depth_capped_row_splits(cuda):
 
 @pytest.mark.parametrize("op_dtype", ["float32", "bfloat16"])
 def test_gram_mma_fragment_layout_matches_matmul(cuda, op_dtype):
-    # one warp, one 16x8 tile, one k step through the kernel's fragment
-    # loads and mma.sync (m16n8k8 TF32 as 3xTF32, or m16n8k16 bf16).
-    # Small integers are exact in TF32 and bf16 and every sum of their
-    # products is exact in fp32, so a misplaced fragment element shows
+    # one k step through the design's staging layout, fragments and
+    # tensor-core instruction: float32, one warpgroup's m64n8k8 wgmma
+    # (3xTF32) with A, x * s, built in registers by each warp with its
+    # own s and B from the image layout in shared memory; bfloat16, one
+    # warp's m16n8k16 mma.sync tile. Small integers are exact in TF32
+    # and bf16 and every sum of their products is exact in fp32, so a
+    # misplaced fragment element shows
     from spark_bagging_tpu_torch.ops.gram import mma_tile_probe
 
-    K = 16 if op_dtype == "bfloat16" else 8
     rng = np.random.default_rng(4)
-    xa = torch.from_numpy(rng.integers(-8, 9, (K, 16)).astype(np.float32))
-    xb = torch.from_numpy(rng.integers(-8, 9, (K, 8)).astype(np.float32))
-    s = torch.from_numpy(rng.integers(1, 5, K).astype(np.float32))
+    if op_dtype == "bfloat16":
+        xa = torch.from_numpy(rng.integers(-8, 9, (16, 16)).astype(np.float32))
+        xb = torch.from_numpy(rng.integers(-8, 9, (16, 8)).astype(np.float32))
+        s = torch.from_numpy(rng.integers(1, 5, 16).astype(np.float32))
+        want = torch.matmul(xa.t().double(), (xb * s[:, None]).double())
+    else:
+        xa = torch.from_numpy(rng.integers(-8, 9, (8, 16)).astype(np.float32))
+        xb = torch.from_numpy(rng.integers(-8, 9, (8, 8)).astype(np.float32))
+        s = torch.from_numpy(rng.integers(1, 5, (4, 8)).astype(np.float32))
+        want = torch.cat([torch.matmul((xa * s[w][:, None]).t().double(),
+                                       xb.double()) for w in range(4)])
     got = mma_tile_probe(xa.to(cuda), xb.to(cuda), s.to(cuda),
                          op_dtype=op_dtype)
-    want = torch.matmul(xa.t().double(), (xb * s[:, None]).double())
     assert torch.equal(got.cpu().double(), want)
 
 
 def test_gram_mma_3xtf32_tile_is_fp32_accurate(cuda):
-    # on inexact operands one 3xTF32 tile stays within a few fp32 ulps
-    # of the float64 sum of the fp32 products x * fp32(x' * s)
+    # on inexact operands one 3xTF32 wgmma k step stays within a few
+    # fp32 ulps of the float64 sum of the fp32 products fp32(x * s) * x'
     from spark_bagging_tpu_torch.ops.gram import mma_tile_probe
 
     rng = np.random.default_rng(5)
     xa = torch.from_numpy(rng.standard_normal((8, 16)).astype(np.float32))
     xb = torch.from_numpy(rng.standard_normal((8, 8)).astype(np.float32))
-    s = torch.from_numpy(rng.uniform(-1, 1, 8).astype(np.float32))
+    s = torch.from_numpy(rng.uniform(-1, 1, (4, 8)).astype(np.float32))
     got = mma_tile_probe(xa.to(cuda), xb.to(cuda), s.to(cuda),
                          op_dtype="float32").cpu().double()
-    xs = (xb * s[:, None]).double()  # the fp32 product, rounded once
-    want = xa.t().double() @ xs
-    scale = xa.t().double().abs() @ xs.abs()
+    xs = torch.cat([(xa * s[w][:, None]).t().double()  # rounded once
+                    for w in range(4)])
+    want = xs @ xb.double()
+    scale = xs.abs() @ xb.double().abs()
     assert _entry_err(got, want, scale) <= 2.0 ** -20
+
+
+@pytest.mark.parametrize("shared_x", [True, False])
+@pytest.mark.parametrize("op_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("R", [1, 14, 121])
+@pytest.mark.parametrize("d", [1, 17, 55, 64, 65, 130, 250])
+def test_scaled_gram_kernel_matches_plain_across_bands(cuda, d, R, op_dtype,
+                                                       shared_x):
+    # every item shape of the float32 design's bands (a narrow last
+    # tile, full diagonal tiles, tiles above the diagonal) at the fit's
+    # replica counts, n not a multiple of the 64-row tile, both X
+    # layouts; two calls give the same bits; the float32 calls take the
+    # wgmma design, whose bands the library counts from its own list
+    # (at d = 55 one item of bands 56, 40, 24 and 8 columns wide)
+    from spark_bagging_tpu_torch.ops.gram import (
+        scaled_grams,
+        scaled_grams_plain,
+        wgmma_layout,
+    )
+
+    items, band_groups = wgmma_layout(d)
+    assert d * (d + 1) // 2 <= 128 * band_groups and items >= 1
+    if d == 55:
+        assert (items, band_groups) == (1, 16)
+
+    rng = np.random.default_rng(1000 * d + R)
+    n, P = 3001, 28
+    X = torch.from_numpy(rng.standard_normal(
+        (n, d) if shared_x else (R, n, d)).astype(np.float32)).to(cuda)
+    S = torch.from_numpy(
+        rng.uniform(-0.3, 1.0, (R, n, P)).astype(np.float32)).to(cuda)
+    before = (scaled_grams.launches, scaled_grams.wgmma_launches)
+    out = scaled_grams(X, S, op_dtype=op_dtype)
+    again = scaled_grams(X, S, op_dtype=op_dtype)
+    torch.cuda.synchronize()
+    assert scaled_grams.launches - before[0] == 2
+    assert scaled_grams.wgmma_launches - before[1] == (
+        2 if op_dtype == "float32" else 0)
+    assert torch.equal(out, again)
+    assert torch.equal(out, out.transpose(-1, -2))
+    want = scaled_grams_plain(X, S, op_dtype=op_dtype)
+    scale = scaled_grams_plain(X.abs(), S.abs())
+    assert _entry_err(out, want, scale) <= GRAM_TOL
 
 
 @pytest.mark.parametrize("shared_x", [True, False])

@@ -3,11 +3,15 @@
 On the CPU the wrapper computes the plain torch version, held here
 against the JAX package's Pallas kernel in interpret mode. The CUDA
 kernel runs only on the card (tests/test_torch_cuda.py and
-chip_smoke.py); its launch geometry is pure arithmetic and is checked
-here by replaying the kernel's tile decode.
+chip_smoke.py); its launch geometry is arithmetic and is checked here
+by replaying the kernel's tile decode, the float32 design's bands read
+from the kernel source (the wrapper asks the built library for their
+count, which these tests stand in for).
 """
 
+import functools
 import os
+import re
 
 import pytest
 
@@ -143,17 +147,18 @@ def test_cpu_tensors_do_not_count_launches():
     assert scaled_grams.launches == before
 
 
-def _replay_kernel_writes(d: int, P: int, R: int, g: dict,
-                          shared_x: bool) -> np.ndarray:
+def _replay_sync_writes(d: int, P: int, R: int, g: dict,
+                        shared_x: bool) -> np.ndarray:
     """How many (block, warp, accumulator) writers each output entry of
-    one row split gets, replaying csrc/scaled_gram.cu: the block's
-    (replica, pair) decode, the output-tile items (diagonal tiles, then
-    two 32-row halves of each tile above them), the kept 16x8
-    accumulator tiles, and the mirrored writes. Only tiles the kernel
-    computes (inside d) may write."""
+    one row split gets, replaying csrc/scaled_gram.cu's bfloat16 design
+    (mma.sync): the block's (replica, pair) decode, the output-tile
+    items (diagonal tiles, then two 32-row halves of each tile above
+    them), the kept 16x8 accumulator tiles, and the mirrored writes.
+    Only tiles the kernel computes (inside d) may write."""
     writes = np.zeros((R, P, d, d), np.int64)
     Q = R * P if shared_x else P
-    nt = g["nt"]
+    nt = -(-d // 64)
+    assert g["items"] == nt * nt
     for gx in range(g["n_x"] * g["groups"]):
         xi, grp = divmod(gx, g["groups"])
         qb = grp * g["pg"]
@@ -195,37 +200,200 @@ def _replay_kernel_writes(d: int, P: int, R: int, g: dict,
     return writes
 
 
+@functools.cache
+def _kernel_shapes() -> list:
+    """The float32 design's item shapes as csrc/scaled_gram.cu's list
+    states them: ``X(index, W0, W1, W2, W3, off)`` in
+    ``SBT_GRAM_SHAPES``, as (the bands' widths in 8-column groups, off
+    the diagonal)."""
+    from spark_bagging_tpu_torch.utils import native
+
+    src = open(os.path.join(native.CSRC_DIR, "scaled_gram.cu")).read()
+    table = src[src.index("#define SBT_GRAM_SHAPES(X)"):]
+    table = table[:table.index("\n\n")]
+    found = re.findall(r"X\((\d+), (\d), (\d), (\d), (\d), "
+                       r"(true|false)\)", table)
+    assert [int(f[0]) for f in found] == list(range(len(found)))
+    return [(tuple(int(w) for w in f[1:5] if w != "0"), f[5] == "true")
+            for f in found]
+
+
+def _wgmma_decode(y: int, g8: int) -> tuple[int, int, int]:
+    """csrc/scaled_gram.cu ``decode_item``: (shape, jb0, ja0) of item y
+    over g8 8-feature groups."""
+    nt = -(-g8 // 8)
+    wl = g8 - 8 * (nt - 1)
+    n_diag = 2 * (nt - 1) + (2 if wl == 8 else 1)
+    if y < n_diag:
+        T = min(y >> 1, nt - 1)
+        if T < nt - 1 or wl == 8:
+            h = y - 2 * T
+            return 7 + h, 8 * T + 2 * h, 8 * T + 2 * h
+        return wl - 1, 8 * T, 8 * T
+    u, h = divmod(y - n_diag, 2)
+    I = 0
+    while u >= nt - 1 - I:
+        u -= nt - 1 - I
+        I += 1
+    J = I + 1 + u
+    return 8 + min(8, g8 - 8 * J), 8 * J, 8 * I + 4 * h
+
+
+def _wgmma_items(d: int) -> list[tuple[int, int, int]]:
+    """The float32 design's items along d, enumerated: ``(shape, jb0,
+    ja0)``. Along d lie ``ceil(d / 64)`` tiles of 64, the last ``wl``
+    groups wide: a full diagonal tile is two items (bands {0, 3} and
+    {1, 2}: shapes 7 and 8), a narrower last one is one item of all its
+    bands (shape wl - 1); each tile (I, J) above the diagonal is two
+    items of two row bands each (shape 8 + tile J's width)."""
+    g8 = -(-d // 8)
+    nt = -(-g8 // 8)
+    items = []
+    for T in range(nt):
+        if g8 - 8 * T >= 8:
+            items += [(7, 8 * T, 8 * T), (8, 8 * T + 2, 8 * T + 2)]
+        else:
+            items.append((g8 - 8 * T - 1, 8 * T, 8 * T))
+    for I in range(nt):
+        for J in range(I + 1, nt):
+            w = min(8, g8 - 8 * J)
+            items += [(8 + w, 8 * J, 8 * I + 4 * h) for h in (0, 1)]
+    return items
+
+
+def _wgmma_layout(d: int) -> tuple[int, int]:
+    """What the library's ``sbt_gram_items`` counts: the items and the
+    8-column groups their bands multiply."""
+    items = _wgmma_items(d)
+    shapes = _kernel_shapes()
+    return len(items), sum(sum(shapes[s][0]) for s, _, _ in items)
+
+
+@pytest.fixture
+def replayed_layout(monkeypatch):
+    """The float32 design's band count from the kernel source, in the
+    place of the built library's (no compiler here)."""
+    monkeypatch.setattr(gram, "wgmma_layout", _wgmma_layout)
+
+
+def _replay_wgmma_writes(d: int, P: int, R: int, g: dict,
+                         shared_x: bool) -> np.ndarray:
+    """The same count for the float32 design (wgmma), replaying its
+    item decode, each item's bands (a diagonal item's band k starts
+    W0 - Wk groups into its windows, rows and columns; an off-diagonal
+    item's two row bands are groups 0-1 and 2-3 of its A window against
+    all of its columns), each warp's 16 rows by 8 W columns of a band,
+    and the mirrored writes of the entries i <= j inside d. Every band
+    reads its rows and columns inside its windows."""
+    shapes = _kernel_shapes()
+    writes = np.zeros((R, P, d, d), np.int64)
+    Q = R * P if shared_x else P
+    g8 = -(-d // 8)
+    for gx in range(g["n_x"] * g["groups"]):
+        xi, grp = divmod(gx, g["groups"])
+        qb = grp * g["pg"]
+        nq = min(g["pg"], Q - qb)
+        assert nq >= 1
+        for y in range(g["items"]):
+            shape, jb0, ja0 = _wgmma_decode(y, g8)
+            widths, off = shapes[shape]
+            W0 = widths[0]
+            assert jb0 + W0 <= g8  # the raw window is inside X's groups
+            for k, w in enumerate(widths):
+                a_off = 2 * k if off else W0 - w
+                b_off = 0 if off else W0 - w
+                upper = off or a_off + 1 < W0
+                assert b_off + w <= W0
+                assert a_off + 1 + upper <= (4 if off else W0)
+                i0 = 8 * ((ja0 if off else jb0) + a_off)
+                j0 = 8 * (jb0 + b_off)
+                i = i0 + np.arange(16)[:, None]
+                j = j0 + np.arange(8 * w)[None, :]
+                keep = (i < d) & (j < d) & ((j >= i) | off)
+                if not upper:  # rows past the window lie past d
+                    assert not (i[8:] < d).any()
+                ii = (i + 0 * j)[keep]
+                jj = (j + 0 * i)[keep]
+                for wp in range(nq):
+                    r, p = divmod(xi * Q + qb + wp, P)
+                    np.add.at(writes[r, p], (ii, jj), 1)
+                    diag = ii != jj
+                    np.add.at(writes[r, p], (jj[diag], ii[diag]), 1)
+    return writes
+
+
+@pytest.mark.parametrize("op_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shared_x", [True, False])
 @pytest.mark.parametrize("d,P", [(55, 28), (9, 6), (1, 1), (13, 3), (100, 10),
                                  (176, 2), (250, 28), (913, 3)])
-def test_kernel_geometry_writes_every_entry_once(d, P, shared_x):
+def test_kernel_geometry_writes_every_entry_once(d, P, shared_x, op_dtype,
+                                                 replayed_layout):
     n, R = 581_012, 3
-    g = kernel_geometry(n, d, P, R, n_sm=132, shared_x=shared_x)
-    assert g["pg"] <= gram._WARPS
+    g = kernel_geometry(n, d, P, R, n_sm=132, shared_x=shared_x,
+                        op_dtype=op_dtype)
+    assert g["pg"] <= gram._PAIRS[op_dtype]
     Q = R * P if shared_x else P
     assert g["groups"] * g["pg"] >= Q > (g["groups"] - 1) * g["pg"]
     assert g["n_x"] == (1 if shared_x else R)
-    assert g["nt"] * gram._TILE >= d > (g["nt"] - 1) * gram._TILE
     assert g["rows_per_split"] % gram._ROW_TILE == 0
     assert g["rows_per_split"] <= gram.MAX_SPLIT_ROWS
     assert g["splits"] * g["rows_per_split"] >= n
     assert (g["splits"] - 1) * g["rows_per_split"] < n
-    assert (_replay_kernel_writes(d, P, R, g, shared_x) == 1).all()
+    replay = (_replay_wgmma_writes if op_dtype == "float32"
+              else _replay_sync_writes)
+    assert (replay(d, P, R, g, shared_x) == 1).all()
 
 
 @pytest.mark.parametrize("d,P", [(250, 28), (913, 3), (4096, 1)])
-def test_kernel_geometry_takes_the_reference_widths(d, P):
+def test_kernel_geometry_takes_the_reference_widths(d, P, replayed_layout):
     # the JAX kernel's VMEM envelope reaches d = 250 at P = 28 and
-    # d = 913 at P = 3; the output-tile grid takes any d within CUDA's
-    # grid extents
+    # d = 913 at P = 3; the items take any d within CUDA's grid extents,
+    # and their enumeration is the kernel's decode
     g = kernel_geometry(581_012, d, P, 121, n_sm=132)
-    assert g["nt"] == -(-d // gram._TILE)
-    assert g["nt"] ** 2 <= 65535
+    items = _wgmma_items(d)
+    assert g["items"] == len(items) <= 65535
+    assert items == [_wgmma_decode(y, -(-d // 8)) for y in range(len(items))]
+    nt = -(-d // 64)
+    assert kernel_geometry(581_012, d, P, 121, n_sm=132,
+                           op_dtype="bfloat16")["items"] == nt * nt
 
 
-def test_kernel_geometry_refuses_beyond_the_grid():
+def test_kernel_geometry_refuses_beyond_the_grid(replayed_layout):
     with pytest.raises(ValueError, match="grid"):
         kernel_geometry(100, 64 * 256, 1, 1, n_sm=132)
+
+
+def test_wgmma_shapes_are_the_kernel_switch():
+    # the kernel's one list of item shapes feeds its switch, its windows
+    # and its band count; every shape the decode gives at any width is
+    # in it, and a diagonal item's bands narrow by two groups a band
+    from spark_bagging_tpu_torch.utils import native
+
+    src = open(os.path.join(native.CSRC_DIR, "scaled_gram.cu")).read()
+    for use in ("SBT_GRAM_SHAPES(SBT_GRAM_CASE)", "SBT_GRAM_SHAPES(SBT_GRAM_W0)",
+                "SBT_GRAM_SHAPES(SBT_GRAM_BANDS)"):
+        assert src.count(use) == 1, use
+    shapes = _kernel_shapes()
+    used = {s for d in range(1, 200) for s, _, _ in _wgmma_items(d)}
+    assert used == set(range(len(shapes))) and len(shapes) == 17
+    for widths, off in shapes:
+        assert all(w <= 8 for w in widths) and len(widths) <= 4
+        if off:
+            assert len(widths) == 2 and widths[0] == widths[1]
+        else:
+            assert all((widths[0] - w) % 2 == 0 for w in widths)
+            assert list(widths) == sorted(set(widths), reverse=True)
+
+
+@pytest.mark.parametrize("d,least", [(55, 0.70), (250, 0.85), (4096, 0.99)])
+def test_issued_share_of_the_upper_triangle(d, least, replayed_layout):
+    # the bands multiply only the columns from their first row on: at
+    # the headline's d = 55, N = 56, 40, 24 and 8 (2048 products a row
+    # for the triangle's 1540 entries)
+    g = kernel_geometry(581_012, d, 28, 121, n_sm=132)
+    assert least <= g["issued_share"] <= 1.0
+    if d == 55:
+        assert g["issued_share"] == 1540 / 2048
 
 
 def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -292,10 +460,37 @@ def test_kernel_tiling_is_stated_once():
 
 
 @pytest.mark.parametrize("R", [1, 4, 128])
-def test_kernel_geometry_bounds_accumulation_depth(R):
+def test_kernel_geometry_bounds_accumulation_depth(R, replayed_layout):
     n, d, P = 581_012, 55, 28
     g = kernel_geometry(n, d, P, R, n_sm=132)
     assert g["rows_per_split"] <= gram.MAX_SPLIT_ROWS
     assert g["splits"] * g["rows_per_split"] >= n
     if R >= 4:  # many replicas: the partials stay within launch_bytes
         assert (g["splits"] + 1) * 4.0 * P * d * d <= gram.launch_bytes(n, d, P)
+
+
+def test_scratch_bytes_price_the_launch_images():
+    # the float32 design's per-launch scratch (X and its TF32 remainder
+    # in wgmma's layout) is what the memory model charges: once for a
+    # shared X, once a replica for a gathered subspace; the headline's
+    # chunk of the card's budget stays at 9 chunks or fewer
+    from spark_bagging_tpu_torch import LogisticRegression
+    from spark_bagging_tpu_torch.utils.memory import SAFETY, auto_chunk_size
+
+    n, F, C = 581_012, 54, 7
+    want = 4.0 * 2 * (-(-n // 64) * 64) * (-(-(F + 1) // 8) * 8)
+    assert gram.scratch_bytes(n, F + 1) == want == 4.0 * np.prod(
+        gram.image_shape(n, F + 1))
+    assert gram.scratch_bytes(n, F + 1, "bfloat16") == 0.0
+    kernel = LogisticRegression(max_iter=1, hessian_impl="pallas")
+    assert kernel.prepared_bytes(n, F) == want
+    assert kernel.subspace_gather_bytes(n, 40) == (
+        4.0 * n * 40 + gram.scratch_bytes(n, 41))
+    for other in (LogisticRegression(hessian_impl="blocked"),
+                  LogisticRegression(hessian_impl="pallas", precision="high"),
+                  LogisticRegression(hessian_impl="pallas", solver="adam")):
+        assert other.prepared_bytes(n, F) == 0.0
+    budget = SAFETY * 79.1e9  # an H100's free memory before the fit
+    chunk = auto_chunk_size(kernel, n, F, C, 1000, torch.device("cpu"),
+                            budget_bytes=budget, n_features=F)
+    assert 112 <= chunk <= 125  # 9 chunks of 1000 replicas

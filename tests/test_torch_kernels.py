@@ -219,7 +219,7 @@ def _c_definitions() -> dict:
 def test_every_declaration_is_its_c_definition():
     declared = _declared(kernels.declare)
     defined = _c_definitions()
-    assert len(declared) == 10
+    assert len(declared) == 11
     for fn, signature in declared.items():
         assert signature == defined.get(fn), fn
 
@@ -227,7 +227,8 @@ def test_every_declaration_is_its_c_definition():
 def test_the_launch_counters_keep_their_keys():
     # the keys graph_audit and chip_smoke.py report
     counters = kernels.counters()
-    assert list(counters) == ["scaled_gram", "binned_left_stats",
+    assert list(counters) == ["scaled_gram", "scaled_gram_wgmma",
+                              "binned_left_stats",
                               "binned_left_stats_float", "bin_codes",
                               "soft_vote", "tree_vote"]
     for fn, attr in counters.values():
